@@ -1,0 +1,273 @@
+"""Device columnar batch over torch tensors — the reference's contract.
+
+Counterpart of `spark_rapids_tpu/columnar/batch.py`, kept leaf for leaf so
+every kernel can be diffed array for array against the JAX package:
+
+- every batch has a power-of-two row capacity (`next_capacity`, at least
+  `MIN_CAPACITY`) and a row count `num_rows`, a Python int or a 0-d int32
+  tensor left on the device until `row_count()` needs it on the host;
+- columns are validity-masked flat tensors; strings are a zero-padded
+  [cap, max_bytes] uint8 matrix plus int32 `lengths`; dictionary-encoded
+  strings are int16/int32 codes plus a shared `DeviceDictionary`
+  (columnar/encoding.py), with `vrange` = (0, K-1) on the codes.
+
+Rows at index >= num_rows are garbage; every operator masks with
+``row_mask(capacity, num_rows)``. Only primitive, string and encoded
+columns exist in this slice of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch.sqltypes import DataType, StringType, StructType
+from spark_rapids_tpu_torch.sqltypes.datatypes import torch_dtype
+
+MIN_CAPACITY = 1024
+
+
+def next_capacity(rows: int, minimum: int = MIN_CAPACITY) -> int:
+    """Smallest power-of-two capacity bucket holding `rows`."""
+    cap = max(int(minimum), 1)
+    rows = max(int(rows), 1)
+    while cap < rows:
+        cap <<= 1
+    return cap
+
+
+def row_mask(capacity: int, num_rows: Union[int, torch.Tensor],
+             device: torch.device) -> torch.Tensor:
+    """Boolean [capacity] mask of logically-live rows."""
+    iota = torch.arange(capacity, dtype=torch.int32, device=device)
+    if isinstance(num_rows, torch.Tensor):
+        return iota < num_rows.to(torch.int32)
+    return iota < int(num_rows)
+
+
+class DeviceColumn:
+    """One device column: data (+ lengths for strings) + validity.
+
+    data:     [cap] of the dtype's torch type; [cap, max_bytes] uint8 for
+              strings; [cap] int16/int32 codes for encoded strings
+    validity: [cap] bool, True = valid (non-null row)
+    lengths:  [cap] int32 byte counts (plain strings only)
+    vrange:   static (lo, hi) bound on integer values or codes; enables
+              the sort-free binned group-by. Gathers keep it.
+    encoding: DeviceDictionary for dictionary-encoded strings
+    """
+
+    __slots__ = ("dtype", "data", "validity", "lengths", "vrange",
+                 "encoding")
+
+    def __init__(self, dtype: DataType, data: torch.Tensor,
+                 validity: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                 vrange=None, encoding=None):
+        self.dtype = dtype
+        self.data = data
+        self.validity = validity
+        self.lengths = lengths
+        self.vrange = vrange
+        self.encoding = encoding
+
+    @property
+    def is_string(self) -> bool:
+        return isinstance(self.dtype, StringType)
+
+    @property
+    def capacity(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def max_bytes(self) -> Optional[int]:
+        return int(self.data.shape[1]) \
+            if self.is_string and self.data.dim() == 2 else None
+
+    def replace(self, **kw) -> "DeviceColumn":
+        """Copy with selected leaves replaced."""
+        return DeviceColumn(
+            kw.get("dtype", self.dtype),
+            kw.get("data", self.data),
+            kw.get("validity", self.validity),
+            kw.get("lengths", self.lengths),
+            kw.get("vrange", self.vrange),
+            kw.get("encoding", self.encoding))
+
+    def gather(self, indices: torch.Tensor) -> "DeviceColumn":
+        """Row gather; indices must lie in [0, capacity) (torch on CUDA
+        faults on others, where jnp.take clamps). Gathered values are a
+        subset, so vrange survives, and an encoded column moves only its
+        codes."""
+        return self.replace(
+            data=self.data.index_select(0, indices),
+            validity=self.validity.index_select(0, indices),
+            lengths=None if self.lengths is None
+            else self.lengths.index_select(0, indices))
+
+
+class ColumnBatch:
+    """A batch of device columns with shared capacity and row count.
+    `row_count()` brings the count to the host (a device sync when it is
+    a tensor) and keeps it."""
+
+    __slots__ = ("schema", "columns", "num_rows", "_host_rows")
+
+    def __init__(self, schema: StructType, columns: List[DeviceColumn],
+                 num_rows: Union[int, torch.Tensor]):
+        if len(schema.fields) != len(columns):
+            raise ValueError(f"{len(schema.fields)} fields, "
+                             f"{len(columns)} columns")
+        self.schema = schema
+        self.columns = columns
+        self.num_rows = num_rows
+        self._host_rows = num_rows if isinstance(num_rows, int) else None
+
+    @property
+    def capacity(self) -> int:
+        if not self.columns:
+            return MIN_CAPACITY
+        return self.columns[0].capacity
+
+    @property
+    def device(self) -> torch.device:
+        return self.columns[0].device
+
+    def row_count(self) -> int:
+        if self._host_rows is None:
+            self._host_rows = int(self.num_rows.item())
+        return self._host_rows
+
+    def live_mask(self) -> torch.Tensor:
+        return row_mask(self.capacity, self.num_rows, self.device)
+
+    def gather(self, indices: torch.Tensor, new_num_rows) -> "ColumnBatch":
+        return ColumnBatch(self.schema,
+                           [c.gather(indices) for c in self.columns],
+                           new_num_rows)
+
+    def __repr__(self):
+        return (f"ColumnBatch(rows={self._host_rows or '?'}, "
+                f"cap={self.capacity}, cols={self.schema.names})")
+
+
+def _empty_column(dtype: DataType, capacity: int, string_bytes: int,
+                  device: torch.device) -> DeviceColumn:
+    valid = torch.zeros(capacity, dtype=torch.bool, device=device)
+    if isinstance(dtype, StringType):
+        return DeviceColumn(
+            dtype,
+            torch.zeros((capacity, string_bytes), dtype=torch.uint8,
+                        device=device),
+            valid, torch.zeros(capacity, dtype=torch.int32, device=device))
+    return DeviceColumn(
+        dtype, torch.zeros(capacity, dtype=torch_dtype(dtype), device=device),
+        valid)
+
+
+def empty_like_schema(schema: StructType, capacity: int,
+                      device: torch.device,
+                      string_bytes: int = 8) -> ColumnBatch:
+    cols = [_empty_column(f.dataType, capacity, string_bytes, device)
+            for f in schema.fields]
+    return ColumnBatch(schema, cols, 0)
+
+
+def _pad_rows(x: torch.Tensor, cap: int) -> torch.Tensor:
+    """Zero-pad the row axis of x to cap rows."""
+    if x.shape[0] == cap:
+        return x
+    out = torch.zeros((cap,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    out[:x.shape[0]] = x
+    return out
+
+
+def _concat_columns(pieces, cap: int, total: int,
+                    dtype: DataType) -> DeviceColumn:
+    """Concatenate per-batch column prefixes into one [cap] column.
+    Encoded pieces stay encoded only when every piece shares one
+    dictionary; any mismatch decodes first."""
+    if any(c.encoding is not None for c, _ in pieces):
+        from spark_rapids_tpu_torch.columnar import encoding as _enc
+
+        aligned = _enc.align_encodings([c for c, _ in pieces])
+        pieces = list(zip(aligned, (n for _, n in pieces)))
+    first = pieces[0][0]
+
+    def cat(parts):
+        if parts[0].dim() == 2:  # string byte matrices: align widths
+            width = max(int(p.shape[1]) for p in parts)
+            parts = [p if p.shape[1] == width else torch.nn.functional.pad(
+                p, (0, width - int(p.shape[1]))) for p in parts]
+        return _pad_rows(torch.cat(parts, dim=0), cap)
+
+    data = cat([c.data[:n] for c, n in pieces])
+    val = cat([c.validity[:n] for c, n in pieces])
+    lens = None
+    if first.lengths is not None:
+        lens = cat([c.lengths[:n] for c, n in pieces])
+    # encoded columns keep their [0, K) code bound through concat (the
+    # binned group-by depends on it); plain columns drop vrange here,
+    # as the reference does
+    vr = first.vrange if (
+        first.encoding is not None
+        and all(c.vrange == first.vrange for c, _ in pieces)) else None
+    return DeviceColumn(dtype, data, val, lens, vrange=vr,
+                        encoding=first.encoding)
+
+
+def concat_batches(batches: List[ColumnBatch]) -> ColumnBatch:
+    """Concatenate batches into one at the capacity bucket of their total
+    rows (one host sync per batch for its row count)."""
+    if not batches:
+        raise ValueError("concat_batches of no batches")
+    if len(batches) == 1:
+        return batches[0]
+    schema = batches[0].schema
+    total = sum(b.row_count() for b in batches)
+    cap = next_capacity(total)
+    cols = [_concat_columns([(b.columns[ci], b.row_count())
+                             for b in batches], cap, total, f.dataType)
+            for ci, f in enumerate(schema.fields)]
+    return ColumnBatch(schema, cols, total)
+
+
+def batch_from_host_leaves(schema: StructType, leaves: List[Dict],
+                           num_rows: int, device=None) -> ColumnBatch:
+    """Build a batch from plain numpy leaves, one dict per column:
+    `data`, `validity`, optional `lengths`, optional `vrange`, and for an
+    encoded column `dict_values` (the dictionary's canonical values, a
+    list of str). The arrays keep their dtypes and capacity exactly, so a
+    JAX batch turned into leaves gives the identical port batch."""
+    from spark_rapids_tpu_torch import resolve_device
+    from spark_rapids_tpu_torch.columnar import encoding as _enc
+
+    device = resolve_device(device)
+    cols = []
+    for field, leaf in zip(schema.fields, leaves):
+        def up(a):
+            return torch.from_numpy(np.array(a, order="C")).to(device)
+
+        enc = None
+        if leaf.get("dict_values") is not None:
+            import pyarrow as pa
+
+            dict_id, remap = _enc.intern_dictionary(
+                pa.array(leaf["dict_values"], type=pa.large_string()))
+            if remap is not None:
+                raise ValueError("dictionary values must be canonical "
+                                 "(unique, no nulls)")
+            enc = _enc.device_dictionary(dict_id, device)
+        vr = leaf.get("vrange")
+        cols.append(DeviceColumn(
+            field.dataType, up(leaf["data"]), up(leaf["validity"]),
+            None if leaf.get("lengths") is None else up(leaf["lengths"]),
+            vrange=None if vr is None else (int(vr[0]), int(vr[1])),
+            encoding=enc))
+    return ColumnBatch(schema, cols, int(num_rows))

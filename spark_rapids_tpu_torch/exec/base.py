@@ -1,0 +1,56 @@
+"""Physical operator base — counterpart of `spark_rapids_tpu/exec/base.py`.
+
+`PhysicalPlan.execute_partition(pid, ctx)` yields device ColumnBatches;
+`collect()` runs every partition in turn on the calling thread and
+returns one Arrow table. The reference's stage scheduler, task
+semaphore, profiler ranges and event hooks are not ported yet.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Iterator, List
+
+import pyarrow as pa
+
+from spark_rapids_tpu_torch.sqltypes import StructType
+from spark_rapids_tpu_torch.sqltypes.datatypes import to_arrow_type
+
+_task_counter = itertools.count(1)
+
+
+class TaskContext:
+    def __init__(self, task_id: int):
+        self.task_id = task_id
+
+
+class PhysicalPlan:
+    """Base physical node."""
+
+    def __init__(self, children: List["PhysicalPlan"], schema: StructType):
+        self.children = children
+        self.schema = schema
+
+    @property
+    def num_partitions(self) -> int:
+        return self.children[0].num_partitions if self.children else 1
+
+    def execute_partition(self, pid: int, ctx: TaskContext) -> Iterator:
+        raise NotImplementedError
+
+    def collect(self) -> pa.Table:
+        """Run all partitions -> one Arrow table (driver collect)."""
+        from spark_rapids_tpu_torch.columnar.arrow_bridge import (
+            device_to_arrow,
+        )
+
+        tables = []
+        for pid in range(self.num_partitions):
+            ctx = TaskContext(next(_task_counter))
+            tables.extend(device_to_arrow(b)
+                          for b in self.execute_partition(pid, ctx))
+        if not tables:
+            return pa.schema([
+                pa.field(f.name, to_arrow_type(f.dataType), f.nullable)
+                for f in self.schema.fields]).empty_table()
+        return pa.concat_tables(tables)

@@ -1,0 +1,391 @@
+"""The port's kernel modules against the JAX package, function by function.
+
+Every input is made with numpy from a seed and goes through the JAX
+function (CPU backend) and its counterpart in spark_rapids_tpu_torch with
+device="cpu", where each kernel wrapper runs its plain PyTorch version.
+Outputs must be equal array for array, dtypes included; float64 sums agree
+within 1e-12 relative (summation order), and the join's gather maps are
+compared on [0, total) with every slot beyond checked to be in range.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pyarrow as pa
+import pytest
+import torch
+
+from spark_rapids_tpu.columnar import arrow_to_device as jax_arrow_to_device
+from spark_rapids_tpu.columnar import encoding as jax_encoding
+from spark_rapids_tpu.columnar.batch import ColumnBatch as JaxBatch
+from spark_rapids_tpu.ops import common as jax_common
+from spark_rapids_tpu.ops import filterops as jax_filterops
+from spark_rapids_tpu.ops import joinops as jax_joinops
+from spark_rapids_tpu.ops import segmented as jax_segmented
+from spark_rapids_tpu_torch.columnar import encoding as port_encoding
+from spark_rapids_tpu_torch.columnar.arrow_bridge import schema_from_arrow
+from spark_rapids_tpu_torch.columnar.batch import batch_from_host_leaves
+from spark_rapids_tpu_torch.ops import common as port_common
+from spark_rapids_tpu_torch.ops import filterops as port_filterops
+from spark_rapids_tpu_torch.ops import joinops as port_joinops
+from spark_rapids_tpu_torch.ops import segmented as port_segmented
+
+F64_REL = 1e-12
+
+
+def same(port, ref, what=""):
+    """Equal values and dtype: a torch tensor against a jax/numpy array."""
+    want = np.asarray(ref)
+    got = port.numpy()
+    assert got.dtype == want.dtype, (what, got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def close_f64(port, ref, what=""):
+    want = np.asarray(ref)
+    got = port.numpy()
+    assert got.dtype == want.dtype == np.float64, what
+    np.testing.assert_allclose(got, want, rtol=F64_REL, atol=0, err_msg=what)
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+
+
+def leaves_of(jb):
+    """Numpy leaves of a JAX ColumnBatch, as batch_from_host_leaves takes
+    them."""
+    out = []
+    for c in jb.columns:
+        leaf = {"data": np.asarray(c.data), "validity": np.asarray(c.validity)}
+        if c.lengths is not None:
+            leaf["lengths"] = np.asarray(c.lengths)
+        if c.vrange is not None:
+            leaf["vrange"] = c.vrange
+        if c.encoding is not None:
+            leaf["dict_values"] = jax_encoding.dictionary_values(
+                c.encoding.dict_id).to_pylist()
+        out.append(leaf)
+    return out
+
+
+def both_batches(table: pa.Table, dead: int = 0):
+    """The same batch in both packages; the last `dead` rows are kept in
+    the buffers but counted out of num_rows."""
+    jb = jax_arrow_to_device(table)
+    n = table.num_rows - dead
+    jb = JaxBatch(jb.schema, jb.columns, n)
+    pb = batch_from_host_leaves(schema_from_arrow(table.schema),
+                                leaves_of(jb), n, device="cpu")
+    return jb, pb
+
+
+def same_batch(pb, jb, rows=None):
+    assert pb.capacity == jb.capacity
+    for i, (pc, jc) in enumerate(zip(pb.columns, jb.columns)):
+        sl = slice(None) if rows is None else slice(0, rows)
+        same(pc.data[sl], np.asarray(jc.data)[sl], f"col {i} data")
+        same(pc.validity[sl], np.asarray(jc.validity)[sl], f"col {i} valid")
+        if jc.lengths is not None:
+            same(pc.lengths[sl], np.asarray(jc.lengths)[sl], f"col {i} len")
+        assert pc.vrange == jc.vrange, i
+        assert (pc.encoding is None) == (jc.encoding is None), i
+
+
+# ------------------------------------------------------------------ K1
+
+@pytest.mark.parametrize("cap,p_keep,seed", [
+    (1024, 0.5, 0), (1024, 0.0, 1), (1024, 1.0, 2), (8192, 0.9, 3),
+    (16384, 0.1, 4)])
+def test_compact_perm(cap, p_keep, seed):
+    rng = np.random.default_rng(seed)
+    keep = rng.random(cap) < p_keep
+    perm, n_keep = port_filterops.compact_perm(t(keep), cap)
+    jperm, jn = jax_filterops.compact_perm(jnp.asarray(keep), cap)
+    same(perm, jperm, "perm")
+    same(n_keep, jn, "n_keep")
+    assert sorted(perm.tolist()) == list(range(cap))  # a bijection
+
+
+def test_compact_keeps_live_rows_in_order():
+    rng = np.random.default_rng(5)
+    n = 3000
+    table = pa.table({"k": pa.array(rng.integers(0, 9, n), pa.int64()),
+                      "v": pa.array(rng.random(n))})
+    jb, pb = both_batches(table, dead=100)
+    keep = rng.random(jb.capacity) < 0.6
+    out = port_filterops.compact(pb, t(keep))
+    jout = jax_filterops.compact(jb, jnp.asarray(keep))
+    same(out.num_rows, jout.num_rows, "rows")
+    same_batch(out, jout)
+
+
+# ------------------------------------------------------------- K2 / B3b
+
+def _join_tables(rng, w: int, n_build: int, n_probe: int):
+    keys = {"a": pa.array(rng.integers(0, 40, n_build), pa.int64())}
+    pkeys = {"a": pa.array(rng.integers(-2, 42, n_probe), pa.int64())}
+    if w == 2:
+        keys["b"] = pa.array(rng.choice([1.5, -0.0, 0.0, float("nan")],
+                                        n_build))
+        pkeys["b"] = pa.array(rng.choice([1.5, 0.0, float("nan"), 2.0],
+                                         n_probe))
+    bmask = rng.random(n_build) < 0.1     # null build keys
+    pmask = rng.random(n_probe) < 0.1     # null probe keys
+    build = pa.table({k: pa.array(v.to_numpy(zero_copy_only=False),
+                                  mask=bmask) for k, v in keys.items()})
+    build = build.append_column("payload", pa.array(np.arange(n_build)))
+    probe = pa.table({k: pa.array(v.to_numpy(zero_copy_only=False),
+                                  mask=pmask) for k, v in pkeys.items()})
+    return build, probe
+
+
+@pytest.mark.parametrize("w", [1, 2])
+def test_build_side_and_probe_ranges(w):
+    rng = np.random.default_rng(10 + w)
+    build, probe = _join_tables(rng, w, 700, 2500)
+    jb, pb = both_batches(build, dead=20)
+    jp, pp = both_batches(probe, dead=50)
+    idx = list(range(w))
+    bt = port_joinops.build_side(pb, idx)
+    jbt = jax_joinops.build_side(jb, idx)
+    same(bt.valid_bound, jbt.valid_bound, "valid_bound")
+    assert len(bt.keys) == len(jbt.keys) == w
+    for k, jk in zip(bt.keys, jbt.keys):
+        same(k, jk, "sorted keys")
+    same_batch(bt.batch, jbt.batch)
+    lo, counts = port_joinops.probe_ranges(bt, pp, idx)
+    jlo, jcounts = jax_joinops.probe_ranges(jbt, jp, idx)
+    same(lo, jlo, "lo")
+    same(counts, jcounts, "counts")
+    assert int(counts.sum()) > 0
+
+
+# ------------------------------------------------------------------ K3
+
+@pytest.mark.parametrize("n,seed", [(1024, 20), (4096, 21)])
+def test_expand_gather_maps(n, seed):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 3, n).astype(np.int32)   # 0, 1 and 2 matches
+    lo = rng.integers(0, 500, n).astype(np.int32)
+    total = int(counts.sum())
+    out_cap = 1 << max(10, (total - 1).bit_length())
+    pi, bi, tot = port_joinops.expand_gather_maps(t(lo), t(counts), out_cap)
+    jpi, jbi, jtot = jax_joinops.expand_gather_maps(
+        jnp.asarray(lo), jnp.asarray(counts), out_cap)
+    same(tot, jtot, "total")
+    same(pi[:total], np.asarray(jpi)[:total], "probe idx")
+    same(bi[:total], np.asarray(jbi)[:total], "build idx")
+    assert pi.dtype == bi.dtype == torch.int32
+    beyond_p, beyond_b = pi[total:], bi[total:]
+    assert bool(((beyond_p >= 0) & (beyond_p < n)).all())
+    assert bool((beyond_b >= 0).all())
+
+
+# ------------------------------------------------------------------ K4
+
+def _seg_inputs(rng, n, nseg, sorted_ids):
+    gid = rng.integers(0, nseg, n).astype(np.int32)
+    if sorted_ids:
+        gid = np.sort(gid)
+    valid = rng.random(n) < 0.8
+    f = rng.normal(size=n) * 1e3
+    i = rng.integers(-(1 << 40), 1 << 40, n)
+    return gid, valid, f, i
+
+
+@pytest.mark.parametrize("sorted_ids", [True, False])
+def test_seg_count(sorted_ids):
+    rng = np.random.default_rng(30)
+    gid, valid, _, _ = _seg_inputs(rng, 5000, 1024, sorted_ids)
+    if sorted_ids:
+        got = port_segmented.seg_count(t(valid), t(gid), 1024)
+        want = jax_segmented.seg_count(jnp.asarray(valid), jnp.asarray(gid),
+                                       1024)
+    else:
+        with port_segmented.unsorted_gids():
+            got = port_segmented.seg_count(t(valid), t(gid), 1024)
+        with jax_segmented.unsorted_gids():
+            want = jax_segmented.seg_count(jnp.asarray(valid),
+                                           jnp.asarray(gid), 1024)
+    same(got, want, "count")
+
+
+@pytest.mark.parametrize("sorted_ids", [True, False])
+@pytest.mark.parametrize("dtype", ["f64", "i64"])
+def test_seg_sum_and_seg_sum_count(sorted_ids, dtype):
+    rng = np.random.default_rng(31)
+    gid, valid, f, i = _seg_inputs(rng, 6000, 2048, sorted_ids)
+    vals = f if dtype == "f64" else i
+    args = (t(vals), t(valid), t(gid), 2048)
+    jargs = (jnp.asarray(vals), jnp.asarray(valid), jnp.asarray(gid), 2048)
+    if sorted_ids:
+        s = port_segmented.seg_sum(*args)
+        s2, c2 = port_segmented.seg_sum_count(*args)
+        js = jax_segmented.seg_sum(*jargs)
+        js2, jc2 = jax_segmented.seg_sum_count(*jargs)
+    else:
+        with port_segmented.unsorted_gids():
+            s = port_segmented.seg_sum(*args)
+            s2, c2 = port_segmented.seg_sum_count(*args)
+        with jax_segmented.unsorted_gids():
+            js = jax_segmented.seg_sum(*jargs)
+            js2, jc2 = jax_segmented.seg_sum_count(*jargs)
+    check = close_f64 if dtype == "f64" else same
+    check(s, js, "seg_sum")
+    check(s2, js2, "seg_sum_count sum")
+    same(c2, jc2, "seg_sum_count count")
+
+
+def test_seg_sum_count_multi_matches_single_sums():
+    """K4's one-launch shape: several value vectors, each under its own
+    mask (or none), with per-vector counts, against one JAX segmented
+    sum and count per vector over valid & mask."""
+    rng = np.random.default_rng(32)
+    gid, valid, f, _ = _seg_inputs(rng, 4000, 1024, False)
+    g = rng.normal(size=4000)
+    g_mask = rng.random(4000) < 0.7
+    with port_segmented.unsorted_gids():
+        out = port_segmented.seg_sum_count_multi(
+            [t(f), t(g)], t(valid), t(gid), 1024, masks=[None, t(g_mask)],
+            value_counts=True)
+    for j, (vals, use) in enumerate(((f, valid), (g, valid & g_mask))):
+        jargs = (jnp.asarray(vals), jnp.asarray(use), jnp.asarray(gid), 1024)
+        js, jc = jax_segmented.seg_sum_count(*jargs)
+        close_f64(out.sums[j], js, f"sum {j}")
+        same(out.value_counts[j], jc, f"value count {j}")
+    same(out.count, jax_segmented.seg_count(jnp.asarray(valid),
+                                            jnp.asarray(gid), 1024))
+
+
+# ------------------------------------------------------- B2 / B4 / B6 / B7
+
+@pytest.mark.parametrize("p_occ", [0.0, 0.05, 0.5, 1.0])
+def test_dense_bin_perm(p_occ):
+    rng = np.random.default_rng(40)
+    occupied = rng.random(1024) < p_occ
+    same(port_segmented.dense_bin_perm(t(occupied), 1024),
+         jax_segmented.dense_bin_perm(jnp.asarray(occupied), 1024))
+
+
+@pytest.mark.parametrize("dtype", ["f64", "i64"])
+def test_seg_min(dtype):
+    rng = np.random.default_rng(41)
+    gid, valid, f, i = _seg_inputs(rng, 3000, 1024, True)
+    vals = f if dtype == "f64" else i
+    same(port_segmented.seg_min(t(vals), t(valid), t(gid), 1024),
+         jax_segmented.seg_min(jnp.asarray(vals), jnp.asarray(valid),
+                               jnp.asarray(gid), 1024))
+
+
+def _group_table(rng, n):
+    k = rng.integers(0, 6, n)
+    f = rng.choice([0.5, -0.0, 0.0, float("nan"), float("inf")], n)
+    regions = pa.array([f"r{x}" for x in rng.integers(0, 5, n)])
+    return pa.table({
+        "k": pa.array(k, pa.int64(), mask=rng.random(n) < 0.1),
+        "f": pa.array(f, pa.float64(), mask=rng.random(n) < 0.1),
+        "s": regions.dictionary_encode(),
+        "v": pa.array(rng.normal(size=n)),
+    })
+
+
+@pytest.mark.parametrize("keys", [[0], [1], [2], [0, 1, 2]])
+def test_group_by(keys):
+    rng = np.random.default_rng(42)
+    jb, pb = both_batches(_group_table(rng, 2000), dead=30)
+    g = port_segmented.group_by(pb, keys)
+    jg = jax_segmented.group_by(jb, keys)
+    same(g.num_groups, jg.num_groups, "num_groups")
+    same(g.gid, jg.gid, "gid")
+    same(g.live, jg.live, "live")
+    same(g.first_pos, jg.first_pos, "first_pos")
+    same_batch(g.sorted_batch, jg.sorted_batch)
+
+
+@pytest.mark.parametrize("np_dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("ascending,nulls_first", [
+    (True, True), (True, False), (False, True), (False, False)])
+def test_orderable_keys_floats(np_dtype, ascending, nulls_first):
+    rng = np.random.default_rng(43)
+    special = [-0.0, 0.0, float("nan"), float("inf"), float("-inf"),
+               1.5, -2.5, 1e-30, -1e30]
+    vals = np.array(rng.choice(special, 1500), dtype=np_dtype)
+    arr = pa.array(vals, mask=rng.random(1500) < 0.1)
+    jb, pb = both_batches(pa.table({"x": arr}), dead=40)
+    keys = port_common.orderable_keys(pb.columns[0], ascending, nulls_first,
+                                      pb.live_mask())
+    jkeys = jax_common.orderable_keys(jb.columns[0], ascending, nulls_first,
+                                      jb.live_mask())
+    assert len(keys) == len(jkeys) == 2
+    for k, jk in zip(keys, jkeys):
+        same(k, jk)
+    perm = port_common.sort_permutation(keys, pb.capacity)
+    jperm = jax_common.sort_permutation(jkeys, jb.capacity)
+    same(perm, jperm, "stable sort permutation")
+
+
+def test_decode_column_and_encoded_upload():
+    # duplicate and null dictionary values and null indices: interning
+    # canonicalises all three
+    values = pa.array(["b", "a", None, "b", "ccccccccccc"])
+    indices = pa.array([0, 1, 2, 3, 4, None, 1, 0] * 200, pa.int32())
+    table = pa.table({"s": pa.DictionaryArray.from_arrays(indices, values)})
+    from spark_rapids_tpu_torch.columnar.arrow_bridge import arrow_to_device
+
+    pb = arrow_to_device(table, device="cpu")
+    jb = jax_arrow_to_device(table)
+    same_batch(pb, jb)
+    assert pb.columns[0].encoding.dict_id == jb.columns[0].encoding.dict_id
+    dec = port_encoding.decode_column(pb.columns[0])
+    jdec = jax_encoding.decode_column(jb.columns[0])
+    same(dec.data, jdec.data, "decoded bytes")
+    same(dec.lengths, jdec.lengths, "decoded lengths")
+    same(dec.validity, jdec.validity, "decoded validity")
+    assert dec.encoding is None and dec.vrange is None
+
+
+# ------------------------------------------------------ batch primitives
+
+@pytest.mark.parametrize("shared_dict", [True, False])
+def test_concat_batches(shared_dict):
+    """Strings of different widths align; encoded pieces stay codes only
+    when they share one dictionary, and decode otherwise."""
+    from spark_rapids_tpu.columnar.batch import concat_batches as jax_concat
+    from spark_rapids_tpu_torch.columnar.batch import concat_batches
+
+    rng = np.random.default_rng(50)
+    pairs = []
+    for i, width in enumerate((3, 20, 9)):
+        n = 700 + 100 * i
+        words = [("w" * width)[:rng.integers(0, width + 1)]
+                 for _ in range(n)]
+        values = ["a", "b", "c"] if shared_dict else ["c", "b", "a"][i:]
+        codes = pa.array(rng.integers(0, len(values), n), pa.int32())
+        pairs.append(both_batches(pa.table({
+            "s": pa.array(words),
+            "d": pa.DictionaryArray.from_arrays(codes, pa.array(values)),
+            "v": pa.array(rng.normal(size=n)),
+        }), dead=i * 7))
+    out = concat_batches([p for _, p in pairs])
+    jout = jax_concat([j for j, _ in pairs])
+    assert out.row_count() == jout.row_count()
+    same_batch(out, jout)
+    assert (out.columns[1].encoding is not None) == shared_dict
+
+
+def test_empty_like_schema():
+    from spark_rapids_tpu.columnar.arrow_bridge import (
+        schema_from_arrow as jax_schema_from_arrow,
+    )
+    from spark_rapids_tpu.columnar.batch import (
+        empty_like_schema as jax_empty_like_schema,
+    )
+    from spark_rapids_tpu_torch.columnar.batch import empty_like_schema
+
+    schema = pa.schema([("i", pa.int64()), ("f", pa.float64()),
+                        ("s", pa.string()), ("b", pa.bool_())])
+    out = empty_like_schema(schema_from_arrow(schema), 2048,
+                            torch.device("cpu"))
+    jout = jax_empty_like_schema(jax_schema_from_arrow(schema), 2048)
+    assert out.num_rows == jout.num_rows == 0
+    same_batch(out, jout)
