@@ -5,24 +5,36 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit; build the port's CUDA kernels from
-   spark_rapids_tpu_torch/kernels/csrc with nvcc (sm_90a);
-2. each kernel K1-K4 against its plain PyTorch version on the card, at the
+   spark_rapids_tpu_torch/kernels/csrc with nvcc (sm_90a, one process
+   per source, all started together);
+2. each kernel against its plain PyTorch version on the card, at the
    shapes the q5 path gives it (bench.py's full size: 8 parts of 4.5M
-   rows, capacity 8,388,608), with the device time of the kernel, the
-   plain version and one PyTorch library call computing the same function
-   (torch.profiler: the summed durations of what each call runs on the
-   card, so host dispatch is not counted), and the kernel's bound (the
-   bytes this run's data needs, at 3.35 TB/s, the H100 SXM's rate);
-   then small edge shapes (partial tiles, W=2 and 3 key words, several
-   matches per row, ids out of range, bins beyond shared memory), exact;
-3. the q5 star query at the bench's full size (36M fact rows in 8
-   parquet files, a 2,000-row dimension with a dictionary-encoded
-   `region`): upload into device-cached relations, one cold run and 5 hot
-   runs of the port's physical plan, checked against a pyarrow oracle
-   (region set equal, counts exact, sums and averages within 1e-9
-   relative). The kernels' launch counts are reset just before the cold
-   run and read just after it; every kernel must have run. One more hot
-   run under torch.profiler gives the device's busy time against wall.
+   rows, capacity 8,388,608): K1-K4, and K5 (bloom build and
+   might_contain), K6 (murmur3 partition ids), K7 (partition_by_ids) and
+   K8 (the batch gather), with the device time of the kernel, the plain
+   version and, where one exists, one PyTorch library call computing the
+   same function (torch.profiler: the summed durations of what each call
+   runs on the card, so host dispatch is not counted; CUDA events where
+   three traces in a row hold no device events, named in the output), and
+   the kernel's bound (the bytes this run's data needs, at 3.35 TB/s, the
+   H100 SXM's rate); then edge shapes (partial tiles, several key words, null keys,
+   dead rows, every string tail length, -0.0 and NaN, INT64_MIN, 1 to
+   200 partitions, leaf widths no multiple of 4), exact;
+3. slice 1's hand-built q5 plan at the bench's full size (36M fact rows
+   in 8 parquet files, a 2,000-row dimension with a dictionary-encoded
+   `region`) over device-cached relations: upload, one cold run and 5
+   hot runs, each checked against a pyarrow oracle (groups equal, counts
+   exact, sums and averages within 1e-9 relative);
+4. q5 and the duplicate-key join (a 4,000-row dimension, 2 rows per
+   store) through the port's session: `read.parquet(...).cache(
+   storage="device")`, the DataFrame API, the optimizer, the planner and
+   the adaptive (`aqe`) engine, checked against pyarrow oracles in the
+   same way; the engine and the adaptive decisions are printed.
+
+For each query run (phases 3 and 4) the kernels' launch counts are reset
+just before the cold run and read just after it; every kernel of that
+path must have run. One more hot run under torch.profiler gives the
+device's busy time against wall time.
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository
@@ -44,8 +56,17 @@ STORES = 2000
 REGIONS = 12
 HOT_RUNS = 5
 TIMING_ITERS = 20
-REL_TOL = 1e-9          # q5 sums and averages against the oracle
+DUP_PER_STORE = 2       # rows per store in the duplicate-key dimension
+REL_TOL = 1e-9          # sums and averages against the oracles
 F64_ATOMIC_TOL = 1e-12  # K4's float64 sums: atomic order varies
+
+
+#: kernels slice 1's hand-built q5 plan runs (no exchange: no K6, K7)
+SLICE1_PATH_KERNELS = ("compact_perm", "probe_ranges", "expand_gather_maps",
+                       "seg_sum_count", "bloom_build", "bloom_might_contain",
+                       "gather_leaves")
+#: kernels each session query runs: all of them
+SESSION_PATH_KERNELS = SLICE1_PATH_KERNELS + ("murmur3", "partition_by_ids")
 
 
 def fail(msg: str) -> None:
@@ -70,34 +91,67 @@ def time_ms(fn, iters: int = TIMING_ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = TIMING_ITERS) -> float:
-    """Mean device milliseconds per call after one warm-up: the summed
-    durations of the kernels, copies and memsets the calls put on the card,
-    as torch.profiler traces them. They run on one stream, so they do not
-    overlap; host dispatch between them is not counted."""
+#: traces that came back without device events; their times are CUDA-event
+#: times instead (printed before the result)
+PROFILER_MISSES = []
+
+
+def traced(run, what: str):
+    """(device events, wall ms) of run() under torch.profiler, or (None,
+    wall ms) when three traces in a row hold no device events (a trace now
+    and then comes back without them on a shared machine)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+        all_events = prof.events()
+        events = [e for e in all_events if e.device_type == DeviceType.CUDA]
+        if events:
+            return events, wall_ms
+        print(f"chip_smoke: torch.profiler traced no device activity for "
+              f"{what} (try {attempt + 1}, {len(all_events)} host events)",
+              file=sys.stderr, flush=True)
+    PROFILER_MISSES.append(what)
+    return None, wall_ms
+
+
+def device_ms(fn, what: str, iters: int = TIMING_ITERS) -> float:
+    """Mean device milliseconds per call after one warm-up: the summed
+    durations of the kernels, copies and memsets the calls put on the card,
+    as torch.profiler traces them. They run on one stream, so they do not
+    overlap; host dispatch between them is not counted. Where the profiler
+    traces nothing, the CUDA-event time (dispatch included)."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if not us > 0:
-        fail("torch.profiler traced no device activity")
-    return us / 1e3 / iters
+
+    events, _ = traced(calls, what)
+    if events is None:
+        return time_ms(fn, iters)
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
 
 
-def timed(kernel, plain, library) -> dict:
+def timed(name: str, kernel, plain, library) -> dict:
     """Device times of a kernel's wrapper, its plain version and the
-    library call, and the CUDA-event time of the wrapper."""
-    return dict(ms=device_ms(kernel), plain_ms=device_ms(plain),
-                library_ms=device_ms(library), event_ms=time_ms(kernel))
+    library call (None where no one PyTorch call computes the function),
+    and the CUDA-event time of the wrapper."""
+    return dict(ms=device_ms(kernel, name),
+                plain_ms=device_ms(plain, f"{name} plain"),
+                library_ms=None if library is None
+                else device_ms(library, f"{name} library"),
+                event_ms=time_ms(kernel))
 
 
 def bound_ms(nbytes: int) -> float:
@@ -150,7 +204,7 @@ def check_kernels(dev):
         source="spark_rapids_tpu_torch/kernels/csrc/compact_perm.cu",
         replaces="spark_rapids_tpu/ops/filterops.py:16",
         max_abs_err=max_abs_err(perm, perm_p),
-        **timed(lambda: filterops.compact_perm(keep, cap),
+        **timed("compact_perm", lambda: filterops.compact_perm(keep, cap),
                 lambda: filterops.compact_perm_plain(keep, cap),
                 lambda: torch.argsort(~keep, stable=True)),
         bound_ms=bound_ms(cap * 1 + cap * 4 + 4), bound_by="bytes",
@@ -188,7 +242,7 @@ def check_kernels(dev):
         replaces="spark_rapids_tpu/ops/joinops.py:86",
         max_abs_err=max(max_abs_err(lo, lo_p),
                         max_abs_err(counts, counts_p)),
-        **timed(lambda: joinops.probe_bounds(*args),
+        **timed("probe_ranges", lambda: joinops.probe_bounds(*args),
                 lambda: joinops.probe_bounds_plain(*args), library_probe),
         bound_ms=bound_ms(bcap * 8 + 4 + cap * (8 + 1) + cap * 8),
         bound_by="bytes",
@@ -210,7 +264,8 @@ def check_kernels(dev):
         source="spark_rapids_tpu_torch/kernels/csrc/expand_gather_maps.cu",
         replaces="spark_rapids_tpu/ops/joinops.py:129",
         max_abs_err=max(max_abs_err(pi, pi_p), max_abs_err(bi, bi_p)),
-        **timed(lambda: joinops.expand_gather_maps(lo, counts, out_cap),
+        **timed("expand_gather_maps",
+                lambda: joinops.expand_gather_maps(lo, counts, out_cap),
                 lambda: joinops.expand_gather_maps_plain(lo, counts,
                                                          out_cap),
                 lambda: torch.repeat_interleave(rows_idx, counts,
@@ -287,7 +342,7 @@ def check_kernels(dev):
         source="spark_rapids_tpu_torch/kernels/csrc/seg_sum_count.cu",
         replaces="spark_rapids_tpu/ops/segmented.py:371",
         max_abs_err=err,
-        **timed(k4, k4_plain,
+        **timed("seg_sum_count", k4, k4_plain,
                 lambda: zeros.clone().index_add_(0, gid64, stacked)),
         # valid for every row; gid and both masks for the valid rows; each
         # value where its mask holds (every valid row here); the outputs
@@ -297,6 +352,325 @@ def check_kernels(dev):
         shape=f"gid [{n}] int32, 2 float64 vectors with masks, {n_valid} "
               f"valid rows, {nseg} bins")
     return out
+
+
+def _col(dtype, data, validity, lengths=None, vrange=None, encoding=None):
+    from spark_rapids_tpu_torch.columnar.batch import DeviceColumn
+
+    return DeviceColumn(dtype, data, validity, lengths, vrange=vrange,
+                        encoding=encoding)
+
+
+def _region_strings(dev, n: int, live: int):
+    """A decoded `region` key column as the exchange hashes it: n rows
+    of a [n, 16] zero-padded byte matrix, the first `live` valid."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.sqltypes.datatypes import string
+
+    data = np.zeros((n, 16), np.uint8)
+    lengths = np.zeros(n, np.int32)
+    for i in range(live):
+        b = f"region_{i % REGIONS:02d}".encode()
+        data[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lengths[i] = len(b)
+    return _col(string, torch.from_numpy(data).to(dev),
+                torch.from_numpy(np.arange(n) < live).to(dev),
+                torch.from_numpy(lengths).to(dev))
+
+
+def check_slice2_kernels(dev):
+    """Phase 2, slice 2: K5-K8 against their plain versions at the shapes
+    the session path gives them. Returns {kernel name: record}."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import batch as B
+    from spark_rapids_tpu_torch.columnar.batch import next_capacity
+    from spark_rapids_tpu_torch.ops import bloom, hashing, partition
+    from spark_rapids_tpu_torch.sqltypes.datatypes import (
+        double,
+        long,
+        short,
+    )
+
+    rng = np.random.default_rng(3)
+    part_rows = ROWS // FILES
+    cap = next_capacity(part_rows)
+    out = {}
+
+    # K5 build: the dimension's store keys (2,000 rows at capacity 2,048)
+    bcap = next_capacity(STORES)
+    bkeys = np.zeros(bcap, np.int64)
+    bkeys[:STORES] = np.arange(STORES)
+    build_col = _col(long, torch.from_numpy(bkeys).to(dev),
+                     torch.from_numpy(np.arange(bcap) < STORES).to(dev))
+    live_b = torch.from_numpy(np.arange(bcap) < STORES).to(dev)
+    m = bloom.size_for(STORES)
+    bits = bloom.build([build_col], live_b, m)
+    bits_p = bloom.build_plain([build_col], live_b, m)
+    torch.cuda.synchronize()
+    exact("bloom build bits", bits, bits_p)
+    out["bloom_build"] = dict(
+        route="cuda", source="spark_rapids_tpu_torch/kernels/csrc/bloom.cu",
+        replaces="spark_rapids_tpu/ops/bloom.py:45",
+        max_abs_err=max_abs_err(bits, bits_p),
+        **timed("bloom_build", lambda: bloom.build([build_col], live_b, m),
+                lambda: bloom.build_plain([build_col], live_b, m), None),
+        # keys, validity and live mask read; m bytes of bits written
+        bound_ms=bound_ms(bcap * (8 + 1 + 1) + m), bound_by="bytes",
+        shape=f"build [{bcap}] int64, {STORES} live, m = {m}")
+
+    # K5 might_contain: the filtered fact part's store keys, the live rows
+    # tested and the kept ones counted
+    amount = rng.random(part_rows) * 100.0
+    n_kept = int((amount > 10.0).sum())
+    probe_np = rng.integers(0, STORES, cap)
+    probe_col = _col(long, torch.from_numpy(probe_np).to(dev),
+                     torch.ones(cap, dtype=torch.bool, device=dev))
+    nrows = torch.tensor(n_kept, dtype=torch.int32, device=dev)
+    live_p = torch.arange(cap, device=dev) < n_kept
+
+    def plain_probe():
+        keep = bloom.might_contain_plain(bits, [probe_col]) & live_p
+        return keep, keep.sum()
+
+    keep, kept = bloom.might_contain_count(bits, [probe_col], nrows)
+    keep_p, kept_p = plain_probe()
+    torch.cuda.synchronize()
+    exact("bloom might_contain", keep, keep_p)
+    exact("bloom kept count", kept, kept_p)
+    out["bloom_might_contain"] = dict(
+        route="cuda", source="spark_rapids_tpu_torch/kernels/csrc/bloom.cu",
+        replaces="spark_rapids_tpu/ops/bloom.py:55",
+        max_abs_err=max_abs_err(keep, keep_p),
+        **timed("bloom_might_contain",
+                lambda: bloom.might_contain_count(bits, [probe_col], nrows),
+                plain_probe, None),
+        # key and validity per live row, the bits, keep per row of the
+        # capacity, the row count and the kept count
+        bound_ms=bound_ms(n_kept * (8 + 1) + m + cap + 4 + 8),
+        bound_by="bytes",
+        shape=f"probe [{cap}] int64, {n_kept} live rows, m = {m}")
+
+    # K6 murmur3: the exchange's partition ids over the partial's decoded
+    # region keys (1,024 rows, 11 groups live), 8 partitions
+    nparts = 8
+    region = _region_strings(dev, 1024, REGIONS - 1)
+    pid = hashing.murmur3_pmod([region], nparts)
+    pid_p = hashing.pmod_plain(hashing.murmur3_columns_plain([region]),
+                               nparts)
+    torch.cuda.synchronize()
+    exact("murmur3 partition ids", pid, pid_p)
+    out["murmur3"] = dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/murmur3_partition.cu",
+        replaces="spark_rapids_tpu/ops/hashing.py:153",
+        max_abs_err=max_abs_err(pid, pid_p),
+        **timed("murmur3", lambda: hashing.murmur3_pmod([region], nparts),
+                lambda: hashing.pmod_plain(
+                    hashing.murmur3_columns_plain([region]), nparts), None),
+        # the live rows' bytes, lengths and validity; pid written whole
+        bound_ms=bound_ms((REGIONS - 1) * (16 + 4 + 1) + 1024 * 4),
+        bound_by="bytes",
+        shape="decoded region strings [1024, 16], 11 live, 8 partitions")
+
+    # K7 partition_by_ids: those ids, 11 live rows
+    live_rows = torch.tensor(REGIONS - 1, dtype=torch.int32, device=dev)
+    perm, counts = partition.partition_perm(pid, live_rows, nparts)
+    perm_p, counts_p = partition.partition_perm_plain(pid, live_rows, nparts)
+    torch.cuda.synchronize()
+    exact("partition_by_ids perm", perm, perm_p)
+    exact("partition_by_ids counts", counts, counts_p)
+    key = torch.where(torch.arange(1024, device=dev) < REGIONS - 1, pid,
+                      nparts)
+    out["partition_by_ids"] = dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/partition_by_ids.cu",
+        replaces="spark_rapids_tpu/ops/partition.py:35",
+        max_abs_err=max(max_abs_err(perm, perm_p),
+                        max_abs_err(counts, counts_p)),
+        **timed("partition_by_ids",
+                lambda: partition.partition_perm(pid, live_rows, nparts),
+                lambda: partition.partition_perm_plain(pid, live_rows,
+                                                       nparts),
+                lambda: torch.argsort(key, stable=True)),
+        # the live rows' ids and the row count; perm and counts written
+        bound_ms=bound_ms((REGIONS - 1) * 4 + 4 + 1024 * 4 + nparts * 4),
+        bound_by="bytes", shape="pid [1024] int32, 11 live, 8 partitions")
+
+    # K8 gather_leaves: the join's output gather, both sides in one
+    # launch (4 fact columns by pi, 3 dimension columns by bi; 14 leaves)
+    n_out = next_capacity(n_kept)
+    pi = torch.from_numpy(np.sort(rng.integers(0, n_kept, n_out))
+                          .astype(np.int32)).to(dev)
+    bi = torch.from_numpy(rng.integers(0, STORES, n_out)
+                          .astype(np.int32)).to(dev)
+    ones = torch.ones(cap, dtype=torch.bool, device=dev)
+    left = [_col(long, torch.from_numpy(probe_np).to(dev), ones),
+            _col(double, torch.from_numpy(rng.random(cap) * 100).to(dev),
+                 ones),
+            _col(long, torch.from_numpy(rng.integers(1, 100, cap)).to(dev),
+                 ones),
+            _col(long, torch.from_numpy(rng.integers(0, 365, cap)).to(dev),
+                 ones)]
+    right = [build_col,
+             _col(short, torch.from_numpy((np.arange(bcap) % REGIONS)
+                                          .astype(np.int16)).to(dev),
+                  live_b, vrange=(0, REGIONS - 1)),
+             _col(long, torch.from_numpy(rng.integers(0, 3650, bcap))
+                  .to(dev), live_b)]
+    pairs = [(c, pi) for c in left] + [(c, bi) for c in right]
+    srcs = [x for c, _ in pairs for x in c.leaves()]
+    idxs = [i for c, i in pairs for _ in c.leaves()]
+    got = B.gather_leaves(srcs, idxs)
+    want = B.gather_leaves_plain(srcs, idxs)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(got, want)):
+        exact(f"gather_leaves leaf {k}", a, b)
+    # each source row an index names is read once, each output row
+    # written once, and both index vectors read once
+    distinct = {id(i): int(torch.unique(i).numel()) for i in (pi, bi)}
+    needed = sum((distinct[id(i)] + n_out) * x[0].numel() * x.element_size()
+                 for x, i in zip(srcs, idxs)) + 2 * n_out * 4
+    out["gather_leaves"] = dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/gather_leaves.cu",
+        replaces="spark_rapids_tpu/columnar/batch.py:345",
+        max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)),
+        **timed("gather_leaves", lambda: B.gather_leaves(srcs, idxs),
+                lambda: B.gather_leaves_plain(srcs, idxs),
+                lambda: [s.index_select(0, i) for s, i in zip(srcs, idxs)]),
+        bound_ms=bound_ms(needed), bound_by="bytes",
+        shape=f"join output: {len(srcs)} leaves of 7 columns, {n_out} rows")
+    return out
+
+
+def check_slice2_edges(dev) -> int:
+    """Phase 2, slice 2 edge shapes, exact against the plain versions:
+    string lengths 0-12 (every tail length, bytes >= 0x80), null keys and
+    dead rows, negative and INT64_MIN longs, -0.0 and NaN doubles, int32,
+    float32 and bool keys, chains of key columns, per-row seeds,
+    num_partitions 1, 8 and 200, a build side with duplicate keys, a
+    filter too big for shared memory, leaf widths that are no multiple of
+    4, more than 32 leaves, and decode's clipped codes. Returns the
+    number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import batch as B
+    from spark_rapids_tpu_torch.columnar import encoding as E
+    from spark_rapids_tpu_torch.ops import bloom, hashing, partition
+    from spark_rapids_tpu_torch.sqltypes.datatypes import (
+        boolean,
+        double,
+        float_t,
+        integer,
+        long,
+        string,
+    )
+
+    rng = np.random.default_rng(4)
+    cases = 0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def strings(n):
+        lengths = rng.integers(0, 13, n).astype(np.int32)
+        data = rng.integers(0, 256, (n, 16)).astype(np.uint8)
+        data[np.arange(16)[None, :] >= lengths[:, None]] = 0
+        return _col(string, t(data), t(rng.random(n) < 0.9), t(lengths))
+
+    def longs(n):
+        v = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+        v[:4] = [-(1 << 63), -1, 0, (1 << 63) - 1]
+        return _col(long, t(v), t(rng.random(n) < 0.9))
+
+    def doubles(n):
+        v = rng.choice([0.0, -0.0, np.nan, -np.nan, 1.5, -2.25, np.inf], n)
+        return _col(double, t(v), t(rng.random(n) < 0.9))
+
+    for n in (1000, 4096):
+        cols = [strings(n), longs(n), doubles(n),
+                _col(integer, t(rng.integers(-9, 9, n).astype(np.int32)),
+                     t(rng.random(n) < 0.8)),
+                _col(float_t, t(rng.choice([0.0, -0.0, np.nan, 3.5], n)
+                                .astype(np.float32)), t(rng.random(n) < 0.8)),
+                _col(boolean, t(rng.random(n) < 0.5), t(rng.random(n) < 0.8))]
+        for nparts in (0, 1, 8, 200):
+            for k in range(1, len(cols) + 1):
+                got = hashing.murmur3_pmod(cols[:k], nparts, seed=7 + k)
+                h = hashing.murmur3_columns_plain(cols[:k], 7 + k)
+                want = hashing.pmod_plain(h, nparts) if nparts else h
+                exact(f"murmur3 n={n} cols={k} parts={nparts}", got, want)
+                cases += 1
+        seed = t(rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32))
+        for c in cols:
+            exact(f"hash_column {c.dtype}", hashing.hash_column(c, seed),
+                  hashing.hash_column_plain(c, seed))
+            cases += 1
+        x = t(rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32))
+        exact("pmod", hashing.pmod(x, 200), hashing.pmod_plain(x, 200))
+        cases += 1
+
+        # bloom: duplicate and null build keys, dead rows, two key columns
+        nb = 300
+        bk = [_col(long, t(rng.integers(0, 50, nb)), t(rng.random(nb) < 0.9)),
+              strings(nb)]
+        live = t(np.arange(nb) < nb - 20)
+        pk = [_col(long, t(rng.integers(0, 60, n)), t(rng.random(n) < 0.9)),
+              strings(n)]
+        for m in (8192, 1 << 20):
+            bits = bloom.build(bk, live, m)
+            exact(f"bloom build m={m}", bits, bloom.build_plain(bk, live, m))
+            keep, kept = bloom.might_contain_count(bits, pk, n - 30)
+            keep_p, kept_p = bloom.might_contain_count_plain(bits, pk,
+                                                              n - 30)
+            exact(f"bloom might_contain_count m={m}", keep, keep_p)
+            exact(f"bloom count m={m}", kept, kept_p)
+            exact(f"bloom might_contain m={m}",
+                  bloom.might_contain(bits, pk),
+                  bloom.might_contain_plain(bits, pk))
+            cases += 3
+
+    for n, nparts in ((1024, 1), (5000, 8), (70000, 200)):
+        pid = t(rng.integers(0, nparts, n).astype(np.int32))
+        for nrows in (n, n - 333, torch.tensor(n // 2, dtype=torch.int32,
+                                               device=dev)):
+            got = partition.partition_perm(pid, nrows, nparts)
+            want = partition.partition_perm_plain(pid, nrows, nparts)
+            for a, b in zip(got, want):
+                exact(f"partition_by_ids n={n} parts={nparts}", a, b)
+            cases += 1
+
+    # K8: widths 7, 10, 12, 24 (no multiple of 4 among some), 40 leaves
+    n_src, n_out = 3000, 2500
+    srcs = [t(rng.integers(0, 256, (n_src, w)).astype(np.uint8))
+            for w in (7, 10, 12, 24)]
+    srcs += [t(rng.integers(-9, 9, n_src).astype(dt))
+             for dt in (np.int8, np.int16, np.int32, np.int64)] * 9
+    idx = [t(rng.integers(0, n_src, n_out).astype(np.int32)) for _ in srcs]
+    for a, b in zip(B.gather_leaves(srcs, idx),
+                    B.gather_leaves_plain(srcs, idx)):
+        exact("gather_leaves widths", a, b)
+    cases += 1
+    # decode: int16 codes beyond the dictionary clip, null rows zero
+    dd_vals = [f"v{i}" * (i % 4 + 1) for i in range(9)]
+    import pyarrow as pa
+
+    dict_id, _ = E.intern_dictionary(pa.array(dd_vals,
+                                              type=pa.large_string()))
+    dd = E.device_dictionary(dict_id, dev)
+    enc = _col(string, t(rng.integers(-3, 14, n_out).astype(np.int16)),
+               t(rng.random(n_out) < 0.8), vrange=(0, 8), encoding=dd)
+    got, want = E.decode_column(enc), E.decode_column_plain(enc)
+    exact("decode data", got.data, want.data)
+    exact("decode lengths", got.lengths, want.lengths)
+    cases += 1
+    torch.cuda.synchronize()
+    return cases
 
 
 def check_edge_shapes(dev) -> int:
@@ -404,23 +778,78 @@ def check_q5(got, want) -> None:
                      f"({rel} relative)")
 
 
-def run_q5(dev, tmp):
-    """Phase 3. Returns (launch counts of the cold run, timing record)."""
+def dupjoin_oracle(fact_paths, dup_path):
+    """bench.py's cpu_dupjoin_query in pyarrow on the host."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    t = pa.concat_tables([pq.read_table(p) for p in fact_paths])
+    dup = pq.read_table(dup_path)
+    f = t.filter(pc.greater(t.column("amount"), 50.0))
+    j = f.join(dup, keys="store", join_type="inner")
+    rebate = pc.multiply(j.column("amount"), j.column("discount"))
+    work = pa.table({"promo": j.column("promo"), "rebate": rebate})
+    return work.group_by("promo").aggregate(
+        [("rebate", "sum"), ("promo", "count")])
+
+
+def check_dupjoin(got, want) -> None:
+    g = {r["promo"]: r for r in got.to_pylist()}
+    w = {r["promo"]: r for r in want.to_pylist()}
+    if set(g) != set(w):
+        fail(f"dupjoin promos differ: {sorted(g)} vs {sorted(w)}")
+    for promo, row in w.items():
+        mine = g[promo]
+        if mine["n"] != row["promo_count"]:
+            fail(f"dupjoin {promo}: count {mine['n']} != "
+                 f"{row['promo_count']}")
+        rel = (abs(mine["total_rebate"] - row["rebate_sum"])
+               / max(abs(row["rebate_sum"]), 1e-300))
+        if not rel <= REL_TOL:
+            fail(f"dupjoin {promo}: total_rebate {mine['total_rebate']} vs "
+                 f"{row['rebate_sum']} ({rel} relative)")
+
+
+def missing_launches(name: str, launches: dict, needed) -> None:
+    missing = [k for k in needed if not launches.get(k)]
+    if missing:
+        fail(f"{name} never launched {missing}: {launches}")
+
+
+def timed_runs(run, check) -> dict:
+    """Reset the launch counts, one cold run, read the counts; then
+    HOT_RUNS hot runs, each checked against the oracle."""
     import torch
 
     from spark_rapids_tpu_torch import kernels
-    from spark_rapids_tpu_torch.exec.relation_cache import DeviceCacheEntry
-    from spark_rapids_tpu_torch.q5 import q5_plan, write_q5_data
 
+    kernels.reset_launches()
     t0 = time.monotonic()
-    fact_paths, dim_path = write_q5_data(tmp, ROWS, STORES, REGIONS, FILES,
-                                         seed=0)
-    gen_s = time.monotonic() - t0
-    print(f"q5 data: {ROWS} fact rows in {FILES} files, written in "
-          f"{gen_s:.1f} s", flush=True)
-    t0 = time.monotonic()
-    want = q5_oracle(fact_paths, dim_path)
-    oracle_s = time.monotonic() - t0
+    got = run()
+    torch.cuda.synchronize()
+    cold_s = time.monotonic() - t0
+    launches = dict(kernels.launches)
+    check(got)
+    hot = []
+    for _ in range(HOT_RUNS):
+        t0 = time.monotonic()
+        got = run()
+        torch.cuda.synchronize()
+        hot.append(time.monotonic() - t0)
+        check(got)
+    return dict(result_rows=got.num_rows, cold_s=cold_s,
+                hot_median_s=statistics.median(hot), hot_s=hot,
+                launches=launches, profile=profile_run(run))
+
+
+def run_q5_plan(dev, fact_paths, dim_path, want) -> dict:
+    """Phase 3: slice 1's hand-built plan over two DeviceCacheEntry
+    relations."""
+    import torch
+
+    from spark_rapids_tpu_torch.exec.relation_cache import DeviceCacheEntry
+    from spark_rapids_tpu_torch.q5 import q5_plan
 
     t0 = time.monotonic()
     fact = DeviceCacheEntry(fact_paths, device=dev)
@@ -429,60 +858,79 @@ def run_q5(dev, tmp):
     dim.materialize()
     torch.cuda.synchronize()
     upload_s = time.monotonic() - t0
+    rec = timed_runs(lambda: q5_plan(fact, dim, REGIONS).collect(),
+                     lambda got: check_q5(got, want))
+    missing_launches("q5_plan", rec["launches"], SLICE1_PATH_KERNELS)
+    rec["upload_s"] = upload_s
+    fact.release()
+    dim.release()
+    return rec
 
-    kernels.reset_launches()
+
+def run_session(dev, root, fact_paths, want_q5, want_dup) -> dict:
+    """Phase 4: q5 and the duplicate-key join through the port's session,
+    DataFrame API, planner and adaptive engine, over relations cached on
+    the device. Returns {query: record}."""
+    import torch
+
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+    from spark_rapids_tpu_torch.q5 import dupjoin_query, engine_query
+
+    spark = (TpuSparkSession.builder
+             .config("spark.sql.shuffle.partitions", 8)
+             .config("spark.rapids.sql.reader.batchSizeRows", 1 << 23)
+             .config("spark.rapids.sql.batchSizeRows", 1 << 23)
+             .config("spark.rapids.shuffle.mode", "DEVICE")
+             .getOrCreate())
+    frames = {}
     t0 = time.monotonic()
-    got = q5_plan(fact, dim, REGIONS).collect()
+    for name in ("fact", "dim", "dup"):
+        df = spark.read.parquet(os.path.join(root, name)).cache(
+            storage="device")
+        spark.cache_manager.lookup(df._plan).materialize()
+        frames[name] = df
     torch.cuda.synchronize()
-    cold_s = time.monotonic() - t0
-    launches = dict(kernels.launches)
-    check_q5(got, want)
-    hot = []
-    for _ in range(HOT_RUNS):
-        t0 = time.monotonic()
-        got = q5_plan(fact, dim, REGIONS).collect()
-        torch.cuda.synchronize()
-        hot.append(time.monotonic() - t0)
-        check_q5(got, want)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        fail(f"q5 never launched {missing}: {launches}")
-    rec = dict(rows=ROWS, files=FILES, result_rows=got.num_rows,
-               upload_s=upload_s, cold_s=cold_s,
-               hot_median_s=statistics.median(hot), hot_s=hot,
-               oracle_s=oracle_s, peak_device_bytes=int(
-                   torch.cuda.max_memory_allocated(dev)))
-    rec["profile"] = profile_q5(lambda: q5_plan(fact, dim, REGIONS).collect())
-    return launches, rec
+    upload_s = time.monotonic() - t0
+    out = {}
+    queries = {
+        "q5": (lambda: engine_query(frames["fact"], frames["dim"], REGIONS),
+               lambda got: check_q5(got, want_q5)),
+        "dupjoin": (lambda: dupjoin_query(frames["fact"], frames["dup"]),
+                    lambda got: check_dupjoin(got, want_dup)),
+    }
+    for name, (build_df, check) in queries.items():
+        rec = timed_runs(lambda: build_df().collect_arrow(), check)
+        ex = spark.last_execution
+        if ex["engine"] != "aqe":
+            fail(f"session {name} ran on {ex['engine']}, not aqe: {ex}")
+        missing_launches(f"session {name}", rec["launches"],
+                         SESSION_PATH_KERNELS)
+        rec.update(engine=ex["engine"], aqe=ex["aqe"],
+                   fallbacks=ex["fallbacks"], upload_s=upload_s)
+        out[name] = rec
+    out["peak_device_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+    spark.stop()
+    return out
 
 
-def profile_q5(run) -> dict:
+def profile_run(run) -> dict:
     """One more hot run under torch.profiler: the device's busy time (its
     kernels and copies, one stream, so they do not overlap) against the
     run's wall time, and the device time by operation name."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
+    events, wall_ms = traced(run, "a profiled hot run")
+    if events is None:
+        return dict(wall_ms=wall_ms, device_busy_ms=None,
+                    device_idle_share=None, top=[])
     by_name = {}
     busy_us = 0.0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in events:
         us = e.time_range.elapsed_us()
         busy_us += us
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + us, cnt + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
-                device_idle_share=(1 - busy_us / 1e3 / wall_ms
-                                   if busy_us else None),
+                device_idle_share=1 - busy_us / 1e3 / wall_ms,
                 top=[dict(name=n[:80], ms=t / 1e3, calls=c)
                      for n, (t, c) in top])
 
@@ -500,8 +948,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, here)
-    from spark_rapids_tpu_torch import kernels, resolve_device
+    from spark_rapids_tpu_torch import resolve_device
     from spark_rapids_tpu_torch.kernels import build
+    from spark_rapids_tpu_torch.q5 import write_q5_data
 
     # phase 1: the card, the build
     smi = subprocess.run(
@@ -516,27 +965,57 @@ def main() -> int:
     build.lib()
     print(f"kernels built in {time.monotonic() - t0:.1f} s "
           f"(nvcc {build.build_seconds:.1f} s)", flush=True)
+    # the profiler's device tracing starts up lazily: one throwaway trace
+    traced(lambda: torch.ones(1 << 20, device=dev).sum(), "a warm-up")
+    PROFILER_MISSES.clear()
 
     # phase 2: each kernel against its plain version
     records = check_kernels(dev)
+    records.update(check_slice2_kernels(dev))
     for kname, r in records.items():
+        lib = r["library_ms"]
         print(f"{kname}: {r['shape']}: kernel_ms={r['ms']:.4f} "
               f"event_ms={r['event_ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} "
-              f"library_ms={r['library_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.4f} "
+              f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
+              f"bound_ms={r['bound_ms']:.6f} "
               f"max_abs_err={r['max_abs_err']}", flush=True)
+    cases = check_edge_shapes(dev) + check_slice2_edges(dev)
+    print(f"edge shapes: {cases} cases exact against the plain versions",
+          flush=True)
 
-    print(f"edge shapes: {check_edge_shapes(dev)} cases exact against "
-          "the plain versions", flush=True)
-
-    # phase 3: q5 at full size
+    # phases 3 and 4: slice 1's plan, then the session path, at full size
     torch.cuda.reset_peak_memory_stats(dev)
     with tempfile.TemporaryDirectory(prefix="srtpu_q5_") as tmp:
-        launches, q5 = run_q5(dev, tmp)
-    print("q5: " + json.dumps(q5), flush=True)
-    print("q5 launches per query: " + json.dumps(launches), flush=True)
+        t0 = time.monotonic()
+        fact_paths, dim_path = write_q5_data(
+            tmp, ROWS, STORES, REGIONS, FILES, seed=0,
+            dup_per_store=DUP_PER_STORE)
+        print(f"data: {ROWS} fact rows in {FILES} files, a {STORES}-row "
+              f"dimension and a {STORES * DUP_PER_STORE}-row duplicate-key "
+              f"dimension, written in {time.monotonic() - t0:.1f} s",
+              flush=True)
+        t0 = time.monotonic()
+        want_q5 = q5_oracle(fact_paths, dim_path)
+        want_dup = dupjoin_oracle(
+            fact_paths, os.path.join(tmp, "dup", "dup-0.parquet"))
+        print(f"pyarrow oracles in {time.monotonic() - t0:.1f} s",
+              flush=True)
+        plan_rec = run_q5_plan(dev, fact_paths, dim_path, want_q5)
+        print("q5_plan: " + json.dumps(plan_rec), flush=True)
+        session = run_session(dev, tmp, fact_paths, want_q5, want_dup)
+    for qname in ("q5", "dupjoin"):
+        rec = session[qname]
+        print(f"session {qname}: engine={rec['engine']} "
+              f"aqe={json.dumps(rec['aqe'])} upload_s={rec['upload_s']:.3f} "
+              f"cold_s={rec['cold_s']:.4f} "
+              f"hot_median_s={rec['hot_median_s']:.4f}", flush=True)
+        print(f"session {qname} launches per query: "
+              + json.dumps(rec["launches"]), flush=True)
+        print(f"session {qname}: " + json.dumps(rec), flush=True)
+    print(f"peak device bytes: {session['peak_device_bytes']}", flush=True)
 
+    launches = session["q5"]["launches"]
     kernels_line = [
         dict(name=k, route=r["route"], source=r["source"],
              replaces=r["replaces"], launches=launches[k],
@@ -544,6 +1023,8 @@ def main() -> int:
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
              bound_by=r["bound_by"], library_ms=r["library_ms"])
         for k, r in records.items()]
+    print("device times by CUDA events (the profiler traced nothing): "
+          + json.dumps(PROFILER_MISSES), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

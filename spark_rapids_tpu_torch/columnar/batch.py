@@ -14,15 +14,24 @@ every kernel can be diffed array for array against the JAX package:
 Rows at index >= num_rows are garbage; every operator masks with
 ``row_mask(capacity, num_rows)``. Only primitive, string and encoded
 columns exist in this slice of the port.
+
+Row gathers go through kernel K8 (kernels/csrc/gather_leaves.cu):
+`gather_columns` moves every leaf of every column it is given in one
+launch, each by its own index vector, so a batch gather, or both sides of
+a join's output, costs one launch; CPU tensors take the plain
+`index_select` version.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Union
+from functools import lru_cache
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import kernels
+from spark_rapids_tpu_torch.kernels import build as _build
 from spark_rapids_tpu_torch.sqltypes import DataType, StringType, StructType
 from spark_rapids_tpu_torch.sqltypes.datatypes import torch_dtype
 
@@ -38,10 +47,17 @@ def next_capacity(rows: int, minimum: int = MIN_CAPACITY) -> int:
     return cap
 
 
+@lru_cache(maxsize=32)
+def _iota(capacity: int, device: torch.device) -> torch.Tensor:
+    """0..capacity-1 as int32, made once per capacity bucket and device
+    (read-only: every caller only compares against it)."""
+    return torch.arange(capacity, dtype=torch.int32, device=device)
+
+
 def row_mask(capacity: int, num_rows: Union[int, torch.Tensor],
              device: torch.device) -> torch.Tensor:
     """Boolean [capacity] mask of logically-live rows."""
-    iota = torch.arange(capacity, dtype=torch.int32, device=device)
+    iota = _iota(int(capacity), torch.device(device))
     if isinstance(num_rows, torch.Tensor):
         return iota < num_rows.to(torch.int32)
     return iota < int(num_rows)
@@ -99,16 +115,38 @@ class DeviceColumn:
             kw.get("vrange", self.vrange),
             kw.get("encoding", self.encoding))
 
-    def gather(self, indices: torch.Tensor) -> "DeviceColumn":
-        """Row gather; indices must lie in [0, capacity) (torch on CUDA
-        faults on others, where jnp.take clamps). Gathered values are a
-        subset, so vrange survives, and an encoded column moves only its
-        codes."""
+    def leaves(self) -> List[torch.Tensor]:
+        """The row-shaped tensors a gather moves; an encoded column's
+        dictionary is shared, not row-shaped, and stays."""
+        out = [self.data, self.validity]
+        if self.lengths is not None:
+            out.append(self.lengths)
+        return out
+
+    def with_leaves(self, leaves: Sequence[torch.Tensor]) -> "DeviceColumn":
         return self.replace(
-            data=self.data.index_select(0, indices),
-            validity=self.validity.index_select(0, indices),
-            lengths=None if self.lengths is None
-            else self.lengths.index_select(0, indices))
+            data=leaves[0], validity=leaves[1],
+            lengths=leaves[2] if self.lengths is not None else None)
+
+    def gather(self, indices: torch.Tensor) -> "DeviceColumn":
+        """Row gather; indices must lie in [0, capacity) (the kernel traps
+        on others, where jnp.take clamps). Gathered values are a subset,
+        so vrange survives, and an encoded column moves only its codes."""
+        return gather_columns([(self, indices)])[0]
+
+    def truncate(self, cap: int) -> "DeviceColumn":
+        """Row-prefix view [:cap] of every row-shaped leaf; callers
+        guarantee the live rows fit in cap."""
+        return self.slice_rows(0, cap)
+
+    def slice_rows(self, lo: int, hi: int) -> "DeviceColumn":
+        """View of rows [lo, hi) of every row-shaped leaf (no copy)."""
+        return self.with_leaves([x[lo:hi] for x in self.leaves()])
+
+    def device_size_bytes(self) -> int:
+        """Bytes of the row-shaped leaves; an encoded column's dictionary
+        is shared across batches and not counted, as in the reference."""
+        return sum(x.numel() * x.element_size() for x in self.leaves())
 
 
 class ColumnBatch:
@@ -147,13 +185,131 @@ class ColumnBatch:
         return row_mask(self.capacity, self.num_rows, self.device)
 
     def gather(self, indices: torch.Tensor, new_num_rows) -> "ColumnBatch":
+        return ColumnBatch(
+            self.schema, gather_columns([(c, indices) for c in self.columns]),
+            new_num_rows)
+
+    def slice_rows(self, lo: int, hi: int) -> "ColumnBatch":
+        """Rows [lo, hi) as views, every row live: a batch of capacity
+        hi - lo, which `concat_batches` brings back to a capacity bucket."""
         return ColumnBatch(self.schema,
-                           [c.gather(indices) for c in self.columns],
-                           new_num_rows)
+                           [c.slice_rows(lo, hi) for c in self.columns],
+                           hi - lo)
+
+    def select(self, indices: Sequence[int]) -> "ColumnBatch":
+        return ColumnBatch(
+            StructType([self.schema.fields[i] for i in indices]),
+            [self.columns[i] for i in indices], self.num_rows)
+
+    def device_size_bytes(self) -> int:
+        return sum(c.device_size_bytes() for c in self.columns)
 
     def __repr__(self):
         return (f"ColumnBatch(rows={self._host_rows or '?'}, "
                 f"cap={self.capacity}, cols={self.schema.names})")
+
+
+def gather_leaves_plain(srcs: Sequence[torch.Tensor],
+                        idxs: Sequence[torch.Tensor],
+                        masks: Optional[Sequence[Optional[torch.Tensor]]]
+                        = None, clamp: bool = False) -> List[torch.Tensor]:
+    """Plain PyTorch version of K8: one index_select per leaf."""
+    masks = list(masks) if masks is not None else [None] * len(srcs)
+    outs = []
+    for s, i, m in zip(srcs, idxs, masks):
+        i = i.to(torch.int64)
+        if clamp:
+            i = i.clamp(0, int(s.shape[0]) - 1)
+        o = s.index_select(0, i)
+        if m is not None:
+            keep = m.reshape((-1,) + (1,) * (o.dim() - 1))
+            o = torch.where(keep, o, torch.zeros_like(o))
+        outs.append(o)
+    return outs
+
+
+def _unit(x: int) -> int:
+    """Widest load/store (16, 8, 4, 2 or 1 bytes) dividing x (a row width
+    or'ed with the base addresses)."""
+    return min(x & -x, 16)
+
+
+def gather_leaves(srcs: Sequence[torch.Tensor],
+                  idxs: Sequence[torch.Tensor],
+                  masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
+                  clamp: bool = False) -> List[torch.Tensor]:
+    """Kernel K8: out[k][i] = srcs[k][idxs[k][i]] for row-major leaves,
+    every index vector of one length, in one launch per 32 leaves. A mask
+    zeroes the out rows where it is False; `clamp` clips indices into
+    range (decode's dictionary codes) where otherwise an index outside
+    [0, rows) traps. Indices are int32, or int16 codes."""
+    if srcs[0].device.type == "cpu":
+        return gather_leaves_plain(srcs, idxs, masks, clamp)
+    masks = list(masks) if masks is not None else [None] * len(srcs)
+    dev = srcs[0].device
+    dev_index = srcs[0].get_device()
+    n_out = int(idxs[0].shape[0])
+    checked: Dict[int, torch.Tensor] = {}
+    for idx in idxs:
+        if id(idx) not in checked:
+            ok = idx if idx.dtype in (torch.int32, torch.int16) \
+                else idx.to(torch.int32)
+            kernels.require(ok, "indices", ok.dtype, dev)
+            if ok.shape[0] != n_out:
+                raise ValueError(f"index vectors of {ok.shape[0]} and "
+                                 f"{n_out} rows in one gather")
+            checked[id(idx)] = ok
+    outs, leaves = [], []
+    for x, idx, mask in zip(srcs, idxs, masks):
+        if not x.is_contiguous():
+            x = x.contiguous()
+        if (x.get_device() != dev_index or x.shape[0] == 0
+                or x.dim() > 2):
+            raise ValueError(f"leaf of {tuple(x.shape)} on {x.device}: "
+                             "expected a non-empty 1-d column or 2-d byte "
+                             f"matrix on {dev}")
+        row_bytes = x.element_size() * (x.shape[1] if x.dim() == 2 else 1)
+        out = torch.empty((n_out,) + x.shape[1:], dtype=x.dtype, device=dev)
+        outs.append(out)
+        if mask is not None:
+            kernels.require(mask, "mask", torch.bool, dev)
+        ok = checked[id(idx)]
+        src_ptr, dst_ptr = x.data_ptr(), out.data_ptr()
+        leaves.append(kernels.GatherLeaf(
+            src_ptr, dst_ptr, ok.data_ptr(),
+            None if mask is None else mask.data_ptr(), x.shape[0],
+            row_bytes, _unit(row_bytes | src_ptr | dst_ptr),
+            ok.element_size(), int(clamp)))
+    if n_out == 0:
+        return outs
+    for lo in range(0, len(leaves), kernels.MAX_LEAVES):
+        chunk = leaves[lo:lo + kernels.MAX_LEAVES]
+        ptr, _arr = kernels.struct_array(kernels.GatherLeaf, chunk)
+        _build.check(_build.lib().srtpu_gather_leaves(
+            ptr, len(chunk), n_out, kernels.sm_count(outs[0]),
+            kernels.stream_ptr(outs[0])), "gather_leaves")
+        kernels.launches["gather_leaves"] += 1
+    return outs
+
+
+def gather_columns(pairs: Sequence[Tuple[DeviceColumn, torch.Tensor]]
+                   ) -> List[DeviceColumn]:
+    """Gather each column by its index vector: every leaf of every column
+    in one K8 launch on the card (index vectors of one length)."""
+    if not pairs:
+        return []
+    srcs, idxs, spans = [], [], []
+    for col, idx in pairs:
+        ls = col.leaves()
+        spans.append(len(ls))
+        srcs += ls
+        idxs += [idx] * len(ls)
+    outs = gather_leaves(srcs, idxs)
+    cols, at = [], 0
+    for (col, _), k in zip(pairs, spans):
+        cols.append(col.with_leaves(outs[at:at + k]))
+        at += k
+    return cols
 
 
 def _empty_column(dtype: DataType, capacity: int, string_bytes: int,
@@ -224,10 +380,12 @@ def _concat_columns(pieces, cap: int, total: int,
 
 def concat_batches(batches: List[ColumnBatch]) -> ColumnBatch:
     """Concatenate batches into one at the capacity bucket of their total
-    rows (one host sync per batch for its row count)."""
+    rows (one host sync per batch for its row count). A single batch
+    already at a capacity bucket comes back as it is."""
     if not batches:
         raise ValueError("concat_batches of no batches")
-    if len(batches) == 1:
+    if len(batches) == 1 and batches[0].capacity == next_capacity(
+            batches[0].capacity):
         return batches[0]
     schema = batches[0].schema
     total = sum(b.row_count() for b in batches)

@@ -202,10 +202,26 @@ def encoded_column_from_arrow(arr: pa.Array, field, device: torch.device):
 
 def decode_column(col):
     """Encoded column -> the padded-matrix string column via a device
-    dictionary gather; identity for plain columns."""
+    dictionary gather (kernel K8 on the card: the dictionary's rows and
+    lengths by code, codes clipped to the dictionary, null rows zeroed);
+    identity for plain columns."""
     dd = col.encoding
     if dd is None:
         return col
+    if col.device.type == "cpu":
+        return decode_column_plain(col)
+    from spark_rapids_tpu_torch.columnar.batch import gather_leaves
+
+    data, lengths = gather_leaves(
+        [dd.data, dd.lengths], [col.data, col.data],
+        masks=[col.validity, col.validity], clamp=True)
+    return col.replace(data=data, lengths=lengths, vrange=None,
+                       encoding=None)
+
+
+def decode_column_plain(col):
+    """Plain PyTorch version of decode_column's K8 launch."""
+    dd = col.encoding
     k = dd.num_values
     codes = col.data.to(torch.int64).clamp(0, max(k - 1, 0))
     data = dd.data.index_select(0, codes)

@@ -1,0 +1,1313 @@
+"""Typed configuration registry — the RapidsConf analog.
+
+A host-only copy of `spark_rapids_tpu/config/rapids_conf.py` (the port
+never imports the JAX package), with one key of the port's own:
+`spark.rapids.torch.device` (TORCH_DEVICE). Most keys name features of
+the reference that the port has not reached yet; the port reads the ones
+its ported modules consult and ignores the rest.
+
+The reference defines 209 typed `spark.rapids.*` entries with a builder DSL,
+defaults, startup-only flags and markdown doc generation
+(`sql-plugin/src/main/scala/com/nvidia/spark/rapids/RapidsConf.scala:121,260,319,2166`).
+This is the same design in Python: a module-level registry of `ConfEntry`
+objects, a `RapidsConf` snapshot view bound to a session, and
+`generate_docs()` producing docs/configs.md.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Any, Callable, Dict, List, Optional
+
+_REGISTRY: Dict[str, "ConfEntry"] = {}
+_REG_LOCK = threading.Lock()
+
+
+class ConfEntry:
+    def __init__(
+        self,
+        key: str,
+        default: Any,
+        doc: str,
+        conf_type: type,
+        startup_only: bool = False,
+        internal: bool = False,
+        checker: Optional[Callable[[Any], bool]] = None,
+    ):
+        self.key = key
+        self.default = default
+        self.doc = doc
+        self.conf_type = conf_type
+        self.startup_only = startup_only
+        self.internal = internal
+        self.checker = checker
+
+    def convert(self, raw: Any) -> Any:
+        if raw is None:
+            return self.default
+        if self.conf_type is bool:
+            if isinstance(raw, bool):
+                v = raw
+            else:
+                v = str(raw).strip().lower() in ("true", "1", "yes")
+        elif self.conf_type in (int, float, str):
+            v = self.conf_type(raw)
+        else:
+            v = raw
+        if self.checker is not None and not self.checker(v):
+            raise ValueError(f"invalid value {v!r} for conf {self.key}")
+        return v
+
+
+def _register(entry: ConfEntry) -> ConfEntry:
+    with _REG_LOCK:
+        if entry.key in _REGISTRY:
+            raise ValueError(f"duplicate conf key {entry.key}")
+        _REGISTRY[entry.key] = entry
+    return entry
+
+
+def conf(key, default, doc, conf_type=str, **kw) -> ConfEntry:
+    return _register(ConfEntry(key, default, doc, conf_type, **kw))
+
+
+# --- Core entries (names follow the reference's spark.rapids.* namespace,
+# --- re-rooted at spark.rapids.tpu where TPU-specific). ---
+
+def _format_read_enable(fmt: str, extra: str = "") -> ConfEntry:
+    return conf(
+        f"spark.rapids.sql.format.{fmt}.read.enabled", True,
+        f"Accelerate {fmt} reads; false falls the scan back to the CPU "
+        f"path (reference per-format enable family).{extra}", bool)
+
+
+PARQUET_READ_ENABLED = _format_read_enable("parquet")
+ORC_READ_ENABLED = _format_read_enable("orc")
+CSV_READ_ENABLED = _format_read_enable("csv")
+JSON_READ_ENABLED = _format_read_enable("json")
+AVRO_READ_ENABLED = _format_read_enable("avro")
+HIVETEXT_READ_ENABLED = _format_read_enable("hive.text")
+DELTA_READ_ENABLED = _format_read_enable(
+    "delta", " Covers merge-on-read (deletion vector / column mapping) "
+    "scans.")
+ICEBERG_READ_ENABLED = _format_read_enable("iceberg")
+_FMT_READ_ENTRIES = {
+    "parquet": PARQUET_READ_ENABLED, "orc": ORC_READ_ENABLED,
+    "csv": CSV_READ_ENABLED, "json": JSON_READ_ENABLED,
+    "avro": AVRO_READ_ENABLED, "hivetext": HIVETEXT_READ_ENABLED,
+    "delta": DELTA_READ_ENABLED, "iceberg": ICEBERG_READ_ENABLED,
+}
+REGEXP_ENABLED = conf(
+    "spark.rapids.sql.regexp.enabled", True,
+    "Transpile Java regular expressions to the device DFA engine "
+    "(regex/transpiler.py); false evaluates all regex expressions on "
+    "the CPU path (reference spark.rapids.sql.regexp.enabled).", bool)
+UDF_COMPILER_ENABLED = conf(
+    "spark.rapids.sql.udfCompiler.enabled", True,
+    "Compile Python UDF bytecode into device expressions "
+    "(udf/compiler.py, the udf-compiler role); false runs every UDF "
+    "as a rowwise host fallback.", bool)
+FUSED_EXPANSION = conf(
+    "spark.rapids.sql.fusedExec.expansionFactor", 4,
+    "Initial output-capacity multiplier for data-dependent fused "
+    "operators (joins, explode); overflow doubles it and re-runs.",
+    int)
+FUSED_MAX_EXPANSION = conf(
+    "spark.rapids.sql.fusedExec.maxExpansionFactor", 256,
+    "Give up (fall to the out-of-core engine) when the expansion "
+    "retry loop reaches this factor.", int)
+FUSED_GROUP_CAP = conf(
+    "spark.rapids.sql.fusedExec.groupCapacity", 1 << 16,
+    "Static capacity bucket fused partial-aggregate outputs shrink "
+    "to; more groups than this overflows into an expansion retry.",
+    int)
+WINDOW_STREAMING = conf(
+    "spark.rapids.sql.window.streamingEnabled", True,
+    "Use the streaming window strategies (running-frame carry state, "
+    "two-pass unbounded aggregation) for eligible specs instead of "
+    "materializing whole partitions on device.", bool)
+FUSED_LOOKUP_JOIN = conf(
+    "spark.rapids.sql.fusedExec.lookupJoin.enabled", True,
+    "Lower broadcast equi-joins with unique build keys as "
+    "row-preserving lookup gathers inside fused per-partition chains "
+    "(no expansion buffer); duplicate keys re-lower via the expanded "
+    "blocking path automatically.", bool)
+REGEX_MAX_STATES = conf(
+    "spark.rapids.sql.regexp.maxStates", 192,
+    "DFA state ceiling for device regex; patterns determinizing past "
+    "it fall back to CPU with a reason.", int,
+    checker=lambda v: 2 <= v <= (1 << 14))
+REGEX_COMPLEXITY_LIMIT = conf(
+    "spark.rapids.sql.regexp.complexityLimit", 2048,
+    "Estimated-NFA-size gate (the RegexComplexityEstimator role): "
+    "patterns predicted to exceed it fall back to CPU BEFORE paying "
+    "NFA construction and determinization.", int,
+    checker=lambda v: 2 <= v <= (1 << 20))
+WINDOW_U2U_FOLD = conf(
+    "spark.rapids.sql.window.unboundedFoldEvery", 8,
+    "How many per-chunk partition partials the two-pass unbounded "
+    "window strategy accumulates before folding them into the bounded "
+    "buffer batch (fewer folds = fewer host syncs; more parked "
+    "partials in the spill catalog between folds).", int,
+    checker=lambda v: 1 <= v <= 1024)
+FUSED_AGG_PUSHDOWN = conf(
+    "spark.rapids.sql.fusedExec.aggPushdownThroughJoin", True,
+    "Pre-aggregate the probe side of a fused lookup join by the join "
+    "keys when the aggregate above groups by build-side attributes — "
+    "the join then moves group buffers (thousands of rows) instead of "
+    "fact rows (millions). Falls back automatically when the build "
+    "side has duplicate keys (the lookup join's overflow retry).",
+    bool)
+FUSED_SINGLE_SYNC_FETCH_BYTES = conf(
+    "spark.rapids.sql.fusedExec.singleSyncFetchMaxBytes", 16 << 20,
+    "Results at most this large fetch rows+flags+data in ONE link "
+    "roundtrip (host-side slicing); larger results pay the extra "
+    "roundtrips to avoid fetching dead capacity.", int)
+AGG_MATMUL_MAX_BINS = conf(
+    "spark.rapids.sql.agg.matmulSegments.maxBins", 1 << 14,
+    "Largest static bin count lowered to the one-hot matmul "
+    "reductions; larger key spaces use the sorted segmented path.",
+    int, checker=lambda v: 1 <= v <= (1 << 17))
+AGG_MATMUL_CHUNK_ROWS = conf(
+    "spark.rapids.sql.agg.matmulSegments.chunkRows", 1 << 15,
+    "Rows per matmul-reduction chunk (the lax.scan step). Smaller "
+    "chunks tighten f32 accumulation error and int-exactness bounds "
+    "at more scan iterations. Must stay below 2^24: per-chunk counts "
+    "accumulate exactly in f32 only up to that.", int,
+    checker=lambda v: 1024 <= v < (1 << 24))
+SKEW_JOIN_ENABLED = conf(
+    "spark.sql.adaptive.skewJoin.enabled", True,
+    "AQE skew handling: probe partitions much larger than the median "
+    "split into row slices, each joined against a re-read of the full "
+    "build partition (OptimizeSkewedJoin role). Inner/left/semi/anti "
+    "joins only.", bool)
+SKEW_JOIN_FACTOR = conf(
+    "spark.sql.adaptive.skewJoin.skewedPartitionFactor", 5,
+    "A partition is skewed when its bytes exceed this multiple of the "
+    "median partition size (and the byte threshold).", int)
+SKEW_JOIN_THRESHOLD = conf(
+    "spark.sql.adaptive.skewJoin.skewedPartitionThresholdInBytes",
+    256 << 20,
+    "Minimum partition bytes to qualify as skewed.", int)
+READER_COALESCE_BYTES = conf(
+    "spark.rapids.sql.reader.coalesceSizeBytes", 128 << 20,
+    "Target bytes per multi-file reader task (the COALESCING reader's "
+    "stitch size, GpuMultiFileReader role).", int)
+DELTA_CHECKPOINT_INTERVAL = conf(
+    "spark.rapids.lakehouse.delta.checkpointInterval", 10,
+    "Write a parquet checkpoint every N Delta commits (Delta "
+    "_last_checkpoint protocol).", int)
+DELTA_DV_INLINE_MAX_BYTES = conf(
+    "spark.rapids.lakehouse.delta.deletionVector.inlineMaxBytes", 512,
+    "Deletion vectors at most this large inline into the commit line "
+    "(storageType 'i'); larger ones share a sidecar file.", int)
+AGG_MATMUL_ENABLED = conf(
+    "spark.rapids.sql.agg.matmulSegments.enabled", True,
+    "Lower binned group-by reductions to one-hot matmuls on the MXU "
+    "instead of scatter-adds (XLA:TPU serializes scatters; measured "
+    "~25x on v5e). Counts and vrange-bounded integer sums stay exact; "
+    "float sums accumulate f32 chunk partials into an f64 carry "
+    "(within the documented v5e f64-at-f32-precision stance).", bool)
+FILECACHE_ENABLED = conf(
+    "spark.rapids.filecache.enabled", False,
+    "Cache remote input files on local disk (FileCache role). Local "
+    "paths are unaffected.", bool)
+FILECACHE_PATH = conf(
+    "spark.rapids.filecache.path", "",
+    "Cache directory (default: <tmp>/srtpu_filecache).", str)
+FILECACHE_MAX_BYTES = conf(
+    "spark.rapids.filecache.maxBytes", 10 << 30,
+    "Byte budget for the local file cache; least-recently-used entries "
+    "evict past it.", int)
+ALLUXIO_REPLACE = conf(
+    "spark.rapids.alluxio.pathsToReplace", "",
+    "Semicolon-separated 'srcPrefix->dstPrefix' scan-path rewrite "
+    "rules (AlluxioUtils role).", str)
+ALLUXIO_AUTOMOUNT_REGEX = conf(
+    "spark.rapids.alluxio.automount.regex", "",
+    "Regex over 'scheme://bucket'; matching scan paths rewrite to "
+    "alluxio://<master>/<bucket>/<rest>.", str)
+ALLUXIO_MASTER = conf(
+    "spark.rapids.alluxio.master", "",
+    "alluxio master host:port for automount rewriting.", str)
+HEARTBEAT_INTERVAL_MS = conf(
+    "spark.rapids.shuffle.heartbeat.intervalMs", 5000,
+    "Executor->driver heartbeat interval (RapidsShuffleHeartbeatManager "
+    "role).", int)
+HEARTBEAT_TIMEOUT_MS = conf(
+    "spark.rapids.shuffle.heartbeat.timeoutMs", 30000,
+    "Driver prunes executors whose last heartbeat is older than this.",
+    int)
+
+FATAL_ERROR_EXIT = conf(
+    "spark.rapids.tpu.fatalErrorExitCode", 0,
+    "When > 0, a fatal device error (unrecoverable XLA runtime failure) "
+    "terminates the process with this exit code so an external "
+    "scheduler reschedules the executor elsewhere (the reference's "
+    "CudaFatalException exit-20 policy, Plugin.scala:651-675). 0 "
+    "propagates the exception instead.", int)
+
+OPTIMIZER_ENABLED = conf(
+    "spark.rapids.sql.optimizer.enabled", False,
+    "Enable the cost-based optimizer: revert device subtrees whose "
+    "estimated compute benefit does not cover the host<->device "
+    "transfer cost (reference CostBasedOptimizer).", bool)
+OPTIMIZER_CPU_ROW_COST = conf(
+    "spark.rapids.sql.optimizer.cpuRowCost", 1.0,
+    "Relative per-row cost of evaluating one operator on the CPU "
+    "backend (cost-based optimizer).", float)
+OPTIMIZER_TPU_ROW_COST = conf(
+    "spark.rapids.sql.optimizer.tpuRowCost", 0.02,
+    "Relative per-row cost of evaluating one operator on the device "
+    "(cost-based optimizer).", float)
+OPTIMIZER_TRANSFER_ROW_COST = conf(
+    "spark.rapids.sql.optimizer.transferRowCost", 1.0,
+    "Relative cost of moving one row across the host<->device "
+    "boundary (covers Arrow conversion + H2D/D2H copy).", float)
+OPTIMIZER_OP_OVERHEAD = conf(
+    "spark.rapids.sql.optimizer.deviceOpOverhead", 1000.0,
+    "Fixed row-equivalent cost per device operator (kernel dispatch + "
+    "compile-cache pressure) — makes tiny inputs stay on CPU.", float)
+
+SQL_ENABLED = conf(
+    "spark.rapids.sql.enabled", True,
+    "Enable plan rewriting onto the TPU columnar engine.", bool)
+SQL_MODE = conf(
+    "spark.rapids.sql.mode", "executeOnGPU",
+    "executeOnGPU or explainOnly (tag the plan and report placement without "
+    "running on device; reference RapidsConf.scala:2048).", str,
+    checker=lambda v: v in ("executeOnGPU", "explainOnly"))
+EXPLAIN = conf(
+    "spark.rapids.sql.explain", "NONE",
+    "NONE, NOT_ON_GPU, or ALL — plan placement diagnostics "
+    "(reference GpuOverrides.scala:4763).", str,
+    checker=lambda v: v in ("NONE", "NOT_ON_GPU", "ALL"))
+BATCH_SIZE_BYTES = conf(
+    "spark.rapids.sql.batchSizeBytes", 1 << 30,
+    "Target device batch size (reference default 1GiB, RapidsConf.scala:559).",
+    int)
+BATCH_SIZE_ROWS = conf(
+    "spark.rapids.sql.batchSizeRows", 1 << 20,
+    "Target device batch row capacity; device batches are padded to "
+    "power-of-two capacity buckets so XLA compiles one program per bucket.",
+    int)
+CONCURRENT_TPU_TASKS = conf(
+    "spark.rapids.sql.concurrentGpuTasks", 2,
+    "Tasks allowed to hold device memory concurrently; semaphore permits = "
+    "1000/N (reference GpuSemaphore.scala:135-145).", int)
+MEMORY_FRACTION = conf(
+    "spark.rapids.memory.gpu.allocFraction", 0.85,
+    "Fraction of device HBM budgeted to the pool "
+    "(reference GpuDeviceManager.scala:229-272).", float, startup_only=True)
+MEMORY_LIMIT_BYTES = conf(
+    "spark.rapids.memory.gpu.maxAllocBytes", 0,
+    "Absolute device pool cap in bytes; 0 = derive from allocFraction. "
+    "Tests use this to force small pools for spill coverage.", int,
+    startup_only=True)
+HOST_SPILL_STORAGE_SIZE = conf(
+    "spark.rapids.memory.host.spillStorageSize", 4 << 30,
+    "Bytes of host memory for spilled device buffers before overflowing to "
+    "disk (reference RapidsHostMemoryStore).", int, startup_only=True)
+SPILL_DIR = conf(
+    "spark.rapids.memory.spillDir", "",
+    "Directory for disk-tier spill files; empty = temp dir.", str,
+    startup_only=True)
+PINNED_POOL_SIZE = conf(
+    "spark.rapids.memory.pinnedPool.size", 4 << 30,
+    "Bytes of the host transfer-staging pool (the PinnedMemoryPool "
+    "role): host<->device copies account here. Best-effort admission "
+    "(uploads dispatch asynchronously, so the pool bounds concurrent "
+    "dispatches); PJRT stages the actual transfer internally.", int,
+    startup_only=True)
+HOST_MEMORY_LIMIT = conf(
+    "spark.rapids.memory.host.limit", 8 << 30,
+    "Bytes of general (pageable) host working memory shared by the "
+    "spill catalog's HOST tier and shuffle blocks (HostAlloc.scala "
+    "role): allocations past the limit push spilled buffers to disk "
+    "or block briefly, then raise a retryable OOM.", int,
+    startup_only=True)
+OOM_DUMP_DIR = conf(
+    "spark.rapids.memory.gpu.oomDumpDir", "",
+    "When set, an unrecoverable device OOM writes a device-memory "
+    "profile plus a JSON spill-catalog snapshot here before raising "
+    "(the reference gpuOomDumpDir heap-dump policy, "
+    "RapidsConf.scala:403-414).", str)
+DEBUG_DUMP_PATH = conf(
+    "spark.rapids.sql.debug.dumpBatchesPath", "",
+    "When set, collected stage-output batches dump as parquet files "
+    "under this directory, named by root operator and partition (the "
+    "DumpUtils.dumpToParquetFile debug workflow).", str)
+OOM_INJECTION_MODE = conf(
+    "spark.rapids.memory.gpu.oomInjection.mode", "none",
+    "Fault injection for retry tests: none|once|always|split_once — "
+    "injected at allocation points, the RmmSpark forced-OOM analog "
+    "(reference test framework, SURVEY.md section 4). split_once raises "
+    "TpuSplitAndRetryOOM (the GpuSplitAndRetryOOM analog) one time.", str,
+    checker=lambda v: v in ("none", "once", "always", "split_once"))
+RETRY_SPLIT_LIMIT = conf(
+    "spark.rapids.sql.retry.splitLimit", 16,
+    "Maximum times a batch may be halved by split-and-retry before the "
+    "query fails (reference GpuSplitAndRetryOOM taxonomy).", int)
+STRING_MAX_BYTES = conf(
+    "spark.rapids.tpu.string.maxBytes", 8192,
+    "Hard ceiling on the ADAPTIVE padded byte width of device string "
+    "columns (each column pads to the power-of-two envelope of its "
+    "longest value; filter/sort/join/group-by on >=512B strings run on "
+    "device). Columns whose longest string exceeds the ceiling raise "
+    "rather than silently truncate — raise the conf for pathological "
+    "data.", int)
+ENCODED_ENABLED = conf(
+    "spark.rapids.tpu.encoded.enabled", True,
+    "Compressed (encoded) execution: low-cardinality string columns "
+    "stay DICTIONARY-ENCODED in HBM — the link carries narrow integer "
+    "codes plus one deduplicated device dictionary per distinct "
+    "content, filters/group-bys/joins lower onto codes where value "
+    "semantics allow, and decode defers to the last operator that "
+    "needs materialized strings (D2H collect, string-producing "
+    "expressions). false decodes every dictionary column at upload "
+    "(the pre-encoded behavior).", bool)
+ENCODED_READ_DICTIONARY = conf(
+    "spark.rapids.tpu.encoded.readDictionary.enabled", True,
+    "Request string columns from parquet as DICTIONARY arrays "
+    "(pyarrow read_dictionary) on device-path scans, so dictionary "
+    "pages flow to the device still encoded instead of being decoded "
+    "on the host. Only meaningful with spark.rapids.tpu.encoded."
+    "enabled; CPU-engine scans always read plain.", bool)
+ENCODED_MAX_DICT_ROWS = conf(
+    "spark.rapids.tpu.encoded.maxDictionaryRows", 1 << 16,
+    "Dictionaries with more distinct values than this upload DECODED "
+    "instead of encoded — past ~64K entries the codes stop paying for "
+    "the dictionary residency and the host-side intern/probe "
+    "bookkeeping.", int)
+ENCODED_DICT_CACHE_BYTES = conf(
+    "spark.rapids.tpu.encoded.dictCache.maxBytes", 256 << 20,
+    "Device-byte budget of the deduplicated dictionary cache "
+    "(columnar/encoding.py); each resident dictionary is charged to "
+    "the SpillCatalog's reservation ledger and the least-recently-"
+    "used entries release when the budget is exceeded.", int)
+SHUFFLE_MODE = conf(
+    "spark.rapids.shuffle.mode", "MULTITHREADED",
+    "MULTITHREADED (host-serialized, thread-pooled — reference "
+    "RapidsShuffleInternalManagerBase.scala:238), DEVICE (blocks stay "
+    "HBM-resident in the spill catalog, no host round trip — the "
+    "RapidsCachingWriter/ShuffleBufferCatalog role), CACHE_ONLY (host "
+    "arrow blocks), or ICI (all-to-all collectives over the mesh, the "
+    "UCX transport analog).", str,
+    checker=lambda v: v in ("MULTITHREADED", "ICI", "CACHE_ONLY",
+                            "DEVICE"))
+SHUFFLE_COMPRESSION_CODEC = conf(
+    "spark.rapids.shuffle.compression.codec", "zstd",
+    "Codec for serialized shuffle blocks: none|zstd|zlib (the reference "
+    "compresses shuffle payloads with nvcomp LZ4/ZSTD, "
+    "TableCompressionCodec.scala; zstd level 1 here).", str,
+    checker=lambda v: v in ("none", "zstd", "zlib"))
+SHUFFLE_SPILL_THRESHOLD = conf(
+    "spark.rapids.shuffle.spillThresholdBytes", 2 << 30,
+    "Host bytes of in-memory shuffle blocks before blocks degrade to "
+    "compressed disk files (the ShuffleBufferCatalog spill integration "
+    "role).", int)
+SHUFFLE_PARTITIONS = conf(
+    "spark.sql.shuffle.partitions", 8,
+    "Number of shuffle output partitions.", int)
+ADAPTIVE_ENABLED = conf(
+    "spark.sql.adaptive.enabled", True,
+    "Adaptive query execution for the per-operator engine: exchanges "
+    "materialize stage by stage and the remainder re-plans with the "
+    "observed output statistics — broadcast-join promotion (cancelling "
+    "unrun probe-side shuffles) and tiny-partition coalescing "
+    "(reference: GpuOverrides per AQE query stage, "
+    "GpuOverrides.scala:517-580).", bool)
+JOIN_BLOOM_FILTER = conf(
+    "spark.rapids.sql.join.bloomFilter.enabled", True,
+    "Build-side bloom runtime filter applied to the probe side of "
+    "inner/semi hash joins before the probe (spark-rapids-jni "
+    "BloomFilter / GpuBloomFilterMightContain role): provably-absent "
+    "probe rows drop and the batch re-buckets smaller.", bool)
+BROADCAST_THRESHOLD = conf(
+    "spark.sql.autoBroadcastJoinThreshold", 10 << 20,
+    "Max estimated build-side bytes for broadcast joins; -1 disables "
+    "(Spark conf honored by the reference planner).", int)
+MULTITHREADED_READ_NUM_THREADS = conf(
+    "spark.rapids.sql.multiThreadedRead.numThreads", 8,
+    "Shared reader thread pool size (reference Plugin.scala:262-274).", int)
+PARQUET_READER_TYPE = conf(
+    "spark.rapids.sql.format.parquet.reader.type", "AUTO",
+    "PERFILE, COALESCING, MULTITHREADED or AUTO "
+    "(reference RapidsConf.scala:965-981).", str,
+    checker=lambda v: v in ("AUTO", "PERFILE", "COALESCING", "MULTITHREADED"))
+LEAK_DETECTION = conf(
+    "spark.rapids.memory.leakDetection", False,
+    "Raise at session stop when spillable buffers were never closed "
+    "(MemoryCleaner leak-tracking role); off = warn only.", bool)
+CONCURRENT_PYTHON_WORKERS = conf(
+    "spark.rapids.python.concurrentPythonWorkers", 4,
+    "Worker processes for the pandas-UDF Arrow exchange (reference "
+    "PythonWorkerSemaphore.scala).", int)
+MESH_SIZE = conf(
+    "spark.rapids.tpu.mesh", 0,
+    "Execute plans as ONE shard_map'd SPMD program over an N-device "
+    "jax.sharding.Mesh with all_to_all collectives as the shuffle "
+    "transport (the UCX P2P transport role, SURVEY.md 5.8); 0 = "
+    "single-chip thread-pool engine. Plans with no mesh lowering fall "
+    "back to the single-chip engine automatically.", int)
+MULTICHIP_RECONCILE_DICTS = conf(
+    "spark.rapids.tpu.multichip.reconcileDictionaries", True,
+    "Reconcile per-shard dictionary-encoded string columns into one "
+    "union dictionary at mesh ingestion (codes remapped host-side, "
+    "dictionary replicated over the mesh) so ICI exchanges move CODES "
+    "only; off = encoded columns decode before sharding.", bool)
+MULTICHIP_ICI_SHUFFLE = conf(
+    "spark.rapids.tpu.multichip.iciShuffle.enabled", True,
+    "Let the planner pick the ICI-resident strategy for hash "
+    "exchanges whose both sides are mesh-lowerable: the exchange "
+    "compiles to an on-device all_to_all with zero host-direction "
+    "bytes. Off = every exchange keeps the host-serialized shuffle "
+    "path (the whole plan falls back to the single-chip engine).",
+    bool)
+MULTICHIP_CHIP_RECOVERY = conf(
+    "spark.rapids.tpu.multichip.chipRecovery.enabled", True,
+    "On single-chip loss (chip.fatal), fence ONLY the lost chip and "
+    "re-execute the query's lineage over the surviving mesh while "
+    "other queries keep serving; off = chip loss propagates as "
+    "DeviceLostError.", bool)
+MULTICHIP_ICI_RETRIES = conf(
+    "spark.rapids.tpu.multichip.collectiveRetries", 2,
+    "Bounded retries for a failed ICI collective (ici.collective "
+    "faults) before the failure escalates to chip-loss handling.",
+    int)
+MULTICHIP_EXPANSION = conf(
+    "spark.rapids.tpu.multichip.expansion", 2,
+    "Skew allowance for per-destination all_to_all slot sizing "
+    "(slot = next_pow2(rows/n * expansion)): larger tolerates more "
+    "hash skew before TpuSplitAndRetryOOM, smaller shrinks the "
+    "exchange buffers and the recompile ladder. Under-provisioned "
+    "slots are caught by the overflow flag and the program recompiles "
+    "doubled, so the default starts lean.", int)
+MULTIHOST_COORDINATOR = conf(
+    "spark.rapids.tpu.multihost.coordinator", "",
+    "host:port of the jax.distributed coordination service. When set, "
+    "the session joins the multi-host cluster at startup and the mesh "
+    "engine spans every process's devices, with cross-process "
+    "collectives as the shuffle fabric (the executor-registration "
+    "role of the reference heartbeat plane, "
+    "RapidsShuffleHeartbeatManager.scala). Empty = single process.",
+    str, startup_only=True)
+MULTIHOST_NUM_PROCESSES = conf(
+    "spark.rapids.tpu.multihost.numProcesses", 0,
+    "Process count for multihost.coordinator (0 = auto-detect from "
+    "the TPU pod metadata).", int, startup_only=True)
+MULTIHOST_PROCESS_ID = conf(
+    "spark.rapids.tpu.multihost.processId", -1,
+    "This process's id for multihost.coordinator (-1 = auto-detect "
+    "from the TPU pod metadata).", int, startup_only=True)
+MULTIHOST_SIMULATED_HOSTS = conf(
+    "spark.rapids.tpu.multihost.simulatedHosts", 0,
+    "Partition a SINGLE process's mesh devices into H simulated host "
+    "groups so the 2D (hosts x chips) topology — DCN-aware exchange "
+    "placement, hierarchical aggregation, host-loss fencing — runs "
+    "and is testable without a real multi-process cluster. 0/1 = no "
+    "simulation (real topology from jax process indices).", int)
+MULTIHOST_DCN_RETRIES = conf(
+    "spark.rapids.tpu.multihost.collectiveRetries", 2,
+    "Bounded retries for a failed cross-host DCN collective "
+    "(dcn.collective faults) before the failure escalates to "
+    "host-loss handling.", int)
+MULTIHOST_HOST_RECOVERY = conf(
+    "spark.rapids.tpu.multihost.hostRecovery.enabled", True,
+    "On host loss (host.fatal / heartbeat-silent host), fence every "
+    "chip of the lost host in one step and re-execute the query's "
+    "lineage over the surviving hosts while the serve layer flips "
+    "only capacity; off = host loss propagates as DeviceLostError.",
+    bool)
+COALESCE_AFTER_SCAN = conf(
+    "spark.rapids.sql.coalesceBatches.enabled", True,
+    "Concatenate small device batches toward batchSizeRows after "
+    "chunked scans and repartition exchanges before per-batch "
+    "consumers (the GpuCoalesceBatches / GpuShuffleCoalesceExec "
+    "goal-lattice role) — many tiny batches pay per-dispatch "
+    "roundtrips on tunneled devices.", bool)
+FUSED_EXEC = conf(
+    "spark.rapids.sql.fusedExec.enabled", True,
+    "Compile whole query stages into a few fused XLA programs for "
+    "single-chip execution (per-partition scan chains + on-device "
+    "reduce; the one-device analog of the mesh compiler). The "
+    "per-operator eager engine pays one host<->device roundtrip per "
+    "kernel dispatch, which dominates on tunneled devices. Plans or "
+    "working sets the fused path cannot handle fall back to the "
+    "per-operator out-of-core engine automatically.", bool)
+COMPILE_CACHE_ENABLED = conf(
+    "spark.rapids.tpu.compileCache.enabled", True,
+    "Persist compiled XLA programs across processes "
+    "(runtime/compile_cache.py): jax's persistent compilation cache "
+    "plus the engine's structural key->artifact index, both under "
+    "compileCache.dir and invalidated on any jax/jaxlib/plugin/backend "
+    "version change. A fresh process re-tracing the same query then "
+    "loads serialized executables instead of recompiling — the "
+    "cold-start killer (482 s -> seconds measured on the q5 bench).",
+    bool)
+COMPILE_CACHE_DIR = conf(
+    "spark.rapids.tpu.compileCache.dir", "",
+    "Directory for the persistent compilation cache (default: "
+    "<tmp>/srtpu_compile_cache). Safe to share between concurrent "
+    "sessions: all writes are atomic-rename and entries are "
+    "content-addressed.", str)
+COMPILE_CACHE_WARMUP = conf(
+    "spark.rapids.tpu.compileCache.warmup.enabled", True,
+    "Background-compile the top-K most-used fused programs recorded by "
+    "prior runs (their jax.export artifacts) at session start, "
+    "overlapping the first scan's decode/upload I/O; warmed programs "
+    "serve without even re-tracing.", bool)
+COMPILE_CACHE_WARMUP_TOP_K = conf(
+    "spark.rapids.tpu.compileCache.warmup.topK", 32,
+    "How many prior-run program artifacts the async warmup compiles, "
+    "most-used first.", int, checker=lambda v: 0 <= v <= (1 << 12))
+COMPILE_CACHE_ARTIFACT_MIN_S = conf(
+    "spark.rapids.tpu.compileCache.artifact.minCompileSecs", 0.5,
+    "Only fused programs whose first compile took at least this long "
+    "get a serialized warmup artifact (exporting re-traces the program "
+    "in the background; cheap programs reload fast enough from the "
+    "XLA disk cache alone).", float)
+FUSED_SHAPE_BUCKETS = conf(
+    "spark.rapids.sql.fusedExec.shapeBucketing", True,
+    "Bucket scan-upload capacities to 1/8-power-of-two steps so files "
+    "of similar size share compiled fused programs (each distinct "
+    "padded shape multiplies every downstream program variant); costs "
+    "<= 12.5% pad bytes on the host->device link. false keeps the "
+    "fine-grained 64Ki alignment.", bool)
+CPU_ORACLE_ENABLED = conf(
+    "spark.rapids.tpu.test.cpuOracle", False,
+    "Internal: route this session through the CPU (pyarrow) backend; used "
+    "by the differential test harness.", bool, internal=True)
+METRICS_LEVEL = conf(
+    "spark.rapids.sql.metrics.level", "MODERATE",
+    "ESSENTIAL, MODERATE or DEBUG (reference RapidsConf.scala:674).", str,
+    checker=lambda v: v in ("ESSENTIAL", "MODERATE", "DEBUG"))
+ANSI_ENABLED = conf(
+    "spark.sql.ansi.enabled", False,
+    "ANSI mode: arithmetic overflow and invalid casts raise instead of "
+    "returning null/wrapping.", bool)
+CASE_SENSITIVE = conf(
+    "spark.sql.caseSensitive", False,
+    "Case sensitivity of column resolution.", bool)
+SESSION_TZ = conf(
+    "spark.sql.session.timeZone", "UTC",
+    "Session timezone; v1 device datetime ops require UTC like the "
+    "reference's default path (GpuTimeZoneDB handles others there).", str)
+MAX_READER_BATCH_SIZE_ROWS = conf(
+    "spark.rapids.sql.reader.batchSizeRows", 1 << 20,
+    "Soft cap on rows per scan batch (reference maxReadBatchSizeRows).", int)
+IMPROVED_FLOAT_OPS = conf(
+    "spark.rapids.sql.improvedFloatOps.enabled", True,
+    "Allow float aggregation whose ordering differs from CPU Spark "
+    "(reference hasNans/incompat float semantics).", bool)
+TEST_RETRY_OOM_INJECTION_FILTER = conf(
+    "spark.rapids.memory.gpu.oomInjection.filter", "",
+    "Restrict OOM injection to allocation sites whose tag contains this "
+    "substring.", str)
+CHAOS_ENABLED = conf(
+    "spark.rapids.tpu.chaos.enabled", False,
+    "Arm the deterministic fault-injection registry "
+    "(runtime/faults.py): injection sites across every failure domain "
+    "(io.read, shuffle.fetch, shuffle.deserialize, compile.cache_load, "
+    "spill.disk, device.dispatch) raise seeded faults that the "
+    "engine's recovery machinery — backoff retries, quarantine, the "
+    "degradation ladder — must absorb. ci/chaos_check.sh asserts "
+    "results are identical to a clean run.", bool)
+CHAOS_SEED = conf(
+    "spark.rapids.tpu.chaos.seed", 0,
+    "Seed for the per-site injection RNG streams; the same seed "
+    "replays the same fault sequence at each site.", int)
+CHAOS_SITES = conf(
+    "spark.rapids.tpu.chaos.sites", "",
+    "Per-site policies, ';'-separated: 'site:p=0.05' (probability), "
+    "'site:every=7' (every Nth call), 'site:once' (first call only), "
+    "or a bare site name for the default probability. Empty = every "
+    "known site at chaos.defaultProbability.", str)
+CHAOS_DEFAULT_P = conf(
+    "spark.rapids.tpu.chaos.defaultProbability", 0.05,
+    "Injection probability for armed sites without an explicit "
+    "policy.", float, checker=lambda v: 0.0 <= v <= 1.0)
+IO_RETRY_ATTEMPTS = conf(
+    "spark.rapids.tpu.io.retry.attempts", 4,
+    "Attempt budget for transient I/O failure domains (file reads, "
+    "shuffle block fetch/decode, disk spill) before the clean engine "
+    "error surfaces (runtime/backoff.py).", int,
+    checker=lambda v: 1 <= v <= 100)
+IO_RETRY_BACKOFF_MS = conf(
+    "spark.rapids.tpu.io.retry.backoffMs", 50,
+    "Base delay of the exponential backoff between I/O retry "
+    "attempts; each attempt doubles it, with jitter in [0.5x, 1x].",
+    int)
+IO_RETRY_MAX_BACKOFF_MS = conf(
+    "spark.rapids.tpu.io.retry.maxBackoffMs", 2000,
+    "Ceiling on a single backoff delay.", int)
+IO_RETRY_MAX_TOTAL_MS = conf(
+    "spark.rapids.tpu.io.retry.maxTotalMs", 120_000,
+    "Cumulative per-QUERY retry-delay budget across every backoff "
+    "site (io.read, shuffle fetch/decode, spill.disk, ...): once a "
+    "query's summed backoff sleeps cross it, the next retry fails "
+    "fast with RetryExhausted naming this budget instead of "
+    "multiplying per-site backoffs — the fail-fast valve for chained "
+    "retry storms during a device outage. 0 disables the budget "
+    "(per-site attempt counts still bound each loop).", int,
+    checker=lambda v: v >= 0)
+SHUFFLE_CHECKSUM_ENABLED = conf(
+    "spark.rapids.shuffle.checksum.enabled", True,
+    "Frame every serialized shuffle block with a per-block CRC "
+    "(crc32c when the wheel is present, else zlib crc32; the algorithm "
+    "rides in the frame header) verified on deserialize — torn writes "
+    "and bit rot surface as a retried ShuffleChecksumError instead of "
+    "corrupt query results.", bool)
+SEMAPHORE_ACQUIRE_TIMEOUT_MS = conf(
+    "spark.rapids.tpu.semaphore.acquireTimeoutMs", 600_000,
+    "Task-admission semaphore acquisition timeout; on expiry the "
+    "acquire raises SemaphoreTimeout carrying held-permit diagnostics "
+    "(task ids, permit counts) instead of hanging the process. 0 "
+    "disables the timeout.", int)
+DEGRADE_ENABLED = conf(
+    "spark.rapids.tpu.degrade.enabled", True,
+    "Engine degradation ladder: a fused-engine execution failure "
+    "(terminal OOM, injected dispatch fault) demotes the query to the "
+    "eager out-of-core engine, and an eager failure demotes to the "
+    "CPU engine — each demotion recorded in "
+    "last_execution['degradations'] and the degrade.* session "
+    "metrics. false propagates the failure instead.", bool)
+DEGRADE_CB_THRESHOLD = conf(
+    "spark.rapids.tpu.degrade.circuitBreaker.threshold", 3,
+    "Consecutive fused-engine execution failures for one program key "
+    "before the circuit breaker opens and later queries with that key "
+    "skip straight to the eager engine (a success closes it).", int,
+    checker=lambda v: 1 <= v <= 1000)
+STAGE_MAX_ATTEMPTS = conf(
+    "spark.rapids.tpu.stage.maxAttempts", 4,
+    "Attempt budget per task of a stage (runtime/scheduler.py): lost "
+    "workers and lost map outputs re-run the owning task up to this "
+    "many total attempts before the stage fails (mirrors Spark's "
+    "spark.stage.maxConsecutiveAttempts / task maxFailures default).",
+    int, checker=lambda v: 1 <= v <= 100)
+SPECULATION_ENABLED = conf(
+    "spark.rapids.tpu.speculation.enabled", False,
+    "Launch a duplicate attempt for tasks running slower than "
+    "speculation.multiplier x the median completed-task duration "
+    "(Spark speculative execution). Attempt-tagged shuffle output and "
+    "commit-once semantics guarantee first-commit-wins — the losing "
+    "attempt's blocks are discarded, never double-counted.", bool)
+SPECULATION_MULTIPLIER = conf(
+    "spark.rapids.tpu.speculation.multiplier", 1.5,
+    "A running task is speculatable when its elapsed time exceeds this "
+    "multiple of the median completed-task duration.", float,
+    checker=lambda v: v >= 1.0)
+SPECULATION_QUANTILE = conf(
+    "spark.rapids.tpu.speculation.quantile", 0.75,
+    "Fraction of a stage's tasks that must have completed before "
+    "speculation considers the rest (the median needs a sample).",
+    float, checker=lambda v: 0.0 < v <= 1.0)
+SPECULATION_MIN_RUNTIME_MS = conf(
+    "spark.rapids.tpu.speculation.minTaskRuntimeMs", 100,
+    "Never speculate a task running for less than this — sub-threshold "
+    "tasks finish faster than a duplicate attempt could launch.", int,
+    checker=lambda v: v >= 0)
+OBS_ENABLED = conf(
+    "spark.rapids.tpu.obs.enabled", True,
+    "Query-event tracing subsystem (obs/): the session installs a "
+    "typed event bus that every layer emits into (query/stage/task "
+    "lifecycle, plan placement, shuffle, spill, compile, degradations, "
+    "chaos injections) and builds query->stage->task->operator span "
+    "trees from it — the substrate of the event log, the "
+    "qualification/profile reports and the Prometheus dump. false "
+    "removes every emitter's work (a None-check per site).", bool)
+OBS_HISTORY_EVENTS = conf(
+    "spark.rapids.tpu.obs.historyEvents", 100_000,
+    "In-memory ring of recent events kept for live-session reports "
+    "(obs/report.py); older events drop off. Sized for a handful of "
+    "queries; event logs are the durable record.", int,
+    checker=lambda v: 100 <= v <= 10_000_000)
+TELEMETRY_ENABLED = conf(
+    "spark.rapids.tpu.telemetry.enabled", True,
+    "Data-movement telemetry (obs/telemetry.py): a process-wide "
+    "transfer ledger records every byte-crossing site (H2D uploads, "
+    "D2H collects, shuffle write/fetch, disk spill/unspill) tagged "
+    "with the owning query, plus an HBM occupancy timeline fed by the "
+    "spill catalog and per-query roofline accounting "
+    "(bytesMoved/hbmPeakBytes/rooflineFrac in "
+    "last_execution['telemetry'], the profile report and Prometheus). "
+    "false reduces every site to one boolean check.", bool)
+OBS_HTTP_ENABLED = conf(
+    "spark.rapids.tpu.obs.http.enabled", False,
+    "Background HTTP endpoint (obs/http.py, bound to 127.0.0.1) "
+    "serving GET /metrics (Prometheus text exposition), GET /queries "
+    "(admission running/queued tables + per-query data-movement "
+    "telemetry JSON) and GET /healthz. Session-owned: started at init, "
+    "shut down leak-free at session.stop().", bool)
+OBS_HTTP_PORT = conf(
+    "spark.rapids.tpu.obs.http.port", 0,
+    "Port for the obs HTTP endpoint; 0 binds an ephemeral port "
+    "(reported as session.obs.http.port).", int,
+    checker=lambda v: 0 <= v <= 65535)
+EVENTLOG_ENABLED = conf(
+    "spark.rapids.tpu.eventLog.enabled", False,
+    "Write every query's event stream as JSONL under eventLog.dir "
+    "(the Spark event-log analog): one log per query, opened at "
+    "query start, rotated past eventLog.rotation.maxBytes, and "
+    "atomically finalized (rename off .inprogress) at query end. "
+    "obs.eventlog.load() reconstructs the span tree; the "
+    "qualification/profile reports run offline from it.", bool)
+EVENTLOG_DIR = conf(
+    "spark.rapids.tpu.eventLog.dir", "",
+    "Directory for event logs (default: <tmp>/srtpu_eventlog).", str)
+EVENTLOG_ROTATE_BYTES = conf(
+    "spark.rapids.tpu.eventLog.rotation.maxBytes", 64 << 20,
+    "Roll a query's event log to a new part file past this many "
+    "bytes; all parts finalize together at query end.", int,
+    checker=lambda v: v >= 4096)
+ADMISSION_ENABLED = conf(
+    "spark.rapids.tpu.admission.enabled", True,
+    "Query admission control (runtime/admission.py): every top-level "
+    "collect passes through a bounded queue in front of execution — at "
+    "most admission.maxConcurrentQueries run, queue.maxDepth more "
+    "wait FIFO-within-priority, and anything past that is load-shed "
+    "with a QueryRejectedError naming the running queries. false "
+    "admits everything immediately (deadlines/cancellation still "
+    "work).", bool)
+ADMISSION_MAX_CONCURRENT = conf(
+    "spark.rapids.tpu.admission.maxConcurrentQueries", 4,
+    "Queries allowed to execute concurrently in one process; later "
+    "submissions queue. Sized against the device semaphore: more "
+    "concurrent queries than permit groups just queue inside "
+    "execution with worse diagnostics.", int,
+    checker=lambda v: 1 <= v <= 1024)
+ADMISSION_QUEUE_DEPTH = conf(
+    "spark.rapids.tpu.admission.queue.maxDepth", 16,
+    "Bounded admission-queue depth; a submission arriving past it is "
+    "shed immediately with QueryRejectedError (clean failure beats an "
+    "unbounded wait).", int, checker=lambda v: 0 <= v <= 100_000)
+ADMISSION_QUEUE_TIMEOUT_MS = conf(
+    "spark.rapids.tpu.admission.queue.timeoutMs", 120_000,
+    "How long a queued query waits for a slot before failing with "
+    "QueryQueueTimeout diagnostics naming the running queries holding "
+    "capacity. 0 disables the queue timeout.", int,
+    checker=lambda v: v >= 0)
+ADMISSION_QUARANTINE_CRASHES = conf(
+    "spark.rapids.tpu.admission.quarantine.maxWorkerCrashes", 8,
+    "Poison-query quarantine: a query whose task attempts crash "
+    "workers (scheduler eviction feed) this many times is cancelled "
+    "with QueryQuarantinedError carrying the crash history, instead "
+    "of burning stage.maxAttempts per task forever. 0 disables.", int,
+    checker=lambda v: 0 <= v <= 100_000)
+QUERY_TIMEOUT_MS = conf(
+    "spark.rapids.tpu.query.timeoutMs", 0,
+    "Per-query deadline covering queue wait + execution; past it the "
+    "query's CancelToken cancels and the query unwinds with "
+    "QueryDeadlineExceeded at its next cooperative yield point, "
+    "releasing permits and spill-catalog buffers. 0 = no deadline.",
+    int, checker=lambda v: v >= 0)
+QUERY_PRIORITY = conf(
+    "spark.rapids.tpu.query.priority", 0,
+    "Admission-queue priority of this session's queries (higher "
+    "admits first; FIFO within a priority). Set per session, or per "
+    "query via session.conf.set between submissions.", int,
+    checker=lambda v: -1000 <= v <= 1000)
+SERVE_HOST = conf(
+    "spark.rapids.tpu.serve.host", "127.0.0.1",
+    "Bind address of the query service daemon (serve/server.py). The "
+    "protocol is unauthenticated length-prefixed JSON/Arrow-IPC; keep "
+    "it on loopback or a trusted network segment.", str)
+SERVE_PORT = conf(
+    "spark.rapids.tpu.serve.port", 0,
+    "TCP port of the query service daemon; 0 binds an ephemeral port "
+    "(reported as daemon.port — the tests/CI pattern).", int,
+    checker=lambda v: 0 <= v <= 65535)
+SERVE_MAX_CONNECTIONS = conf(
+    "spark.rapids.tpu.serve.maxConnections", 64,
+    "Concurrent client connections the daemon accepts; a connection "
+    "past this is refused with a `busy` error frame at hello. Each "
+    "connection is one session/tenant binding; per-tenant query "
+    "concurrency is governed separately (serve.tenant.* caps on top "
+    "of the global admission bound).", int,
+    checker=lambda v: 1 <= v <= 100_000)
+SERVE_MAX_FRAME_BYTES = conf(
+    "spark.rapids.tpu.serve.maxFrameBytes", 64 << 20,
+    "Upper bound on one protocol frame (length-prefixed JSON header "
+    "or Arrow-IPC payload); an oversized frame fails the request with "
+    "a clean `protocol` error instead of an unbounded buffer.", int,
+    checker=lambda v: 1 << 10 <= v <= 1 << 34)
+SERVE_DRAIN_TIMEOUT_MS = conf(
+    "spark.rapids.tpu.serve.drain.timeoutMs", 30_000,
+    "Graceful-drain deadline (daemon.drain() / SIGTERM): the daemon "
+    "stops accepting work (admission sheds new submissions with "
+    "reason='draining', readiness flips 503), waits up to this long "
+    "for in-flight queries to finish, then cancels stragglers through "
+    "the admission cancel machinery so the stop is always bounded.",
+    int, checker=lambda v: v >= 0)
+SERVE_PLAN_CACHE_ENABLED = conf(
+    "spark.rapids.tpu.serve.planCache.enabled", True,
+    "Structural plan cache for served queries (serve/plan_cache.py): "
+    "query specs are normalized with literals parameterized out and "
+    "keyed by structural digest + tenant + planning-conf digest, so "
+    "repeated parameterized queries skip spec compilation and "
+    "planning and ride the warm compiled executables.", bool)
+SERVE_PLAN_CACHE_MAX_ENTRIES = conf(
+    "spark.rapids.tpu.serve.planCache.maxEntries", 256,
+    "Structural plan-cache entries retained (LRU); one entry per "
+    "normalized query shape per tenant.", int,
+    checker=lambda v: 1 <= v <= 1_000_000)
+SERVE_PLAN_CACHE_BINDINGS = conf(
+    "spark.rapids.tpu.serve.planCache.bindingsPerEntry", 16,
+    "Fully-planned physical plans retained per structural entry (LRU "
+    "over distinct parameter bindings): an exact-binding repeat "
+    "reuses the physical plan outright; a new binding re-plans from "
+    "the cached template (still skipping spec compilation).", int,
+    checker=lambda v: 1 <= v <= 100_000)
+SERVE_TENANT_MAX_CONCURRENT = conf(
+    "spark.rapids.tpu.serve.tenant.maxConcurrentQueries", 0,
+    "Per-tenant concurrent-query cap on top of the global admission "
+    "bound; a tenant at its cap is shed with QueryRejectedError "
+    "reason='tenant quota' before touching the admission queue. "
+    "0 = no per-tenant cap.", int, checker=lambda v: v >= 0)
+SERVE_TENANT_MAX_DEVICE_BYTES = conf(
+    "spark.rapids.tpu.serve.tenant.maxDeviceBytes", 0,
+    "Per-tenant device-byte budget: once a tenant's billed bytes "
+    "moved (transfer-ledger totals across its queries) exceed this, "
+    "further queries are shed with reason='tenant quota' until the "
+    "ledger is reset (tenants.reset_usage). 0 = unmetered.", int,
+    checker=lambda v: v >= 0)
+SERVE_PRIORITY_CLASSES = conf(
+    "spark.rapids.tpu.serve.priorityClasses",
+    "interactive=100,standard=0,batch=-100",
+    "Named priority classes a connection may bind "
+    "('name=weight,...'); the weight feeds the admission queue's "
+    "priority-then-FIFO ordering (runtime/admission.py). An unknown "
+    "class at hello "
+    "fails the handshake with a clean error.", str)
+SERVE_RETRY_AFTER_MS = conf(
+    "spark.rapids.tpu.serve.retryAfterMs", 250,
+    "Backpressure hint carried on `busy` and `draining` error frames "
+    "(retryAfterMs field): how long a refused client (or the fleet "
+    "router) should wait before retrying this replica instead of "
+    "hot-spinning on it. 0 omits the hint.", int,
+    checker=lambda v: 0 <= v <= 600_000)
+SERVE_CONNECT_ATTEMPTS = conf(
+    "spark.rapids.tpu.serve.client.connect.attempts", 1,
+    "Connection attempts ServeClient makes before surfacing the "
+    "ConnectionError: a replica restarting under the fleet supervisor "
+    "refuses TCP for its boot window, so fleet-facing clients set "
+    "this > 1 and ride the runtime/backoff.py exponential-with-jitter "
+    "curve between attempts (attempts land in the backoff 'serve."
+    "connect' counter). 1 preserves the fail-fast embedded default.",
+    int, checker=lambda v: 1 <= v <= 1000)
+SERVE_CONNECT_BACKOFF_MS = conf(
+    "spark.rapids.tpu.serve.client.connect.backoffMs", 50,
+    "Base delay of ServeClient's connect retry curve (delay_i = "
+    "min(max, base * 2^i) * jitter, the shared runtime/backoff.py "
+    "policy). A `busy`/`draining` refusal frame carrying a larger "
+    "retryAfterMs hint overrides the computed delay for that attempt.",
+    int, checker=lambda v: 1 <= v <= 600_000)
+SERVE_CONNECT_MAX_BACKOFF_MS = conf(
+    "spark.rapids.tpu.serve.client.connect.maxBackoffMs", 2000,
+    "Cap on one ServeClient connect-retry delay.", int,
+    checker=lambda v: 1 <= v <= 600_000)
+FLEET_REPLICAS = conf(
+    "spark.rapids.tpu.fleet.replicas", 2,
+    "Replica daemons the ReplicaSupervisor (serve/supervisor.py) "
+    "spawns: one OS process per replica, each owning its own warm "
+    "TpuSparkSession (and a chip subset when fleet.replica.mesh "
+    "assigns one), crash-looped with backoff and SIGTERM-drained on "
+    "shutdown.", int, checker=lambda v: 1 <= v <= 1024)
+FLEET_REPLICA_MESH = conf(
+    "spark.rapids.tpu.fleet.replica.mesh", 0,
+    "Chip-subset size each replica's session claims "
+    "(spark.rapids.tpu.mesh in the replica conf): N replicas x this "
+    "many chips partition the host's devices. 0 leaves the replica "
+    "conf untouched (every replica sees the session default).", int,
+    checker=lambda v: 0 <= v <= 4096)
+FLEET_SPAWN_TIMEOUT_MS = conf(
+    "spark.rapids.tpu.fleet.spawn.timeoutMs", 180_000,
+    "How long ReplicaSupervisor.wait_ready waits for a spawned "
+    "replica to write its ready file (session init + daemon bind) "
+    "before giving up on the fleet start.", int,
+    checker=lambda v: 1000 <= v <= 3_600_000)
+FLEET_RESTART_MAX = conf(
+    "spark.rapids.tpu.fleet.restart.maxRestarts", 8,
+    "Consecutive crash-loop restarts the supervisor grants one "
+    "replica before declaring it failed (fleet.replica phase="
+    "'giveup'); a clean exit or a served ready file resets the "
+    "count. 0 disables restarts entirely.", int,
+    checker=lambda v: 0 <= v <= 10_000)
+FLEET_RESTART_BACKOFF_MS = conf(
+    "spark.rapids.tpu.fleet.restart.backoffMs", 200,
+    "Base delay of the supervisor's crash-loop restart curve "
+    "(runtime/backoff.py policy shape: min(max, base * 2^crashes) "
+    "* jitter).", int, checker=lambda v: 1 <= v <= 600_000)
+FLEET_RESTART_MAX_BACKOFF_MS = conf(
+    "spark.rapids.tpu.fleet.restart.maxBackoffMs", 5000,
+    "Cap on one crash-loop restart delay.", int,
+    checker=lambda v: 1 <= v <= 3_600_000)
+FLEET_DRAIN_TIMEOUT_MS = conf(
+    "spark.rapids.tpu.fleet.drain.timeoutMs", 45_000,
+    "Supervisor shutdown budget per replica: SIGTERM (graceful drain "
+    "inside the replica), then SIGKILL past this deadline so fleet "
+    "stop is always bounded.", int,
+    checker=lambda v: 100 <= v <= 3_600_000)
+FLEET_ROUTER_HOST = conf(
+    "spark.rapids.tpu.fleet.router.host", "127.0.0.1",
+    "Bind address of the fleet front door (serve/router.py). Same "
+    "trust model as serve.host: loopback or a trusted segment.", str)
+FLEET_ROUTER_PORT = conf(
+    "spark.rapids.tpu.fleet.router.port", 0,
+    "TCP port of the fleet router; 0 binds an ephemeral port "
+    "(router.port).", int, checker=lambda v: 0 <= v <= 65535)
+FLEET_ROUTER_HTTP_PORT = conf(
+    "spark.rapids.tpu.fleet.router.httpPort", 0,
+    "Port of the router's own health endpoint (obs/http.py "
+    "FleetHttpServer): /healthz liveness, /readyz aggregating member "
+    "health (200 while >= 1 replica routable), /metrics with the "
+    "srtpu_fleet_* families. 0 binds ephemeral.", int,
+    checker=lambda v: 0 <= v <= 65535)
+FLEET_HEALTH_INTERVAL_MS = conf(
+    "spark.rapids.tpu.fleet.health.intervalMs", 200,
+    "Router health-poll cadence: each replica's /readyz (or a TCP "
+    "probe when the replica exposes no HTTP endpoint) is sampled this "
+    "often; the member-health table drives routing and the router's "
+    "own aggregated /readyz.", int, checker=lambda v: 10 <= v <= 60_000)
+FLEET_HEALTH_MAX_FAILURES = conf(
+    "spark.rapids.tpu.fleet.health.maxConsecutiveFailures", 2,
+    "Consecutive failed health probes before a replica is routed "
+    "around (one flaky poll must not evict a healthy replica; a dead "
+    "one is also discovered synchronously by a failed send).", int,
+    checker=lambda v: 1 <= v <= 100)
+FLEET_FAILOVER_ATTEMPTS = conf(
+    "spark.rapids.tpu.fleet.failover.maxAttempts", 4,
+    "Replicas one routed request may be offered to before the router "
+    "returns a clean `unavailable` error: a replica dying mid-query "
+    "(connection break) or refusing with busy/draining/device_fenced "
+    "consumes an attempt and the request — under its idempotency "
+    "key — moves to the next candidate.", int,
+    checker=lambda v: 1 <= v <= 64)
+FLEET_DEDUPE_ENTRIES = conf(
+    "spark.rapids.tpu.fleet.dedupe.entries", 512,
+    "Per-replica idempotency window: completed request ids (and their "
+    "result frames) retained so a resubmitted in-flight query — the "
+    "router's failover retry, or a client retrying a lost router — is "
+    "answered from the window and billed exactly once instead of "
+    "executing twice. LRU; 0 disables deduplication.", int,
+    checker=lambda v: 0 <= v <= 1_000_000)
+FLEET_DEDUPE_MAX_BYTES = conf(
+    "spark.rapids.tpu.fleet.dedupe.maxResultBytes", 256 << 20,
+    "Total result-payload bytes the dedupe window retains; oldest "
+    "entries evict past it (an evicted id re-executes on resubmit, "
+    "trading the bounded window for at-least-once on very large "
+    "results).", int, checker=lambda v: 1 << 20 <= v <= 1 << 40)
+SEMAPHORE_ATOMIC_QUERY_GROUPS = conf(
+    "spark.rapids.tpu.semaphore.atomicQueryGroups", True,
+    "Deadlock-free device-semaphore discipline: all permits a query "
+    "ever holds form ONE atomic group — the query's first acquire "
+    "waits ticket-FIFO for its permit chunk (holding nothing while it "
+    "waits), and every later acquire by the same query (nested stages, "
+    "sibling tasks) joins the group immediately instead of blocking "
+    "behind other queries' holds. Two concurrent queries can no "
+    "longer interleave partial holds into a wait cycle. false "
+    "restores the legacy per-task acquisition (deadlock-prone under "
+    "concurrent per-operator queries; the sanitizer is the only "
+    "backstop then).", bool)
+SANITIZER_ENABLED = conf(
+    "spark.rapids.tpu.sanitizer.enabled", False,
+    "Runtime concurrency sanitizer (runtime/sanitizer.py): maintains "
+    "a wait-for graph over the blocking resource classes (device "
+    "semaphore permits, per-query device-quota reservations, "
+    "admission slots), detects deadlock cycles on every edge "
+    "insertion, unwinds a victim query through the cancel machinery "
+    "with DeadlockDetectedError naming the cycle, and flags "
+    "permit/lock acquisition-order inversions even when they do not "
+    "deadlock this run. false short-circuits every hook to a "
+    "None-check.", bool)
+SANITIZER_VICTIM_POLICY = conf(
+    "spark.rapids.tpu.sanitizer.deadlock.victimPolicy", "youngest",
+    "Which query in a detected wait-for cycle the sanitizer unwinds: "
+    "'youngest' (highest query id — least work lost) or 'oldest' "
+    "(lowest query id).", str,
+    checker=lambda v: v in ("youngest", "oldest"))
+SANITIZER_VICTIM_RETRY = conf(
+    "spark.rapids.tpu.sanitizer.deadlock.retryVictim", True,
+    "After the sanitizer unwinds this query as a deadlock victim "
+    "(DeadlockDetectedError), the top-level collect resubmits it once "
+    "through admission — by then the cycle's survivors hold the "
+    "contested resources and the retry serializes behind them, so "
+    "both queries complete. false propagates the error to the "
+    "caller.", bool)
+DEVICE_RECOVERY_ENABLED = conf(
+    "spark.rapids.tpu.device.recovery.enabled", True,
+    "Warm device-loss recovery (runtime/device_monitor.py): a fatal "
+    "TPU runtime error at a dispatch/transfer site fences the engine, "
+    "cancels in-flight queries with a retryable DeviceLostError, bumps "
+    "the process device epoch (stale device handles then raise instead "
+    "of touching dead buffers), rebuilds the PJRT backend, restores "
+    "spillable state from the host/disk tiers and invalidates "
+    "device-only caches (encoded dictionaries, warm executables) — the "
+    "service recovers in one window instead of dying with the process. "
+    "false restores the reference plugin's behavior: the error "
+    "propagates (and spark.rapids.tpu.fatalErrorExitCode may kill the "
+    "process).", bool)
+DEVICE_RECOVERY_FENCED_ADMISSION = conf(
+    "spark.rapids.tpu.device.recovery.fencedAdmission", "degrade",
+    "What happens to queries submitted while the engine is FENCED for "
+    "device recovery: 'degrade' admits them and the dispatch ladder "
+    "serves them on the CPU rung (the service stays up, the "
+    "degradation ladder's discipline), 'queue' parks them in the "
+    "admission "
+    "queue until the fence lifts (bounded by admission.queue."
+    "timeoutMs), 'shed' rejects them immediately with a "
+    "QueryRejectedError naming the fence.", str,
+    checker=lambda v: v in ("degrade", "queue", "shed"))
+DEVICE_RECOVERY_RESUBMIT = conf(
+    "spark.rapids.tpu.device.recovery.resubmit", True,
+    "After a query is unwound by device-loss fencing "
+    "(DeviceLostError), the outermost collect waits for recovery and "
+    "resubmits it once through admission (the sanitizer retryVictim "
+    "pattern): one fence costs in-flight queries one recovery window, "
+    "not an error surfaced to the caller. false propagates the "
+    "DeviceLostError.", bool)
+DEVICE_RECOVERY_DRAIN_TIMEOUT_MS = conf(
+    "spark.rapids.tpu.device.recovery.drainTimeoutMs", 30_000,
+    "How long recovery waits for fenced queries to unwind (running "
+    "admissions drained, semaphore permits released) before "
+    "proceeding with the epoch bump and backend rebuild anyway — a "
+    "wedged unwind must not hold the whole engine down.", int,
+    checker=lambda v: v >= 0)
+DEVICE_RECOVERY_TIMEOUT_MS = conf(
+    "spark.rapids.tpu.device.recovery.timeoutMs", 60_000,
+    "How long a resubmitting query waits for the fence to lift before "
+    "giving up and propagating its DeviceLostError.", int,
+    checker=lambda v: v >= 1)
+DEVICE_RECOVERY_REBUILD_BACKEND = conf(
+    "spark.rapids.tpu.device.recovery.rebuildBackend", True,
+    "Tear down the PJRT client during recovery "
+    "(jax.extend.backend.clear_backends) so the next dispatch "
+    "initializes a fresh backend; false only clears compilation "
+    "caches and bumps the epoch (for backends whose client survives "
+    "a device reset).", bool)
+QUOTA_DEVICE_BYTES_PER_QUERY = conf(
+    "spark.rapids.tpu.quota.device.maxBytesPerQuery", 0,
+    "Per-query cap on device-pool reservations (SpillCatalog tags "
+    "every reservation with its owning query id): an over-quota "
+    "allocation first spills the OFFENDING query's own device buffers, "
+    "then raises TpuRetryOOM/TpuSplitAndRetryOOM for that query only — "
+    "one runaway query degrades itself instead of pressuring the whole "
+    "session. 0 disables per-query quotas.", int,
+    checker=lambda v: v >= 0)
+STREAM_ENABLED = conf(
+    "spark.rapids.tpu.stream.enabled", True,
+    "Out-of-core streaming executor (stream/): when a parquet scan's "
+    "estimated working set exceeds stream.window.quotaFraction of "
+    "free HBM, the dispatch ladder runs the eligible operator chain "
+    "(scan -> filter/project/broadcast-join/partial-agg) through a "
+    "bounded device window instead of materializing the whole table: "
+    "prefetch threads decode row-group units into a host staging "
+    "queue, a double-buffered uploader fills window slots, compute "
+    "retires each slot to host partials, and the final merge runs on "
+    "the retired partials — tables larger than HBM run at link speed. "
+    "false removes the stream rung; oversized scans fall back to the "
+    "eager engine's per-partition path.", bool)
+STREAM_WINDOW_MAX_BYTES = conf(
+    "spark.rapids.tpu.stream.window.maxBytes", 0,
+    "Hard cap on the streaming device window (bytes of in-flight "
+    "window slots, charged to the SpillCatalog under the owning "
+    "query's quota). 0 derives the window purely from "
+    "stream.window.quotaFraction x free HBM; a nonzero value is "
+    "min'd with that derivation (CI uses a tiny cap to force many "
+    "windows over a small table).", int,
+    checker=lambda v: v >= 0)
+STREAM_PREFETCH_THREADS = conf(
+    "spark.rapids.tpu.stream.prefetch.threads", 4,
+    "Parquet prefetch threads feeding the streaming executor's host "
+    "staging queue. Each thread decodes one row-group unit at a time "
+    "under the io.retry/backoff policy; the staging queue is bounded "
+    "at 2x this count so decode never runs unboundedly ahead of "
+    "upload.", int,
+    checker=lambda v: 1 <= v <= 64)
+STREAM_WINDOW_QUOTA_FRACTION = conf(
+    "spark.rapids.tpu.stream.window.quotaFraction", 0.5,
+    "Fraction of free HBM (pool limit minus current reservations) the "
+    "streaming window may occupy, and the selection threshold: a scan "
+    "whose estimated device working set exceeds this fraction of free "
+    "HBM streams instead of materializing. The resulting budget is "
+    "additionally min'd with stream.window.maxBytes and the per-query "
+    "device quota, then scaled by the admission priority class "
+    "(negative-priority 'batch' tenants get half a window) so a "
+    "10x-HBM batch stream cannot starve interactive tenants.", float,
+    checker=lambda v: 0.0 < v <= 1.0)
+STREAM_MESH_ENABLED = conf(
+    "spark.rapids.tpu.stream.mesh.enabled", False,
+    "Stretch (dry-run): plan window slots round-robin across the "
+    "mesh's chips so the aggregate fleet HBM is the window and ingest "
+    "parallelizes across per-chip links. Currently emits the "
+    "placement plan as stream.window events without routing data; "
+    "execution stays single-chip.", bool)
+WRITE_TASKS = conf(
+    "spark.rapids.tpu.write.tasks", 1,
+    "Task fan-out of a file write job (io/commit.py): the collected "
+    "result is sliced into this many write tasks, each running as a "
+    "scheduler task attempt with its own attempt-tagged staging dir — "
+    "so worker-crash re-attempts and speculative duplicates ride the "
+    "same retry/first-commit-wins machinery as compute tasks.", int,
+    checker=lambda v: 1 <= v <= 4096)
+WRITE_MANIFEST_ENABLED = conf(
+    "spark.rapids.tpu.write.manifest.enabled", True,
+    "Publish a _SUCCESS manifest (file list + sizes + crc32 checksums) "
+    "as the LAST step of job commit — its presence is the commit "
+    "point readers can gate on, and what "
+    "write.manifest.validateOnRead checks files against. false writes "
+    "no marker (files still publish via atomic renames).", bool)
+WRITE_VALIDATE_ON_READ = conf(
+    "spark.rapids.tpu.write.manifest.validateOnRead", False,
+    "When a scanned input directory carries a _SUCCESS manifest, "
+    "verify every listed file's existence, size and crc32 before the "
+    "scan plans (io/readers.py expand_paths) — torn or bit-rotted "
+    "output fails fast with ManifestMismatch instead of decoding "
+    "garbage. Off by default: it re-reads every data file.", bool)
+WRITE_SWEEP_TTL_S = conf(
+    "spark.rapids.tpu.write.staging.sweepTtlSeconds", 3600,
+    "Orphaned-staging reclamation age: job setup sweeps "
+    "_temporary/<jobId> dirs (and crashed overwrite-swap debris) whose "
+    "owner pid is dead, or — when the owner is unknowable (another "
+    "host, unreadable marker) — whose newest file is older than this. "
+    "A live job's staging (owner pid alive) is never touched.", int,
+    checker=lambda v: v >= 0)
+WRITE_DELTA_COMMIT_ATTEMPTS = conf(
+    "spark.rapids.tpu.write.delta.commitAttempts", 10,
+    "Optimistic-concurrency attempt budget for a lakehouse commit "
+    "(Delta / Iceberg version-file claim): a loser re-reads the "
+    "snapshot, re-runs append-vs-overwrite conflict semantics and "
+    "retries under the shared backoff policy (billed to the query's "
+    "io.retry.maxTotalMs budget) up to this many tries before "
+    "RetryExhausted surfaces.", int,
+    checker=lambda v: 1 <= v <= 100)
+
+
+TORCH_DEVICE = conf(
+    "spark.rapids.torch.device", "",
+    "The device a session of the PyTorch port runs on: empty (the "
+    "default) means the current CUDA device, and the session raises at "
+    "creation when none is available; 'cpu' runs every kernel's plain "
+    "PyTorch version on the CPU (the port's tests); 'cuda:N' picks a "
+    "card. The port never moves work to the CPU on its own.", str)
+
+
+def conf_entries() -> List[ConfEntry]:
+    return sorted(_REGISTRY.values(), key=lambda e: e.key)
+
+
+class RapidsConf:
+    """Immutable snapshot of the registry resolved against user settings."""
+
+    def __init__(self, settings: Optional[Dict[str, Any]] = None):
+        settings = dict(settings or {})
+        # Env var names are case-sensitive; "__" encodes "." so camelCase
+        # keys stay addressable: SPARK_RAPIDS_TPU_CONF_spark__rapids__sql__batchSizeRows
+        env_prefix = "SPARK_RAPIDS_TPU_CONF_"
+        for k, v in os.environ.items():
+            if k.startswith(env_prefix):
+                settings.setdefault(k[len(env_prefix):].replace("__", "."), v)
+        self._values: Dict[str, Any] = {}
+        #: Per-operator on/off switches — the reference's
+        #: spark.rapids.sql.{expression,exec}.<Name> dynamic confs
+        #: (GpuOverrides registry isIncompat/disabledMsg surface):
+        #: setting one false tags that operator NOT_ON_TPU, so it
+        #: takes the CPU path with an explain reason (tagging is
+        #: per-operator; children keep their own placement).
+        self._op_switches: Dict[tuple, bool] = {}
+        unknown = []
+        for key, raw in settings.items():
+            entry = _REGISTRY.get(key)
+            if entry is not None:
+                self._values[key] = entry.convert(raw)
+                continue
+            for kind in ("expression", "exec"):
+                prefix = f"spark.rapids.sql.{kind}."
+                if key.startswith(prefix) and key[len(prefix):]:
+                    # same boolean grammar as registered bool confs
+                    v = raw if isinstance(raw, bool) else \
+                        str(raw).strip().lower() in ("true", "1", "yes")
+                    self._op_switches[(kind, key[len(prefix):])] = v
+                    break
+            else:
+                unknown.append(key)
+        self.unknown_keys = unknown
+
+    def expression_enabled(self, name: str) -> bool:
+        return self._op_switches.get(("expression", name), True)
+
+    def exec_enabled(self, name: str) -> bool:
+        return self._op_switches.get(("exec", name), True)
+
+    def get(self, entry: ConfEntry):
+        return self._values.get(entry.key, entry.default)
+
+    def __getitem__(self, key: str):
+        entry = _REGISTRY[key]
+        return self._values.get(key, entry.default)
+
+    # Convenience properties for hot confs.
+    @property
+    def is_sql_enabled(self):
+        return self.get(SQL_ENABLED)
+
+    @property
+    def is_explain_only(self):
+        return self.get(SQL_MODE) == "explainOnly"
+
+    @property
+    def batch_size_rows(self):
+        return self.get(BATCH_SIZE_ROWS)
+
+    @property
+    def shuffle_partitions(self):
+        return self.get(SHUFFLE_PARTITIONS)
+
+
+def ansi_enabled() -> bool:
+    """ANSI mode of the active session (expressions evaluate without a
+    conf handle; the session is a process singleton, Plugin.scala-style)."""
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+
+    s = TpuSparkSession.active()
+    return bool(s and s.rapids_conf.get(ANSI_ENABLED))
+
+
+def expression_enabled(name: str) -> bool:
+    """Per-expression device switch of the active session
+    (spark.rapids.sql.expression.<Name>; reference GpuOverrides expr
+    registry disable surface)."""
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+
+    s = TpuSparkSession.active()
+    return s is None or s.rapids_conf.expression_enabled(name)
+
+
+def generate_docs() -> str:
+    """Markdown table of all public confs (reference RapidsConf.scala:2166)."""
+    lines = [
+        "# spark-rapids-tpu configuration",
+        "",
+        "| Name | Default | Startup-only | Description |",
+        "|---|---|---|---|",
+    ]
+    dynamic_note = [
+        "",
+        "## Per-operator switches (dynamic keys)",
+        "",
+        "`spark.rapids.sql.exec.<LogicalOperator>=false` and "
+        "`spark.rapids.sql.expression.<Expression>=false` force the "
+        "named operator/expression to the CPU path "
+        "with an explain reason — the reference GpuOverrides registry "
+        "disable surface. See docs/supported_ops.md for the valid "
+        "names.",
+    ]
+    for e in conf_entries():
+        if e.internal:
+            continue
+        lines.append(
+            f"| {e.key} | {e.default} | {'yes' if e.startup_only else ''} "
+            f"| {e.doc} |")
+    lines.extend(dynamic_note)
+    return "\n".join(lines) + "\n"

@@ -1,5 +1,7 @@
 """Physical operators — counterpart of `spark_rapids_tpu/exec/operators.py`
-for the cached-relation source, filter, project and the hash aggregate.
+for the port's slice: the cached-relation source, the parquet scan
+(PERFILE), filter, project, the hash aggregate in complete, partial and
+final modes, and the hash shuffle exchange with device-resident blocks.
 
 The hash aggregate keeps the reference's two grouping paths:
 - binned (`_partial_binned`): when every group key is an integer column
@@ -8,24 +10,39 @@ The hash aggregate keeps the reference's two grouping paths:
   (kernel K4, unsorted ids; one launch for a Sum/Average/count(*)
   aggregate), with no sort at all; q5's `region` codes take this path;
 - sorted (`segmented.group_by`): sort by orderable keys, segment
-  boundaries, then the same reductions over sorted ids. The merge of
-  partial buffers always takes it.
+  boundaries, then the same reductions over sorted ids. Merges of
+  partial buffers always take it.
+
+The exchange's map side partitions each batch on the device (murmur3
+partition ids, kernel K6; a stable counting sort by id, K7; one batch
+gather, K8) and keeps the sorted batch plus per-partition offsets in the
+shuffle manager; the reduce side takes its row range out of every block
+and concatenates them. The reference's spill-backed parking, retry and
+semaphore discipline are not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import encoding as _encoding
+from spark_rapids_tpu_torch.columnar.arrow_bridge import arrow_to_device
 from spark_rapids_tpu_torch.columnar.batch import (
     ColumnBatch,
     DeviceColumn,
     concat_batches,
+    gather_columns,
     next_capacity,
 )
-from spark_rapids_tpu_torch.exec.base import PhysicalPlan
+from spark_rapids_tpu_torch.config import rapids_conf as rc
+from spark_rapids_tpu_torch.exec.base import (
+    PhysicalPlan,
+    conf_device,
+    new_task_context,
+)
 from spark_rapids_tpu_torch.expr.aggregates import (
     AggregateFunction,
     Average,
@@ -33,17 +50,26 @@ from spark_rapids_tpu_torch.expr.aggregates import (
     Sum,
 )
 from spark_rapids_tpu_torch.expr.core import Alias, EvalContext
-from spark_rapids_tpu_torch.ops import filterops, segmented
-from spark_rapids_tpu_torch.sqltypes import StructField, StructType
+from spark_rapids_tpu_torch.io import readers
+from spark_rapids_tpu_torch.ops import filterops, partition, segmented
+from spark_rapids_tpu_torch.shuffle.manager import get_shuffle_manager
+from spark_rapids_tpu_torch.sqltypes import StringType, StructField, StructType
 from spark_rapids_tpu_torch.sqltypes.datatypes import long, torch_dtype
 
+
+def _conf_get(conf, entry, default):
+    return conf.get(entry) if conf is not None else default
+
+
+# ---------------------------------------------------------------- sources
 
 class TpuCachedRelationExec(PhysicalPlan):
     """Source over a device-resident cache entry (exec/relation_cache.py):
     one partition per cached part."""
 
-    def __init__(self, entry):
-        super().__init__([], entry.schema)
+    def __init__(self, entry, schema=None, conf=None):
+        super().__init__([], schema if schema is not None else entry.schema,
+                         conf)
         self.entry = entry
 
     @property
@@ -55,9 +81,69 @@ class TpuCachedRelationExec(PhysicalPlan):
             yield self.entry.device_part(pid)
 
 
+class TpuFileScanExec(PhysicalPlan):
+    """Parquet scan with the PERFILE strategy: one read task per file,
+    row-capped at spark.rapids.sql.reader.batchSizeRows, each table
+    uploaded with `arrow_to_device`. String columns are read as parquet
+    DICTIONARY arrays (spark.rapids.tpu.encoded.*), so they upload as
+    codes plus one interned dictionary. AUTO resolves to PERFILE here;
+    COALESCING and MULTITHREADED, pushed row-group pruning (the Filter
+    above the scan stays exact without it) and hive-partitioned layouts
+    are not ported yet (ROADMAP A10)."""
+
+    def __init__(self, fmt: str, paths: List[str], schema, conf,
+                 pushed_columns: Optional[List[str]] = None,
+                 pushed_filters=None, options: Optional[dict] = None):
+        super().__init__([], schema, conf)
+        if fmt != "parquet":
+            raise NotImplementedError(
+                f"{fmt} scans are not ported yet (ROADMAP A14)")
+        strategy = _conf_get(conf, rc.PARQUET_READER_TYPE, "AUTO")
+        if strategy not in ("AUTO", "PERFILE"):
+            raise NotImplementedError(
+                f"the {strategy} parquet reader is not ported yet "
+                "(ROADMAP A10); use PERFILE")
+        self.fmt = fmt
+        self.paths = paths
+        self.pushed_columns = pushed_columns
+        self.pushed_filters = pushed_filters or None
+        self.options = options or {}
+        self._batch_rows = _conf_get(conf, rc.MAX_READER_BATCH_SIZE_ROWS,
+                                      1 << 20)
+        self._read_dict = (conf is None
+                           or (conf.get(rc.ENCODED_ENABLED)
+                               and conf.get(rc.ENCODED_READ_DICTIONARY)))
+        self._tasks = [[f] for f in readers.expand_paths(
+            paths, ".parquet")] or [[]]
+
+    @property
+    def num_partitions(self):
+        return max(1, len(self._tasks))
+
+    def _dict_columns(self, cols) -> Optional[List[str]]:
+        if not self._read_dict:
+            return None
+        out = [f.name for f in self.schema.fields
+               if isinstance(f.dataType, StringType)
+               and (cols is None or f.name in cols)]
+        return out or None
+
+    def execute_partition(self, pid, ctx):
+        if pid >= len(self._tasks) or not self._tasks[pid]:
+            return
+        cols = self.pushed_columns
+        device = conf_device(self.conf)
+        for table in readers.read_parquet_task(
+                self._tasks[pid], cols, self._batch_rows,
+                read_dictionary=self._dict_columns(cols)):
+            yield arrow_to_device(table, device=device)
+
+
+# ------------------------------------------------------- project / filter
+
 class TpuProjectExec(PhysicalPlan):
-    def __init__(self, exprs: List[Alias], child, schema):
-        super().__init__([child], schema)
+    def __init__(self, exprs: List[Alias], child, schema, conf=None):
+        super().__init__([child], schema, conf)
         self.exprs = exprs
 
     def _run(self, batch: ColumnBatch) -> ColumnBatch:
@@ -72,8 +158,8 @@ class TpuProjectExec(PhysicalPlan):
 
 
 class TpuFilterExec(PhysicalPlan):
-    def __init__(self, condition, child):
-        super().__init__([child], child.schema)
+    def __init__(self, condition, child, conf=None):
+        super().__init__([child], child.schema, conf)
         self.condition = condition
 
     def _run(self, batch: ColumnBatch) -> ColumnBatch:
@@ -85,6 +171,8 @@ class TpuFilterExec(PhysicalPlan):
             yield self._run(batch)
 
 
+# -------------------------------------------------------------- aggregate
+
 def _buffer_schema(grouping: List[Alias], aggs: List[Alias]) -> StructType:
     fields = [StructField(g.name, g.dtype, True) for g in grouping]
     for a in aggs:
@@ -95,37 +183,44 @@ def _buffer_schema(grouping: List[Alias], aggs: List[Alias]) -> StructType:
 
 
 class TpuHashAggregateExec(PhysicalPlan):
-    """mode='complete': partial aggregation of every input batch, then one
-    sorted merge and final evaluation, emitting [keys..., results...].
+    """mode='partial' emits [keys..., buffers...] per input partition;
+    mode='final' consumes them after the exchange and emits
+    [keys..., results...]; mode='complete' does both in one step.
 
-    The reference plans complete mode only over a single-partition child;
-    the port's plans are built by hand without an exchange, so complete
-    mode here is ONE output partition that drains every child partition
-    (q5: 8 cached parts -> 8 binned partials -> one merge). Partial and
-    final modes come with the exchange in a later slice. Partials are
-    merged early (`_merge_buffers`) once their capacity passes
-    2 * target_rows, as the reference does, without its spill parking."""
+    The planner chooses complete only over a single-partition child, as
+    the reference's does. A complete aggregate built by hand over many
+    partitions (slice 1's `q5.q5_plan`) drains every child partition
+    into its one output partition. Pending buffers are merged early
+    (`_merge_buffers`) once their rows pass 2 * target_rows
+    (spark.rapids.sql.batchSizeRows); a final merge over more than
+    target_rows groups re-partitions the buffers by key and finalises
+    each piece (`_finalize_partitioned`)."""
 
-    #: partial capacity that triggers an early merge (the reference's
-    #: default spark.rapids.sql.batchSizeRows)
+    #: default of spark.rapids.sql.batchSizeRows when built without conf
     target_rows = 1 << 20
 
     def __init__(self, mode: str, grouping: List[Alias], aggs: List[Alias],
-                 child):
-        if mode != "complete":
-            raise NotImplementedError(
-                f"{mode} aggregation is not ported yet (complete only)")
+                 child, conf=None):
+        if mode not in ("partial", "final", "complete"):
+            raise ValueError(f"aggregate mode {mode!r}")
         self.mode = mode
         self.grouping = grouping
         self.aggs = aggs
-        out_schema = StructType(
-            [StructField(g.name, g.dtype, True) for g in grouping]
-            + [StructField(a.name, a.dtype, True) for a in aggs])
-        super().__init__([child], out_schema)
+        out_schema = (_buffer_schema(grouping, aggs) if mode == "partial"
+                      else StructType(
+                          [StructField(g.name, g.dtype, True)
+                           for g in grouping]
+                          + [StructField(a.name, a.dtype, True)
+                             for a in aggs]))
+        super().__init__([child], out_schema, conf)
+        if conf is not None:
+            self.target_rows = conf.get(rc.BATCH_SIZE_ROWS)
 
     @property
     def num_partitions(self):
-        return 1
+        if self.mode == "complete":
+            return 1
+        return self.children[0].num_partitions
 
     # --- phases ---
 
@@ -237,7 +332,8 @@ class TpuHashAggregateExec(PhysicalPlan):
         # path's segment-id outputs)
         perm = segmented.dense_bin_perm(occupied, bcap)
         return ColumnBatch(_buffer_schema(self.grouping, self.aggs),
-                           [c.gather(perm) for c in out_cols], num_groups)
+                           gather_columns([(c, perm) for c in out_cols]),
+                           num_groups)
 
     def _binned_all_sums(self, input_groups, live, gid, bcap, work, ci0):
         """Every reduction of a Sum/Average/count(*) aggregate plus the
@@ -284,17 +380,15 @@ class TpuHashAggregateExec(PhysicalPlan):
 
     @staticmethod
     def _keys_prefix(g, nkeys: int, cap: int) -> List[DeviceColumn]:
-        """Group key columns: the first row of each segment. Gather keeps
-        an encoded key's dictionary; plain keys drop vrange, as in the
-        reference."""
+        """Group key columns: the first row of each segment, in one
+        gather. It keeps an encoded key's dictionary; plain keys drop
+        vrange, as in the reference."""
         safe = g.first_pos.clamp(0, cap - 1)
-        out_cols = []
-        for ki in range(nkeys):
-            out = g.sorted_batch.columns[ki].gather(safe)
-            if out.encoding is None and out.vrange is not None:
-                out = out.replace(vrange=None)
-            out_cols.append(out)
-        return out_cols
+        out_cols = gather_columns([(g.sorted_batch.columns[ki], safe)
+                                   for ki in range(nkeys)])
+        return [c.replace(vrange=None)
+                if c.encoding is None and c.vrange is not None else c
+                for c in out_cols]
 
     def _merge(self, batch: ColumnBatch, final: bool) -> ColumnBatch:
         """Sorted merge of partial buffers; `final` evaluates the results,
@@ -324,23 +418,169 @@ class TpuHashAggregateExec(PhysicalPlan):
     def _merge_buffers(self, batch: ColumnBatch) -> ColumnBatch:
         return self._merge(batch, final=False)
 
+    def _inputs(self, pid, ctx):
+        child = self.children[0]
+        if self.mode != "complete":
+            yield from child.execute_partition(pid, ctx)
+            return
+        for cpid in range(child.num_partitions):
+            yield from child.execute_partition(cpid, ctx)
+
     def execute_partition(self, pid, ctx):
         pending: List[ColumnBatch] = []
         pending_rows = 0
-        child = self.children[0]
-        for cpid in range(child.num_partitions):
-            for batch in child.execute_partition(cpid, ctx):
-                part = self._partial(batch)
-                pending.append(part)
-                pending_rows += part.capacity
-                if len(pending) > 1 and pending_rows > 2 * self.target_rows:
-                    compacted = self._merge_buffers(concat_batches(pending))
-                    pending = [compacted]
-                    # one exact sync per compaction, as the reference
-                    pending_rows = compacted.row_count()
+        for batch in self._inputs(pid, ctx):
+            part = batch if self.mode == "final" else self._partial(batch)
+            pending.append(part)
+            pending_rows += part.capacity
+            if len(pending) > 1 and pending_rows > 2 * self.target_rows:
+                compacted = self._merge_buffers(concat_batches(pending))
+                pending = [compacted]
+                # one exact sync per compaction, as the reference
+                pending_rows = compacted.row_count()
         if not pending:
-            if not self.grouping:
+            if not self.grouping and self.mode != "partial":
                 raise NotImplementedError(
-                    "global aggregation over empty input is not ported yet")
+                    "global aggregation over empty input is not ported "
+                    "yet (ROADMAP A8)")
             return
-        yield self._merge_final(concat_batches(pending))
+        merged = concat_batches(pending)
+        if self.mode == "partial":
+            yield self._merge_buffers(merged)
+        elif self.grouping and merged.row_count() > max(self.target_rows, 1):
+            yield from self._finalize_partitioned(merged)
+        else:
+            yield self._merge_final(merged)
+
+    def _finalize_partitioned(self, merged: ColumnBatch):
+        """High-cardinality final merge: re-partition the buffers by key
+        hash (a seed other than the shuffle's) and finalise each piece."""
+        nparts = max(2, -(-merged.row_count() // max(self.target_rows, 1)))
+        key_idx = list(range(len(self.grouping)))
+        for piece in partition.split_to_slices(
+                merged, key_idx, nparts, seed=partition.SUB_PARTITION_SEED):
+            if piece is not None:
+                yield self._merge_final(piece)
+
+
+# --------------------------------------------------------------- exchange
+
+class TpuShuffleExchangeExec(PhysicalPlan):
+    """Hash (or single-partition) exchange with device-resident blocks —
+    the reference's DEVICE shuffle mode. ICI (the mesh transport, ROADMAP
+    A16) raises; MULTITHREADED (the default) and CACHE_ONLY, whose host
+    blocks are not ported (ROADMAP A13), run this mode too, and the
+    DataFrame records the substitution in last_execution["fallbacks"].
+
+    The map stage runs once, on the first reduce task or when adaptive
+    execution materialises it: each child partition is one map task
+    whose batches are partitioned on the device and staged in the
+    shuffle manager as (sorted batch, offsets), then committed (the
+    first commit of a map task wins). A reduce task takes its row range
+    out of every block and concatenates the pieces; blocks are released
+    when the last reduce partition has been read."""
+
+    def __init__(self, child, key_exprs: Optional[List], num_partitions,
+                 conf=None):
+        super().__init__([child], child.schema, conf)
+        if conf is not None and conf.get(rc.SHUFFLE_MODE) == "ICI":
+            raise NotImplementedError(
+                "the ICI (mesh) shuffle is not ported yet (ROADMAP A16)")
+        if not key_exprs and num_partitions > 1:
+            raise NotImplementedError(
+                "round-robin partitioning is not ported yet (ROADMAP B10b)")
+        self.key_exprs = key_exprs
+        self._nparts = max(1, num_partitions)
+        self._shuffle_id = None
+        self._map_done = False
+        self._fetches_left = self._nparts
+
+    @property
+    def num_partitions(self):
+        return self._nparts
+
+    def _partition_batch(self, batch: ColumnBatch):
+        """(batch sorted by reduce partition, counts per partition)."""
+        ctx = EvalContext(batch)
+        key_cols = [e.eval(ctx) for e in self.key_exprs]
+        fields = list(batch.schema.fields) + [
+            StructField(f"__k{i}", c.dtype, True)
+            for i, c in enumerate(key_cols)]
+        work = ColumnBatch(StructType(fields), batch.columns + key_cols,
+                           batch.num_rows)
+        kidx = list(range(len(batch.columns),
+                          len(batch.columns) + len(key_cols)))
+        pid = partition.hash_partition_ids(work, kidx, self._nparts)
+        # the key columns were only needed for the ids: gather the batch
+        pb = partition.partition_by_ids(batch, pid, self._nparts)
+        return pb.batch, pb.counts
+
+    def _map_task(self, mgr, cpid: int, attempt: int) -> None:
+        """One map-task attempt over child partition cpid: stage its
+        partitioned blocks under (cpid, attempt)."""
+        tctx = new_task_context(self.conf)
+        for batch in self.children[0].execute_partition(cpid, tctx):
+            if self._nparts == 1:
+                offs = np.array([0, batch.row_count()], np.int64)
+                mgr.put(self._shuffle_id, cpid, attempt, batch, offs)
+                continue
+            sorted_batch, counts = self._partition_batch(batch)
+            offs = np.concatenate(
+                [[0], np.cumsum(counts.cpu().numpy().astype(np.int64))])
+            mgr.put(self._shuffle_id, cpid, attempt, sorted_batch, offs)
+
+    def _run_map_stage(self, ctx) -> None:
+        if self._map_done:
+            return
+        mgr = get_shuffle_manager()
+        self._shuffle_id = mgr.new_shuffle_id()
+        try:
+            for cpid in range(self.children[0].num_partitions):
+                try:
+                    self._map_task(mgr, cpid, 0)
+                except BaseException:
+                    mgr.discard_attempt(self._shuffle_id, cpid, 0)
+                    raise
+                mgr.commit_map_output(self._shuffle_id, cpid, 0)
+        except BaseException:
+            mgr.remove_shuffle(self._shuffle_id)
+            raise
+        self._map_done = True
+
+    def partition_sizes(self) -> List[int]:
+        """Bytes per reduce partition of the materialised map output."""
+        return get_shuffle_manager().partition_sizes(self._shuffle_id,
+                                                     self._nparts)
+
+    def _fetch_device(self, pid) -> List[ColumnBatch]:
+        """This partition's row range out of every block. The reference
+        gathers each range (a traced program needs static shapes); here a
+        range is a view, and the concat that follows does the one copy."""
+        mgr = get_shuffle_manager()
+        pieces = []
+        for b, offs in mgr.blocks(self._shuffle_id):
+            lo, hi = int(offs[pid]), int(offs[pid + 1])
+            if hi > lo:
+                pieces.append(b.slice_rows(lo, hi))
+        self._fetches_left -= 1
+        if self._fetches_left <= 0:
+            mgr.remove_shuffle(self._shuffle_id)
+        return pieces
+
+    def execute_partition(self, pid, ctx):
+        self._run_map_stage(ctx)
+        pieces = self._fetch_device(pid)
+        if not pieces:
+            return
+        merged = concat_batches(pieces)
+        max_rows = _conf_get(self.conf, rc.BATCH_SIZE_ROWS, 1 << 20)
+        total = merged.row_count()
+        if total <= max_rows:
+            yield merged
+            return
+        for off in range(0, total, max_rows):
+            count = min(max_rows, total - off)
+            cap = next_capacity(count)
+            idx = (torch.arange(cap, dtype=torch.int32, device=merged.device)
+                   + off).clamp(0, merged.capacity - 1)
+            yield merged.gather(idx, count)

@@ -2,12 +2,15 @@
 
 `Expression.eval(ctx)` runs torch operations on the batch's device and
 returns a DeviceColumn. Null semantics follow Spark: every node declares
-nullability and propagates validity masks explicitly.
+nullability and propagates validity masks explicitly. `key()` is the
+structural description the planner's plan keys (cache matching) are
+built from; `references()` and `transform()` serve the optimizer.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+import copy
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,6 +52,26 @@ class Expression:
     def eval(self, ctx: EvalContext) -> DeviceColumn:
         raise NotImplementedError
 
+    def key(self) -> Tuple:
+        return (type(self).__name__,
+                tuple(c.key() for c in self.children))
+
+    def references(self) -> List[int]:
+        out: List[int] = []
+        for c in self.children:
+            out.extend(c.references())
+        return out
+
+    def transform(self, fn) -> "Expression":
+        """Bottom-up rewrite; fn(node) returns node or a replacement."""
+        node = self.with_children([c.transform(fn) for c in self.children])
+        return fn(node)
+
+    def with_children(self, children: List["Expression"]) -> "Expression":
+        node = copy.copy(self)
+        node.children = list(children)
+        return node
+
     def __repr__(self):
         cs = ", ".join(repr(c) for c in self.children)
         return f"{type(self).__name__}({cs})"
@@ -81,6 +104,12 @@ class BoundReference(Expression):
 
             return _enc.decode_column(col)
         return col
+
+    def key(self):
+        return ("ref", self.ordinal, repr(self._dtype))
+
+    def references(self):
+        return [self.ordinal]
 
     def __repr__(self):
         return f"col#{self.ordinal}"
@@ -128,6 +157,9 @@ class Literal(Expression):
             dt, torch.full((cap,), self.value, dtype=tdt, device=device),
             torch.ones(cap, dtype=torch.bool, device=device))
 
+    def key(self):
+        return ("lit", repr(self.value), repr(self._dtype))
+
     def __repr__(self):
         return f"lit({self.value!r})"
 
@@ -167,6 +199,9 @@ class Alias(Expression):
 
     def eval(self, ctx):
         return self.children[0].eval(ctx)
+
+    def key(self):
+        return ("alias", self.children[0].key())
 
     def __repr__(self):
         return f"{self.children[0]!r} AS {self.name}"

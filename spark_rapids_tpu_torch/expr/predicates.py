@@ -1,6 +1,7 @@
 """Comparison predicates with Spark null semantics — counterpart of
 `spark_rapids_tpu/expr/predicates.py` (EqualTo, LessThan, GreaterThan,
-Not). Comparisons propagate null. String comparison is lexicographic over
+LessThanOrEqual, GreaterThanOrEqual, And, Or, Not). Comparisons propagate
+null; And and Or are Kleene. String comparison is lexicographic over
 UTF-8 bytes via the packed orderable keys; `<encoded column> = <string
 literal>` compares dictionary codes (columnar/encoding.py).
 """
@@ -145,6 +146,57 @@ class LessThan(BinaryComparison):
 class GreaterThan(BinaryComparison):
     def eval(self, ctx):
         return LessThan(self.children[1], self.children[0]).eval(ctx)
+
+
+class LessThanOrEqual(BinaryComparison):
+    def eval(self, ctx):
+        gt = LessThan(self.children[1], self.children[0]).eval(ctx)
+        return DeviceColumn(boolean, ~gt.data, gt.validity)
+
+
+class GreaterThanOrEqual(BinaryComparison):
+    def eval(self, ctx):
+        lt = LessThan(self.children[0], self.children[1]).eval(ctx)
+        return DeviceColumn(boolean, ~lt.data, lt.validity)
+
+
+class And(Expression):
+    """Kleene: false & null = false."""
+
+    def __init__(self, left, right):
+        super().__init__([left, right])
+
+    @property
+    def dtype(self):
+        return boolean
+
+    def eval(self, ctx):
+        lc = self.children[0].eval(ctx)
+        rc = self.children[1].eval(ctx)
+        false_l = lc.validity & ~lc.data
+        false_r = rc.validity & ~rc.data
+        valid = (lc.validity & rc.validity) | false_l | false_r
+        res = lc.data & rc.data & ~(false_l | false_r)
+        return DeviceColumn(boolean, res, valid)
+
+
+class Or(Expression):
+    """Kleene: true | null = true."""
+
+    def __init__(self, left, right):
+        super().__init__([left, right])
+
+    @property
+    def dtype(self):
+        return boolean
+
+    def eval(self, ctx):
+        lc = self.children[0].eval(ctx)
+        rc = self.children[1].eval(ctx)
+        true_l = lc.validity & lc.data
+        true_r = rc.validity & rc.data
+        valid = (lc.validity & rc.validity) | true_l | true_r
+        return DeviceColumn(boolean, true_l | true_r, valid)
 
 
 class Not(Expression):

@@ -7,6 +7,13 @@ module that the JAX package keeps the function in:
 - K2 `ops.joinops.probe_bounds`          (csrc/probe_ranges.cu)
 - K3 `ops.joinops.expand_gather_maps`    (csrc/expand_gather_maps.cu)
 - K4 `ops.segmented.seg_sum_count_multi` (csrc/seg_sum_count.cu)
+- K5 `ops.bloom.build`, `ops.bloom.might_contain` (csrc/bloom.cu)
+- K6 `ops.hashing.murmur3_columns` and the hashes and `pmod` beside it
+  (csrc/murmur3_partition.cu, with csrc/murmur3.cuh shared with K5)
+- K7 `ops.partition.partition_by_ids`   (csrc/partition_by_ids.cu)
+- K8 `columnar.batch.gather_columns`, behind `ColumnBatch.gather`,
+  `DeviceColumn.gather` and `columnar.encoding.decode_column`
+  (csrc/gather_leaves.cu)
 
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel (adding one to its count in `launches`) or
@@ -15,6 +22,7 @@ raises.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 from typing import Dict, Tuple
 
@@ -30,7 +38,47 @@ launches: Dict[str, int] = {
     "probe_ranges": 0,
     "expand_gather_maps": 0,
     "seg_sum_count": 0,
+    "bloom_build": 0,
+    "bloom_might_contain": 0,
+    "murmur3": 0,
+    "partition_by_ids": 0,
+    "gather_leaves": 0,
 }
+
+
+class HashCol(ctypes.Structure):
+    """One key column as K5 and K6 hash it (HashCol in csrc/murmur3.cuh)."""
+
+    _fields_ = [("data", ctypes.c_void_p), ("validity", ctypes.c_void_p),
+                ("lengths", ctypes.c_void_p), ("kind", ctypes.c_int),
+                ("row_bytes", ctypes.c_int)]
+
+
+#: HashCol.kind values (HashKind in csrc/murmur3.cuh)
+HASH_I32, HASH_I64, HASH_F32, HASH_F64, HASH_STR = range(5)
+#: key columns one K5/K6 launch chains over (kMaxHashCols)
+MAX_HASH_COLS = 8
+
+
+class GatherLeaf(ctypes.Structure):
+    """One leaf of a K8 launch (GatherLeaf in csrc/gather_leaves.cu)."""
+
+    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
+                ("idx", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+                ("src_rows", ctypes.c_longlong), ("row_bytes", ctypes.c_int),
+                ("unit", ctypes.c_int), ("idx_bytes", ctypes.c_int),
+                ("clamp", ctypes.c_int)]
+
+
+#: leaves one K8 launch gathers (kMaxLeaves)
+MAX_LEAVES = 32
+
+
+def struct_array(cls, items) -> ctypes.c_void_p:
+    """(pointer, array): a ctypes array of structures and the pointer a C
+    entry takes; the caller keeps the array alive across the call."""
+    arr = (cls * len(items))(*items)
+    return ctypes.cast(arr, ctypes.c_void_p), arr
 
 
 def reset_launches() -> None:
@@ -38,8 +86,15 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+#: the raw current-stream lookup of PyTorch's CUDA build: one C call,
+#: where torch.cuda.current_stream builds a Stream object
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     """The current CUDA stream of t's device, as the kernels take it."""
+    if _raw_stream is not None:
+        return _raw_stream(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

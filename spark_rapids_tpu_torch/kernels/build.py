@@ -56,6 +56,11 @@ _SIGNATURES = {
     "srtpu_expand_gather_maps": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     "srtpu_seg_sum_count": [_I, _I, _P, _P, _P, _P, _L, _I, _P, _P, _P, _I,
                             _I, _I, _P],
+    "srtpu_bloom_build": [_P, _I, _L, _P, _I, _I, _P, _P],
+    "srtpu_bloom_probe": [_P, _I, _L, _P, _I, _I, _P, _P, _L, _P, _I, _P],
+    "srtpu_murmur3": [_P, _I, _L, _I, _P, _I, _P, _I, _P],
+    "srtpu_partition_by_ids": [_P, _L, _P, _L, _I, _P, _P, _P, _P],
+    "srtpu_gather_leaves": [_P, _I, _L, _I, _P],
 }
 
 _lock = threading.Lock()

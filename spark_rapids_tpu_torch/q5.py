@@ -17,7 +17,14 @@ runs for it with the fused engine off:
             TpuCachedRelationExec     (dim)
 
 `write_q5_data` writes the bench's data: the same seeded generator,
-columns, file layout and parquet settings.
+columns, file layout and parquet settings, and with `dup_per_store` the
+bench's duplicate-key dimension too (`root/dup/dup-0.parquet`).
+
+`engine_query` and `dupjoin_query` are bench.py's two queries written
+against the port's DataFrame API; through the port's session they run
+the planner's plan (a bloom-prefiltered broadcast join, a binned partial
+aggregate, a murmur3 hash exchange and a final aggregate) on the `aqe`
+engine.
 """
 
 from __future__ import annotations
@@ -44,11 +51,14 @@ from spark_rapids_tpu_torch.sqltypes import StructField, StructType
 
 
 def write_q5_data(root: str, rows: int, stores: int = 2000,
-                  regions: int = 12, files: int = 8,
-                  seed: int = 0) -> Tuple[List[str], str]:
+                  regions: int = 12, files: int = 8, seed: int = 0,
+                  dup_per_store: int = 0) -> Tuple[List[str], str]:
     """Write the fact files under root/fact and the dimension file under
-    root/dim; returns (fact paths, dimension path). Same generator calls
-    as bench.py."""
+    root/dim, and with dup_per_store > 0 the duplicate-key dimension
+    (dup_per_store rows per store: `promo` a plain, non-dictionary string
+    of 5 values, `discount` in [0, 0.3)) at root/dup/dup-0.parquet;
+    returns (fact paths, dimension path). Same generator calls as
+    bench.py."""
     fact_dir = os.path.join(root, "fact")
     dim_dir = os.path.join(root, "dim")
     os.makedirs(fact_dir, exist_ok=True)
@@ -77,7 +87,53 @@ def write_q5_data(root: str, rows: int, stores: int = 2000,
     dim_path = os.path.join(dim_dir, "dim-0.parquet")
     pq.write_table(dim, dim_path, compression="NONE",
                    use_dictionary=["region"])
+    if dup_per_store > 0:
+        n = stores * dup_per_store
+        dup = pa.table({
+            "store": pa.array(np.repeat(np.arange(stores), dup_per_store),
+                              type=pa.int64()),
+            "promo": pa.array([f"promo_{i % 5:02d}" for i in range(n)]),
+            "discount": pa.array(rng.random(n) * 0.3),
+        })
+        os.makedirs(os.path.join(root, "dup"), exist_ok=True)
+        pq.write_table(dup, os.path.join(root, "dup", "dup-0.parquet"),
+                       compression="NONE", use_dictionary=False)
     return fact_paths, dim_path
+
+
+def engine_query(base, dim, regions: int = 12):
+    """bench.py's q5 on the port's DataFrames: filter, broadcast join to
+    the store dimension, a string filter on the dimension's region, and a
+    group-by of region."""
+    from spark_rapids_tpu_torch.api import functions as F
+
+    return (base
+            .filter(F.col("amount") > 10.0)
+            .join(dim, on="store", how="inner")
+            .filter(F.col("region") != f"region_{regions - 1:02d}")
+            .select("region",
+                    (F.col("amount") * F.col("qty")).alias("revenue"),
+                    "amount")
+            .groupBy("region")
+            .agg(F.sum("revenue").alias("rev"),
+                 F.avg("amount").alias("avg_amount"),
+                 F.count("*").alias("sales")))
+
+
+def dupjoin_query(base, dup):
+    """bench.py's duplicate-key join: every kept fact row matches
+    dup_per_store dimension rows (a row-expanding join), grouped by
+    promo."""
+    from spark_rapids_tpu_torch.api import functions as F
+
+    return (base
+            .filter(F.col("amount") > 50.0)
+            .join(dup, on="store", how="inner")
+            .select("promo",
+                    (F.col("amount") * F.col("discount")).alias("rebate"))
+            .groupBy("promo")
+            .agg(F.sum("rebate").alias("total_rebate"),
+                 F.count("*").alias("n")))
 
 
 def q5_plan(fact_entry, dim_entry,

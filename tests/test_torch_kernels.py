@@ -389,3 +389,244 @@ def test_empty_like_schema():
     jout = jax_empty_like_schema(jax_schema_from_arrow(schema), 2048)
     assert out.num_rows == jout.num_rows == 0
     same_batch(out, jout)
+
+
+# ------------------------------------------------------- K6 murmur3 (B9)
+
+from spark_rapids_tpu.ops import bloom as jax_bloom  # noqa: E402
+from spark_rapids_tpu.ops import hashing as jax_hashing  # noqa: E402
+from spark_rapids_tpu.ops import partition as jax_partition  # noqa: E402
+from spark_rapids_tpu_torch.ops import bloom as port_bloom  # noqa: E402
+from spark_rapids_tpu_torch.ops import hashing as port_hashing  # noqa: E402
+from spark_rapids_tpu_torch.ops import (  # noqa: E402
+    partition as port_partition,
+)
+
+_I64_EDGES = [-(1 << 63), -1, 0, 1, (1 << 63) - 1, -(1 << 32), 1 << 31]
+
+
+def _key_table(rng, n: int) -> pa.Table:
+    """Key columns of every hashed kind, with nulls: strings of 0-12 bytes
+    (every tail length, non-ASCII bytes included), an encoded string,
+    longs with INT64_MIN and negatives, doubles with -0.0 and NaN, ints,
+    floats and booleans."""
+    alphabet = ["a", "é", "z", "€", "0"]
+    words = ["".join(rng.choice(alphabet, rng.integers(0, 7)))
+             for _ in range(n)]
+    longs = rng.integers(-(1 << 62), 1 << 62, n)
+    longs[:len(_I64_EDGES)] = _I64_EDGES
+
+    def nulls(p=0.1):
+        return rng.random(n) < p
+
+    return pa.table({
+        "s": pa.array(words, mask=nulls()),
+        "d": pa.array([f"region_{i:02d}" for i in rng.integers(0, 12, n)]
+                      ).dictionary_encode(),
+        "l": pa.array(longs, pa.int64(), mask=nulls()),
+        "f64": pa.array(rng.choice([-0.0, 0.0, np.nan, 1.5, -2.25, np.inf],
+                                   n), pa.float64(), mask=nulls()),
+        "i": pa.array(rng.integers(-50, 50, n).astype(np.int32), pa.int32(),
+                      mask=nulls()),
+        "f32": pa.array(rng.choice([-0.0, 0.0, np.nan, 3.5], n)
+                        .astype(np.float32), pa.float32(), mask=nulls()),
+        "b": pa.array(rng.random(n) < 0.5, mask=nulls()),
+    })
+
+
+def test_string_tail_lengths_cover_zero_to_twelve():
+    rng = np.random.default_rng(60)
+    lengths = set(len(s.encode()) for s in
+                  _key_table(rng, 3000).column("s").drop_null().to_pylist())
+    assert set(range(13)) <= lengths
+
+
+@pytest.mark.parametrize("seed_kind", ["scalar", "vector"])
+def test_hash_int_long_string(seed_kind):
+    rng = np.random.default_rng(61)
+    n = 2000
+    seed = (np.int32(42) * np.ones(n, np.int32) if seed_kind == "scalar"
+            else rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32))
+    v32 = rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
+    v64 = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    v64[:len(_I64_EDGES)] = _I64_EDGES
+    same(port_hashing.hash_int(t(v32), t(seed)),
+         jax_hashing.hash_int(jnp.asarray(v32), jnp.asarray(seed)),
+         "hash_int")
+    same(port_hashing.hash_long(t(v64), t(seed)),
+         jax_hashing.hash_long(jnp.asarray(v64), jnp.asarray(seed)),
+         "hash_long")
+    jb, pb = both_batches(_key_table(rng, n))
+    col, jcol = pb.columns[0], jb.columns[0]
+    cap = jb.capacity
+    seed_c = np.resize(seed, cap).astype(np.int32)
+    same(port_hashing.hash_string(col.data, col.lengths, t(seed_c)),
+         jax_hashing.hash_string(jcol.data, jcol.lengths,
+                                 jnp.asarray(seed_c)), "hash_string")
+
+
+@pytest.mark.parametrize("ci", range(7))
+def test_hash_column(ci):
+    rng = np.random.default_rng(62)
+    jb, pb = both_batches(_key_table(rng, 1500), dead=25)
+    seed = rng.integers(-(1 << 31), 1 << 31, jb.capacity).astype(np.int32)
+    same(port_hashing.hash_column(pb.columns[ci], t(seed)),
+         jax_hashing.hash_column(jb.columns[ci], jnp.asarray(seed)),
+         f"column {ci}")
+
+
+@pytest.mark.parametrize("cols,seed", [
+    ([0], 42), ([1], 42), ([2, 3], 42), ([0, 1, 2, 3, 4, 5, 6], 42),
+    ([4, 6, 0], 1091), ([2], -1756908916)])
+def test_murmur3_columns(cols, seed):
+    rng = np.random.default_rng(63)
+    jb, pb = both_batches(_key_table(rng, 2500), dead=40)
+    got = port_hashing.murmur3_columns([pb.columns[i] for i in cols], seed)
+    want = jax_hashing.murmur3_columns([jb.columns[i] for i in cols], seed)
+    same(got, want, "murmur3")
+
+
+@pytest.mark.parametrize("n", [1, 8, 200])
+def test_pmod(n):
+    rng = np.random.default_rng(64)
+    x = rng.integers(-(1 << 31), 1 << 31, 3000).astype(np.int32)
+    same(port_hashing.pmod(t(x), n), jax_hashing.pmod(jnp.asarray(x), n))
+
+
+# --------------------------------------------- K7 partition_by_ids (B10)
+
+@pytest.mark.parametrize("nparts,dead", [(1, 0), (8, 77), (200, 500)])
+def test_hash_partition_and_partition_by_ids(nparts, dead):
+    rng = np.random.default_rng(65)
+    jb, pb = both_batches(_key_table(rng, 3000), dead=dead)
+    keys = [0, 2]
+    pid = port_partition.hash_partition_ids(pb, keys, nparts)
+    jpid = jax_partition.hash_partition_ids(jb, keys, nparts)
+    same(pid, jpid, "partition ids")
+    out = port_partition.partition_by_ids(pb, pid, nparts)
+    jout = jax_partition.partition_by_ids(jb, jpid, nparts)
+    same(out.counts, jout.counts, "counts")
+    same_batch(out.batch, jout.batch)
+
+
+def test_split_to_slices():
+    rng = np.random.default_rng(66)
+    jb, pb = both_batches(_key_table(rng, 2000), dead=13)
+    got = port_partition.split_to_slices(pb, [2], 5, seed=1091)
+    want = jax_partition.split_to_slices(jb, [2], 5, seed=1091)
+    assert [g is None for g in got] == [w is None for w in want]
+    for g, w in zip(got, want):
+        if g is not None:
+            assert g.row_count() == w.row_count()
+            same_batch(g, w)
+
+
+# -------------------------------------------------------- K5 bloom (B11)
+
+@pytest.mark.parametrize("keys,m_bits", [([2], 8192), ([2, 0], 32768),
+                                         ([3], 1 << 20)])
+def test_bloom_build_and_might_contain(keys, m_bits):
+    rng = np.random.default_rng(67)
+    # a build side with duplicate and null keys and dead rows
+    build = _key_table(rng, 400)
+    build = pa.concat_tables([build, build.slice(0, 100)])
+    jb, pb = both_batches(build, dead=30)
+    # the probe holds some build keys and many absent ones
+    probe = pa.concat_tables([build.slice(0, 300), _key_table(rng, 2700)])
+    jp, pp = both_batches(probe, dead=200)
+    bits = port_bloom.build([pb.columns[i] for i in keys], pb.live_mask(),
+                            m_bits)
+    jbits = jax_bloom.build([jb.columns[i] for i in keys], jb.live_mask(),
+                            m_bits)
+    same(bits, jbits, "bits")
+    keep = port_bloom.might_contain(bits, [pp.columns[i] for i in keys])
+    jkeep = jax_bloom.might_contain(jbits, [jp.columns[i] for i in keys])
+    same(keep, jkeep, "might_contain")
+    # the counting form tests only the live rows
+    keep2, kept = port_bloom.might_contain_count(
+        bits, [pp.columns[i] for i in keys], pp.num_rows)
+    same(keep2, jkeep & jp.live_mask(), "might_contain_count keep")
+    assert int(kept) == int(jnp.sum(jkeep & jp.live_mask()))
+    assert 0 < int(kept) < pp.row_count()
+
+
+@pytest.mark.parametrize("rows", [10, 2000, 4000, 10 ** 6])
+def test_bloom_size_for(rows):
+    assert port_bloom.size_for(rows) == jax_bloom.size_for(rows)
+
+
+# ----------------------------------------------- K8 gather_leaves (B6)
+
+@pytest.mark.parametrize("dead", [0, 300])
+def test_batch_gather_primitive_string_encoded(dead):
+    rng = np.random.default_rng(68)
+    jb, pb = both_batches(_key_table(rng, 2500), dead=dead)
+    n_out = 1024
+    idx = rng.integers(0, jb.capacity, n_out).astype(np.int32)
+    out = pb.gather(t(idx), 700)
+    jout = jb.gather(jnp.asarray(idx), 700)
+    assert out.num_rows == 700
+    same_batch(out, jout)
+    assert out.columns[1].encoding is not None   # codes moved, not bytes
+    col = pb.columns[0].gather(t(idx))
+    jcol = jb.columns[0].gather(jnp.asarray(idx))
+    same(col.data, jcol.data, "string bytes")
+    same(col.lengths, jcol.lengths, "string lengths")
+
+
+@pytest.mark.parametrize("width", [7, 12])
+def test_gather_byte_matrix_of_odd_width(width):
+    """A [cap, width] byte matrix whose width is no multiple of 4 (the
+    kernel then moves rows in 1- or 4-byte units) gathers like jnp.take."""
+    from spark_rapids_tpu.columnar.batch import DeviceColumn as JaxColumn
+    from spark_rapids_tpu.sqltypes.datatypes import string as jax_string
+    from spark_rapids_tpu_torch.columnar.batch import DeviceColumn
+    from spark_rapids_tpu_torch.sqltypes.datatypes import string
+
+    rng = np.random.default_rng(71)
+    cap = 2048
+    lengths = rng.integers(0, width + 1, cap).astype(np.int32)
+    data = rng.integers(1, 256, (cap, width)).astype(np.uint8)
+    data[np.arange(width)[None, :] >= lengths[:, None]] = 0
+    valid = rng.random(cap) < 0.9
+    idx = rng.integers(0, cap, 1024).astype(np.int32)
+    col = DeviceColumn(string, t(data), t(valid), t(lengths)).gather(t(idx))
+    jcol = JaxColumn(jax_string, jnp.asarray(data), jnp.asarray(valid),
+                     jnp.asarray(lengths)).gather(jnp.asarray(idx))
+    same(col.data, jcol.data, "bytes")
+    same(col.validity, jcol.validity, "validity")
+    same(col.lengths, jcol.lengths, "lengths")
+
+
+def test_gather_columns_with_two_index_vectors():
+    """Both sides of a join output in one gather, each by its own
+    indices, against one JAX gather per column."""
+    from spark_rapids_tpu_torch.columnar.batch import gather_columns
+
+    rng = np.random.default_rng(69)
+    jl, pl = both_batches(_key_table(rng, 3000))
+    jr, pr = both_batches(_key_table(rng, 500))
+    pi = rng.integers(0, jl.capacity, 2048).astype(np.int32)
+    bi = rng.integers(0, jr.capacity, 2048).astype(np.int32)
+    got = gather_columns([(c, t(pi)) for c in pl.columns]
+                         + [(c, t(bi)) for c in pr.columns])
+    want = ([c.gather(jnp.asarray(pi)) for c in jl.columns]
+            + [c.gather(jnp.asarray(bi)) for c in jr.columns])
+    for g, w in zip(got, want):
+        same(g.data, w.data, "data")
+        same(g.validity, w.validity, "validity")
+        if w.lengths is not None:
+            same(g.lengths, w.lengths, "lengths")
+
+
+def test_decode_column_clips_codes_and_zeroes_nulls():
+    rng = np.random.default_rng(70)
+    jb, pb = both_batches(_key_table(rng, 1500), dead=9)
+    jcol, col = jb.columns[1], pb.columns[1]
+    codes = rng.integers(-3, 15, jb.capacity).astype(np.int16)
+    jcol = jcol.replace(data=jnp.asarray(codes))
+    col = col.replace(data=t(codes))
+    dec = port_encoding.decode_column(col)
+    jdec = jax_encoding.decode_column(jcol)
+    same(dec.data, jdec.data, "bytes")
+    same(dec.lengths, jdec.lengths, "lengths")
