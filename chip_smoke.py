@@ -9,17 +9,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    per source, all started together);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the q5 path gives it (bench.py's full size: 8 parts of 4.5M
-   rows, capacity 8,388,608): K1-K4, and K5 (bloom build and
-   might_contain), K6 (murmur3 partition ids), K7 (partition_by_ids) and
-   K8 (the batch gather), with the device time of the kernel, the plain
-   version and, where one exists, one PyTorch library call computing the
-   same function (torch.profiler: the summed durations of what each call
-   runs on the card, so host dispatch is not counted; CUDA events where
-   three traces in a row hold no device events, named in the output), and
-   the kernel's bound (the bytes this run's data needs, at 3.35 TB/s, the
-   H100 SXM's rate); then edge shapes (partial tiles, several key words, null keys,
-   dead rows, every string tail length, -0.0 and NaN, INT64_MIN, 1 to
-   200 partitions, leaf widths no multiple of 4), exact;
+   rows): K1-K4, K5 (bloom build and might_contain), K6 (murmur3
+   partition ids), K7 (partition_by_ids), K8 (the batch gather), K9
+   (orderable key words and their stable radix sort), K10 (group
+   boundaries) and K11 (dense bin permutation), with the device time of
+   the kernel, the plain version and, where one exists, one PyTorch
+   library call computing the same function (torch.profiler: the summed
+   durations of what each call runs on the card, so host dispatch is not
+   counted; CUDA events where three traces in a row hold no device
+   events, named in the output), and the kernel's bound (the bytes this
+   run's data needs, at 3.35 TB/s, the H100 SXM's rate); K9's sort also
+   at the 65,536-row build sort, 2^24 rows of heavy ties and 2^22 random
+   keys; then edge shapes (partial tiles, several key words, null keys,
+   dead rows, every string tail length, -0.0 and NaN, INT64_MIN, 1 to 7
+   sort keys of every kind in both directions, 1 to 200 partitions, leaf
+   widths no multiple of 4), exact;
 3. slice 1's hand-built q5 plan at the bench's full size (36M fact rows
    in 8 parquet files, a 2,000-row dimension with a dictionary-encoded
    `region`) over device-cached relations: upload, one cold run and 5
@@ -29,12 +33,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    store) through the port's session: `read.parquet(...).cache(
    storage="device")`, the DataFrame API, the optimizer, the planner and
    the adaptive (`aqe`) engine, checked against pyarrow oracles in the
-   same way; the engine and the adaptive decisions are printed.
+   same way; the engine and the adaptive decisions are printed;
+5. the same two queries with bench.py's conf, where the fused engine is
+   on: both must run on it, q5 keeping its lookup join and dupjoin losing
+   the lookup bet, and equal the oracles.
 
-For each query run (phases 3 and 4) the kernels' launch counts are reset
+For each query run (phases 3-5) the kernels' launch counts are reset
 just before the cold run and read just after it; every kernel of that
-path must have run. One more hot run under torch.profiler gives the
-device's busy time against wall time.
+path must have run. One more hot run counts the host syncs (torch.cuda's
+sync debug mode) and one, under torch.profiler, gives the device's busy
+time against wall time and must hold no library sort kernel.
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository
@@ -61,12 +69,24 @@ REL_TOL = 1e-9          # sums and averages against the oracles
 F64_ATOMIC_TOL = 1e-12  # K4's float64 sums: atomic order varies
 
 
+#: slice 3's kernels: K9 (pack, sort), K10, K11; every path runs them
+SLICE3_KERNELS = ("pack_keys", "sort_words", "group_bounds",
+                  "dense_bin_perm")
 #: kernels slice 1's hand-built q5 plan runs (no exchange: no K6, K7)
 SLICE1_PATH_KERNELS = ("compact_perm", "probe_ranges", "expand_gather_maps",
                        "seg_sum_count", "bloom_build", "bloom_might_contain",
-                       "gather_leaves")
-#: kernels each session query runs: all of them
+                       "gather_leaves") + SLICE3_KERNELS
+#: kernels each query on the adaptive engine runs: all of K1-K11
 SESSION_PATH_KERNELS = SLICE1_PATH_KERNELS + ("murmur3", "partition_by_ids")
+#: kernels each query on the fused engine runs (no bloom prefilter, and
+#: the single-chip exchange is identity: no K5, K6, K7); dupjoin's
+#: expanded join adds K3
+FUSED_PATH_KERNELS = {
+    "q5": ("compact_perm", "probe_ranges", "seg_sum_count",
+           "gather_leaves") + SLICE3_KERNELS,
+    "dupjoin": ("compact_perm", "probe_ranges", "expand_gather_maps",
+                "seg_sum_count", "gather_leaves") + SLICE3_KERNELS,
+}
 
 
 def fail(msg: str) -> None:
@@ -673,6 +693,245 @@ def check_slice2_edges(dev) -> int:
     return cases
 
 
+def _region_codes(dev, n: int, live: int):
+    """The merge's group key: int16 region codes (vrange 0..11) of n rows,
+    the first `live` valid."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.sqltypes.datatypes import short
+
+    codes = (np.arange(n) % REGIONS).astype(np.int16)
+    valid = torch.from_numpy(np.arange(n) < live).to(dev)
+    return _col(short, torch.from_numpy(codes).to(dev), valid,
+                vrange=(0, REGIONS - 1)), valid
+
+
+def check_slice3_kernels(dev):
+    """Phase 2, slice 3: K9 (pack and sort), K10 and K11 against their
+    plain versions at the fused q5 path's shapes: the final merge of the
+    8 parts' buffer rows (32,768 rows concatenated, 11 live a part, keyed
+    by region codes: a null-rank word and a code word) and the pushdown
+    pre-aggregate's 4,096 bins. Returns {kernel name: record}."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.ops import common, segmented
+
+    out = {}
+    n = 8 * 4096
+    live_rows = 8 * (REGIONS - 1)
+    col, _ = _region_codes(dev, n, n)
+    # the concatenated parts' live rows are compacted to the front
+    live = torch.arange(n, device=dev) < live_rows
+    spec = [common.KeySpec(col, codes_ok=True, normalize_zero=True)]
+    words, _ = common.pack_keys(spec, live)
+    words_p, _ = common.pack_keys_plain(spec, live)
+    torch.cuda.synchronize()
+    exact("pack_keys words", words, words_p)
+    out["pack_keys"] = dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/sort_keys.cu",
+        replaces="spark_rapids_tpu/ops/common.py:96",
+        max_abs_err=max_abs_err(words, words_p),
+        **timed("pack_keys", lambda: common.pack_keys(spec, live),
+                lambda: common.pack_keys_plain(spec, live), None),
+        # live read for every row, codes and validity only for the live
+        # rows (dead rows' words are constants); two int64 words written
+        bound_ms=bound_ms(n + live_rows * (2 + 1) + n * 16),
+        bound_by="bytes",
+        shape=f"region codes [{n}] int16, {live_rows} live -> words "
+              f"[2, {n}]")
+
+    perm = common.sort_words(words)
+    perm_p = common.sort_permutation_plain(list(words_p.unbind(0)), n)
+    torch.cuda.synchronize()
+    exact("sort_words perm", perm, perm_p)
+    out["sort_words"] = dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/sort_keys.cu",
+        replaces="spark_rapids_tpu/ops/common.py:175",
+        max_abs_err=max_abs_err(perm, perm_p),
+        **timed("sort_words", lambda: common.sort_words(words),
+                lambda: common.sort_permutation_plain(
+                    list(words_p.unbind(0)), n),
+                # the library call: the same stable torch.sort chain
+                lambda: common.sort_permutation_plain(
+                    list(words_p.unbind(0)), n)),
+        bound_ms=bound_ms(n * 16 + n * 4), bound_by="bytes",
+        shape=f"words [2, {n}] int64 -> perm [{n}] int32")
+
+    gb = segmented.group_bounds(words, perm, live)
+    gb_p = segmented.group_bounds_plain(words, perm, live)
+    torch.cuda.synchronize()
+    for a, b, what in zip(gb, gb_p, gb._fields):
+        exact(f"group_bounds {what}", a, b)
+    out["group_bounds"] = dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/group_bounds.cu",
+        replaces="spark_rapids_tpu/ops/segmented.py:306",
+        max_abs_err=max(max_abs_err(a, b) for a, b in zip(gb, gb_p)),
+        **timed("group_bounds",
+                lambda: segmented.group_bounds(words, perm, live),
+                lambda: segmented.group_bounds_plain(words, perm, live),
+                None),
+        # perm and live per row, both words only for the live sorted
+        # rows; gid, live_s, first_pos and num_groups out
+        bound_ms=bound_ms(n * (4 + 1) + live_rows * 16 + n * (4 + 1 + 4)
+                          + 4),
+        bound_by="bytes", shape=f"words [2, {n}], perm [{n}]")
+
+    bins = 4096
+    occ_np = np.zeros(bins, bool)
+    occ_np[1:STORES + 1] = True  # bin 0 is the null key; stores 0..1999
+    occupied = torch.from_numpy(occ_np).to(dev)
+    d = segmented.dense_bin_perm(occupied, bins)
+    d_p = segmented.dense_bin_perm_plain(occupied, bins)
+    torch.cuda.synchronize()
+    exact("dense_bin_perm", d, d_p)
+    out["dense_bin_perm"] = dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/dense_bin_perm.cu",
+        replaces="spark_rapids_tpu/ops/segmented.py:297",
+        max_abs_err=max_abs_err(d, d_p),
+        **timed("dense_bin_perm",
+                lambda: segmented.dense_bin_perm(occupied, bins),
+                lambda: segmented.dense_bin_perm_plain(occupied, bins),
+                lambda: torch.nonzero(occupied)),
+        bound_ms=bound_ms(bins + bins * 4), bound_by="bytes",
+        shape=f"occupied [{bins}] bool, {STORES} occupied")
+    return out
+
+
+def time_large_sorts(dev) -> list:
+    """K9's sort at sizes where its bound is above launch latency: the
+    65,536-row build sort of the dimension (lead rank, store), 2^24 rows
+    of 16 distinct values (heavy ties) and 2^22 random 64-bit keys; each
+    exact against the stable torch.sort chain, with both device times."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.ops import common
+
+    rng = np.random.default_rng(5)
+    cases = []
+    build = np.zeros((2, 1 << 16), np.int64)
+    build[0, STORES:] = 1
+    build[1, :STORES] = rng.permutation(STORES)
+    cases.append(("build sort [2, 65536]", build))
+    cases.append(("2^24 rows, 16 values [1, 16777216]",
+                  rng.integers(0, 16, (1, 1 << 24)).astype(np.int64)))
+    cases.append(("2^22 random int64 [1, 4194304]",
+                  rng.integers(-(1 << 63), (1 << 63) - 1, (1, 1 << 22),
+                               dtype=np.int64)))
+    out = []
+    for what, w_np in cases:
+        w = torch.from_numpy(w_np).to(dev)
+        got = common.sort_words(w)
+        want = common.sort_permutation_plain(list(w.unbind(0)),
+                                             w.shape[1])
+        torch.cuda.synchronize()
+        exact(f"sort_words {what}", got, want)
+        ms = device_ms(lambda: common.sort_words(w), f"sort {what}", 5)
+        lib_ms = device_ms(lambda: common.sort_permutation_plain(
+            list(w.unbind(0)), w.shape[1]), f"torch.sort {what}", 5)
+        nbytes = w.numel() * 8 + w.shape[1] * 4
+        out.append(dict(shape=what, ms=ms, library_ms=lib_ms,
+                        bound_ms=bound_ms(nbytes)))
+        del w, got, want
+    return out
+
+
+def check_slice3_edges(dev) -> int:
+    """Phase 2, slice 3 edge shapes, exact against the plain versions:
+    1-7 key columns of every kind (strings of 0-12 bytes with bytes >=
+    0x80, INT64_MIN and negative longs, -0.0, NaN and +-inf doubles and
+    floats, int32, int16, bools), ascending and descending, nulls first
+    and last, -0.0 folded or not, dead rows, a join side's leading rank,
+    every live row dead, partial tiles, and K11 at empty, sparse and full
+    occupancy. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.ops import common, segmented
+    from spark_rapids_tpu_torch.sqltypes.datatypes import (
+        boolean,
+        double,
+        float_t,
+        integer,
+        long,
+        short,
+        string,
+    )
+
+    rng = np.random.default_rng(6)
+    cases = 0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def columns(n):
+        lengths = rng.integers(0, 13, n).astype(np.int32)
+        data = rng.integers(0, 256, (n, 12)).astype(np.uint8)
+        data[np.arange(12)[None, :] >= lengths[:, None]] = 0
+        v = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+        v[:4] = [-(1 << 63), -1, 0, (1 << 63) - 1]
+        specials = [0.0, -0.0, np.nan, 1.5, -2.25, np.inf, -np.inf]
+        return [
+            _col(string, t(data), t(rng.random(n) < 0.9), t(lengths)),
+            _col(long, t(v), t(rng.random(n) < 0.9)),
+            _col(double, t(rng.choice(specials, n)), t(rng.random(n) < 0.9)),
+            _col(integer, t(rng.integers(-9, 9, n).astype(np.int32)),
+                 t(rng.random(n) < 0.8)),
+            _col(float_t, t(rng.choice(specials, n).astype(np.float32)),
+                 t(rng.random(n) < 0.8)),
+            _col(short, t(rng.integers(0, 5, n).astype(np.int16)),
+                 t(rng.random(n) < 0.95)),
+            _col(boolean, t(rng.random(n) < 0.5), t(rng.random(n) < 0.8)),
+        ]
+
+    # below, at and past one sort block's 4,096 rows, and many blocks
+    for n in (1000, 4096, 5000, 32768, 32769, 70001):
+        cols = columns(n)
+        live = t(np.arange(n) < n - 17)
+        for k in range(1, len(cols) + 1):
+            for asc in (True, False):
+                specs = [common.KeySpec(c, asc, i % 2 == 0, True, False,
+                                        i % 3 == 0)
+                         for i, c in enumerate(cols[:k])]
+                w, av = common.pack_keys(specs, live, want_all_valid=True)
+                wp, avp = common.pack_keys_plain(specs, live)
+                exact(f"pack_keys n={n} k={k}", w, wp)
+                exact(f"pack_keys all_valid n={n} k={k}", av, avp)
+                p = common.sort_words(w)
+                exact(f"sort_words n={n} k={k} asc={asc}", p,
+                      common.sort_permutation_plain(list(wp.unbind(0)), n))
+                for a, b in zip(segmented.group_bounds(w, p, live),
+                                segmented.group_bounds_plain(wp, p, live)):
+                    exact(f"group_bounds n={n} k={k}", a, b)
+                cases += 1
+        specs = [common.KeySpec(c, with_rank=False, normalize_zero=True)
+                 for c in cols[:2]]
+        w, _ = common.pack_keys(specs, live, lead_rank=True)
+        exact(f"pack_keys lead rank n={n}", w,
+              common.pack_keys_plain(specs, live, lead_rank=True)[0])
+        for p_occ in (0.0, 0.3, 1.0):
+            occ = t(rng.random(n) < p_occ)
+            exact(f"dense_bin_perm n={n} p={p_occ}",
+                  segmented.dense_bin_perm(occ, n),
+                  segmented.dense_bin_perm_plain(occ, n))
+        cases += 4
+    dead = torch.zeros(4096, dtype=torch.bool, device=dev)
+    w, _ = common.pack_keys([common.KeySpec(columns(4096)[5])], dead)
+    p = common.sort_words(w)
+    for a, b in zip(segmented.group_bounds(w, p, dead),
+                    segmented.group_bounds_plain(w, p, dead)):
+        exact("group_bounds with every row dead", a, b)
+    cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
 def check_edge_shapes(dev) -> int:
     """Phase 2, small shapes the q5 run does not reach: partial tiles,
     two and three key words with null rows, several matches per row, ids
@@ -817,9 +1076,28 @@ def missing_launches(name: str, launches: dict, needed) -> None:
         fail(f"{name} never launched {missing}: {launches}")
 
 
+def count_host_syncs(run) -> int:
+    """Host syncs of one run: the warnings torch.cuda's sync debug mode
+    raises for every operation that waits on the card."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def timed_runs(run, check) -> dict:
     """Reset the launch counts, one cold run, read the counts; then
-    HOT_RUNS hot runs, each checked against the oracle."""
+    HOT_RUNS hot runs, each checked against the oracle; one run counting
+    its host syncs; one profiled run."""
     import torch
 
     from spark_rapids_tpu_torch import kernels
@@ -840,7 +1118,8 @@ def timed_runs(run, check) -> dict:
         check(got)
     return dict(result_rows=got.num_rows, cold_s=cold_s,
                 hot_median_s=statistics.median(hot), hot_s=hot,
-                launches=launches, profile=profile_run(run))
+                launches=launches, host_syncs=count_host_syncs(run),
+                profile=profile_run(run))
 
 
 def run_q5_plan(dev, fact_paths, dim_path, want) -> dict:
@@ -867,21 +1146,25 @@ def run_q5_plan(dev, fact_paths, dim_path, want) -> dict:
     return rec
 
 
-def run_session(dev, root, fact_paths, want_q5, want_dup) -> dict:
-    """Phase 4: q5 and the duplicate-key join through the port's session,
-    DataFrame API, planner and adaptive engine, over relations cached on
-    the device. Returns {query: record}."""
+def run_session(dev, root, want_q5, want_dup, fused: bool) -> dict:
+    """Phases 4 and 5: q5 and the duplicate-key join through the port's
+    session, DataFrame API, planner and (phase 4) the adaptive engine or
+    (phase 5, bench.py's own conf) the fused engine, over relations cached
+    on the device. Returns {query: record}."""
     import torch
 
     from spark_rapids_tpu_torch.api.session import TpuSparkSession
     from spark_rapids_tpu_torch.q5 import dupjoin_query, engine_query
 
+    torch.cuda.reset_peak_memory_stats(dev)
     spark = (TpuSparkSession.builder
              .config("spark.sql.shuffle.partitions", 8)
              .config("spark.rapids.sql.reader.batchSizeRows", 1 << 23)
              .config("spark.rapids.sql.batchSizeRows", 1 << 23)
              .config("spark.rapids.shuffle.mode", "DEVICE")
+             .config("spark.rapids.sql.fusedExec.enabled", fused)
              .getOrCreate())
+    engine = "fused" if fused else "aqe"
     frames = {}
     t0 = time.monotonic()
     for name in ("fact", "dim", "dup"):
@@ -901,11 +1184,16 @@ def run_session(dev, root, fact_paths, want_q5, want_dup) -> dict:
     for name, (build_df, check) in queries.items():
         rec = timed_runs(lambda: build_df().collect_arrow(), check)
         ex = spark.last_execution
-        if ex["engine"] != "aqe":
-            fail(f"session {name} ran on {ex['engine']}, not aqe: {ex}")
-        missing_launches(f"session {name}", rec["launches"],
-                         SESSION_PATH_KERNELS)
-        rec.update(engine=ex["engine"], aqe=ex["aqe"],
+        if ex["engine"] != engine:
+            fail(f"session {name} ran on {ex['engine']}, not {engine}: "
+                 f"{ex}")
+        missing_launches(f"{engine} {name}", rec["launches"],
+                         FUSED_PATH_KERNELS[name] if fused
+                         else SESSION_PATH_KERNELS)
+        if fused and ex["fused"]["use_lookup"] != (name == "q5"):
+            fail(f"fused {name} settled on {ex['fused']}: q5 keeps the "
+                 "lookup join, dupjoin loses its uniqueness bet")
+        rec.update(engine=ex["engine"], aqe=ex["aqe"], fused=ex["fused"],
                    fallbacks=ex["fallbacks"], upload_s=upload_s)
         out[name] = rec
     out["peak_device_bytes"] = int(torch.cuda.max_memory_allocated(dev))
@@ -920,7 +1208,13 @@ def profile_run(run) -> dict:
     events, wall_ms = traced(run, "a profiled hot run")
     if events is None:
         return dict(wall_ms=wall_ms, device_busy_ms=None,
-                    device_idle_share=None, top=[])
+                    device_idle_share=None, top=[], library_sorts=[])
+    # a library sort (torch.sort, CUB's radix sort) must not run on any
+    # path: K9 (the port's own kernels, in namespace srtpu) replaced them
+    sorts = sorted({e.name for e in events if "sort" in e.name.lower()
+                    and "srtpu::" not in e.name})
+    if sorts:
+        fail(f"library sort kernels ran on the path: {sorts}")
     by_name = {}
     busy_us = 0.0
     for e in events:
@@ -932,7 +1226,7 @@ def profile_run(run) -> dict:
     return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                 device_idle_share=1 - busy_us / 1e3 / wall_ms,
                 top=[dict(name=n[:80], ms=t / 1e3, calls=c)
-                     for n, (t, c) in top])
+                     for n, (t, c) in top], library_sorts=sorts)
 
 
 def main() -> int:
@@ -972,6 +1266,7 @@ def main() -> int:
     # phase 2: each kernel against its plain version
     records = check_kernels(dev)
     records.update(check_slice2_kernels(dev))
+    records.update(check_slice3_kernels(dev))
     for kname, r in records.items():
         lib = r["library_ms"]
         print(f"{kname}: {r['shape']}: kernel_ms={r['ms']:.4f} "
@@ -980,12 +1275,17 @@ def main() -> int:
               f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
               f"bound_ms={r['bound_ms']:.6f} "
               f"max_abs_err={r['max_abs_err']}", flush=True)
-    cases = check_edge_shapes(dev) + check_slice2_edges(dev)
+    for r in time_large_sorts(dev):
+        print(f"sort_words at {r['shape']}: kernel_ms={r['ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f}", flush=True)
+    cases = (check_edge_shapes(dev) + check_slice2_edges(dev)
+             + check_slice3_edges(dev))
     print(f"edge shapes: {cases} cases exact against the plain versions",
           flush=True)
 
-    # phases 3 and 4: slice 1's plan, then the session path, at full size
-    torch.cuda.reset_peak_memory_stats(dev)
+    # phases 3-5 at full size: slice 1's plan, the session on the
+    # adaptive engine, the session on the fused engine
     with tempfile.TemporaryDirectory(prefix="srtpu_q5_") as tmp:
         t0 = time.monotonic()
         fact_paths, dim_path = write_q5_data(
@@ -1003,19 +1303,31 @@ def main() -> int:
               flush=True)
         plan_rec = run_q5_plan(dev, fact_paths, dim_path, want_q5)
         print("q5_plan: " + json.dumps(plan_rec), flush=True)
-        session = run_session(dev, tmp, fact_paths, want_q5, want_dup)
-    for qname in ("q5", "dupjoin"):
-        rec = session[qname]
-        print(f"session {qname}: engine={rec['engine']} "
-              f"aqe={json.dumps(rec['aqe'])} upload_s={rec['upload_s']:.3f} "
-              f"cold_s={rec['cold_s']:.4f} "
-              f"hot_median_s={rec['hot_median_s']:.4f}", flush=True)
-        print(f"session {qname} launches per query: "
-              + json.dumps(rec["launches"]), flush=True)
-        print(f"session {qname}: " + json.dumps(rec), flush=True)
-    print(f"peak device bytes: {session['peak_device_bytes']}", flush=True)
+        runs = {"q5_plan": plan_rec}
+        for engine, fused in (("aqe", False), ("fused", True)):
+            session = run_session(dev, tmp, want_q5, want_dup, fused)
+            for qname in ("q5", "dupjoin"):
+                rec = session[qname]
+                runs[f"{engine} {qname}"] = rec
+                print(f"{engine} {qname}: fused={json.dumps(rec['fused'])} "
+                      f"aqe={json.dumps(rec['aqe'])} "
+                      f"upload_s={rec['upload_s']:.3f} "
+                      f"cold_s={rec['cold_s']:.4f} "
+                      f"hot_median_s={rec['hot_median_s']:.4f} "
+                      f"host_syncs={rec['host_syncs']} "
+                      f"device_busy_ms={rec['profile']['device_busy_ms']} "
+                      f"idle_share={rec['profile']['device_idle_share']}",
+                      flush=True)
+                print(f"{engine} {qname} launches per query: "
+                      + json.dumps(rec["launches"]), flush=True)
+                print(f"{engine} {qname}: " + json.dumps(rec), flush=True)
+            print(f"{engine} peak device bytes: "
+                  f"{session['peak_device_bytes']}", flush=True)
 
-    launches = session["q5"]["launches"]
+    # each kernel's launches: the sum over every path's cold run (q5_plan,
+    # aqe q5 and dupjoin, fused q5 and dupjoin), each read right after it
+    launches = {k: sum(r["launches"].get(k, 0) for r in runs.values())
+                for k in records}
     kernels_line = [
         dict(name=k, route=r["route"], source=r["source"],
              replaces=r["replaces"], launches=launches[k],

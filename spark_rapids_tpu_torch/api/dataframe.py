@@ -7,12 +7,14 @@ A collect plans the query (cache substitution, the optimizer, the
 planner) and dispatches it to an engine, recording which one ran in
 `session.last_execution["engine"]` and why faster ones were skipped in
 `["fallbacks"]`, as it records a shuffle mode the port runs in the
-DEVICE mode's place. The port has two rungs of the reference's ladder:
-`aqe` (adaptive execution, whenever the plan has an exchange and
-spark.sql.adaptive.enabled is on) and `eager`. The fused engine is not
-ported yet (ROADMAP A8): with spark.rapids.sql.fusedExec.enabled on (the
-default) the skip is recorded as a fallback. There is no CPU rung: a
-failure propagates instead of demoting the query to the CPU.
+DEVICE mode's place. The port has three rungs of the reference's ladder:
+`fused` (exec/fused.py; spark.rapids.sql.fusedExec.enabled, on by
+default), whose settled factors and lowerings land in
+`last_execution["fused"]` and whose `FusedCompileError` is recorded as a
+fallback; `aqe` (adaptive execution, whenever the plan has an exchange
+and spark.sql.adaptive.enabled is on); and `eager`. The reference's
+demotion ladder (circuit breaker, OOM injection) is not ported and there
+is no CPU rung: a failure on the card propagates.
 """
 
 from __future__ import annotations
@@ -176,7 +178,7 @@ class DataFrame:
         return plan_query(optimize(plan), self.session.rapids_conf)
 
     def collect_arrow(self) -> pa.Table:
-        rec = {"engine": None, "fallbacks": [], "aqe": None}
+        rec = {"engine": None, "fallbacks": [], "aqe": None, "fused": None}
         self._last_exec = rec
         self.session.last_execution = rec
 
@@ -203,8 +205,21 @@ class DataFrame:
             raise NotImplementedError(
                 "the mesh engine is not ported yet (ROADMAP A16)")
         if conf.get(rc.FUSED_EXEC):
-            fell_back("fused", "the fused engine is not ported yet "
-                               "(ROADMAP A8)")
+            from spark_rapids_tpu_torch.exec.fused import (
+                FusedCompileError,
+                FusedSingleChipExecutor,
+            )
+
+            ex = FusedSingleChipExecutor(conf)
+            try:
+                out = ex.execute(phys)
+                rec["fused"] = dict(zip(
+                    ("expansion", "group_cap", "use_lookup", "use_pushdown"),
+                    ex.last_settled))
+                return ran("fused", out)
+            except FusedCompileError as e:
+                # no fused lowering: structural, not a failure
+                fell_back("fused", str(e))
 
         def has_exchange(n):
             return isinstance(n, TpuShuffleExchangeExec) or any(

@@ -71,6 +71,9 @@ class TpuSparkSession:
 
         self._settings = dict(conf or {})
         self.rapids_conf = rc.RapidsConf(self._settings)
+        #: settings the port accepts but does not read (each warned on)
+        self.ignored_settings = rc.check_port_settings(self.rapids_conf,
+                                                       self._settings)
         #: where every upload of this session goes (raises without a GPU
         #: unless the conf asks for the CPU)
         self.device = conf_device(self.rapids_conf)

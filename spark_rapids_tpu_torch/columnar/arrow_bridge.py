@@ -10,7 +10,9 @@ string and dictionary-string columns:
   Dictionary-encoded string columns upload as codes plus an interned
   dictionary (columnar/encoding.py).
 - `device_to_arrow` fetches the live rows and rebuilds Arrow arrays,
-  decoding encoded columns on the host from codes plus dictionary.
+  decoding encoded columns on the host from codes plus dictionary;
+  `device_to_arrow_fused` fetches a small batch, its row count and the
+  fused engine's flags in ONE device-to-host copy.
 """
 
 from __future__ import annotations
@@ -201,30 +203,66 @@ def arrow_to_device(table, capacity: Optional[int] = None,
     return ColumnBatch(schema, cols, n)
 
 
-def _column_to_array(field: StructField, col: DeviceColumn,
-                     n: int) -> pa.Array:
-    validity = col.validity[:n].cpu().numpy()
+def _host_array(field: StructField, col: DeviceColumn,
+                leaves: List[np.ndarray]) -> pa.Array:
+    """One column's fetched live-row leaves -> an Arrow array; encoded
+    columns decode on the host from their codes and the dictionary."""
+    data, validity = leaves[0], leaves[1]
     if col.encoding is not None:
-        # decode on the host from the fetched codes and the dictionary
+        from spark_rapids_tpu_torch.columnar import encoding as _enc
+
         dd = col.encoding
-        ddata = dd.data.cpu().numpy()
-        dlens = dd.lengths.cpu().numpy()
+        hd = _enc._host_dict(dd.dict_id)
+        if hd is not None:
+            ddata, dlens = hd.matrix, hd.lengths
+        else:
+            ddata, dlens = dd.data.cpu().numpy(), dd.lengths.cpu().numpy()
         k = max(ddata.shape[0], 1)
-        codes = np.clip(col.data[:n].cpu().numpy().astype(np.int64), 0, k - 1)
+        codes = np.clip(data.astype(np.int64), 0, k - 1)
         return _matrix_to_string(ddata[codes],
                                  np.where(validity, dlens[codes], 0),
                                  validity)
     if isinstance(field.dataType, StringType):
-        return _matrix_to_string(col.data[:n].cpu().numpy(),
-                                 col.lengths[:n].cpu().numpy(), validity)
-    vals = col.data[:n].cpu().numpy()
+        return _matrix_to_string(data, leaves[2], validity)
     mask = None if validity.all() else ~validity
-    return pa.array(vals, type=to_arrow_type(field.dataType), mask=mask)
+    return pa.array(data.astype(field.dataType.np_dtype, copy=False),
+                    type=to_arrow_type(field.dataType), mask=mask)
 
 
 def device_to_arrow(batch: ColumnBatch) -> pa.Table:
     """ColumnBatch -> pyarrow Table: fetches only the live rows."""
     n = batch.row_count()
-    arrays = [_column_to_array(f, c, n)
+    arrays = [_host_array(f, c, [x[:n].cpu().numpy() for x in c.leaves()])
               for f, c in zip(batch.schema.fields, batch.columns)]
     return pa.Table.from_arrays(arrays, names=batch.schema.names)
+
+
+def device_to_arrow_fused(batch: ColumnBatch, flags: torch.Tensor
+                          ) -> Tuple[pa.Table, np.ndarray]:
+    """(table, host flags) from ONE device-to-host copy of the row count,
+    the flags and every leaf of the batch (whole capacity): the fused
+    engine's small-result fetch."""
+    dev = flags.device
+    nr = batch.num_rows
+    nr = (nr.reshape(1).to(torch.int32) if isinstance(nr, torch.Tensor)
+          else torch.full((1,), nr, dtype=torch.int32, device=dev))
+    leaves = [x for c in batch.columns for x in c.leaves()]
+    pieces = [nr.view(torch.uint8), flags.reshape(-1).view(torch.uint8)]
+    pieces += [x.contiguous().view(torch.uint8).reshape(-1) for x in leaves]
+    host = torch.cat(pieces).cpu().numpy()
+    n = int(host[:4].view(np.int32)[0])
+    at = 4 + flags.numel()
+    host_flags = host[4:at].astype(bool)
+    fetched = []
+    for x in leaves:
+        size = x.numel() * x.element_size()
+        np_dt = torch.empty(0, dtype=x.dtype).numpy().dtype
+        fetched.append(host[at:at + size].view(np_dt)
+                       .reshape(tuple(x.shape))[:n])
+        at += size
+    arrays, k = [], 0
+    for f, c in zip(batch.schema.fields, batch.columns):
+        m = len(c.leaves())
+        arrays.append(_host_array(f, c, fetched[k:k + m]))
+        k += m
+    return pa.Table.from_arrays(arrays, names=batch.schema.names), host_flags

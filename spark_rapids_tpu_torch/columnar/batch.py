@@ -3,9 +3,12 @@
 Counterpart of `spark_rapids_tpu/columnar/batch.py`, kept leaf for leaf so
 every kernel can be diffed array for array against the JAX package:
 
-- every batch has a power-of-two row capacity (`next_capacity`, at least
-  `MIN_CAPACITY`) and a row count `num_rows`, a Python int or a 0-d int32
-  tensor left on the device until `row_count()` needs it on the host;
+- a batch has a row capacity (a power of two from `next_capacity`, at
+  least `MIN_CAPACITY`, except for uploads bucketed by the fused engine's
+  `bucket_capacity` and the views that `truncate` and `slice_rows`
+  take) and a row count `num_rows`, a Python int or a 0-d int32 tensor
+  left on the device until `row_count()` needs it on the host (the fused
+  engine keeps it there: its shrink and concat never sync);
 - columns are validity-masked flat tensors; strings are a zero-padded
   [cap, max_bytes] uint8 matrix plus int32 `lengths`; dictionary-encoded
   strings are int16/int32 codes plus a shared `DeviceDictionary`
@@ -394,6 +397,26 @@ def concat_batches(batches: List[ColumnBatch]) -> ColumnBatch:
                              for b in batches], cap, total, f.dataType)
             for ci, f in enumerate(schema.fields)]
     return ColumnBatch(schema, cols, total)
+
+
+def concat_compacted(batches: List[ColumnBatch]) -> ColumnBatch:
+    """Concatenate batches at the sum of their capacities with the live
+    rows compacted to the front, without reading any row count on the host
+    (the reference's trace-safe `concat_traced`): every leaf is
+    concatenated whole, K1 orders the live rows first and one K8 launch
+    gathers every leaf. A single batch comes back as it is."""
+    if len(batches) == 1:
+        return batches[0]
+    from spark_rapids_tpu_torch.ops import filterops
+
+    schema = batches[0].schema
+    total_cap = sum(b.capacity for b in batches)
+    live = torch.cat([b.live_mask() for b in batches])
+    cols = [_concat_columns([(b.columns[ci], b.capacity) for b in batches],
+                            total_cap, total_cap, f.dataType)
+            for ci, f in enumerate(schema.fields)]
+    perm, total = filterops.compact_perm(live, total_cap)
+    return ColumnBatch(schema, cols, total_cap).gather(perm, total)
 
 
 def batch_from_host_leaves(schema: StructType, leaves: List[Dict],

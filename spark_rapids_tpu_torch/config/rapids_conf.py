@@ -3,8 +3,10 @@
 A host-only copy of `spark_rapids_tpu/config/rapids_conf.py` (the port
 never imports the JAX package), with one key of the port's own:
 `spark.rapids.torch.device` (TORCH_DEVICE). Most keys name features of
-the reference that the port has not reached yet; the port reads the ones
-its ported modules consult and ignores the rest.
+the reference that the port has not reached yet: `PORT_READ_KEYS` lists
+the ones the port's code reads, and `check_port_settings` (run by the
+session) warns on any other key set to a non-default value and refuses
+`spark.sql.ansi.enabled=true`, which the port cannot honour yet.
 
 The reference defines 209 typed `spark.rapids.*` entries with a builder DSL,
 defaults, startup-only flags and markdown doc generation
@@ -1191,6 +1193,42 @@ TORCH_DEVICE = conf(
     "creation when none is available; 'cpu' runs every kernel's plain "
     "PyTorch version on the CPU (the port's tests); 'cuda:N' picks a "
     "card. The port never moves work to the CPU on its own.", str)
+
+
+#: the keys the port's code reads (per-operator switches,
+#: spark.rapids.sql.{exec,expression}.<Name>, are read by the planner too)
+PORT_READ_KEYS = frozenset(e.key for e in (
+    TORCH_DEVICE, SQL_ENABLED, SQL_MODE, EXPLAIN, CPU_ORACLE_ENABLED,
+    PARQUET_READ_ENABLED, PARQUET_READER_TYPE, MAX_READER_BATCH_SIZE_ROWS,
+    ENCODED_ENABLED, ENCODED_READ_DICTIONARY, BATCH_SIZE_ROWS,
+    BATCH_SIZE_BYTES, SHUFFLE_MODE, SHUFFLE_PARTITIONS, BROADCAST_THRESHOLD,
+    JOIN_BLOOM_FILTER, ADAPTIVE_ENABLED, MESH_SIZE, FUSED_EXEC,
+    FUSED_EXPANSION, FUSED_MAX_EXPANSION, FUSED_GROUP_CAP, FUSED_LOOKUP_JOIN,
+    FUSED_AGG_PUSHDOWN, FUSED_SINGLE_SYNC_FETCH_BYTES, FUSED_SHAPE_BUCKETS,
+    ANSI_ENABLED))
+
+
+def check_port_settings(conf: "RapidsConf", keys) -> List[str]:
+    """A session's check of the settings it was given (`keys`) against
+    what the port reads: ANSI mode raises NotImplementedError (the port
+    has no ANSI checks, so it would silently run non-ANSI); every other
+    given key that nothing reads and that is set to a non-default value,
+    or that no entry defines, gets a warning. Returns those keys."""
+    import warnings
+
+    if conf.get(ANSI_ENABLED):
+        raise NotImplementedError(
+            "spark.sql.ansi.enabled=true: ANSI overflow, divide-by-zero and "
+            "cast checks are not ported yet (ROADMAP A7, expr/ansicheck.py)")
+    unknown = set(conf.unknown_keys)
+    ignored = sorted(
+        k for k in keys
+        if k in unknown or (k in conf._values and k not in PORT_READ_KEYS
+                            and conf._values[k] != _REGISTRY[k].default))
+    for key in ignored:
+        warnings.warn(f"{key} is set but the PyTorch port does not read it "
+                      "(accepted and ignored)", UserWarning, stacklevel=3)
+    return ignored
 
 
 def conf_entries() -> List[ConfEntry]:

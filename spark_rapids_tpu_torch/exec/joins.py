@@ -135,7 +135,9 @@ class _DeviceJoinBase(PhysicalPlan):
                       ) -> Optional[ColumnBatch]:
         if not left_batches or right is None:
             return None
-        left = self._bloom_prefilter(concat_batches(left_batches), right)
+        left = (left_batches[0] if len(left_batches) == 1
+                else concat_batches(left_batches))
+        left = self._bloom_prefilter(left, right)
         work_l, lk = self._prepare_keys(left, self.left_keys)
         lo, counts = joinops.probe_ranges(prepared_bt, work_l, lk)
         return self._fast_equi_join(left, prepared_bt, lo, counts)

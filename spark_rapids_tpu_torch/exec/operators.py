@@ -65,7 +65,10 @@ def _conf_get(conf, entry, default):
 
 class TpuCachedRelationExec(PhysicalPlan):
     """Source over a device-resident cache entry (exec/relation_cache.py):
-    one partition per cached part."""
+    one partition per cached part. The parts keep the fused engine's
+    narrowed integer columns; this per-operator path widens them back to
+    their logical types (`vrange` kept), while the fused engine reads the
+    parts as they are and widens inside its chains."""
 
     def __init__(self, entry, schema=None, conf=None):
         super().__init__([], schema if schema is not None else entry.schema,
@@ -77,8 +80,10 @@ class TpuCachedRelationExec(PhysicalPlan):
         return max(1, self.entry.num_parts())
 
     def execute_partition(self, pid, ctx):
+        from spark_rapids_tpu_torch.exec.fused import widen_traced
+
         if pid < self.entry.num_parts():
-            yield self.entry.device_part(pid)
+            yield widen_traced(self.entry.device_part(pid))
 
 
 class TpuFileScanExec(PhysicalPlan):
@@ -128,14 +133,19 @@ class TpuFileScanExec(PhysicalPlan):
                and (cols is None or f.name in cols)]
         return out or None
 
+    def _host_tables(self, files):
+        """The Arrow tables of one read task (the fused engine uploads them
+        narrowed)."""
+        cols = self.pushed_columns
+        return readers.read_parquet_task(
+            files, cols, self._batch_rows,
+            read_dictionary=self._dict_columns(cols))
+
     def execute_partition(self, pid, ctx):
         if pid >= len(self._tasks) or not self._tasks[pid]:
             return
-        cols = self.pushed_columns
         device = conf_device(self.conf)
-        for table in readers.read_parquet_task(
-                self._tasks[pid], cols, self._batch_rows,
-                read_dictionary=self._dict_columns(cols)):
+        for table in self._host_tables(self._tasks[pid]):
             yield arrow_to_device(table, device=device)
 
 
@@ -245,7 +255,10 @@ class TpuHashAggregateExec(PhysicalPlan):
             ranges.append(vr)
         return ranges
 
-    def _partial(self, batch: ColumnBatch) -> ColumnBatch:
+    def _partial(self, batch: ColumnBatch, live=None) -> ColumnBatch:
+        """Partial aggregation of the rows `live` admits (default: the
+        batch's live rows; the fused engine passes its pending filter
+        mask)."""
         nkeys = len(self.grouping)
         # grouping + agg inputs into a working batch; eval_preserving
         # keeps encoded group keys as codes (their vrange then rides the
@@ -267,8 +280,8 @@ class TpuHashAggregateExec(PhysicalPlan):
             work = batch
         ranges = self._bin_ranges(work, nkeys)
         if ranges is not None:
-            return self._partial_binned(work, ranges, input_groups)
-        g = segmented.group_by(work, list(range(nkeys)))
+            return self._partial_binned(work, ranges, input_groups, live)
+        g = segmented.group_by(work, list(range(nkeys)), live)
         cap = work.capacity
         out_cols = self._keys_prefix(g, nkeys, cap)
         ci = nkeys
@@ -279,8 +292,8 @@ class TpuHashAggregateExec(PhysicalPlan):
         return ColumnBatch(_buffer_schema(self.grouping, self.aggs),
                            out_cols, g.num_groups)
 
-    def _partial_binned(self, work: ColumnBatch, ranges,
-                        input_groups) -> ColumnBatch:
+    def _partial_binned(self, work: ColumnBatch, ranges, input_groups,
+                        live=None) -> ColumnBatch:
         """Sort-free partial aggregation entirely in BIN space: one
         elementwise pass gives each row its bin id, K4 reduces over the
         (unsorted) ids, and the group keys are decoded analytically from
@@ -288,7 +301,8 @@ class TpuHashAggregateExec(PhysicalPlan):
         nkeys = len(self.grouping)
         cap = work.capacity
         device = work.device
-        live = work.live_mask()
+        if live is None:
+            live = work.live_mask()
         gid64 = torch.zeros(cap, dtype=torch.int64, device=device)
         stride = 1
         for i, (lo, hi) in enumerate(ranges):

@@ -14,10 +14,15 @@ stay encoded (codes plus one interned dictionary). The `CacheManager`
 matches subtrees by canonical plan key (plan/logical.py `plan_key`), so
 an independently rebuilt DataFrame over the same source hits the cache.
 
-Not ported yet: the spill catalog behind the parts, device-loss
-recovery (ROADMAP A10, A17), and the reference's upload narrowing of
-integer columns (a fused-engine step, ROADMAP A8): parts keep their
-logical types.
+Parts are materialised as the reference materialises them: through the
+fused engine's `execute_parts` (exec/fused.py), falling back to the
+per-operator engine plus one `upload_narrowed` for a plan the fused
+engine cannot lower. Either way integer columns are narrowed with a
+quantized `vrange` and parts sit in 1/16-octave capacity buckets, so a
+group-by on an integer key of a cached relation takes the binned path.
+
+Not ported yet: the spill catalog behind the parts and device-loss
+recovery (ROADMAP A10, A17).
 """
 
 from __future__ import annotations
@@ -72,9 +77,13 @@ class DeviceCacheEntry:
         return self.logical.schema
 
     def materialize(self) -> None:
-        """Plan the subtree and keep every partition's output on the
-        device (once)."""
-        from spark_rapids_tpu_torch.exec.base import new_task_context
+        """Plan the subtree and keep its output parts on the device
+        (once)."""
+        from spark_rapids_tpu_torch.exec.fused import (
+            FusedCompileError,
+            FusedSingleChipExecutor,
+            upload_narrowed,
+        )
         from spark_rapids_tpu_torch.plan.optimizer import optimize
         from spark_rapids_tpu_torch.plan.overrides import plan_query
 
@@ -86,9 +95,19 @@ class DeviceCacheEntry:
             if self._parts is not None:
                 return
             phys, _ = plan_query(optimize(self.logical), self.conf)
-            ctx = new_task_context(self.conf)
-            self._parts = [b for pid in range(phys.num_partitions)
-                           for b in phys.execute_partition(pid, ctx)]
+            parts = None
+            try:
+                parts = FusedSingleChipExecutor(
+                    self.conf).execute_parts(phys)
+            except (FusedCompileError, NotImplementedError):
+                pass
+            if parts is None:
+                # a plan the fused engine cannot lower: run it on the
+                # per-operator engine and upload the result once
+                table = phys.collect()
+                parts = ([upload_narrowed(table, device=self.device)]
+                         if table.num_rows else [])
+            self._parts = parts
 
     def num_parts(self) -> int:
         self.materialize()
@@ -97,6 +116,10 @@ class DeviceCacheEntry:
     def device_part(self, i: int) -> ColumnBatch:
         self.materialize()
         return self._parts[i]
+
+    def device_parts(self) -> List[ColumnBatch]:
+        self.materialize()
+        return list(self._parts)
 
     def release(self) -> None:
         with self._lock:

@@ -14,6 +14,13 @@ module that the JAX package keeps the function in:
 - K8 `columnar.batch.gather_columns`, behind `ColumnBatch.gather`,
   `DeviceColumn.gather` and `columnar.encoding.decode_column`
   (csrc/gather_leaves.cu)
+- K9 `ops.common.pack_keys` (the orderable key words) and
+  `ops.common.sort_words` (their stable radix sort), behind
+  `orderable_keys`, `sort_permutation`, `group_by` and `build_side`
+  (csrc/sort_keys.cu)
+- K10 `ops.segmented.group_bounds`, the segment structure behind
+  `group_by` (csrc/group_bounds.cu)
+- K11 `ops.segmented.dense_bin_perm` (csrc/dense_bin_perm.cu)
 
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel (adding one to its count in `launches`) or
@@ -43,6 +50,10 @@ launches: Dict[str, int] = {
     "murmur3": 0,
     "partition_by_ids": 0,
     "gather_leaves": 0,
+    "pack_keys": 0,
+    "sort_words": 0,
+    "group_bounds": 0,
+    "dense_bin_perm": 0,
 }
 
 
@@ -72,6 +83,24 @@ class GatherLeaf(ctypes.Structure):
 
 #: leaves one K8 launch gathers (kMaxLeaves)
 MAX_LEAVES = 32
+
+
+class PackCol(ctypes.Structure):
+    """One key column as K9 packs it (PackCol in csrc/sort_keys.cu)."""
+
+    _fields_ = [("data", ctypes.c_void_p), ("validity", ctypes.c_void_p),
+                ("lengths", ctypes.c_void_p), ("kind", ctypes.c_int),
+                ("row_bytes", ctypes.c_int), ("word0", ctypes.c_int),
+                ("with_rank", ctypes.c_int), ("descending", ctypes.c_int),
+                ("nulls_first", ctypes.c_int),
+                ("normalize_zero", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
+#: PackCol.kind values (PackKind in csrc/sort_keys.cu)
+(PACK_I8, PACK_I16, PACK_I32, PACK_I64, PACK_F32, PACK_F64, PACK_STR,
+ PACK_BOOL) = range(8)
+#: key columns one K9 pack launch takes (kMaxPackCols)
+MAX_PACK_COLS = 16
 
 
 def struct_array(cls, items) -> ctypes.c_void_p:

@@ -61,6 +61,10 @@ _SIGNATURES = {
     "srtpu_murmur3": [_P, _I, _L, _I, _P, _I, _P, _I, _P],
     "srtpu_partition_by_ids": [_P, _L, _P, _L, _I, _P, _P, _P, _P],
     "srtpu_gather_leaves": [_P, _I, _L, _I, _P],
+    "srtpu_pack_keys": [_P, _I, _I, _P, _L, _P, _P, _I, _P],
+    "srtpu_sort_words": [_P, _I, _I, _P, _P, _I, _P],
+    "srtpu_group_bounds": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "srtpu_dense_bin_perm": [_P, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -141,6 +145,8 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(so, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            so.srtpu_sort_scratch_bytes.argtypes = [_I, _I]
+            so.srtpu_sort_scratch_bytes.restype = ctypes.c_longlong
             so.srtpu_error_string.argtypes = [ctypes.c_int]
             so.srtpu_error_string.restype = ctypes.c_char_p
             _lib = so

@@ -22,8 +22,8 @@ from spark_rapids_tpu_torch.columnar.batch import DeviceColumn, row_mask
 from spark_rapids_tpu_torch.kernels import build as _build
 from spark_rapids_tpu_torch.ops.hashing import (
     key_col_descs,
-    murmur3_columns,
-    pmod,
+    murmur3_columns_plain,
+    pmod_plain,
 )
 
 # int32-signed views of the classic murmur constants (the chain seeds)
@@ -39,11 +39,12 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _positions(key_cols: List[DeviceColumn], m_bits: int, k: int):
-    h1 = murmur3_columns(key_cols, seed=_SEED_A).to(torch.int64)
-    h2 = murmur3_columns(key_cols, seed=_SEED_B).to(torch.int64)
+    """The plain versions' k bit positions of every row."""
+    h1 = murmur3_columns_plain(key_cols, seed=_SEED_A).to(torch.int64)
+    h2 = murmur3_columns_plain(key_cols, seed=_SEED_B).to(torch.int64)
     # odd step avoids degenerate cycles on power-of-two m
     h2 = h2 | 1
-    return [pmod(_wrap32(h1 + i * h2), m_bits) for i in range(k)]
+    return [pmod_plain(_wrap32(h1 + i * h2), m_bits) for i in range(k)]
 
 
 def all_keys_valid(key_cols: List[DeviceColumn]) -> torch.Tensor:

@@ -120,17 +120,19 @@ def _hash_string_u32(data: torch.Tensor, lengths: torch.Tensor,
     return _fmix(h, lengths.to(torch.int64) & _M32)
 
 
-def _hash_input(col: DeviceColumn):
+def _hash_input(col: DeviceColumn, plain: bool = False):
     """(kind, data, lengths) of a key column as Spark hashes it: strings by
-    their bytes (an encoded column decodes first: hashes must agree across
-    batches whose dictionaries differ), floats by their normalised bits,
-    integers at 32 or 64 bits by their type's width."""
+    their bytes (an encoded column decodes first, through K8 or with
+    `plain` its plain version: hashes must agree across batches whose
+    dictionaries differ), floats by their normalised bits, integers at 32
+    or 64 bits by their type's width."""
     dt = col.dtype
     if isinstance(dt, StringType):
         if col.encoding is not None:
             from spark_rapids_tpu_torch.columnar import encoding as _enc
 
-            col = _enc.decode_column(col)
+            decode = _enc.decode_column_plain if plain else _enc.decode_column
+            col = decode(col)
         return kernels.HASH_STR, col.data, col.lengths
     if isinstance(dt, BooleanType):
         return kernels.HASH_I32, col.data.to(torch.int32), None
@@ -168,7 +170,7 @@ def _hash_kind_u32(kind: int, data, lengths, h):
 
 def hash_column_plain(col: DeviceColumn, seed: Seed) -> torch.Tensor:
     """Plain PyTorch version of K6 for `hash_column`."""
-    kind, data, lengths = _hash_input(col)
+    kind, data, lengths = _hash_input(col, plain=True)
     h = _seed_u32(seed, int(data.shape[0]), data.device)
     return _s32(_hash_kind_u32(kind, data, lengths, h))
 
@@ -179,7 +181,7 @@ def murmur3_columns_plain(cols: Sequence[DeviceColumn],
     cap = cols[0].capacity
     h = _seed_u32(seed, cap, cols[0].device)
     for c in cols:
-        kind, data, lengths = _hash_input(c)
+        kind, data, lengths = _hash_input(c, plain=True)
         h = torch.where(c.validity, _hash_kind_u32(kind, data, lengths, h), h)
     return _s32(h)
 

@@ -3,7 +3,9 @@ counterpart of `spark_rapids_tpu/ops/joinops.py`, with its gather-map
 contract:
 
   phase 1: sort the build side by orderable join keys, null-keyed rows
-    last (plain torch, B3b); each probe row finds its matching build range
+    last (kernel K9: `pack_keys` writes the key words, `sort_words` sorts
+    them; the batch and its keys gather with K8); each probe row finds
+    its matching build range
     [lo, lo + count) by binary search (kernel K2, `probe_bounds`); null
     or dead probe rows get count 0.
   host: read the total match count, pick the output capacity bucket.
@@ -19,13 +21,9 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 
 from spark_rapids_tpu_torch import kernels
-from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+from spark_rapids_tpu_torch.columnar.batch import ColumnBatch, gather_leaves
 from spark_rapids_tpu_torch.kernels import build as _build
-from spark_rapids_tpu_torch.ops.common import (
-    equality_keys,
-    normalize_floating,
-    sort_permutation,
-)
+from spark_rapids_tpu_torch.ops.common import KeySpec, pack_keys, sort_words
 
 
 class BuildTable(NamedTuple):
@@ -37,28 +35,24 @@ class BuildTable(NamedTuple):
 
 
 def _join_keys(batch: ColumnBatch, key_idxs: Sequence[int],
-               live: torch.Tensor) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """Orderable value keys + "all keys valid" mask (rank keys excluded —
-    validity is handled by the bound / count-0 rules)."""
-    vals: List[torch.Tensor] = []
-    all_valid = live
-    for i in key_idxs:
-        col = normalize_floating(batch.columns[i])
-        ks = equality_keys(col, live)
-        all_valid = all_valid & col.validity
-        vals.extend(ks[1:])
-    return vals, all_valid
+               live: torch.Tensor, lead_rank: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(orderable value key words [W, n] — rank words excluded, validity is
+    handled by the bound / count-0 rules — led with `lead_rank` by one word
+    that is 1 for null-keyed or dead rows, and the "all keys valid" mask)."""
+    return pack_keys([KeySpec(batch.columns[i], with_rank=False,
+                              normalize_zero=True) for i in key_idxs],
+                     live, lead_rank=lead_rank, want_all_valid=True)
 
 
 def build_side(batch: ColumnBatch, key_idxs: Sequence[int]) -> BuildTable:
-    cap = batch.capacity
     live = batch.live_mask()
-    vals, all_valid = _join_keys(batch, key_idxs, live)
     # null-keyed / dead rows sort to the end: leading rank 0 valid, 1 not
-    rank = (~all_valid).to(torch.int64)
-    perm = sort_permutation([rank] + vals, cap)
+    words, all_valid = _join_keys(batch, key_idxs, live, lead_rank=True)
+    perm = sort_words(words)
     sorted_batch = batch.gather(perm, batch.num_rows)
-    sorted_keys = [v.index_select(0, perm) for v in vals]
+    vals = list(words[1:].unbind(0))
+    sorted_keys = gather_leaves(vals, [perm] * len(vals))
     valid_bound = all_valid.sum().to(torch.int32)
     return BuildTable(sorted_batch, sorted_keys, valid_bound)
 
@@ -99,7 +93,7 @@ def _binary_search(build_keys: List[torch.Tensor],
 
 
 def probe_bounds_plain(build_keys: List[torch.Tensor],
-                       probe_keys: List[torch.Tensor],
+                       probe_keys: Sequence[torch.Tensor],
                        valid_bound: torch.Tensor, all_valid: torch.Tensor,
                        build_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2: two vectorised binary searches."""
@@ -112,14 +106,16 @@ def probe_bounds_plain(build_keys: List[torch.Tensor],
 
 
 def probe_bounds(build_keys: List[torch.Tensor],
-                 probe_keys: List[torch.Tensor], valid_bound: torch.Tensor,
+                 probe_keys: Sequence[torch.Tensor],
+                 valid_bound: torch.Tensor,
                  all_valid: torch.Tensor,
                  build_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K2: per probe row, (lo, count) of the build rows in
     [0, valid_bound) whose W key words equal the row's; count is 0 for
-    rows with all_valid False. lo and count are [n] int32."""
+    rows with all_valid False. lo and count are [n] int32. The probe
+    words may come as one [W, n] tensor (K9's pack)."""
     if all_valid.device.type == "cpu":
-        return probe_bounds_plain(build_keys, probe_keys, valid_bound,
+        return probe_bounds_plain(build_keys, list(probe_keys), valid_bound,
                                   all_valid, build_cap)
     dev = all_valid.device
     w = len(build_keys)
@@ -127,7 +123,10 @@ def probe_bounds(build_keys: List[torch.Tensor],
         raise ValueError(f"{w} build key words, {len(probe_keys)} probe")
     n = all_valid.shape[0]
     build = torch.stack(build_keys) if w > 1 else build_keys[0][None]
-    probe = torch.stack(probe_keys) if w > 1 else probe_keys[0][None]
+    if isinstance(probe_keys, torch.Tensor):
+        probe = probe_keys
+    else:
+        probe = torch.stack(probe_keys) if w > 1 else probe_keys[0][None]
     kernels.require(build, "build_keys", torch.int64, dev, ndim=2)
     kernels.require(probe, "probe_keys", torch.int64, dev, ndim=2)
     kernels.require(all_valid, "all_valid", torch.bool, dev)
@@ -151,8 +150,8 @@ def probe_ranges(build: BuildTable, probe: ColumnBatch,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-probe-row (lo, count) of matching build rows."""
     live = probe.live_mask()
-    vals, all_valid = _join_keys(probe, key_idxs, live)
-    return probe_bounds(build.keys, vals, build.valid_bound, all_valid,
+    words, all_valid = _join_keys(probe, key_idxs, live)
+    return probe_bounds(build.keys, words, build.valid_bound, all_valid,
                         build.batch.capacity)
 
 

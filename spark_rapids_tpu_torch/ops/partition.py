@@ -25,7 +25,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     row_mask,
 )
 from spark_rapids_tpu_torch.kernels import build as _build
-from spark_rapids_tpu_torch.ops.common import sort_permutation
+from spark_rapids_tpu_torch.ops.common import sort_permutation_plain
 from spark_rapids_tpu_torch.ops.hashing import murmur3_pmod
 
 
@@ -48,7 +48,7 @@ def partition_perm_plain(pid: torch.Tensor, num_rows, num_partitions: int
     cap = int(pid.shape[0])
     live = row_mask(cap, num_rows, pid.device)
     key = torch.where(live, pid, num_partitions).to(torch.int64)
-    perm = sort_permutation([key], cap)
+    perm = sort_permutation_plain([key], cap)
     idx = pid.clamp(0, num_partitions - 1).to(torch.int64)
     counts = torch.zeros(num_partitions, dtype=torch.int32,
                          device=pid.device).scatter_add_(

@@ -10,8 +10,12 @@ route (f32-chunk one-hot matmuls on the MXU) is a TPU limit and is not
 copied: int64 sums are exact, float64 sums are exact up to summation
 order.
 
-`group_by` (the sorted path), `dense_bin_perm` and `seg_min` run as plain
-torch on the device (B7 and B2 in the port's kernel table).
+`group_by` (the sorted path) packs its key words and sorts them with
+kernel K9 (ops/common.py), derives the segment structure with K10
+(`group_bounds`, kernels/csrc/group_bounds.cu) and gathers the batch with
+K8; the binned path's bins become dense group positions through K11
+(`dense_bin_perm`, kernels/csrc/dense_bin_perm.cu). `seg_min` is not on
+any ported path and stays plain torch (B2b in the port's kernel table).
 """
 
 from __future__ import annotations
@@ -27,10 +31,10 @@ from spark_rapids_tpu_torch import kernels
 from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
 from spark_rapids_tpu_torch.kernels import build as _build
 from spark_rapids_tpu_torch.ops.common import (
-    equality_keys,
-    normalize_floating,
+    KeySpec,
+    pack_keys,
     rows_equal_adjacent,
-    sort_permutation,
+    sort_words,
 )
 
 _I32_MAX = 0x7FFFFFFF
@@ -187,17 +191,97 @@ def seg_min(values: torch.Tensor, valid: torch.Tensor, gid: torch.Tensor,
         0, gid.to(torch.int64), masked, "amin")
 
 
-def dense_bin_perm(occupied: torch.Tensor, cap: int) -> torch.Tensor:
-    """Gather permutation mapping dense group position j -> the j-th
-    occupied bin (positions past num_groups hold 0). Unoccupied bins
-    write to a spare slot `cap` that is sliced off (the reference's
-    mode="drop" scatter)."""
+def dense_bin_perm_plain(occupied: torch.Tensor, cap: int) -> torch.Tensor:
+    """Plain PyTorch version of K11: the reference's cumsum plus a scatter
+    whose unoccupied bins write to a spare slot `cap` that is sliced off
+    (its mode="drop")."""
     dense = torch.cumsum(occupied.to(torch.int32), 0, dtype=torch.int32) - 1
     target = torch.where(occupied, dense, cap).to(torch.int64)
     out = torch.zeros(cap + 1, dtype=torch.int32, device=occupied.device)
     out[target] = torch.arange(cap, dtype=torch.int32,
                                device=occupied.device)
     return out[:cap]
+
+
+def dense_bin_perm(occupied: torch.Tensor, cap: int) -> torch.Tensor:
+    """Kernel K11: gather permutation mapping dense group position j -> the
+    j-th occupied bin (positions past num_groups hold 0)."""
+    if occupied.device.type == "cpu":
+        return dense_bin_perm_plain(occupied, cap)
+    dev = occupied.device
+    kernels.require(occupied, "occupied", torch.bool, dev)
+    if occupied.shape[0] != cap:
+        raise ValueError(f"occupied has {occupied.shape[0]} bins, cap {cap}")
+    out = torch.empty(cap, dtype=torch.int32, device=dev)
+    tiles = -(-cap // kernels.TILE_ROWS)
+    scratch = torch.empty(2 * tiles + 1, dtype=torch.int32, device=dev)
+    _build.check(_build.lib().srtpu_dense_bin_perm(
+        occupied.data_ptr(), cap, out.data_ptr(), scratch.data_ptr(),
+        kernels.stream_ptr(occupied)), "dense_bin_perm")
+    kernels.launches["dense_bin_perm"] += 1
+    return out
+
+
+class GroupBounds(NamedTuple):
+    """K10's outputs: the segment structure of rows in sorted order."""
+
+    gid: torch.Tensor          # [n] int32
+    live: torch.Tensor         # [n] bool, sorted order
+    num_groups: torch.Tensor   # 0-d int32
+    first_pos: torch.Tensor    # [n] int32
+
+
+def group_bounds_plain(words: torch.Tensor, perm: torch.Tensor,
+                       live: torch.Tensor) -> GroupBounds:
+    """Plain PyTorch version of K10: the reference's takes of the key
+    words, adjacent-row equality, cumsum and segment_min."""
+    cap = int(perm.shape[0])
+    p64 = perm.to(torch.int64)
+    sorted_keys = [w.index_select(0, p64) for w in words.unbind(0)]
+    live_s = live.index_select(0, p64)
+    eq = rows_equal_adjacent(sorted_keys)
+    boundary = live_s & ~eq
+    gid = (torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32)
+           - 1).clamp(0, cap - 1)
+    num_groups = boundary.sum().to(torch.int32)
+    pos = torch.arange(cap, dtype=torch.int32, device=perm.device)
+    first_pos = torch.full((cap,), _I32_MAX, dtype=torch.int32,
+                           device=perm.device).scatter_reduce_(
+        0, gid.to(torch.int64), torch.where(live_s, pos, cap), "amin")
+    return GroupBounds(gid, live_s, num_groups, first_pos)
+
+
+def group_bounds(words: torch.Tensor, perm: torch.Tensor,
+                 live: torch.Tensor) -> GroupBounds:
+    """Kernel K10: for rows sorted by `perm` over key words [nwords, n]
+    int64, the segment id of each sorted row, the sorted live mask, the
+    number of groups and each group's first sorted position (INT32_MAX
+    past the groups, as segment_min leaves an empty segment)."""
+    if perm.device.type == "cpu":
+        return group_bounds_plain(words, perm, live)
+    dev = perm.device
+    kernels.require(words, "words", torch.int64, dev, ndim=2)
+    kernels.require(perm, "perm", torch.int32, dev)
+    kernels.require(live, "live", torch.bool, dev)
+    nwords, n = int(words.shape[0]), int(words.shape[1])
+    if perm.shape[0] != n or live.shape[0] != n or n == 0:
+        raise ValueError(f"words {tuple(words.shape)}, perm "
+                         f"{tuple(perm.shape)} and live {tuple(live.shape)} "
+                         "differ")
+    gid = torch.empty(n, dtype=torch.int32, device=dev)
+    live_s = torch.empty(n, dtype=torch.bool, device=dev)
+    num_groups = torch.empty((), dtype=torch.int32, device=dev)
+    first_pos = torch.empty(n, dtype=torch.int32, device=dev)
+    tiles = -(-n // kernels.TILE_ROWS)
+    scratch = torch.empty(((n + 15) // 16) * 4 + 2 * tiles,
+                          dtype=torch.int32, device=dev)
+    _build.check(_build.lib().srtpu_group_bounds(
+        words.data_ptr(), nwords, n, perm.data_ptr(), live.data_ptr(),
+        gid.data_ptr(), live_s.data_ptr(), num_groups.data_ptr(),
+        first_pos.data_ptr(), scratch.data_ptr(), kernels.stream_ptr(perm)),
+        "group_bounds")
+    kernels.launches["group_bounds"] += 1
+    return GroupBounds(gid, live_s, num_groups, first_pos)
 
 
 def group_by(batch: ColumnBatch, key_idxs: Sequence[int],
@@ -212,23 +296,13 @@ def group_by(batch: ColumnBatch, key_idxs: Sequence[int],
         return GroupedBatch(batch, zeros, live,
                             torch.ones((), dtype=torch.int32, device=device),
                             zeros)
-    keys: List[torch.Tensor] = []
-    for i in key_idxs:
-        # grouping is a single-batch equality context: encoded keys
-        # group on their codes
-        keys.extend(equality_keys(normalize_floating(batch.columns[i]),
-                                  live, codes_ok=True))
-    perm = sort_permutation(keys, cap)
-    sorted_keys = [k.index_select(0, perm) for k in keys]
-    live_s = live.index_select(0, perm)
-    eq = rows_equal_adjacent(sorted_keys)
-    boundary = live_s & ~eq
-    gid = (torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32)
-           - 1).clamp(0, cap - 1)
-    num_groups = boundary.sum().to(torch.int32)
-    pos = torch.arange(cap, dtype=torch.int32, device=device)
-    first_pos = torch.full((cap,), _I32_MAX, dtype=torch.int32,
-                           device=device).scatter_reduce_(
-        0, gid.to(torch.int64), torch.where(live_s, pos, cap), "amin")
+    # grouping is a single-batch equality context: encoded keys group on
+    # their codes; float keys fold -0.0 into 0.0
+    words, _ = pack_keys([KeySpec(batch.columns[i], codes_ok=True,
+                                  normalize_zero=True) for i in key_idxs],
+                         live)
+    perm = sort_words(words)
+    gb = group_bounds(words, perm, live)
     sorted_batch = batch.gather(perm, batch.num_rows)
-    return GroupedBatch(sorted_batch, gid, live_s, num_groups, first_pos)
+    return GroupedBatch(sorted_batch, gb.gid, gb.live, gb.num_groups,
+                        gb.first_pos)

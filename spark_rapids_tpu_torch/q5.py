@@ -21,10 +21,11 @@ columns, file layout and parquet settings, and with `dup_per_store` the
 bench's duplicate-key dimension too (`root/dup/dup-0.parquet`).
 
 `engine_query` and `dupjoin_query` are bench.py's two queries written
-against the port's DataFrame API; through the port's session they run
-the planner's plan (a bloom-prefiltered broadcast join, a binned partial
-aggregate, a murmur3 hash exchange and a final aggregate) on the `aqe`
-engine.
+against the port's DataFrame API. Through the port's session with
+bench.py's conf they run on the fused engine (exec/fused.py); with
+spark.rapids.sql.fusedExec.enabled off, the planner's plan (a
+bloom-prefiltered broadcast join, a binned partial aggregate, a murmur3
+hash exchange and a final aggregate) runs on the `aqe` engine.
 """
 
 from __future__ import annotations

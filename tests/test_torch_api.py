@@ -286,8 +286,10 @@ def test_unported_plans_raise_not_implemented(data):
 def test_shuffle_mode_substitution_is_recorded(data, mode):
     """The host-block shuffle modes (MULTITHREADED, the default, and
     CACHE_ONLY) are not ported: the exchange runs the DEVICE mode and the
-    substitution is recorded as a fallback."""
-    conf = {"spark.rapids.torch.device": "cpu"}
+    substitution is recorded as a fallback. (The fused engine, on by
+    default, runs no exchange, so this drives the adaptive engine.)"""
+    conf = {"spark.rapids.torch.device": "cpu",
+            "spark.rapids.sql.fusedExec.enabled": False}
     if mode is not None:
         conf["spark.rapids.shuffle.mode"] = mode
     spark = TpuSparkSession(conf)

@@ -630,3 +630,203 @@ def test_decode_column_clips_codes_and_zeroes_nulls():
     jdec = jax_encoding.decode_column(jcol)
     same(dec.data, jdec.data, "bytes")
     same(dec.lengths, jdec.lengths, "lengths")
+
+
+# --------------------------------------------------- K9, K10, K11 (slice 3)
+
+_KEY_SETS = [["l"], ["s"], ["f64"], ["d"], ["f32", "b"],
+             ["i", "s", "l"], ["s", "d", "l", "f64", "i", "f32"]]
+
+
+@pytest.mark.parametrize("cols", _KEY_SETS)
+@pytest.mark.parametrize("ascending,nulls_first", [
+    (True, True), (False, False), (True, False), (False, True)])
+def test_k9_pack_and_sort_match_reference(cols, ascending, nulls_first):
+    """K9's plain pack (one column's words = orderable_keys, several
+    columns word-major) and its stable sort against the reference's
+    orderable_keys and lax.sort: ties, nulls first and last, descending,
+    dead rows, NaN, -0.0, +-inf, INT64_MIN, strings of 0-12 bytes with
+    bytes >= 0x80, and the encoded column decoded."""
+    rng = np.random.default_rng(70)
+    table = _key_table(rng, 3000).select(cols)
+    jb, pb = both_batches(table, dead=111)
+    live, jlive = pb.live_mask(), jb.live_mask()
+    specs = [port_common.KeySpec(c, ascending, nulls_first)
+             for c in pb.columns]
+    words, _ = port_common.pack_keys(specs, live)
+    jkeys = [k for c in jb.columns
+             for k in jax_common.orderable_keys(c, ascending, nulls_first,
+                                                jlive)]
+    assert words.shape[0] == len(jkeys)
+    for w, jk in zip(words, jkeys):
+        same(w, jk, "key word")
+    perm = port_common.sort_words(words)
+    same(perm, jax_common.sort_permutation(jkeys, jb.capacity), "perm")
+
+
+@pytest.mark.parametrize("codes_ok", [True, False])
+def test_k9_encoded_codes(codes_ok):
+    rng = np.random.default_rng(71)
+    jb, pb = both_batches(_key_table(rng, 2000).select(["d"]), dead=50)
+    keys = port_common.orderable_keys(pb.columns[0], True, True,
+                                      pb.live_mask(), codes_ok=codes_ok)
+    jkeys = jax_common.orderable_keys(jb.columns[0], True, True,
+                                      jb.live_mask(), codes_ok=codes_ok)
+    assert len(keys) == len(jkeys)
+    for k, jk in zip(keys, jkeys):
+        same(k, jk)
+
+
+@pytest.mark.parametrize("n,distinct", [(1024, 1), (5000, 3), (20000, 7)])
+def test_k9_heavy_ties_are_stable(n, distinct):
+    rng = np.random.default_rng(72)
+    x = rng.integers(0, distinct, n).astype(np.int64)
+    y = rng.integers(-2, 2, n).astype(np.int64)
+    perm = port_common.sort_words(t(np.stack([x, y])))
+    want = jax_common.sort_permutation([jnp.asarray(x), jnp.asarray(y)], n)
+    same(perm, want)
+    np.testing.assert_array_equal(perm.numpy(),
+                                  np.lexsort((np.arange(n), y, x)))
+
+
+@pytest.mark.parametrize("cols", _KEY_SETS)
+def test_k10_group_by_matches_reference(cols):
+    """group_by = K9 pack and sort, then K10's segment structure: gid, the
+    sorted live mask, num_groups and first_pos array for array (positions
+    past the groups hold segment_min's identity), and the sorted batch."""
+    rng = np.random.default_rng(73)
+    jb, pb = both_batches(_key_table(rng, 2500).select(cols), dead=200)
+    keys = list(range(len(cols)))
+    g = port_segmented.group_by(pb, keys)
+    jg = jax_segmented.group_by(jb, keys)
+    same(g.num_groups, jg.num_groups, "num_groups")
+    same(g.gid, jg.gid, "gid")
+    same(g.live, jg.live, "live")
+    same(g.first_pos, jg.first_pos, "first_pos")
+    same_batch(g.sorted_batch, jg.sorted_batch)
+
+
+@pytest.mark.parametrize("live_rows", [0, 1, 1000])
+def test_k10_group_bounds_edges(live_rows):
+    """No live row (first_pos[0] holds the capacity), one, and all."""
+    rng = np.random.default_rng(74)
+    table = pa.table({"k": pa.array(rng.integers(0, 3, 1024), pa.int64())})
+    jb, pb = both_batches(table, dead=1024 - live_rows)
+    g = port_segmented.group_by(pb, [0])
+    jg = jax_segmented.group_by(jb, [0])
+    for a, b, what in ((g.num_groups, jg.num_groups, "num_groups"),
+                       (g.gid, jg.gid, "gid"), (g.live, jg.live, "live"),
+                       (g.first_pos, jg.first_pos, "first_pos")):
+        same(a, b, what)
+
+
+@pytest.mark.parametrize("cap,p_occ", [(1, 1.0), (5000, 0.3), (8192, 0.0),
+                                       (12289, 0.9)])
+def test_k11_dense_bin_perm_sizes(cap, p_occ):
+    rng = np.random.default_rng(75)
+    occupied = rng.random(cap) < p_occ
+    same(port_segmented.dense_bin_perm(t(occupied), cap),
+         jax_segmented.dense_bin_perm(jnp.asarray(occupied), cap))
+
+
+# ------------------------------------------- plain versions stay plain
+
+import sys  # noqa: E402
+
+from spark_rapids_tpu_torch.columnar import batch as port_batch  # noqa: E402
+
+# every kernel wrapper: on a CUDA tensor each one launches its kernel, so
+# a plain version (the kernel's check on the card) must reach none of them
+_WRAPPERS = [
+    (port_filterops, "compact_perm"), (port_joinops, "probe_bounds"),
+    (port_joinops, "expand_gather_maps"),
+    (port_segmented, "seg_sum_count_multi"),
+    (port_segmented, "dense_bin_perm"), (port_segmented, "group_bounds"),
+    (port_bloom, "build"), (port_bloom, "might_contain"),
+    (port_bloom, "might_contain_count"), (port_hashing, "murmur3_pmod"),
+    (port_hashing, "murmur3_columns"), (port_hashing, "pmod"),
+    (port_hashing, "hash_column"), (port_hashing, "_launch_k6"),
+    (port_partition, "partition_perm"), (port_batch, "gather_leaves"),
+    (port_encoding, "decode_column"), (port_common, "pack_keys"),
+    (port_common, "sort_words"), (port_common, "sort_permutation"),
+    (port_common, "orderable_keys"),
+]
+
+
+def _plain_case(name, pb):
+    """Run one plain version on the key table's batch (encoded `d` and
+    string `s` keys included, so that decoding is reached)."""
+    n = pb.capacity
+    live = pb.live_mask()
+    rng = np.random.default_rng(76)
+    s_col, d_col, l_col = pb.columns[0], pb.columns[1], pb.columns[2]
+    words, _ = port_common.pack_keys_plain(
+        [port_common.KeySpec(c) for c in (d_col, l_col)], live)
+    perm = port_common.sort_permutation_plain(list(words.unbind(0)), n)
+    counts = t(rng.integers(0, 3, n).astype(np.int32))
+    lo = t(rng.integers(0, n, n).astype(np.int32))
+    ss = port_segmented
+    cases = {
+        "compact_perm_plain": lambda: port_filterops.compact_perm_plain(
+            live, n),
+        "probe_bounds_plain": lambda: port_joinops.probe_bounds_plain(
+            list(words[:, perm.long()].unbind(0)), list(words.unbind(0)),
+            torch.tensor(n - 5, dtype=torch.int32), live, n),
+        "expand_gather_maps_plain":
+            lambda: port_joinops.expand_gather_maps_plain(lo, counts, 2 * n),
+        "seg_sum_count_plain": lambda: ss.seg_sum_count_plain(
+            [l_col.data], live, counts, 3),
+        "dense_bin_perm_plain": lambda: ss.dense_bin_perm_plain(live, n),
+        "group_bounds_plain": lambda: ss.group_bounds_plain(words, perm,
+                                                            live),
+        "sort_permutation_plain": lambda: perm,
+        "pack_keys_plain": lambda: port_common.pack_keys_plain(
+            [port_common.KeySpec(d_col), port_common.KeySpec(s_col)], live,
+            lead_rank=True),
+        "orderable_keys_plain": lambda: port_common.orderable_keys_plain(
+            d_col, False, False, live),
+        "hash_column_plain": lambda: port_hashing.hash_column_plain(d_col,
+                                                                    42),
+        "murmur3_columns_plain": lambda: port_hashing.murmur3_columns_plain(
+            [d_col, s_col, l_col]),
+        "partition_perm_plain": lambda: port_partition.partition_perm_plain(
+            counts, n - 9, 3),
+        "build_plain": lambda: port_bloom.build_plain([d_col, s_col], live,
+                                                      4096),
+        "might_contain_count_plain":
+            lambda: port_bloom.might_contain_count_plain(
+                port_bloom.build_plain([d_col], live, 4096), [d_col], n - 9),
+        "gather_leaves_plain": lambda: port_batch.gather_leaves_plain(
+            [s_col.data, l_col.data], [perm, lo], clamp=True),
+        "decode_column_plain": lambda: port_encoding.decode_column_plain(
+            d_col),
+    }
+    return cases[name]()
+
+
+@pytest.mark.parametrize("name", [
+    "compact_perm_plain", "probe_bounds_plain", "expand_gather_maps_plain",
+    "seg_sum_count_plain", "dense_bin_perm_plain", "group_bounds_plain",
+    "sort_permutation_plain", "pack_keys_plain", "orderable_keys_plain",
+    "hash_column_plain", "murmur3_columns_plain", "partition_perm_plain",
+    "build_plain", "might_contain_count_plain", "gather_leaves_plain",
+    "decode_column_plain"])
+def test_plain_versions_reach_no_kernel_wrapper(name, monkeypatch):
+    """With every kernel wrapper, wherever it is bound, replaced by one
+    that raises, each plain version still runs."""
+    rng = np.random.default_rng(77)
+    _, pb = both_batches(_key_table(rng, 600), dead=31)
+    wrappers = {getattr(mod, attr): attr for mod, attr in _WRAPPERS}
+
+    def raiser(attr):
+        def call(*a, **k):
+            raise AssertionError(f"a plain version called {attr}")
+        return call
+
+    for mname, mod in list(sys.modules.items()):
+        if not mname.startswith("spark_rapids_tpu_torch"):
+            continue
+        for attr, val in list(vars(mod).items()):
+            if callable(val) and val in wrappers:
+                monkeypatch.setattr(mod, attr, raiser(wrappers[val]))
+    _plain_case(name, pb)

@@ -154,14 +154,24 @@ def test_binned_partial_takes_one_k4_call(q5_data, monkeypatch):
 
 
 def test_sorted_aggregate_matches_jax_package(q5_data):
-    """Group keys without a vrange (the fact table's int64 `store`) take
-    the sorted partial: sort, segment, reduce, then the sorted merge."""
+    """Group keys without a vrange (the fact table's int64 `store`, read
+    by the file scan; the device cache narrows it and stamps a vrange)
+    take the sorted partial: sort, segment, reduce, then the sorted
+    merge."""
     from spark_rapids_tpu.api import functions as F
-    from spark_rapids_tpu_torch.exec.operators import TpuCachedRelationExec
+    from spark_rapids_tpu_torch.columnar.arrow_bridge import (
+        schema_from_arrow,
+    )
+    from spark_rapids_tpu_torch.config import rapids_conf as port_rc
+    from spark_rapids_tpu_torch.exec.operators import TpuFileScanExec
     from spark_rapids_tpu_torch.expr.aggregates import Average, Count, Sum
+    from spark_rapids_tpu_torch.io.readers import infer_parquet_schema
 
     fact_paths, _ = q5_data
-    rel = TpuCachedRelationExec(DeviceCacheEntry(fact_paths, device="cpu"))
+    rel = TpuFileScanExec(
+        "parquet", fact_paths,
+        schema_from_arrow(infer_parquet_schema(fact_paths)),
+        port_rc.RapidsConf({"spark.rapids.torch.device": "cpu"}))
     fs = rel.schema
 
     def ref(name):
