@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    rows): K1-K4, K5 (bloom build and might_contain), K6 (murmur3
    partition ids), K7 (partition_by_ids), K8 (the batch gather), K9
    (orderable key words and their stable radix sort), K10 (group
-   boundaries) and K11 (dense bin permutation), with the device time of
+   boundaries), K11 (dense bin permutation), K12 (segmented min/max, at
+   the fused window's 37,748,736 sorted positions), K13 (the merge of two
+   sorted 2^22-row runs) and K14 (the window's frame prefix and its
+   evaluation with the write-back to input order), with the device time of
    the kernel, the plain version and, where one exists, one PyTorch
    library call computing the same function (torch.profiler: the summed
    durations of what each call runs on the card, so host dispatch is not
@@ -23,7 +26,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    keys; then edge shapes (partial tiles, several key words, null keys,
    dead rows, every string tail length, -0.0 and NaN, INT64_MIN, 1 to 7
    sort keys of every kind in both directions, 1 to 200 partitions, leaf
-   widths no multiple of 4), exact;
+   widths no multiple of 4; K12 over every type with NaN and -0.0, K13
+   with empty, dead and string runs, K14 at 1 to 70,001 rows), exact but
+   for K14's float64 sums (1e-9 relative);
 3. slice 1's hand-built q5 plan at the bench's full size (36M fact rows
    in 8 parquet files, a 2,000-row dimension with a dictionary-encoded
    `region`) over device-cached relations: upload, one cold run and 5
@@ -36,13 +41,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    same way; the engine and the adaptive decisions are printed;
 5. the same two queries with bench.py's conf, where the fused engine is
    on: both must run on it, q5 keeping its lookup join and dupjoin losing
-   the lookup bet, and equal the oracles.
+   the lookup bet, and equal the oracles;
+6. ScaleTest's sort, TopN, distinct and window shapes over the same
+   tables (q5.py: topn_query, sorted_q5_query, dedup_query, window_query)
+   on the adaptive and the fused engine, against pyarrow/numpy oracles:
+   the first 100 rows by amount, q5 in revenue order, the sorted distinct
+   (store, qty) pairs, and per (store, day) peer run the rank, dense rank
+   and running sum (1e-9 relative) with row numbers that permute the run's
+   positions. The window must launch K12 and K14 on both engines, and the
+   TopN's final sort on the adaptive engine K13 (it merges one sorted run
+   per map block); each query's peak device bytes are printed.
 
-For each query run (phases 3-5) the kernels' launch counts are reset
+For each query run (phases 3-6) the kernels' launch counts are reset
 just before the cold run and read just after it; every kernel of that
 path must have run. One more hot run counts the host syncs (torch.cuda's
 sync debug mode) and one, under torch.profiler, gives the device's busy
-time against wall time and must hold no library sort kernel.
+time against wall time and must hold no library sort or scan kernel.
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository
@@ -66,6 +80,7 @@ HOT_RUNS = 5
 TIMING_ITERS = 20
 DUP_PER_STORE = 2       # rows per store in the duplicate-key dimension
 REL_TOL = 1e-9          # sums and averages against the oracles
+MERGE_ROWS = 1 << 22    # rows of each run in K13's record
 F64_ATOMIC_TOL = 1e-12  # K4's float64 sums: atomic order varies
 
 
@@ -1000,6 +1015,404 @@ def check_edge_shapes(dev) -> int:
     return cases
 
 
+def same_bits(name: str, got, want) -> None:
+    """Exact, NaNs included: floats compare by their bit patterns."""
+    import torch
+
+    if got.dtype.is_floating_point:
+        ity = {torch.float32: torch.int32, torch.float64: torch.int64}
+        got, want = got.view(ity[got.dtype]), want.view(ity[want.dtype])
+    exact(name, got, want)
+
+
+def close_where(name: str, got, want, valid) -> float:
+    """float64 results within REL_TOL relative where `valid`; returns the
+    largest relative difference."""
+    import torch
+
+    g, w = got[valid], want[valid]
+    if g.numel() == 0:
+        return 0.0
+    rel = float(((g - w).abs() / w.abs().clamp(min=1e-300)).max().item())
+    if not rel <= REL_TOL:
+        fail(f"{name}: float64 results off by {rel} relative")
+    return rel
+
+
+def _window_inputs(dev, cap: int, live_rows: int, seed: int):
+    """The window query's input as the fused engine concatenates it: the
+    8 cached parts' rows (store, day, amount) compacted to the front of a
+    `cap`-row batch."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.sqltypes import StructField, StructType
+    from spark_rapids_tpu_torch.sqltypes.datatypes import double, long
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def live_part(x):
+        x[live_rows:] = 0
+        return x
+
+    store = live_part(torch.randint(0, STORES, (cap,), generator=g,
+                                    device=dev))
+    day = live_part(torch.randint(0, 365, (cap,), generator=g, device=dev))
+    amount = live_part(torch.rand(cap, generator=g, device=dev,
+                                  dtype=torch.float64) * 100.0)
+    valid = torch.arange(cap, device=dev) < live_rows
+    schema = StructType([StructField("store", long), StructField("day", long),
+                         StructField("amount", double)])
+    cols = [_col(long, store, valid.clone()), _col(long, day, valid.clone()),
+            _col(double, amount, valid.clone())]
+    return ColumnBatch(schema, cols, live_rows)
+
+
+def check_slice4_kernels(dev):
+    """Phase 2, slice 4: K12 (segmented min/max), K13 (the sorted-run
+    merge) and K14 (the window's prefix and its evaluation) against their
+    plain versions at the shapes the path gives them: the fused window's
+    sorted domain (36M live rows of 8 parts of 4,718,592; ~2,000
+    partitions and ~730,000 (store, day) peer runs) and two 2^22-row
+    (store, qty) runs. Returns {kernel name: record}."""
+    import torch
+
+    from spark_rapids_tpu_torch import kernels
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.expr.core import BoundReference
+    from spark_rapids_tpu_torch.ops import common, segmented, sortops
+    from spark_rapids_tpu_torch.ops import windowops as W
+    from spark_rapids_tpu_torch.plan.logical import SortOrder
+    from spark_rapids_tpu_torch.sqltypes import StructField, StructType
+    from spark_rapids_tpu_torch.sqltypes.datatypes import long
+
+    from spark_rapids_tpu_torch.exec.fused import bucket_capacity
+
+    out = {}
+    cap = FILES * bucket_capacity(ROWS // FILES)
+    batch = _window_inputs(dev, cap, ROWS, 8)
+    store, day, amount = batch.columns
+    live = batch.live_mask()
+    sw = W.sort_for_window(batch, [store], [(day, True, True)])
+    words, _ = common.pack_keys([common.KeySpec(store, True, True, True,
+                                                False, True)], live)
+    gid = segmented.group_bounds(words, sw.perm, live).gid
+    del words
+    live_pos = torch.where(sw.live, sw.pos, cap)
+    nparts = int(gid.max().item()) + 1
+    npeers = int(sw.pid.max().item()) + 1
+
+    # K12: the partitions' first positions (sorted gid, no validity)
+    got = segmented.seg_min(live_pos, None, gid, cap)
+    want = segmented.seg_minmax_plain(live_pos, None, gid, cap, False)
+    torch.cuda.synchronize()
+    exact("seg_min partition starts", got, want)
+    for ids, what in ((gid, "partition"), (sw.pid, "peer")):
+        exact(f"seg_max {what} ends",
+              segmented.seg_max(torch.where(sw.live, sw.pos, -1), None, ids,
+                                cap),
+              segmented.seg_minmax_plain(torch.where(sw.live, sw.pos, -1),
+                                         None, ids, cap, True))
+    gid64 = gid.to(torch.int64)
+    i32_max = torch.full((cap,), 0x7FFFFFFF, dtype=torch.int32, device=dev)
+    out["seg_minmax"] = dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/seg_minmax.cu",
+        replaces="spark_rapids_tpu/ops/segmented.py:420",
+        max_abs_err=max_abs_err(got, want),
+        **timed("seg_minmax",
+                lambda: segmented.seg_min(live_pos, None, gid, cap),
+                lambda: segmented.seg_minmax_plain(live_pos, None, gid, cap,
+                                                   False),
+                lambda: i32_max.clone().scatter_reduce_(0, gid64, live_pos,
+                                                        "amin")),
+        # each row's value and gid read once, the segments written once
+        bound_ms=bound_ms(cap * (4 + 4) + cap * 4), bound_by="bytes",
+        shape=f"positions [{cap}] int32, {nparts} sorted segments "
+              f"(partitions)")
+    peer_ms = device_ms(lambda: segmented.seg_min(live_pos, None, sw.pid,
+                                                  cap), "seg_min peers")
+    out["seg_minmax"]["extra"] = (
+        f"the {npeers} peer runs: kernel_ms={peer_ms:.4f}")
+    del gid64, i32_max
+
+    # K14 prefix: the running sum's float64 prefix through the sort
+    amt = amount.data
+    p = W.window_prefix(amt, amount.validity, sw.live, sw.perm,
+                        torch.float64)
+    p_plain = W.window_prefix_plain(amt, amount.validity, sw.live, sw.perm,
+                                    torch.float64)
+    torch.cuda.synchronize()
+    rel = close_where("window_prefix", p, p_plain,
+                      torch.ones_like(p, dtype=torch.bool))
+    sorted_amt = torch.where(
+        sw.live & amount.validity.index_select(0, sw.perm.to(torch.int64)),
+        amt.index_select(0, sw.perm.to(torch.int64)), 0.0)
+    out["window_prefix"] = dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/window_frames.cu",
+        replaces="spark_rapids_tpu/ops/windowops.py:227",
+        max_abs_err=max_abs_err(p, p_plain),
+        **timed("window_prefix",
+                lambda: W.window_prefix(amt, amount.validity, sw.live,
+                                        sw.perm, torch.float64),
+                lambda: W.window_prefix_plain(amt, amount.validity, sw.live,
+                                              sw.perm, torch.float64),
+                lambda: torch.cumsum(sorted_amt, 0)),
+        # perm and live_s a row, value and validity a live row, p out
+        bound_ms=bound_ms(cap * (4 + 1) + ROWS * (8 + 1) + (cap + 1) * 8),
+        bound_by="bytes", rel_err=rel,
+        shape=f"amount [{cap}] float64 through perm, {ROWS} live rows")
+    del sorted_amt, p_plain
+
+    # K14 evaluation: row_number, rank, dense_rank and the running sum
+    pcnt = W.window_prefix(None, amount.validity, sw.live, sw.perm,
+                           torch.int64)
+    frame = W.frame_of(None, True)
+    reqs = [W.WinRequest(kernels.WIN_ROW_NUMBER),
+            W.WinRequest(kernels.WIN_RANK),
+            W.WinRequest(kernels.WIN_DENSE_RANK),
+            W.WinRequest(kernels.WIN_SUM_F64, frame, p, pcnt)]
+    got = W.window_eval(sw, reqs, sw.perm)
+    want = W.window_eval_plain(sw, reqs, sw.perm)
+    torch.cuda.synchronize()
+    err, rel = 0, 0.0
+    for k, ((gd, gv), (wd, wv)) in enumerate(zip(got, want)):
+        exact(f"window_eval validity {k}", gv, wv)
+        if gd.dtype.is_floating_point:
+            rel = close_where("window_eval sum", gd, wd, wv)
+        else:
+            exact(f"window_eval rank {k}", gd, wd)
+            err = max(err, max_abs_err(gd, wd))
+    out["window_eval"] = dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/window_frames.cu",
+        replaces="spark_rapids_tpu/ops/windowops.py:397",
+        max_abs_err=err,
+        **timed("window_eval", lambda: W.window_eval(sw, reqs, sw.perm),
+                lambda: W.window_eval_plain(sw, reqs, sw.perm), None),
+        # perm, seg_start, peer_start, peer_end, pid and both prefixes a
+        # row; three int32 and one float64 column with validity out
+        bound_ms=bound_ms(cap * (5 * 4 + 2 * 8) + cap * (3 * 5 + 9)),
+        bound_by="bytes", rel_err=rel,
+        shape=f"{cap} sorted rows, {nparts} partitions, {npeers} peer "
+              "runs -> rn, rk, drk, run_amount")
+    del batch, sw, got, want, p, pcnt, live_pos, gid
+    torch.cuda.empty_cache()
+
+    # K13: two sorted 2^22-row (store, qty) runs, as the merge tree meets
+    # them
+    n = MERGE_ROWS
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    schema = StructType([StructField("store", long),
+                         StructField("qty", long)])
+    orders = [SortOrder(BoundReference(0, long), True),
+              SortOrder(BoundReference(1, long), True)]
+    runs = []
+    for _ in range(2):
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        b = ColumnBatch(schema, [
+            _col(long, torch.randint(0, STORES, (n,), generator=g,
+                                     device=dev), ones),
+            _col(long, torch.randint(1, 100, (n,), generator=g, device=dev),
+                 ones.clone())], n)
+        runs.append(sortops.sort_batch(b, orders))
+    ka, kb = (sortops.order_keys(r, orders) for r in runs)
+    la = [x for c in runs[0].columns for x in c.leaves()]
+    lb = [x for c in runs[1].columns for x in c.leaves()]
+    got = sortops.merge_runs(ka, kb, n, n, la, lb, 2 * n)
+    want = sortops.merge_runs_plain(ka, kb, n, n, la, lb, 2 * n)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(got, want)):
+        exact(f"merge_runs leaf {k}", a, b)
+    leaf_bytes = sum(x[0].numel() * x.element_size() for x in la)
+    out["merge_runs"] = dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/merge_runs.cu",
+        replaces="spark_rapids_tpu/ops/sortops.py:89",
+        max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)),
+        **timed("merge_runs",
+                lambda: sortops.merge_runs(ka, kb, n, n, la, lb, 2 * n),
+                lambda: sortops.merge_runs_plain(ka, kb, n, n, la, lb,
+                                                 2 * n), None),
+        # both runs' key words and leaves read once, the output written
+        bound_ms=bound_ms(2 * n * (ka.shape[0] * 8 + leaf_bytes)
+                          + 2 * n * leaf_bytes),
+        bound_by="bytes",
+        shape=f"two runs of {n} (store, qty) rows, {ka.shape[0]} key words")
+    del runs, ka, kb, la, lb, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_slice4_edges(dev) -> int:
+    """Phase 2, slice 4 edge shapes against the plain versions: K12 over
+    every type, sorted and unsorted ids, 0 and 1 rows, every row invalid,
+    runs across a warp's 512 rows and a block's 4,096, ids out of range,
+    NaN, +-inf and -0.0 (bit for bit); K13 with empty, one-row and dead
+    runs, long, double and string keys of other widths in both
+    directions with nulls first and last, and more than 32 leaves; K14 at
+    1 row, every row dead, 4,095-4,097 rows, ROWS frames and given bounds,
+    counts, averages and int64 sums, with and without the write-back.
+    Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import kernels
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.expr.core import BoundReference
+    from spark_rapids_tpu_torch.ops import segmented, sortops
+    from spark_rapids_tpu_torch.ops import windowops as W
+    from spark_rapids_tpu_torch.plan.logical import SortOrder
+    from spark_rapids_tpu_torch.sqltypes import StructField, StructType
+    from spark_rapids_tpu_torch.sqltypes.datatypes import (
+        double,
+        long,
+        string,
+    )
+
+    rng = np.random.default_rng(10)
+    cases = 0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # K12
+    specials = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1.5, -2.5]
+    for np_t in (np.int32, np.int64, np.float32, np.float64):
+        for n in (0, 1, 511, 512, 513, 4095, 4096, 4097, 70001):
+            for is_sorted in (True, False):
+                nseg = max(1, n // 3)
+                gid = rng.integers(-2, nseg + 2, n).astype(np.int32)
+                if n > 40:
+                    gid[:40] = 3  # one long run across lanes
+                if is_sorted:
+                    gid = np.sort(gid)
+                if np.issubdtype(np_t, np.floating):
+                    v = rng.choice(specials, n).astype(np_t)
+                else:
+                    v = rng.integers(-1000, 1000, n).astype(np_t)
+                valid = rng.random(n) < (0.0 if n == 513 else 0.8)
+                for is_max in (False, True):
+                    args = (t(v), t(valid), t(gid), nseg)
+                    if is_sorted:
+                        got = segmented._seg_minmax(*args, is_max)
+                    else:
+                        with segmented.unsorted_gids():
+                            got = segmented._seg_minmax(*args, is_max)
+                    same_bits(f"seg_minmax {np_t.__name__} n={n} "
+                              f"sorted={is_sorted} max={is_max}", got,
+                              segmented.seg_minmax_plain(*args, is_max))
+                    cases += 1
+
+    # K13
+    words = ["", "a", "ab", "abc", "zz", "zzzzzz", "m"]
+
+    def run(n, live, width_words, orders):
+        lengths = np.array([len(w) for w in width_words])
+        pick = rng.integers(0, len(width_words), n)
+        mb = max(1, int(lengths.max()))
+        data = np.zeros((n, mb), np.uint8)
+        for i, w in enumerate(pick):
+            b = width_words[w].encode()
+            data[i, :len(b)] = np.frombuffer(b, np.uint8) if b else 0
+        cols = [_col(long, t(rng.integers(0, 9, n)), t(rng.random(n) < 0.9)),
+                _col(double, t(rng.choice(specials, n)),
+                     t(rng.random(n) < 0.9)),
+                _col(string, t(data), t(rng.random(n) < 0.9),
+                     t(lengths[pick].astype(np.int32)))]
+        schema = StructType([StructField("l", long), StructField("d", double),
+                             StructField("s", string)])
+        return sortops.sort_batch(ColumnBatch(schema, cols, live), orders)
+
+    for (na, ca), (nb, cb) in (((1, 1), (1, 1)), ((0, 1024), (50, 1024)),
+                               ((0, 64), (0, 64)), ((4095, 4096),
+                                                     (4097, 8192)),
+                               ((1460, 2048), (4700, 8192))):
+        for asc, nf in ((True, True), (False, False), (True, False)):
+            for keys in ([0], [1], [2], [2, 0, 1]):
+                orders = [SortOrder(BoundReference(k, [long, double,
+                                                       string][k]),
+                                    asc, nf) for k in keys]
+                a = run(ca, na, words, orders)
+                b = run(cb, nb, words + ["q" * 15], orders)
+                a2, b2 = sortops.align_string_widths(a, b)
+                ka = sortops.order_keys(a2, orders)
+                kb = sortops.order_keys(b2, orders)
+                la = [x for c in a2.columns for x in c.leaves()]
+                lb = [x for c in b2.columns for x in c.leaves()]
+                out_cap = max(1, na + nb + 7)
+                for k, (x, y) in enumerate(zip(
+                        sortops.merge_runs(ka, kb, na, nb, la, lb, out_cap),
+                        sortops.merge_runs_plain(ka, kb, na, nb, la, lb,
+                                                 out_cap))):
+                    same_bits(f"merge_runs {na}/{nb} keys={keys} "
+                              f"asc={asc} leaf {k}", x, y)
+                cases += 1
+    # more than 32 leaves: two scatter launches over one search
+    n = 3000
+    la = [t(rng.integers(0, 100, n).astype(np.int16)) for _ in range(40)]
+    lb = [t(rng.integers(0, 100, n).astype(np.int16)) for _ in range(40)]
+    ka = t(np.sort(rng.integers(0, 50, (1, n)), axis=1))
+    kb = t(np.sort(rng.integers(0, 50, (1, n)), axis=1))
+    for k, (x, y) in enumerate(zip(
+            sortops.merge_runs(ka, kb, n - 3, n, la, lb, 2 * n),
+            sortops.merge_runs_plain(ka, kb, n - 3, n, la, lb, 2 * n))):
+        exact(f"merge_runs 40 leaves leaf {k}", x, y)
+    cases += 1
+
+    # K14
+    for cap, live_rows in ((1, 1), (600, 0), (4095, 4000), (4096, 4096),
+                           (4097, 3000), (70001, 69000)):
+        batch = _window_inputs(dev, cap, live_rows, 11 + cap)
+        store, day, amount = batch.columns
+        store.data.remainder_(37)  # many small partitions
+        sw = W.sort_for_window(batch, [store], [(day, True, True)])
+        qty = store.data * 3 - 50
+        pos = sw.pos
+        frames = [W.frame_of(None, True), W.Frame(kernels.WIN_OFFSET,
+                                                  kernels.WIN_OFFSET, -2, 1),
+                  W.Frame(kernels.WIN_SEG, kernels.WIN_OFFSET, 0, 0),
+                  W.Frame(kernels.WIN_GIVEN, kernels.WIN_GIVEN,
+                          start=(pos - 3).contiguous(),
+                          end=(pos + 2).contiguous())]
+        for perm in (None, sw.perm):
+            pf = W.window_prefix(amount.data, amount.validity, sw.live,
+                                 sw.perm, torch.float64)
+            pi = W.window_prefix(qty, amount.validity, sw.live, sw.perm,
+                                 torch.int64)
+            pc = W.window_prefix(None, amount.validity, sw.live, sw.perm,
+                                 torch.int64)
+            same_bits(f"window_prefix int64 cap={cap}", pi,
+                      W.window_prefix_plain(qty, amount.validity, sw.live,
+                                            sw.perm, torch.int64))
+            same_bits(f"window_prefix count cap={cap}", pc,
+                      W.window_prefix_plain(None, amount.validity, sw.live,
+                                            sw.perm, torch.int64))
+            reqs = [W.WinRequest(k) for k in (kernels.WIN_ROW_NUMBER,
+                                              kernels.WIN_RANK,
+                                              kernels.WIN_DENSE_RANK)]
+            for fr in frames:
+                reqs += [W.WinRequest(kernels.WIN_SUM_F64, fr, pf, pc),
+                         W.WinRequest(kernels.WIN_SUM_I64, fr, pi, pc),
+                         W.WinRequest(kernels.WIN_COUNT, fr, pcnt=pc),
+                         W.WinRequest(kernels.WIN_AVG, fr, pf, pc)]
+            got = W.window_eval(sw, reqs, perm)
+            want = W.window_eval_plain(sw, reqs, perm)
+            for k, ((gd, gv), (wd, wv)) in enumerate(zip(got, want)):
+                exact(f"window_eval cap={cap} out {k} validity", gv, wv)
+                if gd.dtype.is_floating_point:
+                    close_where(f"window_eval cap={cap} out {k}", gd, wd,
+                                wv)
+                else:
+                    exact(f"window_eval cap={cap} out {k}", gd, wd)
+            cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
 def q5_oracle(fact_paths, dim_path):
     """The same query in pyarrow on the host (bench.py's cpu_query)."""
     import pyarrow as pa
@@ -1201,6 +1614,183 @@ def run_session(dev, root, want_q5, want_dup, fused: bool) -> dict:
     return out
 
 
+def slice4_oracles(fact_paths, want_q5) -> dict:
+    """pyarrow/numpy answers of the four slice-4 queries over the facts."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    t = pa.concat_tables([pq.read_table(p) for p in fact_paths])
+    store = t.column("store").to_numpy()
+    day = t.column("day").to_numpy()
+    amount = t.column("amount").to_numpy()
+    qty = t.column("qty").to_numpy()
+    top = pc.sort_indices(t, sort_keys=[("amount", "descending")])[:100]
+    pairs = np.unique(store * 128 + qty)
+    key = store * 365 + day
+    cnt = np.bincount(key, minlength=STORES * 365).reshape(STORES, 365)
+    sums = np.bincount(key, weights=amount,
+                       minlength=STORES * 365).reshape(STORES, 365)
+    rk = (np.cumsum(cnt, axis=1) - cnt + 1).reshape(-1)
+    drk = np.cumsum(cnt > 0, axis=1).reshape(-1)
+    run_amount = np.cumsum(sums, axis=1).reshape(-1)
+    # where each peer run's rows start in the (store, day)-sorted order
+    start = (np.cumsum(cnt.reshape(-1)) - cnt.reshape(-1))
+    return {
+        "topn": t.take(top),
+        "sorted_q5": want_q5.sort_by([("revenue_sum", "descending")]),
+        "dedup": (pairs // 128, pairs % 128),
+        "window": dict(rk=rk, drk=drk, run_amount=run_amount, start=start,
+                       cnt=cnt.reshape(-1), sums=sums.reshape(-1)),
+    }
+
+
+def check_topn(got, want) -> None:
+    if got.num_rows != 100:
+        fail(f"topn: {got.num_rows} rows")
+    for name in ("store", "amount", "qty", "day"):
+        if got.column(name).to_pylist() != want.column(name).to_pylist():
+            fail(f"topn: column {name} differs from the oracle")
+
+
+def check_sorted_q5(got, want) -> None:
+    check_q5(got, want)
+    mine = got.column("region").to_pylist()
+    theirs = want.column("region").to_pylist()
+    if mine != theirs:
+        fail(f"sorted_q5 order {mine} != {theirs}")
+
+
+def check_dedup(got, want) -> None:
+    import numpy as np
+
+    s, q = want
+    gs = got.column("store").to_numpy()
+    gq = got.column("qty").to_numpy()
+    if not (np.array_equal(gs, s) and np.array_equal(gq, q)):
+        fail(f"dedup: {got.num_rows} rows differ from the {len(s)} oracle "
+             "pairs")
+
+
+def check_window(got, want) -> None:
+    """rk, drk and run_amount per (store, day) peer run; rn a permutation
+    of [rk, rk + run length - 1] within each peer run; every input row
+    once (rows per peer run, and the amounts' sum per run)."""
+    import numpy as np
+
+    if got.num_rows != ROWS:
+        fail(f"window: {got.num_rows} rows, not {ROWS}")
+    col = {n: got.column(n).to_numpy() for n in got.column_names}
+    key = col["store"] * 365 + col["day"]
+    for name in ("rk", "drk"):
+        if not np.array_equal(col[name], want[name][key]):
+            fail(f"window: {name} differs from the oracle")
+    ref = want["run_amount"][key]
+    rel = float((np.abs(col["run_amount"] - ref) / np.abs(ref)).max())
+    if not rel <= REL_TOL:
+        fail(f"window: run_amount off by {rel} relative")
+    WINDOW_REL_ERR.append(rel)
+    off = col["rn"].astype(np.int64) - col["rk"]
+    if off.min() < 0 or (off >= want["cnt"][key]).any():
+        fail("window: rn outside its peer run")
+    slots = np.bincount(want["start"][key] + off, minlength=ROWS)
+    if not (slots == 1).all():
+        fail("window: rn is not a permutation within every peer run")
+    sums = np.bincount(key, weights=col["amount"],
+                       minlength=STORES * 365)
+    srel = np.abs(sums - want["sums"]) / np.maximum(np.abs(want["sums"]),
+                                                    1e-300)
+    if not srel.max() <= REL_TOL:
+        fail("window: the rows' amounts differ from the input's")
+
+
+#: run_amount's largest relative difference from the oracle, per check
+WINDOW_REL_ERR = []
+
+#: kernels each slice-4 query must launch on each engine; K12 and K14 on
+#: the window, K13 where a sort meets more than one run (the TopN's final
+#: sort on the adaptive engine merges one run per map block)
+WINDOW_KERNELS = ("pack_keys", "sort_words", "group_bounds", "seg_minmax",
+                  "window_prefix", "window_eval", "gather_leaves")
+SLICE4_PATH_KERNELS = {
+    ("aqe", "topn"): ("pack_keys", "sort_words", "gather_leaves",
+                      "merge_runs"),
+    ("fused", "topn"): ("pack_keys", "sort_words", "gather_leaves",
+                        "compact_perm"),
+    ("aqe", "sorted_q5"): SESSION_PATH_KERNELS,
+    ("fused", "sorted_q5"): FUSED_PATH_KERNELS["q5"],
+    ("aqe", "dedup"): ("pack_keys", "sort_words", "group_bounds",
+                       "gather_leaves", "seg_sum_count", "dense_bin_perm",
+                       "murmur3", "partition_by_ids", "probe_ranges"),
+    ("fused", "dedup"): ("pack_keys", "sort_words", "group_bounds",
+                         "gather_leaves", "seg_sum_count", "dense_bin_perm",
+                         "compact_perm"),
+    ("aqe", "window"): WINDOW_KERNELS + ("murmur3", "partition_by_ids"),
+    ("fused", "window"): WINDOW_KERNELS + ("compact_perm",),
+}
+
+
+def run_slice4(dev, root, oracles, fused: bool) -> dict:
+    """Phase 6: the TopN, the sorted q5, the distinct and the window
+    queries through the port's session on the adaptive engine or (bench.py's
+    conf) the fused engine, over the device-cached bench tables. Returns
+    {query: record}, each with its peak device bytes."""
+    import torch
+
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+    from spark_rapids_tpu_torch.q5 import (
+        dedup_query,
+        sorted_q5_query,
+        topn_query,
+        window_query,
+    )
+
+    spark = (TpuSparkSession.builder
+             .config("spark.sql.shuffle.partitions", 8)
+             .config("spark.rapids.sql.reader.batchSizeRows", 1 << 23)
+             .config("spark.rapids.sql.batchSizeRows", 1 << 23)
+             .config("spark.rapids.shuffle.mode", "DEVICE")
+             .config("spark.rapids.sql.fusedExec.enabled", fused)
+             .getOrCreate())
+    engine = "fused" if fused else "aqe"
+    t0 = time.monotonic()
+    frames = {}
+    for name in ("fact", "dim"):
+        df = spark.read.parquet(os.path.join(root, name)).cache(
+            storage="device")
+        spark.cache_manager.lookup(df._plan).materialize()
+        frames[name] = df
+    torch.cuda.synchronize()
+    upload_s = time.monotonic() - t0
+    fact, dim = frames["fact"], frames["dim"]
+    queries = {
+        "topn": (lambda: topn_query(fact), check_topn),
+        "sorted_q5": (lambda: sorted_q5_query(fact, dim, REGIONS),
+                      check_sorted_q5),
+        "dedup": (lambda: dedup_query(fact), check_dedup),
+        "window": (lambda: window_query(fact), check_window),
+    }
+    out = {}
+    for name, (build_df, check) in queries.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        want = oracles[name]
+        rec = timed_runs(lambda: build_df().collect_arrow(),
+                         lambda got: check(got, want))
+        ex = spark.last_execution
+        if ex["engine"] != engine or ex["fallbacks"]:
+            fail(f"{name} ran on {ex['engine']}, not {engine}: {ex}")
+        missing_launches(f"{engine} {name}", rec["launches"],
+                         SLICE4_PATH_KERNELS[(engine, name)])
+        rec.update(engine=ex["engine"], aqe=ex["aqe"], fused=ex["fused"],
+                   upload_s=upload_s,
+                   peak_device_bytes=int(torch.cuda.max_memory_allocated(
+                       dev)))
+        out[name] = rec
+    spark.stop()
+    return out
+
+
 def profile_run(run) -> dict:
     """One more hot run under torch.profiler: the device's busy time (its
     kernels and copies, one stream, so they do not overlap) against the
@@ -1209,12 +1799,15 @@ def profile_run(run) -> dict:
     if events is None:
         return dict(wall_ms=wall_ms, device_busy_ms=None,
                     device_idle_share=None, top=[], library_sorts=[])
-    # a library sort (torch.sort, CUB's radix sort) must not run on any
-    # path: K9 (the port's own kernels, in namespace srtpu) replaced them
-    sorts = sorted({e.name for e in events if "sort" in e.name.lower()
+    # a library sort or scan (torch.sort, torch.cumsum, CUB's radix sort
+    # and scans) must not run on any path: K9 and the scans of K1, K3,
+    # K10, K11 and K14 (the port's own kernels, in namespace srtpu)
+    # replaced them
+    sorts = sorted({e.name for e in events
+                    if ("sort" in e.name.lower() or "scan" in e.name.lower())
                     and "srtpu::" not in e.name})
     if sorts:
-        fail(f"library sort kernels ran on the path: {sorts}")
+        fail(f"library sort or scan kernels ran on the path: {sorts}")
     by_name = {}
     busy_us = 0.0
     for e in events:
@@ -1267,6 +1860,7 @@ def main() -> int:
     records = check_kernels(dev)
     records.update(check_slice2_kernels(dev))
     records.update(check_slice3_kernels(dev))
+    records.update(check_slice4_kernels(dev))
     for kname, r in records.items():
         lib = r["library_ms"]
         print(f"{kname}: {r['shape']}: kernel_ms={r['ms']:.4f} "
@@ -1274,13 +1868,15 @@ def main() -> int:
               f"plain_ms={r['plain_ms']:.4f} "
               f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
               f"bound_ms={r['bound_ms']:.6f} "
-              f"max_abs_err={r['max_abs_err']}", flush=True)
+              f"max_abs_err={r['max_abs_err']}"
+              + (f" rel_err={r['rel_err']}" if "rel_err" in r else "")
+              + (f"; {r['extra']}" if "extra" in r else ""), flush=True)
     for r in time_large_sorts(dev):
         print(f"sort_words at {r['shape']}: kernel_ms={r['ms']:.4f} "
               f"library_ms={r['library_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.6f}", flush=True)
     cases = (check_edge_shapes(dev) + check_slice2_edges(dev)
-             + check_slice3_edges(dev))
+             + check_slice3_edges(dev) + check_slice4_edges(dev))
     print(f"edge shapes: {cases} cases exact against the plain versions",
           flush=True)
 
@@ -1323,6 +1919,34 @@ def main() -> int:
                 print(f"{engine} {qname}: " + json.dumps(rec), flush=True)
             print(f"{engine} peak device bytes: "
                   f"{session['peak_device_bytes']}", flush=True)
+
+        # phase 6: slice 4's sort, TopN, distinct and window queries
+        t0 = time.monotonic()
+        oracles = slice4_oracles(fact_paths, want_q5)
+        print(f"slice 4 oracles in {time.monotonic() - t0:.1f} s",
+              flush=True)
+        for engine, fused in (("aqe", False), ("fused", True)):
+            session = run_slice4(dev, tmp, oracles, fused)
+            for qname, rec in session.items():
+                runs[f"{engine} {qname}"] = rec
+                prof = rec["profile"]
+                print(f"{engine} {qname}: rows={rec['result_rows']} "
+                      f"fused={json.dumps(rec['fused'])} "
+                      f"aqe={json.dumps(rec['aqe'])} "
+                      f"cold_s={rec['cold_s']:.4f} "
+                      f"hot_median_s={rec['hot_median_s']:.4f} "
+                      f"host_syncs={rec['host_syncs']} "
+                      f"device_busy_ms={prof['device_busy_ms']} "
+                      f"idle_share={prof['device_idle_share']} "
+                      f"peak_device_bytes={rec['peak_device_bytes']}",
+                      flush=True)
+                print(f"{engine} {qname} launches per query: "
+                      + json.dumps(rec["launches"]), flush=True)
+                print(f"{engine} {qname}: " + json.dumps(rec), flush=True)
+            print(f"{engine} window run_amount vs the oracle, largest "
+                  f"relative difference per run: {WINDOW_REL_ERR}",
+                  flush=True)
+            WINDOW_REL_ERR.clear()
 
     # each kernel's launches: the sum over every path's cold run (q5_plan,
     # aqe q5 and dupjoin, fused q5 and dupjoin), each read right after it

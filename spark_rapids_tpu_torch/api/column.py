@@ -1,7 +1,8 @@
 """Column — user-facing expression wrapper with Spark's operator surface;
 counterpart of `spark_rapids_tpu/api/column.py` for the operators whose
 expressions the port has: arithmetic (+ - * /), comparisons, boolean
-& | ~, and `alias`."""
+& | ~, `alias`, the sort directions (`asc`, `desc` and their nulls
+variants, consumed by orderBy and window specs) and `over`."""
 
 from __future__ import annotations
 
@@ -106,8 +107,47 @@ class Column:
     def __invert__(self):
         return Column(Not(self.expr))
 
+    # sort direction / window
+
+    def asc(self) -> "SortColumn":
+        return SortColumn(self.expr, True)
+
+    def desc(self) -> "SortColumn":
+        return SortColumn(self.expr, False)
+
+    def asc_nulls_first(self) -> "SortColumn":
+        return SortColumn(self.expr, True, nulls_first=True)
+
+    def asc_nulls_last(self) -> "SortColumn":
+        return SortColumn(self.expr, True, nulls_first=False)
+
+    def desc_nulls_first(self) -> "SortColumn":
+        return SortColumn(self.expr, False, nulls_first=True)
+
+    def desc_nulls_last(self) -> "SortColumn":
+        return SortColumn(self.expr, False, nulls_first=False)
+
+    def over(self, window_spec) -> "Column":
+        from spark_rapids_tpu_torch.expr.windows import WindowExpression
+
+        base = self.expr.children[0] if isinstance(self.expr, Alias) \
+            else self.expr
+        return Column(WindowExpression(base, window_spec.to_spec_def()))
+
     def __repr__(self):
         return f"Column<{self.expr!r}>"
 
     def __hash__(self):
         return id(self)
+
+
+class SortColumn:
+    """Column + sort direction marker (Column.asc()/desc()); consumed by
+    orderBy on DataFrame and WindowSpec. Nulls sort first ascending and
+    last descending unless the marker says otherwise (Spark's default)."""
+
+    def __init__(self, expr, ascending: bool, nulls_first=None):
+        self.expr = expr
+        self.ascending = ascending
+        self.nulls_first = (ascending if nulls_first is None
+                            else nulls_first)

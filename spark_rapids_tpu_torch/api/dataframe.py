@@ -1,7 +1,9 @@
 """DataFrame — the user-facing lazy query surface, counterpart of
-`spark_rapids_tpu/api/dataframe.py` for the port's slice: `select`,
-`filter`/`where`, inner `join`, `groupBy(...).agg(...)`, device caching,
-`collect_arrow`/`collect`, `count` and `explain`.
+`spark_rapids_tpu/api/dataframe.py` for the port's slice: `select`
+(window expressions extracted into Window nodes), `filter`/`where`,
+inner `join`, `groupBy(...).agg(...)`, `orderBy`/`sort`, `limit`,
+`distinct`, device caching, `collect_arrow`/`collect`, `count` and
+`explain`.
 
 A collect plans the query (cache substitution, the optimizer, the
 planner) and dispatches it to an engine, recording which one ran in
@@ -108,7 +110,46 @@ class DataFrame:
             exprs.append(_named(self._col_expr(c),
                                 name if isinstance(name, str)
                                 else f"col{i}"))
-        return DataFrame(L.Project(exprs, self._plan), self.session)
+        return self._finish_project(exprs)
+
+    def _finish_project(self, exprs: List[Alias]) -> "DataFrame":
+        """Emit Project, extracting window expressions into Window nodes
+        first (Spark's ExtractWindowExpressions): one Window node per
+        (partitionBy, orderBy) spec, its columns appended to the child's,
+        and the Project selecting them."""
+        from spark_rapids_tpu_torch.expr.windows import (
+            WindowExpression,
+            contains_window,
+        )
+
+        if not any(contains_window(e) for e in exprs):
+            return DataFrame(L.Project(exprs, self._plan), self.session)
+        plan = self._plan
+        n_base = len(plan.schema.fields)
+        groups = {}  # sort_key -> [Alias(WindowExpression)]
+        for e in exprs:
+            base = e.children[0]
+            if isinstance(base, WindowExpression):
+                groups.setdefault(base.spec.sort_key(), []).append(e)
+            elif contains_window(e):
+                raise NotImplementedError(
+                    "window expressions must be top-level in v1 "
+                    "(wrap arithmetic around them in a second select)")
+        appended = {}
+        ordinal = n_base
+        for aliases in groups.values():
+            plan = L.Window(aliases, plan)
+            for a in aliases:
+                appended[id(a)] = ordinal
+                ordinal += 1
+        out = []
+        for e in exprs:
+            if id(e) in appended:
+                out.append(Alias(
+                    BoundReference(appended[id(e)], e.dtype, True), e.name))
+            else:
+                out.append(e)
+        return DataFrame(L.Project(out, plan), self.session)
 
     def filter(self, condition) -> "DataFrame":
         if isinstance(condition, str):
@@ -142,6 +183,36 @@ class DataFrame:
                     "implicit key casts are not ported yet (ROADMAP A12)")
         return DataFrame(L.Join(self._plan, other._plan, how, lk, rk),
                          self.session)
+
+    def orderBy(self, *cols, ascending=None) -> "DataFrame":
+        from spark_rapids_tpu_torch.api.column import SortColumn
+        from spark_rapids_tpu_torch.expr.windows import contains_window
+
+        orders = []
+        asc_list = (ascending if isinstance(ascending, (list, tuple))
+                    else [ascending] * len(cols))
+        for c, asc in zip(cols, asc_list):
+            if isinstance(c, SortColumn):
+                orders.append(L.SortOrder(_resolve(c.expr, self.schema),
+                                          c.ascending, c.nulls_first))
+                continue
+            a = True if asc is None else bool(asc)
+            orders.append(L.SortOrder(self._col_expr(c), a))
+        for o in orders:
+            if contains_window(o.expr):
+                raise ValueError(
+                    "window functions are not allowed in orderBy; "
+                    "materialize with select/withColumn first")
+        return DataFrame(L.Sort(orders, self._plan, global_sort=True),
+                         self.session)
+
+    sort = orderBy
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(L.Limit(n, self._plan), self.session)
+
+    def distinct(self) -> "DataFrame":
+        return self.groupBy(*self.columns).agg()
 
     def groupBy(self, *cols) -> "GroupedData":
         return GroupedData(self, list(cols))

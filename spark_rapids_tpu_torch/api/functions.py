@@ -1,12 +1,14 @@
 """Column functions — counterpart of the part of
 `spark_rapids_tpu/api/functions.py` the port's expressions cover: `col`,
-`lit`, and the sum, avg (mean) and count aggregates."""
+`lit`, the sum, avg (mean) and count aggregates, the sort directions
+`asc` and `desc`, and the ranking window functions `row_number`, `rank`
+and `dense_rank`."""
 
 from __future__ import annotations
 
 from typing import Any
 
-from spark_rapids_tpu_torch.api.column import Column, _expr
+from spark_rapids_tpu_torch.api.column import Column, SortColumn, _expr
 from spark_rapids_tpu_torch.expr import Average, Count, Literal, Sum
 
 
@@ -50,3 +52,31 @@ def avg(c) -> Column:
 
 
 mean = avg
+
+
+def asc(c) -> SortColumn:
+    return SortColumn(expr_of(c), True)
+
+
+def desc(c) -> SortColumn:
+    return SortColumn(expr_of(c), False)
+
+
+# ---------------------------------------------------------------- windows
+
+def row_number() -> Column:
+    from spark_rapids_tpu_torch.expr.windows import RowNumber
+
+    return Column(RowNumber())
+
+
+def rank() -> Column:
+    from spark_rapids_tpu_torch.expr.windows import Rank
+
+    return Column(Rank())
+
+
+def dense_rank() -> Column:
+    from spark_rapids_tpu_torch.expr.windows import DenseRank
+
+    return Column(DenseRank())

@@ -31,9 +31,14 @@ Not ported: the XLA program machinery (cached_jit, compile caches,
 program keys, variant accounting), the HBM budget gates, the OOM/chaos
 ladder and the plain-parquet device scan (ROADMAP A10). An error on the
 card propagates. Lowerings exist for the operators the port's planner
-emits (scan, cached relation, filter, project, hash aggregate, hash
-exchange, broadcast join); any other node raises `FusedCompileError`
-and the session falls back to the per-operator engines.
+emits (scan, cached relation, filter, project, hash aggregate, hash and
+range exchange, broadcast join, sort, window, local limit); any other
+node raises `FusedCompileError` and the session falls back to the
+per-operator engines. A sort, a window or a limit is a blocking step
+over the concatenation of its input's parts: the sort and the window
+skip the exchange below them (every part is on the one chip already),
+a presorted window skips its chunked sort (it sorts itself), and the
+limit truncates logically.
 
 The one structural change: the expanded join sizes its output from the
 match total, which costs one host sync, instead of allocating the
@@ -245,7 +250,6 @@ _SOURCE_TYPES = (ops.TpuFileScanExec, ops.TpuCachedRelationExec)
 #: node types with no fused lowering yet, and the ROADMAP item that
 #: ports them
 _UNPORTED = {
-    "TpuSortExec": "A11", "TpuWindowExec": "A11", "TpuLocalLimitExec": "A11",
     "TpuGenerateExec": "A12", "TpuExpandExec": "A12",
     "TpuShuffledHashJoinExec": "A13",
 }
@@ -362,7 +366,8 @@ class FusedSingleChipExecutor:
         if not isinstance(node, (
                 ops.TpuProjectExec, ops.TpuFilterExec,
                 ops.TpuHashAggregateExec, ops.TpuShuffleExchangeExec,
-                J.TpuBroadcastHashJoinExec)):
+                J.TpuBroadcastHashJoinExec, ops.TpuSortExec,
+                ops.TpuWindowExec, ops.TpuLocalLimitExec)):
             raise FusedCompileError(f"{name} has no fused lowering")
         for c in node.children:
             self._validate(c)
@@ -588,6 +593,23 @@ class FusedSingleChipExecutor:
                         "fused join output exceeds its capacity; "
                         "re-running larger")
                 return out
+            if isinstance(node, ops.TpuSortExec):
+                child = node.children[0]
+                if isinstance(child, ops.TpuShuffleExchangeExec):
+                    child = child.children[0]
+                return node._run(concat_traced(concat_inputs(
+                    emit_parts(child))))
+            if isinstance(node, ops.TpuWindowExec):
+                child = node.children[0]
+                if isinstance(child, ops.TpuSortExec) and node.presorted:
+                    child = child.children[0]  # the window sorts itself
+                if isinstance(child, ops.TpuShuffleExchangeExec):
+                    child = child.children[0]
+                return node._run(concat_traced(concat_inputs(
+                    emit_parts(child))))
+            if isinstance(node, ops.TpuLocalLimitExec):
+                return filterops.slice_head(concat_traced(concat_inputs(
+                    emit_parts(node.children[0]))), node.n)
             raise FusedCompileError(type(node).__name__)
 
         parts = emit_parts(phys)

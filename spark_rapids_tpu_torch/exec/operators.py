@@ -1,7 +1,9 @@
 """Physical operators — counterpart of `spark_rapids_tpu/exec/operators.py`
 for the port's slice: the cached-relation source, the parquet scan
 (PERFILE), filter, project, the hash aggregate in complete, partial and
-final modes, and the hash shuffle exchange with device-resident blocks.
+final modes, the hash and range shuffle exchanges with device-resident
+blocks, the out-of-core sort, the local limit and the whole-partition
+window.
 
 The hash aggregate keeps the reference's two grouping paths:
 - binned (`_partial_binned`): when every group key is an integer column
@@ -14,11 +16,17 @@ The hash aggregate keeps the reference's two grouping paths:
   partial buffers always take it.
 
 The exchange's map side partitions each batch on the device (murmur3
-partition ids, kernel K6; a stable counting sort by id, K7; one batch
-gather, K8) and keeps the sorted batch plus per-partition offsets in the
-shuffle manager; the reduce side takes its row range out of every block
-and concatenates them. The reference's spill-backed parking, retry and
-semaphore discipline are not ported yet (ROADMAP A10).
+partition ids, kernel K6, or for the range exchange a binary search of
+sampled bounds, K2; a stable counting sort by id, K7; one batch gather,
+K8) and keeps the sorted batch plus per-partition offsets in the shuffle
+manager; the reduce side yields its row range of every block as a batch
+of its own (a view). The reference's reduce side concatenates those
+ranges first; here every consumer that needs one batch concatenates what
+it reads (the aggregate, the window), and the sort takes each range as
+one sorted run that it merges with the others (kernel K13) instead of
+re-sorting a concatenation. The reference's spill-backed parking, retry
+and semaphore discipline are not ported yet (ROADMAP A10): the sort's
+runs and the window's input are plain device batches.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     DeviceColumn,
     concat_batches,
     gather_columns,
+    gather_leaves,
     next_capacity,
 )
 from spark_rapids_tpu_torch.config import rapids_conf as rc
@@ -51,7 +60,14 @@ from spark_rapids_tpu_torch.expr.aggregates import (
 )
 from spark_rapids_tpu_torch.expr.core import Alias, EvalContext
 from spark_rapids_tpu_torch.io import readers
-from spark_rapids_tpu_torch.ops import filterops, partition, segmented
+from spark_rapids_tpu_torch.ops import (
+    filterops,
+    joinops,
+    partition,
+    segmented,
+    sortops,
+)
+from spark_rapids_tpu_torch.ops.common import sort_words
 from spark_rapids_tpu_torch.shuffle.manager import get_shuffle_manager
 from spark_rapids_tpu_torch.sqltypes import StringType, StructField, StructType
 from spark_rapids_tpu_torch.sqltypes.datatypes import long, torch_dtype
@@ -490,9 +506,13 @@ class TpuShuffleExchangeExec(PhysicalPlan):
     execution materialises it: each child partition is one map task
     whose batches are partitioned on the device and staged in the
     shuffle manager as (sorted batch, offsets), then committed (the
-    first commit of a map task wins). A reduce task takes its row range
-    out of every block and concatenates the pieces; blocks are released
-    when the last reduce partition has been read."""
+    first commit of a map task wins). A reduce task yields its row range
+    of every block as a batch of its own (a view, split at
+    batchSizeRows); blocks are released when the last reduce partition
+    has been read."""
+
+    #: partitions by sampled key ranges, not by key hash
+    _ranged = False
 
     def __init__(self, child, key_exprs: Optional[List], num_partitions,
                  conf=None):
@@ -500,7 +520,7 @@ class TpuShuffleExchangeExec(PhysicalPlan):
         if conf is not None and conf.get(rc.SHUFFLE_MODE) == "ICI":
             raise NotImplementedError(
                 "the ICI (mesh) shuffle is not ported yet (ROADMAP A16)")
-        if not key_exprs and num_partitions > 1:
+        if not key_exprs and num_partitions > 1 and not self._ranged:
             raise NotImplementedError(
                 "round-robin partitioning is not ported yet (ROADMAP B10b)")
         self.key_exprs = key_exprs
@@ -568,8 +588,9 @@ class TpuShuffleExchangeExec(PhysicalPlan):
 
     def _fetch_device(self, pid) -> List[ColumnBatch]:
         """This partition's row range out of every block. The reference
-        gathers each range (a traced program needs static shapes); here a
-        range is a view, and the concat that follows does the one copy."""
+        gathers each range (a traced program needs static shapes) and
+        concatenates them; here a range is a view, and the consumer
+        decides whether to concatenate."""
         mgr = get_shuffle_manager()
         pieces = []
         for b, offs in mgr.blocks(self._shuffle_id):
@@ -583,18 +604,328 @@ class TpuShuffleExchangeExec(PhysicalPlan):
 
     def execute_partition(self, pid, ctx):
         self._run_map_stage(ctx)
-        pieces = self._fetch_device(pid)
-        if not pieces:
-            return
-        merged = concat_batches(pieces)
         max_rows = _conf_get(self.conf, rc.BATCH_SIZE_ROWS, 1 << 20)
-        total = merged.row_count()
-        if total <= max_rows:
-            yield merged
+        for piece in self._fetch_device(pid):
+            total = piece.row_count()
+            for off in range(0, total, max_rows):
+                yield (piece if total <= max_rows else
+                       piece.slice_rows(off, min(off + max_rows, total)))
+
+
+class TpuRangeShuffleExchangeExec(TpuShuffleExchangeExec):
+    """Sample-based range exchange (GpuRangePartitioner.scala): the map
+    stage holds every child batch, samples each batch's sort keys at the
+    reference's positions ((i * capacity) // s_n for s_n = min(64,
+    capacity)), sorts the samples (K9) and takes num_partitions - 1 bounds
+    among the live ones, then gives each row the number of bounds at or
+    below its key (the upper bound of K2's search) as its partition and
+    partitions the batch (K7, K8). Partition p holds the p-th key range,
+    so per-partition sorts concatenate into the total order. The map
+    stage is one attempt (the sampling spans every child partition), as
+    in the reference; its blocks are device batches, not spill-backed
+    (ROADMAP A10)."""
+
+    _ranged = True
+
+    def __init__(self, child, orders, num_partitions, conf=None,
+                 samples_per_batch: int = 64):
+        super().__init__(child, None, num_partitions, conf)
+        self.orders = orders
+        self._samples = samples_per_batch
+
+    def _bounds(self, parked: List[ColumnBatch], npt: int) -> torch.Tensor:
+        """[W, npt - 1] key words of the partition bounds."""
+        samples = []
+        for b in parked:
+            keys = sortops.order_keys(b, self.orders)
+            s_n = min(self._samples, b.capacity)
+            pos = (torch.arange(s_n, dtype=torch.int64, device=keys.device)
+                   * b.capacity) // s_n
+            samples.append(keys.index_select(1, pos))
+        samples = torch.cat(samples, dim=1)
+        total_s = int(samples.shape[1])
+        perm = sort_words(samples)
+        skeys = gather_leaves(list(samples.unbind(0)),
+                              [perm] * samples.shape[0])
+        # dead or garbage sample rows carry the leading null rank 2
+        live_ct = (skeys[0] < 2).sum()
+        j = ((torch.arange(1, npt, dtype=torch.int64, device=perm.device)
+              * live_ct) // npt).clamp(0, total_s - 1).to(torch.int32)
+        return torch.stack(gather_leaves(skeys, [j] * len(skeys)))
+
+    def _run_map_stage(self, ctx) -> None:
+        if self._map_done:
             return
-        for off in range(0, total, max_rows):
-            count = min(max_rows, total - off)
+        mgr = get_shuffle_manager()
+        self._shuffle_id = mgr.new_shuffle_id()
+        npt = self._nparts
+        try:
+            tctx = new_task_context(self.conf)
+            parked = [b for cpid in range(self.children[0].num_partitions)
+                      for b in self.children[0].execute_partition(cpid,
+                                                                  tctx)]
+            bounds = self._bounds(parked, npt) if parked and npt > 1 \
+                else None
+            for b in parked:
+                if bounds is None:
+                    mgr.put(self._shuffle_id, 0, 0, b,
+                            np.array([0, b.row_count()], np.int64))
+                    continue
+                keys = sortops.order_keys(b, self.orders)
+                ones = torch.ones(b.capacity, dtype=torch.bool,
+                                  device=keys.device)
+                lo, cnt = joinops.probe_bounds(
+                    list(bounds.unbind(0)), keys,
+                    torch.tensor(npt - 1, dtype=torch.int32,
+                                 device=keys.device), ones, npt - 1)
+                pb = partition.partition_by_ids(b, lo + cnt, npt)
+                offs = np.concatenate(
+                    [[0], np.cumsum(pb.counts.cpu().numpy()
+                                    .astype(np.int64))])
+                mgr.put(self._shuffle_id, 0, 0, pb.batch, offs)
+            mgr.commit_map_output(self._shuffle_id, 0, 0)
+        except BaseException:
+            mgr.remove_shuffle(self._shuffle_id)
+            raise
+        self._map_done = True
+
+
+# ------------------------------------------------------------------- sort
+
+class TpuSortExec(PhysicalPlan):
+    """Out-of-core sort (GpuSortExec.scala:151-633): sort each input batch
+    into a run (K9, K8), then merge runs pairwise in order with the
+    no-resort merge (K13), so ties keep the earlier run's rows first at
+    every level. There is no spill catalog yet (ROADMAP A10): the runs are
+    plain device batches. With `chunk_rows` the merged run is emitted in
+    bounded chunks (the batched window modes' input)."""
+
+    def __init__(self, orders, child, conf=None,
+                 chunk_rows: Optional[int] = None):
+        super().__init__([child], child.schema, conf)
+        self.orders = orders
+        self.chunk_rows = chunk_rows
+
+    def _run(self, batch: ColumnBatch) -> ColumnBatch:
+        return sortops.sort_batch(batch, self.orders)
+
+    def execute_partition(self, pid, ctx):
+        runs = [self._run(b)
+                for b in self.children[0].execute_partition(pid, ctx)]
+        if not runs:
+            return
+        while len(runs) > 1:
+            nxt = []
+            for i in range(0, len(runs) - 1, 2):
+                out_cap = next_capacity(runs[i].row_count()
+                                        + runs[i + 1].row_count())
+                nxt.append(sortops.merge_sorted(runs[i], runs[i + 1],
+                                                self.orders, out_cap))
+            if len(runs) % 2:
+                nxt.append(runs[-1])
+            runs = nxt
+        out = runs[0]
+        if self.chunk_rows is None:
+            yield out
+            return
+        total = out.row_count()
+        for lo in range(0, total, self.chunk_rows):
+            count = min(self.chunk_rows, total - lo)
             cap = next_capacity(count)
-            idx = (torch.arange(cap, dtype=torch.int32, device=merged.device)
-                   + off).clamp(0, merged.capacity - 1)
-            yield merged.gather(idx, count)
+            idx = (torch.arange(cap, dtype=torch.int32, device=out.device)
+                   + lo).clamp(0, out.capacity - 1)
+            yield out.gather(idx, count)
+
+
+class TpuLocalLimitExec(PhysicalPlan):
+    def __init__(self, n, child, conf=None):
+        super().__init__([child], child.schema, conf)
+        self.n = n
+
+    def execute_partition(self, pid, ctx):
+        remaining = self.n
+        for batch in self.children[0].execute_partition(pid, ctx):
+            if remaining <= 0:
+                return
+            out = filterops.slice_head(batch, remaining)
+            remaining -= out.row_count()
+            yield out
+
+
+# ----------------------------------------------------------------- window
+
+def window_streaming_mode(window_exprs: List[Alias]) -> Optional[str]:
+    """The reference's streaming strategy for specs the bounded-halo path
+    can't chunk (GpuRunningWindowExec.scala,
+    GpuUnboundedToUnboundedAggWindowExec.scala), over the port's functions:
+
+    - "running": every expression is row_number/rank/dense_rank or a
+      sum/count over ROWS UNBOUNDED PRECEDING..CURRENT ROW;
+    - "u2u": every expression is an aggregate over the WHOLE partition
+      (unbounded..unbounded, or no frame and no order).
+
+    None -> the whole-partition evaluation."""
+    from spark_rapids_tpu_torch.expr import windows as we
+    from spark_rapids_tpu_torch.expr.aggregates import AggregateFunction
+
+    spec = window_exprs[0].children[0].spec
+
+    def fixed_width(e):
+        return (getattr(e.dtype, "np_dtype", None) is not None
+                and not isinstance(e.dtype, StringType))
+
+    fixed_width_keys = all(fixed_width(e) for e in (
+        list(spec.partitions) + [o.expr for o in spec.orders]))
+    kinds = set()
+    for a in window_exprs:
+        wexpr = a.children[0]
+        fn = wexpr.function
+        frame = wexpr.spec.frame
+        if isinstance(fn, (we.RowNumber, we.Rank, we.DenseRank)):
+            kinds.add("running")
+            continue
+        if not isinstance(fn, AggregateFunction):
+            return None
+        whole = (frame is not None and frame.lower is None
+                 and frame.upper is None) or (
+            frame is None and not wexpr.spec.orders)
+        if whole:
+            kinds.add("u2u")
+            continue
+        if (isinstance(fn, (Sum, Count))
+                and frame is not None and frame.frame_type == "rows"
+                and frame.lower is None and frame.upper == 0
+                and all(fixed_width(c) for c in fn.children)):
+            kinds.add("running")
+            continue
+        return None
+    if kinds == {"running"}:
+        return "running" if fixed_width_keys else None
+    if kinds == {"u2u"}:
+        return "u2u"
+    return None
+
+
+def window_halo(window_exprs: List[Alias]) -> Optional[int]:
+    """Rows of context a chunked window evaluation needs on each side, or
+    None when the spec is not chunkable (ranking / running / unbounded /
+    RANGE frames): ROWS frames with finite bounds, and lead/lag."""
+    from spark_rapids_tpu_torch.expr import windows as we
+
+    halo = 0
+    for a in window_exprs:
+        wexpr = a.children[0]
+        fn = wexpr.function
+        frame = wexpr.spec.frame
+        if isinstance(fn, we.Lead):  # Lag subclasses Lead
+            halo = max(halo, abs(fn.offset))
+            continue
+        if isinstance(fn, we.WindowFunction):
+            return None
+        if (frame is None or frame.frame_type != "rows"
+                or frame.lower is None or frame.upper is None):
+            return None
+        halo = max(halo, abs(frame.lower), abs(frame.upper))
+    return halo
+
+
+class TpuWindowExec(PhysicalPlan):
+    """Window operator (GpuWindowExec analog): one sorted pass per
+    (partitionBy, orderBy) spec (ops/windowops.py `sort_for_window`: K9,
+    K10, K12) evaluates every function in one K14 launch, whose results
+    land at their input rows: input rows are preserved and the window
+    columns appended. The port evaluates row_number, rank, dense_rank and
+    sum/count/avg over the default frame and ROWS frames, over the whole
+    partition (the reduce partition's batches concatenated). The planner's
+    batched (halo), "running" and "u2u" modes, explicit RANGE frames and
+    every other window function raise NotImplementedError (ROADMAP
+    A11b)."""
+
+    def __init__(self, window_exprs: List[Alias], child, conf=None,
+                 presorted: bool = False, halo: Optional[int] = None,
+                 mode: Optional[str] = None):
+        base = child.schema
+        extra = [StructField(a.name, a.dtype, True) for a in window_exprs]
+        super().__init__([child], StructType(list(base.fields) + extra),
+                         conf)
+        self.window_exprs = window_exprs
+        self.presorted = presorted
+        self.halo = halo
+        self.mode = mode
+        self.spec0 = window_exprs[0].children[0].spec
+
+    def _run(self, batch: ColumnBatch) -> ColumnBatch:
+        from spark_rapids_tpu_torch import kernels
+        from spark_rapids_tpu_torch.expr import windows as we
+        from spark_rapids_tpu_torch.ops import windowops as W
+
+        ctx = EvalContext(batch)
+        spec0 = self.spec0
+        part_cols = [p.eval(ctx) for p in spec0.partitions]
+        order_cols = [(o.expr.eval(ctx), o.ascending, o.nulls_first)
+                      for o in spec0.orders]
+        sw = W.sort_for_window(batch, part_cols, order_cols)
+        has_order = bool(spec0.orders)
+        prefixes = {}
+
+        def prefix(col: Optional[DeviceColumn], dtype, count: bool):
+            """K14's prefix of a column's values (or of its valid rows,
+            a count), read through the sort permutation; each once."""
+            key = (id(col), dtype, count)
+            if key not in prefixes:
+                vals = None if count else col.data.to(dtype)
+                prefixes[key] = W.window_prefix(
+                    vals, None if col is None else col.validity, sw.live,
+                    sw.perm, dtype)
+            return prefixes[key]
+
+        ranks = {we.RowNumber: kernels.WIN_ROW_NUMBER,
+                 we.Rank: kernels.WIN_RANK,
+                 we.DenseRank: kernels.WIN_DENSE_RANK}
+        reqs = []
+        for alias in self.window_exprs:
+            wexpr = alias.children[0]
+            fn = wexpr.function
+            if type(fn) in ranks:
+                reqs.append(W.WinRequest(ranks[type(fn)]))
+                continue
+            if not isinstance(fn, (Count, Sum, Average)):
+                raise NotImplementedError(
+                    f"window function {type(fn).__name__} is not ported "
+                    f"yet (ROADMAP {W.NOT_PORTED})")
+            fr = W.frame_of(wexpr.spec.frame, has_order)
+            inp = fn.input.eval(ctx) if fn.input is not None else None
+            pcnt = prefix(inp, torch.int64, True)
+            if isinstance(fn, Count):
+                reqs.append(W.WinRequest(kernels.WIN_COUNT, fr, pcnt=pcnt))
+            elif isinstance(fn, Average):
+                reqs.append(W.WinRequest(
+                    kernels.WIN_AVG, fr, prefix(inp, torch.float64, False),
+                    pcnt))
+            else:
+                acc = torch_dtype(wexpr.dtype)
+                kind = (kernels.WIN_SUM_F64 if acc == torch.float64
+                        else kernels.WIN_SUM_I64)
+                reqs.append(W.WinRequest(kind, fr, prefix(inp, acc, False),
+                                         pcnt))
+        outs = W.window_eval(sw, reqs, perm=sw.perm)
+        new_cols = [DeviceColumn(a.dtype, d, v)
+                    for a, (d, v) in zip(self.window_exprs, outs)]
+        return ColumnBatch(self.schema, list(batch.columns) + new_cols,
+                           batch.num_rows)
+
+    def execute_partition(self, pid, ctx):
+        if self.presorted and self.halo is not None:
+            raise NotImplementedError(
+                "the batched bounded-frame window (halo mode) is not "
+                "ported yet (ROADMAP A11b)")
+        if self.mode is not None:
+            raise NotImplementedError(
+                f"the {self.mode!r} streaming window mode is not ported "
+                "yet (ROADMAP A11b)")
+        pending = list(self.children[0].execute_partition(pid, ctx))
+        if not pending:
+            return
+        merged = concat_batches(pending) if len(pending) > 1 \
+            else pending[0]
+        yield self._run(merged)

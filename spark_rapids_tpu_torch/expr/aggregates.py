@@ -32,6 +32,10 @@ class AggregateFunction(Expression):
 
     name: str = "agg"
 
+    @property
+    def input(self):
+        return self.children[0] if self.children else None
+
     def buffer_types(self) -> List[DataType]:
         raise NotImplementedError
 

@@ -21,6 +21,13 @@ module that the JAX package keeps the function in:
 - K10 `ops.segmented.group_bounds`, the segment structure behind
   `group_by` (csrc/group_bounds.cu)
 - K11 `ops.segmented.dense_bin_perm` (csrc/dense_bin_perm.cu)
+- K12 `ops.segmented.seg_min`, `ops.segmented.seg_max` (csrc/seg_minmax.cu)
+- K13 `ops.sortops.merge_runs`, behind `merge_sorted`
+  (csrc/merge_runs.cu, with the key search of csrc/search.cuh shared
+  with K2)
+- K14 `ops.windowops.window_prefix` (the frame prefix sums) and
+  `ops.windowops.window_eval` (frames, ranks and the write-back to input
+  order) (csrc/window_frames.cu)
 
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel (adding one to its count in `launches`) or
@@ -54,6 +61,10 @@ launches: Dict[str, int] = {
     "sort_words": 0,
     "group_bounds": 0,
     "dense_bin_perm": 0,
+    "seg_minmax": 0,
+    "merge_runs": 0,
+    "window_prefix": 0,
+    "window_eval": 0,
 }
 
 
@@ -101,6 +112,38 @@ class PackCol(ctypes.Structure):
  PACK_BOOL) = range(8)
 #: key columns one K9 pack launch takes (kMaxPackCols)
 MAX_PACK_COLS = 16
+
+
+class MergeLeaf(ctypes.Structure):
+    """One leaf of a K13 scatter (MergeLeaf in csrc/merge_runs.cu)."""
+
+    _fields_ = [("src_a", ctypes.c_void_p), ("src_b", ctypes.c_void_p),
+                ("dst", ctypes.c_void_p), ("row_bytes", ctypes.c_int),
+                ("unit", ctypes.c_int)]
+
+
+#: leaves one K13 scatter launch moves (kMaxMergeLeaves)
+MAX_MERGE_LEAVES = 32
+
+
+class WinOut(ctypes.Structure):
+    """One output of a K14 evaluation (WinOut in csrc/window_frames.cu)."""
+
+    _fields_ = [("kind", ctypes.c_int), ("start_kind", ctypes.c_int),
+                ("end_kind", ctypes.c_int), ("pad", ctypes.c_int),
+                ("lower", ctypes.c_longlong), ("upper", ctypes.c_longlong),
+                ("start", ctypes.c_void_p), ("end", ctypes.c_void_p),
+                ("psum", ctypes.c_void_p), ("pcnt", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("out_valid", ctypes.c_void_p)]
+
+
+#: WinOut.kind values (WinKind in csrc/window_frames.cu)
+(WIN_ROW_NUMBER, WIN_RANK, WIN_DENSE_RANK, WIN_SUM_F64, WIN_SUM_I64,
+ WIN_COUNT, WIN_AVG) = range(7)
+#: WinOut.start_kind / end_kind values (WinBound)
+WIN_SEG, WIN_PEER, WIN_OFFSET, WIN_GIVEN = range(4)
+#: outputs one K14 evaluation launch writes (kMaxWinOuts)
+MAX_WIN_OUTS = 8
 
 
 def struct_array(cls, items) -> ctypes.c_void_p:

@@ -22,24 +22,11 @@
 // are read from device memory through L1.
 
 #include "common.cuh"
+#include "search.cuh"
 
 namespace srtpu {
 
 constexpr int kProbeSmemBytes = 48 * 1024;
-
-// sign of (build row `mid`) - (probe row p), lexicographic over W words
-__device__ __forceinline__ int key_cmp(const i64* __restrict__ build,
-                                       int bcap, int mid,
-                                       const i64* __restrict__ probe,
-                                       i64 n, i64 p, int W) {
-  for (int w = 0; w < W; ++w) {
-    const i64 b = build[(i64)w * bcap + mid];
-    const i64 q = probe[(i64)w * n + p];
-    if (b < q) return -1;
-    if (b > q) return 1;
-  }
-  return 0;
-}
 
 __global__ void __launch_bounds__(kThreads)
 probe_ranges_kernel(const i64* __restrict__ build, int bcap, int W,
@@ -59,21 +46,13 @@ probe_ranges_kernel(const i64* __restrict__ build, int bcap, int W,
   const int bound = *bound_p;
   for (i64 p = (i64)blockIdx.x * blockDim.x + threadIdx.x; p < n;
        p += (i64)gridDim.x * blockDim.x) {
-    int lo = 0, hi = bound;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (key_cmp(keys, bcap, mid, probe, n, p, W) < 0) lo = mid + 1;
-      else hi = mid;
-    }
-    const int lower = lo;
-    hi = bound;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (key_cmp(keys, bcap, mid, probe, n, p, W) <= 0) lo = mid + 1;
-      else hi = mid;
-    }
+    const int lower = key_search(keys, bcap, 0, bound, probe, n, p, W,
+                                 false);
+    // the upper bound lies at or past the lower one
+    const int upper = key_search(keys, bcap, lower, bound, probe, n, p, W,
+                                 true);
     lo_out[p] = lower;
-    cnt_out[p] = all_valid[p] ? lo - lower : 0;
+    cnt_out[p] = all_valid[p] ? upper - lower : 0;
   }
 }
 

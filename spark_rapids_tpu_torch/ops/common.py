@@ -207,6 +207,18 @@ def _value_words(col: DeviceColumn) -> int:
     return 1
 
 
+def pack_ready(specs: Sequence[KeySpec]) -> List[KeySpec]:
+    """The specs with every encoded column that may not key on its codes
+    decoded, as `pack_keys` packs them; their words then count with
+    `spec_words`."""
+    return [_pack_ready(s) for s in specs]
+
+
+def spec_words(spec: KeySpec) -> int:
+    """Key words one `pack_ready` spec takes in `pack_keys`' output."""
+    return int(spec.with_rank) + _value_words(spec.col)
+
+
 def pack_keys_plain(specs: Sequence[KeySpec], live: torch.Tensor,
                     lead_rank: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -2,7 +2,8 @@
 
 `compact_perm` is kernel K1 (kernels/csrc/compact_perm.cu): a stable
 partition of the keep mask, kept rows first; the batch then gathers by
-the permutation and carries the kept count as its row count.
+the permutation and carries the kept count as its row count. `slice_head`
+(LIMIT) moves no data.
 """
 
 from __future__ import annotations
@@ -58,3 +59,12 @@ def compact(batch: ColumnBatch, keep: torch.Tensor) -> ColumnBatch:
     keep = keep & batch.live_mask()
     perm, new_rows = compact_perm(keep, batch.capacity)
     return batch.gather(perm, new_rows)
+
+
+def slice_head(batch: ColumnBatch, n: int) -> ColumnBatch:
+    """LIMIT n: logical truncation only — no data movement (a row count
+    left on the device stays there)."""
+    nr = batch.num_rows
+    new_rows = (min(nr, int(n)) if isinstance(nr, int)
+                else nr.clamp(max=int(n)).to(torch.int32))
+    return ColumnBatch(batch.schema, batch.columns, new_rows)

@@ -14,8 +14,10 @@ order.
 kernel K9 (ops/common.py), derives the segment structure with K10
 (`group_bounds`, kernels/csrc/group_bounds.cu) and gathers the batch with
 K8; the binned path's bins become dense group positions through K11
-(`dense_bin_perm`, kernels/csrc/dense_bin_perm.cu). `seg_min` is not on
-any ported path and stays plain torch (B2b in the port's kernel table).
+(`dense_bin_perm`, kernels/csrc/dense_bin_perm.cu). `seg_min` and
+`seg_max` are kernel K12 (kernels/csrc/seg_minmax.cu), which the window's
+sort (ops/windowops.py `sort_for_window`) calls four times; `seg_first` is
+a clipped take, K8's gather.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from spark_rapids_tpu_torch import kernels
-from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+from spark_rapids_tpu_torch.columnar.batch import ColumnBatch, gather_leaves
 from spark_rapids_tpu_torch.kernels import build as _build
 from spark_rapids_tpu_torch.ops.common import (
     KeySpec,
@@ -179,16 +181,121 @@ def seg_sum_count(values: torch.Tensor, valid: torch.Tensor,
     return out.sums[0], out.count
 
 
-def seg_min(values: torch.Tensor, valid: torch.Tensor, gid: torch.Tensor,
-            cap: int) -> torch.Tensor:
+# ------------------------------------------------------------------ K12
+
+#: K12's value types (SegType in kernels/csrc/seg_minmax.cu)
+_SEG_TYPE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
+             torch.float64: 3}
+#: a float type's integer twin, for the order-preserving keys
+_FLOAT_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
+_CANONICAL_NAN = {torch.float32: 0x7FC00000, torch.float64: 0x7FF8000000000000}
+
+
+def _minmax_ident(dtype: torch.dtype, is_max: bool):
+    """The reference's identity: -inf/+inf, or the integer min/max."""
+    if dtype.is_floating_point:
+        return float("-inf") if is_max else float("inf")
+    info = torch.iinfo(dtype)
+    return info.min if is_max else info.max
+
+
+def _float_keys(x: torch.Tensor, is_max: bool) -> torch.Tensor:
+    """Integer keys whose signed order is the float order jax's
+    segment_min/max keep on the CPU: -0.0 below 0.0, and NaN absorbing
+    (the smallest key for a minimum, the largest for a maximum)."""
+    ity = _FLOAT_BITS[x.dtype]
+    info = torch.iinfo(ity)
+    b = x.view(ity)
+    k = b ^ ((b >> (info.bits - 1)) & info.max)
+    return torch.where(torch.isnan(x),
+                       torch.full_like(k, info.max if is_max else info.min),
+                       k)
+
+
+def _float_unkeys(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of `_float_keys`; a NaN key becomes the canonical NaN."""
+    info = torch.iinfo(k.dtype)
+    b = k ^ ((k >> (info.bits - 1)) & info.max)
+    nan = (k == info.max) | (k == info.min)
+    b = torch.where(nan, torch.full_like(b, _CANONICAL_NAN[dtype]), b)
+    return b.view(dtype)
+
+
+def seg_minmax_plain(values: torch.Tensor, valid: Optional[torch.Tensor],
+                     gid: torch.Tensor, cap: int,
+                     is_max: bool) -> torch.Tensor:
+    """Plain PyTorch version of K12: the reference's where(valid, values,
+    ident) and a scatter-min (-max) over [0, cap), ids outside it dropped
+    (a spare slot `cap` takes them and is cut off); floats reduce as K12
+    does, over their order-preserving integer keys."""
+    ident = _minmax_ident(values.dtype, is_max)
+    masked = values if valid is None else torch.where(
+        valid, values, torch.full_like(values, ident))
+    inr = (gid >= 0) & (gid < cap)
+    idx = torch.where(inr, gid, cap).to(torch.int64)
+    reduce = "amax" if is_max else "amin"
     if values.dtype.is_floating_point:
-        ident = float("inf")
-    else:
-        ident = torch.iinfo(values.dtype).max
-    masked = torch.where(valid, values, torch.full_like(values, ident))
-    return torch.full((cap,), ident, dtype=values.dtype,
-                      device=values.device).scatter_reduce_(
-        0, gid.to(torch.int64), masked, "amin")
+        keys = _float_keys(masked, is_max)
+        ikey = _float_keys(torch.full((1,), ident, dtype=values.dtype,
+                                      device=values.device), is_max)
+        out = ikey.expand(cap + 1).clone().scatter_reduce_(0, idx, keys,
+                                                           reduce)
+        return _float_unkeys(out[:cap].contiguous(), values.dtype)
+    out = torch.full((cap + 1,), ident, dtype=values.dtype,
+                     device=values.device).scatter_reduce_(0, idx, masked,
+                                                           reduce)
+    return out[:cap].contiguous()
+
+
+def _seg_minmax(values: torch.Tensor, valid: Optional[torch.Tensor],
+                gid: torch.Tensor, cap: int, is_max: bool) -> torch.Tensor:
+    """Kernel K12: out[s] = min (max) over rows with gid s of
+    (valid ? value : ident), ident where no row names s, for rows whose gid
+    lies in [0, cap). `valid` None means every row. Sorted gid (the
+    default, `_SORTED_GIDS`) takes the kernel's run-wise path, unsorted
+    gid one atomic a row."""
+    if values.device.type == "cpu":
+        return seg_minmax_plain(values, valid, gid, cap, is_max)
+    dev = values.device
+    kind = _SEG_TYPE.get(values.dtype)
+    if kind is None:
+        raise TypeError(f"K12 reduces int32, int64, float32 or float64, "
+                        f"got {values.dtype}")
+    kernels.require(values, "values", values.dtype, dev)
+    kernels.require(gid, "gid", torch.int32, dev)
+    n = int(values.shape[0])
+    if valid is not None:
+        kernels.require(valid, "valid", torch.bool, dev)
+    if gid.shape[0] != n or (valid is not None and valid.shape[0] != n):
+        raise ValueError("values, valid and gid differ in length")
+    if cap < 1:
+        raise ValueError(f"K12 needs at least one segment, got {cap}")
+    out = torch.empty(cap, dtype=values.dtype, device=dev)
+    _build.check(_build.lib().srtpu_seg_minmax(
+        kind, int(is_max), values.data_ptr(), _ptr(valid), gid.data_ptr(),
+        n, cap, out.data_ptr(), int(_SORTED_GIDS.get()),
+        kernels.sm_count(values), kernels.stream_ptr(values)), "seg_minmax")
+    kernels.launches["seg_minmax"] += 1
+    return out
+
+
+def seg_min(values: torch.Tensor, valid: Optional[torch.Tensor],
+            gid: torch.Tensor, cap: int) -> torch.Tensor:
+    return _seg_minmax(values, valid, gid, cap, is_max=False)
+
+
+def seg_max(values: torch.Tensor, valid: Optional[torch.Tensor],
+            gid: torch.Tensor, cap: int) -> torch.Tensor:
+    return _seg_minmax(values, valid, gid, cap, is_max=True)
+
+
+def seg_first(values: torch.Tensor,
+              first_pos_valid: torch.Tensor) -> torch.Tensor:
+    """First (by sorted position) value per segment: the caller supplies
+    per-group positions; they are clipped into range, as jnp.take clips
+    (K8's gather in its clamp mode)."""
+    return gather_leaves([values], [first_pos_valid.to(torch.int32)],
+                         clamp=True)[0]
 
 
 def dense_bin_perm_plain(occupied: torch.Tensor, cap: int) -> torch.Tensor:

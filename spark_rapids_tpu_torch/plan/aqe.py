@@ -8,8 +8,9 @@ the shuffle manager, so the AQE loop runs as in the reference:
    sides of joins first),
 2. materialise one map stage,
 3. re-plan the remainder with the observed output statistics: a
-   materialised exchange whose reduce partitions are tiny collapses
-   adjacent partitions into fewer reduce tasks (the coalesced read),
+   materialised hash exchange whose reduce partitions are tiny collapses
+   adjacent partitions into fewer reduce tasks (the coalesced read; a
+   range exchange is left as it is),
 4. repeat until no exchange is pending, then run the final stage.
 
 Decisions are recorded (`decisions`) in the reference's words. Broadcast
@@ -122,7 +123,10 @@ class AdaptiveQueryExecutor:
         if isinstance(node, CoalescedShuffleReadExec):
             return node  # already adapted; never double-wrap
         node.children = [self._rewrite(c) for c in node.children]
+        # a range exchange's partitions are the sort's key ranges: the
+        # reference never coalesces them
         if (isinstance(node, ops.TpuShuffleExchangeExec)
+                and not isinstance(node, ops.TpuRangeShuffleExchangeExec)
                 and node._map_done and node.num_partitions > 1
                 and id(node) in self._stats):
             groups = self._grouping(self._stats[id(node)])

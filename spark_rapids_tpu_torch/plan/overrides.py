@@ -4,15 +4,19 @@
 It tags every logical node with the reasons it cannot run on the device
 (`PlanMeta`, the RapidsMeta role) and converts the tree to physical
 operators, inserting what execution needs: the partial -> hash exchange
--> final split around a multi-partition aggregate, and the broadcast
-choice for an equi-join whose build side is estimated small.
+-> final split around a multi-partition aggregate, the broadcast choice
+for an equi-join whose build side is estimated small, the sample-based
+range exchange below a global sort over many partitions, the
+TakeOrderedAndProject fusion of a limit over a global sort, and the hash
+exchange on the partition keys below a window with the choice of its
+evaluation mode.
 
 The reference converts an untaggable node to its CPU operator; the port
 has no CPU engine (`exec/cpu_eval.py` is not ported), so such a node,
 and every node type outside the slice (scan, cached relation, filter,
-project, inner equi-join, aggregate), raises NotImplementedError naming
-the ROADMAP item that ports it. Nothing ever runs on the CPU in place of
-the device.
+project, inner equi-join, aggregate, sort, window, limit), raises
+NotImplementedError naming the ROADMAP item that ports it. Nothing ever
+runs on the CPU in place of the device.
 """
 
 from __future__ import annotations
@@ -35,7 +39,6 @@ from spark_rapids_tpu_torch.plan.typesig import (
 _NOT_PORTED = {
     "LocalRelation": "A9 (createDataFrame)",
     "Range": "A9 (spark.range)",
-    "Sort": "A11", "Window": "A11", "Limit": "A11",
     "Generate": "A12", "Expand": "A12", "Sample": "A12",
     "Union": "A13", "Repartition": "A13",
     "MapInPandas": "A15", "GroupedMapInPandas": "A15",
@@ -115,6 +118,14 @@ class TpuOverrides:
             if node.join_type != "inner":
                 meta.cannot_run(f"{node.join_type} joins are not ported "
                                 "yet (ROADMAP A13)")
+        elif isinstance(node, L.Sort):
+            for o in node.orders:
+                self._exprs(meta, [o.expr])
+                r = key_type_supported(o.expr.dtype)
+                if r:
+                    meta.cannot_run(r)
+        elif isinstance(node, L.Window):
+            self._tag_window(node, meta)
         elif isinstance(node, L.FileScan):
             if node.fmt != "parquet":
                 meta.cannot_run(f"{node.fmt} scans are not ported yet "
@@ -134,6 +145,32 @@ class TpuOverrides:
         meta.children = [self.tag(c) for c in node.children]
         self.metas.append(meta)
         return meta
+
+    def _tag_window(self, node: L.Window, meta: PlanMeta) -> None:
+        """The reference's window checks, for the functions the port has:
+        ranking and offset functions need ORDER BY; every partition,
+        order and input expression must be ported. Which functions and
+        frames evaluate is TpuWindowExec's to say (ROADMAP A11b)."""
+        from spark_rapids_tpu_torch.expr import windows as we
+
+        for a in node.window_exprs:
+            wexpr = a.children[0]
+            self._exprs(meta, list(wexpr.spec.partitions)
+                        + [o.expr for o in wexpr.spec.orders])
+            for e in (list(wexpr.spec.partitions)
+                      + [o.expr for o in wexpr.spec.orders]):
+                r = key_type_supported(e.dtype)
+                if r:
+                    meta.cannot_run(r)
+            fn = wexpr.function
+            if isinstance(fn, we.WindowFunction):
+                if fn.needs_order and not wexpr.spec.orders:
+                    meta.cannot_run(
+                        f"{type(fn).__name__} requires ORDER BY")
+                if isinstance(fn, we.Lead):
+                    self._exprs(meta, fn.children)
+            elif fn.input is not None:
+                self._exprs(meta, [fn.input])
 
     # ----- conversion -----
 
@@ -163,6 +200,14 @@ class TpuOverrides:
                 pushed_columns=node.schema.names,
                 pushed_filters=getattr(node, "pushed_filters", None),
                 options=node.options)
+        if isinstance(node, L.Limit):
+            smeta = meta.children[0]
+            if isinstance(smeta.node, L.Sort) and smeta.node.global_sort:
+                # TakeOrderedAndProject fusion (GpuOverrides.scala:4084):
+                # per-partition sort+limit, gather, final sort+limit —
+                # never materializes more than n rows per partition
+                inner = self._convert(smeta.children[0])
+                return self._take_ordered(node.n, smeta.node.orders, inner)
         children = [self._convert(c) for c in meta.children]
         if isinstance(node, L.Project):
             return ops.TpuProjectExec(node.exprs, children[0], node.schema,
@@ -173,6 +218,12 @@ class TpuOverrides:
             return self._convert_aggregate(node, children[0])
         if isinstance(node, L.Join):
             return self._convert_join(node, children)
+        if isinstance(node, L.Sort):
+            return self._convert_sort(node, children[0])
+        if isinstance(node, L.Window):
+            return self._convert_window(node, children[0])
+        if isinstance(node, L.Limit):
+            return self._convert_limit(node, children[0])
         raise NotImplementedError(f"logical node {type(node).__name__}")
 
     def _convert_aggregate(self, node: L.Aggregate,
@@ -210,6 +261,85 @@ class TpuOverrides:
             "the shuffled hash join (a build side over "
             "spark.sql.autoBroadcastJoinThreshold) is not ported yet "
             "(ROADMAP A13)")
+
+
+    def _take_ordered(self, n: int, orders,
+                      child: PhysicalPlan) -> PhysicalPlan:
+        conf = self.conf
+        local = ops.TpuLocalLimitExec(
+            n, ops.TpuSortExec(orders, child, conf), conf)
+        if local.num_partitions > 1:
+            local = ops.TpuLocalLimitExec(
+                n, ops.TpuSortExec(
+                    orders,
+                    ops.TpuShuffleExchangeExec(local, None, 1, conf),
+                    conf), conf)
+        return local
+
+    def _convert_sort(self, node: L.Sort,
+                      child: PhysicalPlan) -> PhysicalPlan:
+        conf = self.conf
+        if node.global_sort and child.num_partitions > 1:
+            # distributed global sort: sample-based range exchange, then
+            # per-partition out-of-core sort; partition order == global
+            # order (GpuRangePartitioner.scala + GpuSortExec.scala)
+            child = ops.TpuRangeShuffleExchangeExec(
+                child, node.orders, conf.get(rc.SHUFFLE_PARTITIONS), conf)
+        return ops.TpuSortExec(node.orders, child, conf)
+
+    def _convert_window(self, node: L.Window,
+                        child: PhysicalPlan) -> PhysicalPlan:
+        """The reference's choice of window mode: the bounded-halo batched
+        path, the "running" and "u2u" streaming paths, or the
+        whole-partition evaluation. The port's TpuWindowExec evaluates the
+        whole-partition mode; the others raise when executed (ROADMAP
+        A11b)."""
+        conf = self.conf
+        spec = node.window_exprs[0].children[0].spec
+        if child.num_partitions > 1:
+            if spec.partitions:
+                child = ops.TpuShuffleExchangeExec(
+                    child, spec.partitions,
+                    conf.get(rc.SHUFFLE_PARTITIONS), conf)
+            else:
+                child = ops.TpuShuffleExchangeExec(child, None, 1, conf)
+        halo = ops.window_halo(node.window_exprs)
+        chunk_rows = conf.get(rc.BATCH_SIZE_ROWS)
+        if halo is not None and halo > chunk_rows // 2:
+            # the batched path peeks at most one following chunk for the
+            # suffix halo; wider frames take the whole-partition path
+            halo = None
+
+        def chunked_sort_child():
+            orders = ([L.SortOrder(p, True) for p in spec.partitions]
+                      + list(spec.orders))
+            return ops.TpuSortExec(orders, child, conf,
+                                   chunk_rows=chunk_rows)
+
+        if halo is not None and (spec.partitions or spec.orders):
+            return ops.TpuWindowExec(node.window_exprs,
+                                     chunked_sort_child(), conf,
+                                     presorted=True, halo=halo)
+        mode = (ops.window_streaming_mode(node.window_exprs)
+                if conf.get(rc.WINDOW_STREAMING) else None)
+        if mode == "running" and spec.orders:
+            return ops.TpuWindowExec(node.window_exprs,
+                                     chunked_sort_child(), conf,
+                                     presorted=True, mode="running")
+        if mode == "u2u":
+            return ops.TpuWindowExec(node.window_exprs, child, conf,
+                                     mode="u2u")
+        return ops.TpuWindowExec(node.window_exprs, child, conf)
+
+    def _convert_limit(self, node: L.Limit,
+                       child: PhysicalPlan) -> PhysicalPlan:
+        conf = self.conf
+        local = ops.TpuLocalLimitExec(node.n, child, conf)
+        if local.num_partitions > 1:
+            local = ops.TpuLocalLimitExec(
+                node.n, ops.TpuShuffleExchangeExec(local, None, 1, conf),
+                conf)
+        return local
 
 
 def plan_query(logical: L.LogicalPlan, conf: rc.RapidsConf

@@ -21,7 +21,10 @@ columns, file layout and parquet settings, and with `dup_per_store` the
 bench's duplicate-key dimension too (`root/dup/dup-0.parquet`).
 
 `engine_query` and `dupjoin_query` are bench.py's two queries written
-against the port's DataFrame API. Through the port's session with
+against the port's DataFrame API; `topn_query`, `sorted_q5_query`,
+`dedup_query` and `window_query` are ScaleTest's TopN (q7), sorted
+aggregate (q5), distinct (q10) and window (q6, widened to the rank family
+and a running sum) shapes over the same tables. Through the port's session with
 bench.py's conf they run on the fused engine (exec/fused.py); with
 spark.rapids.sql.fusedExec.enabled off, the planner's plan (a
 bloom-prefiltered broadcast join, a binned partial aggregate, a murmur3
@@ -135,6 +138,42 @@ def dupjoin_query(base, dup):
             .groupBy("promo")
             .agg(F.sum("rebate").alias("total_rebate"),
                  F.count("*").alias("n")))
+
+
+def topn_query(base, n: int = 100):
+    """ScaleTest q7 over the facts: a global sort on amount, descending,
+    and the first n rows (TakeOrderedAndProject)."""
+    from spark_rapids_tpu_torch.api import functions as F
+
+    return base.orderBy(F.col("amount").desc()).limit(n)
+
+
+def sorted_q5_query(base, dim, regions: int = 12):
+    """ScaleTest q5's shape: bench.py's q5 ordered by revenue."""
+    from spark_rapids_tpu_torch.api import functions as F
+
+    return engine_query(base, dim, regions).orderBy(F.col("rev").desc())
+
+
+def dedup_query(base):
+    """ScaleTest q10 over the facts: distinct (store, qty) pairs, sorted."""
+    return base.select("store", "qty").distinct().orderBy("store", "qty")
+
+
+def window_query(base):
+    """ScaleTest q6 over the facts, widened to the rank family and a
+    running sum: per store ordered by day, row_number, rank, dense_rank
+    and the sum of amount over Spark's default frame (RANGE UNBOUNDED
+    PRECEDING..CURRENT ROW, so each row's whole day peer run)."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.window import Window
+
+    w = Window.partitionBy("store").orderBy("day")
+    return base.select("store", "day", "amount",
+                       F.row_number().over(w).alias("rn"),
+                       F.rank().over(w).alias("rk"),
+                       F.dense_rank().over(w).alias("drk"),
+                       F.sum("amount").over(w).alias("run_amount"))
 
 
 def q5_plan(fact_entry, dim_entry,

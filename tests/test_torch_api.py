@@ -270,9 +270,9 @@ def test_unported_plans_raise_not_implemented(data):
     dim = spark.read.parquet(os.path.join(data, "dim"))
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         fact.join(dim, on="store", how="left")
-    limit = port_logical.Limit(5, fact._plan)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        plan_query(limit, spark.rapids_conf)
+    union = port_logical.Union([fact._plan, fact._plan])
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        plan_query(union, spark.rapids_conf)
     # a build side over the broadcast threshold needs the shuffled join
     small = dict(PORT_CONF, **{"spark.sql.autoBroadcastJoinThreshold": 10})
     spark2 = TpuSparkSession(small)

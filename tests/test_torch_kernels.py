@@ -733,7 +733,10 @@ def test_k11_dense_bin_perm_sizes(cap, p_occ):
 
 import sys  # noqa: E402
 
+from spark_rapids_tpu_torch import kernels as port_kernels  # noqa: E402
 from spark_rapids_tpu_torch.columnar import batch as port_batch  # noqa: E402
+from spark_rapids_tpu_torch.ops import sortops as port_sortops  # noqa: E402
+from spark_rapids_tpu_torch.ops import windowops as port_windowops  # noqa: E402,E501
 
 # every kernel wrapper: on a CUDA tensor each one launches its kernel, so
 # a plain version (the kernel's check on the card) must reach none of them
@@ -749,7 +752,10 @@ _WRAPPERS = [
     (port_partition, "partition_perm"), (port_batch, "gather_leaves"),
     (port_encoding, "decode_column"), (port_common, "pack_keys"),
     (port_common, "sort_words"), (port_common, "sort_permutation"),
-    (port_common, "orderable_keys"),
+    (port_common, "orderable_keys"), (port_segmented, "_seg_minmax"),
+    (port_segmented, "seg_min"), (port_segmented, "seg_max"),
+    (port_sortops, "merge_runs"), (port_windowops, "window_prefix"),
+    (port_windowops, "window_eval"),
 ]
 
 
@@ -800,8 +806,37 @@ def _plain_case(name, pb):
             [s_col.data, l_col.data], [perm, lo], clamp=True),
         "decode_column_plain": lambda: port_encoding.decode_column_plain(
             d_col),
+        "seg_minmax_plain": lambda: ss.seg_minmax_plain(
+            l_col.data.to(torch.float64), live, counts, 3, True),
+        "merge_runs_plain": lambda: port_sortops.merge_runs_plain(
+            words, words[:, :100], n - 5, 70, [s_col.data, l_col.data],
+            [s_col.data[:100], l_col.data[:100]], 2 * n),
+        "window_prefix_plain": lambda: port_windowops.window_prefix_plain(
+            l_col.data, l_col.validity, live, perm, torch.int64),
+        "window_eval_plain": lambda: port_windowops.window_eval_plain(
+            _plain_window(n, perm, live), [
+                port_windowops.WinRequest(k) for k in (
+                    port_kernels.WIN_ROW_NUMBER, port_kernels.WIN_RANK,
+                    port_kernels.WIN_DENSE_RANK)] + [
+                port_windowops.WinRequest(
+                    port_kernels.WIN_SUM_I64,
+                    port_windowops.Frame(port_kernels.WIN_SEG,
+                                         port_kernels.WIN_PEER),
+                    torch.arange(n + 1, dtype=torch.int64),
+                    torch.arange(n + 1, dtype=torch.int64))], perm),
     }
     return cases[name]()
+
+
+def _plain_window(n, perm, live):
+    """A sorted-window view of n rows in three partitions."""
+    pos = torch.arange(n, dtype=torch.int32)
+    seg_start = (pos // 250) * 250
+    seg_end = torch.clamp(seg_start + 249, max=n - 1)
+    peer_start = (pos // 5) * 5
+    return port_windowops.SortedWindow(
+        perm, live, pos, seg_start, seg_end, seg_end - seg_start + 1,
+        peer_start, torch.clamp(peer_start + 4, max=n - 1), pos // 5)
 
 
 @pytest.mark.parametrize("name", [
@@ -810,7 +845,8 @@ def _plain_case(name, pb):
     "sort_permutation_plain", "pack_keys_plain", "orderable_keys_plain",
     "hash_column_plain", "murmur3_columns_plain", "partition_perm_plain",
     "build_plain", "might_contain_count_plain", "gather_leaves_plain",
-    "decode_column_plain"])
+    "decode_column_plain", "seg_minmax_plain", "merge_runs_plain",
+    "window_prefix_plain", "window_eval_plain"])
 def test_plain_versions_reach_no_kernel_wrapper(name, monkeypatch):
     """With every kernel wrapper, wherever it is bound, replaced by one
     that raises, each plain version still runs."""
