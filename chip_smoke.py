@@ -14,8 +14,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    (orderable key words and their stable radix sort), K10 (group
    boundaries), K11 (dense bin permutation), K12 (segmented min/max, at
    the fused window's 37,748,736 sorted positions), K13 (the merge of two
-   sorted 2^22-row runs) and K14 (the window's frame prefix and its
-   evaluation with the write-back to input order), with the device time of
+   sorted 2^22-row runs), K14 (the window's frame prefix, restarted at
+   each partition for float64 sums, its inverse permutation and its
+   evaluation with the write-back to input order, percent_rank, cume_dist
+   and ntile included), K15 (RANGE frame bounds), K16 (min/max frames)
+   and K17 (first/last and lead/lag source rows), with the device time of
    the kernel, the plain version and, where one exists, one PyTorch
    library call computing the same function (torch.profiler: the summed
    durations of what each call runs on the card, so host dispatch is not
@@ -27,8 +30,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    dead rows, every string tail length, -0.0 and NaN, INT64_MIN, 1 to 7
    sort keys of every kind in both directions, 1 to 200 partitions, leaf
    widths no multiple of 4; K12 over every type with NaN and -0.0, K13
-   with empty, dead and string runs, K14 at 1 to 70,001 rows), exact but
-   for K14's float64 sums (1e-9 relative);
+   with empty, dead and string runs, K14 at 1 to 70,001 rows; K15-K17
+   and K14's new kinds at 1 to 70,001 rows and every row dead, over every
+   key and value type with nulls, NaN, +-inf and -0.0, empty frames and
+   offsets past any partition), exact but for K14's float64 sums (1e-9
+   relative);
 3. slice 1's hand-built q5 plan at the bench's full size (36M fact rows
    in 8 parquet files, a 2,000-row dimension with a dictionary-encoded
    `region`) over device-cached relations: upload, one cold run and 5
@@ -50,9 +56,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    and running sum (1e-9 relative) with row numbers that permute the run's
    positions. The window must launch K12 and K14 on both engines, and the
    TopN's final sort on the adaptive engine K13 (it merges one sorted run
-   per map block); each query's peak device bytes are printed.
+   per map block); each query's peak device bytes are printed;
+7. slice 5's window queries over the same facts (q5.py: running_query,
+   moving_query, range_query, u2u_query) on the adaptive and the fused
+   engine at spark.rapids.sql.batchSizeRows 2^20, against numpy oracles:
+   every row's running ranks, sums, minima, maxima and counts, moving
+   averages, maxima and minima, lag, lead with its default, first and
+   last (rows found by their unique amount); the RANGE sums, counts,
+   minima and maxima, percent_rank and cume_dist by (store, day), ntile(4)
+   as a multiset within each (store, day) run; each store's totals. The
+   planner must pick the "running", halo (6 rows), whole-partition and
+   "u2u" modes, and each query must launch its kernels (K15 on range, K16
+   on running, moving and range, K17 on moving, K2 and K4 on the adaptive
+   u2u).
 
-For each query run (phases 3-6) the kernels' launch counts are reset
+For each query run (phases 3-7) the kernels' launch counts are reset
 just before the cold run and read just after it; every kernel of that
 path must have run. One more hot run counts the host syncs (torch.cuda's
 sync debug mode) and one, under torch.profiler, gives the device's busy
@@ -1137,18 +1155,24 @@ def check_slice4_kernels(dev):
         f"the {npeers} peer runs: kernel_ms={peer_ms:.4f}")
     del gid64, i32_max
 
-    # K14 prefix: the running sum's float64 prefix through the sort
+    # K14 prefix: the running sum's float64 prefix through the sort,
+    # restarted at each partition
     amt = amount.data
     p = W.window_prefix(amt, amount.validity, sw.live, sw.perm,
-                        torch.float64)
+                        torch.float64, sw.seg_start)
     p_plain = W.window_prefix_plain(amt, amount.validity, sw.live, sw.perm,
-                                    torch.float64)
+                                    torch.float64, sw.seg_start)
     torch.cuda.synchronize()
     rel = close_where("window_prefix", p, p_plain,
                       torch.ones_like(p, dtype=torch.bool))
     sorted_amt = torch.where(
         sw.live & amount.validity.index_select(0, sw.perm.to(torch.int64)),
         amt.index_select(0, sw.perm.to(torch.int64)), 0.0)
+    whole_ms = device_ms(lambda: W.window_prefix(
+        amt, amount.validity, sw.live, sw.perm, torch.float64),
+        "window_prefix whole batch")
+    cumsum_ms = device_ms(lambda: torch.cumsum(sorted_amt, 0),
+                          "window_prefix cumsum")
     out["window_prefix"] = dict(
         route="cuda",
         source="spark_rapids_tpu_torch/kernels/csrc/window_frames.cu",
@@ -1156,14 +1180,21 @@ def check_slice4_kernels(dev):
         max_abs_err=max_abs_err(p, p_plain),
         **timed("window_prefix",
                 lambda: W.window_prefix(amt, amount.validity, sw.live,
-                                        sw.perm, torch.float64),
+                                        sw.perm, torch.float64,
+                                        sw.seg_start),
                 lambda: W.window_prefix_plain(amt, amount.validity, sw.live,
-                                              sw.perm, torch.float64),
-                lambda: torch.cumsum(sorted_amt, 0)),
-        # perm and live_s a row, value and validity a live row, p out
-        bound_ms=bound_ms(cap * (4 + 1) + ROWS * (8 + 1) + (cap + 1) * 8),
+                                              sw.perm, torch.float64,
+                                              sw.seg_start), None),
+        # perm, live_s and seg_start a row, value and validity a live row,
+        # p out
+        bound_ms=bound_ms(cap * (4 + 1 + 4) + ROWS * (8 + 1)
+                          + (cap + 1) * 8),
         bound_by="bytes", rel_err=rel,
-        shape=f"amount [{cap}] float64 through perm, {ROWS} live rows")
+        shape=f"amount [{cap}] float64 through perm, {ROWS} live rows, "
+              f"restarted at {nparts} partitions",
+        extra=f"the whole-batch prefix (int64 counts): "
+              f"kernel_ms={whole_ms:.4f}; torch.cumsum of the sorted "
+              f"values (no restarts) {cumsum_ms:.4f} ms")
     del sorted_amt, p_plain
 
     # K14 evaluation: row_number, rank, dense_rank and the running sum
@@ -1376,11 +1407,16 @@ def check_slice4_edges(dev) -> int:
                                                   kernels.WIN_OFFSET, -2, 1),
                   W.Frame(kernels.WIN_SEG, kernels.WIN_OFFSET, 0, 0),
                   W.Frame(kernels.WIN_GIVEN, kernels.WIN_GIVEN,
-                          start=(pos - 3).contiguous(),
-                          end=(pos + 2).contiguous())]
+                          start=torch.maximum(pos - 3, sw.seg_start),
+                          end=torch.minimum(pos + 2, sw.seg_end))]
         for perm in (None, sw.perm):
             pf = W.window_prefix(amount.data, amount.validity, sw.live,
-                                 sw.perm, torch.float64)
+                                 sw.perm, torch.float64, sw.seg_start)
+            close_where(f"window_prefix float64 cap={cap}", pf,
+                        W.window_prefix_plain(amount.data, amount.validity,
+                                              sw.live, sw.perm,
+                                              torch.float64, sw.seg_start),
+                        torch.ones_like(pf, dtype=torch.bool))
             pi = W.window_prefix(qty, amount.validity, sw.live, sw.perm,
                                  torch.int64)
             pc = W.window_prefix(None, amount.validity, sw.live, sw.perm,
@@ -1409,6 +1445,311 @@ def check_slice4_edges(dev) -> int:
                 else:
                     exact(f"window_eval cap={cap} out {k}", gd, wd)
             cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def _fact_batch(dev, cap: int, live_rows: int, seed: int):
+    """The fact table's four columns as the fused engine concatenates them
+    (store, day, amount, qty), live rows at the front of `cap`."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.sqltypes import StructField, StructType
+    from spark_rapids_tpu_torch.sqltypes.datatypes import long
+
+    batch = _window_inputs(dev, cap, live_rows, seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    qty = torch.randint(1, 100, (cap,), generator=g, device=dev)
+    qty[live_rows:] = 0
+    valid = batch.columns[0].validity
+    schema = StructType(list(batch.schema.fields) + [StructField("qty",
+                                                                long)])
+    return ColumnBatch(schema, list(batch.columns)
+                       + [_col(long, qty, valid.clone())], live_rows)
+
+
+def check_slice5_kernels(dev):
+    """Phase 2, slice 5: K15 (RANGE bounds), K16 (min/max frames), K17
+    (first/last and lead/lag sources), K14's inverse permutation and its
+    new kinds (percent_rank, cume_dist, ntile) against their plain
+    versions at the fused engine's shapes: 36M live rows of 8 parts of
+    4,718,592, sorted by (store, day) for range_query and by (store, day,
+    amount) for moving_query. Returns {record name: record}."""
+    import torch
+
+    from spark_rapids_tpu_torch import kernels
+    from spark_rapids_tpu_torch.exec.fused import bucket_capacity
+    from spark_rapids_tpu_torch.ops import windowops as W
+
+    out = {}
+    cap = FILES * bucket_capacity(ROWS // FILES)
+    batch = _fact_batch(dev, cap, ROWS, 21)
+    store, day, amount, qty = batch.columns
+    src = "spark_rapids_tpu_torch/kernels/csrc/"
+
+    # range_query's domain: partitions by store, ordered by day
+    sw = W.sort_for_window(batch, [store], [(day, True, True)])
+    nparts = int((sw.seg_start == sw.pos).sum().item())
+
+    # K14's inverse permutation
+    inv = W.inverse_permutation(sw.perm)
+    want = W.inverse_permutation_plain(sw.perm)
+    torch.cuda.synchronize()
+    exact("window_inverse", inv, want)
+    out["window_inverse"] = dict(
+        route="cuda", source=src + "window_frames.cu",
+        replaces="spark_rapids_tpu/ops/windowops.py:113",
+        max_abs_err=max_abs_err(inv, want),
+        **timed("window_inverse", lambda: W.inverse_permutation(sw.perm),
+                lambda: W.inverse_permutation_plain(sw.perm),
+                lambda: torch.argsort(sw.perm)),
+        bound_ms=bound_ms(cap * (4 + 4)), bound_by="bytes",
+        shape=f"perm [{cap}] int32")
+
+    # K15: the lower side of RANGE BETWEEN 6 PRECEDING AND CURRENT ROW
+    start, _ = W.range_bounds(sw, day.data, day.validity, sw.perm, -6, None,
+                              True)
+    want, _ = W.range_bounds_plain(sw, day.data, day.validity, sw.perm, -6,
+                                   None, True)
+    torch.cuda.synchronize()
+    exact("range_bounds", start, want)
+    day_s = torch.where(sw.live, day.data.index_select(
+        0, sw.perm.to(torch.int64)), 1 << 20)
+    keys = sw.seg_start.to(torch.int64) * 2048 + day_s
+    targets = keys - 6
+    out["range_bounds"] = dict(
+        route="cuda", source=src + "range_bounds.cu",
+        replaces="spark_rapids_tpu/ops/windowops.py:167",
+        max_abs_err=max_abs_err(start, want),
+        **timed("range_bounds",
+                lambda: W.range_bounds(sw, day.data, day.validity, sw.perm,
+                                       -6, None, True),
+                lambda: W.range_bounds_plain(sw, day.data, day.validity,
+                                             sw.perm, -6, None, True),
+                lambda: torch.searchsorted(keys, targets)),
+        # perm, live_s, the key and its validity in, start out
+        bound_ms=bound_ms(cap * (4 + 1 + 8 + 1 + 4)), bound_by="bytes",
+        shape=f"day [{cap}] int64 through perm, {nparts} partitions, "
+              "lower offset -6")
+    del want, day_s, keys, targets
+
+    # K16: min of amount over those RANGE frames, with its validity
+    fr = W.Frame(kernels.WIN_GIVEN, kernels.WIN_PEER, start=start)
+    pcnt = W.window_prefix(None, amount.validity, sw.live, sw.perm,
+                           torch.int64)
+    got = W.frame_minmax_eval(amount.data, amount.validity, sw, fr, False,
+                              pcnt, sw.perm, inv)
+    want = W.frame_minmax_plain(amount.data, amount.validity, sw, fr, False,
+                                pcnt, sw.perm)
+    torch.cuda.synchronize()
+    same_bits("frame_minmax", got[0], want[0])
+    exact("frame_minmax validity", got[1], want[1])
+    out["frame_minmax"] = dict(
+        route="cuda", source=src + "frame_minmax.cu",
+        replaces="spark_rapids_tpu/ops/windowops.py:271",
+        max_abs_err=max_abs_err(got[0], want[0]),
+        **timed("frame_minmax",
+                lambda: W.frame_minmax_eval(amount.data, amount.validity, sw,
+                                            fr, False, pcnt, sw.perm, inv),
+                lambda: W.frame_minmax_plain(amount.data, amount.validity,
+                                             sw, fr, False, pcnt, sw.perm),
+                None),
+        # perm, live_s, value, validity, inv, seg_start, the given start,
+        # peer_end and two prefix reads in; result and validity out
+        bound_ms=bound_ms(cap * (4 + 1 + 8 + 1 + 4 + 4 + 4 + 4 + 16 + 8
+                                 + 1)),
+        bound_by="bytes",
+        shape=f"amount [{cap}] float64, RANGE frames of days [d - 6, d] "
+              f"over {nparts} partitions")
+    del got, want
+
+    # K14's new kinds: percent_rank, cume_dist, ntile(4) in input order
+    reqs = [W.WinRequest(kernels.WIN_PERCENT_RANK),
+            W.WinRequest(kernels.WIN_CUME_DIST),
+            W.WinRequest(kernels.WIN_NTILE, buckets=4)]
+    got = W.window_eval(sw, reqs, sw.perm, inv)
+    want = W.window_eval_plain(sw, reqs, sw.perm)
+    torch.cuda.synchronize()
+    for k, ((gd, gv), (wd, wv)) in enumerate(zip(got, want)):
+        same_bits(f"window_eval rank kind {k}", gd, wd)
+        exact(f"window_eval rank kind {k} validity", gv, wv)
+    out["window_eval_ranks"] = dict(
+        route="cuda", source=src + "window_frames.cu",
+        replaces="spark_rapids_tpu/ops/windowops.py:413",
+        counter="window_eval",
+        max_abs_err=max(max_abs_err(g[0], w[0]) for g, w in zip(got, want)),
+        **timed("window_eval_ranks",
+                lambda: W.window_eval(sw, reqs, sw.perm, inv),
+                lambda: W.window_eval_plain(sw, reqs, sw.perm), None),
+        # inv and four bound arrays in; two float64 and one int32 column
+        # with validity out
+        bound_ms=bound_ms(cap * (4 + 4 * 4) + cap * (9 + 9 + 5)),
+        bound_by="bytes",
+        shape=f"{cap} sorted rows, {nparts} partitions -> percent_rank, "
+              "cume_dist, ntile(4)")
+    del got, want, sw, inv, start, pcnt, fr
+    torch.cuda.empty_cache()
+
+    # moving_query's domain: ordered by (day, amount)
+    sw = W.sort_for_window(batch, [store], [(day, True, True),
+                                            (amount, True, True)])
+    inv = W.inverse_permutation(sw.perm)
+    pcnt = W.window_prefix(None, amount.validity, sw.live, sw.perm,
+                           torch.int64)
+    week = W.Frame(kernels.WIN_OFFSET, kernels.WIN_OFFSET, -6, 0)
+    picks = [W.Pick(kernels.PICK_SHIFT, offset=-1),
+             W.Pick(kernels.PICK_SHIFT, offset=2),
+             W.Pick(kernels.PICK_FIRST, week),
+             W.Pick(kernels.PICK_LAST_VALID, week, pcnt=pcnt)]
+    got = W.frame_pick(sw, picks, sw.perm, inv)
+    want = W.frame_pick_plain(sw, picks, sw.perm)
+    torch.cuda.synchronize()
+    for k, ((gs, gh), (ws, wh)) in enumerate(zip(got, want)):
+        exact(f"frame_pick {k} src", gs, ws)
+        exact(f"frame_pick {k} has", gh, wh)
+    out["frame_pick"] = dict(
+        route="cuda", source=src + "frame_pick.cu",
+        replaces="spark_rapids_tpu/ops/windowops.py:318",
+        max_abs_err=max(max_abs_err(g[0], w[0]) for g, w in zip(got, want)),
+        **timed("frame_pick", lambda: W.frame_pick(sw, picks, sw.perm, inv),
+                lambda: W.frame_pick_plain(sw, picks, sw.perm), None),
+        # inv, seg_start, seg_end and two prefix reads in; perm read and
+        # src and has written for each of the four picks
+        bound_ms=bound_ms(cap * (4 + 4 + 4 + 16) + cap * 4 * (4 + 4 + 1)),
+        bound_by="bytes",
+        shape=f"{cap} rows by (store, day, amount): lag 1, lead 2, first "
+              "and last ignoring nulls of ROWS 6 PRECEDING")
+    moving_ms = device_ms(lambda: W.frame_minmax_eval(
+        amount.data, amount.validity, sw, week, True, pcnt, sw.perm, inv),
+        "frame_minmax moving")
+    running = W.Frame(kernels.WIN_SEG, kernels.WIN_OFFSET, 0, 0)
+    running_ms = device_ms(lambda: W.frame_minmax_eval(
+        amount.data, amount.validity, sw, running, False, pcnt, sw.perm,
+        inv), "frame_minmax running")
+    out["frame_minmax"]["extra"] = (
+        f"max over ROWS 6 PRECEDING: kernel_ms={moving_ms:.4f}; running "
+        f"min: kernel_ms={running_ms:.4f}")
+    del batch, sw, inv, pcnt, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_slice5_edges(dev) -> int:
+    """Phase 2, slice 5 edge shapes against the plain versions, at 1 to
+    70,001 rows, every row dead, partitions of one row and of thousands:
+    K15 over int16, int32, int64 and float64 keys (nulls, NaN, +-inf and
+    -0.0) in both null orders with integer, fractional and larger-than-
+    any-partition offsets; K16 over int8, int16, int32, int64, float32,
+    float64 and bool values (nulls, NaN, +-inf and -0.0, bit for bit) over
+    empty, one-tile, many-tile, whole-partition and RANGE frames; K17's
+    five kinds with shifts of 1-3 and past the partition; K14's inverse
+    and new kinds with ntile(1, 3, 7). Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import kernels
+    from spark_rapids_tpu_torch.ops import windowops as W
+
+    rng = np.random.default_rng(12)
+    cases = 0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    specials = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.5, -2.5])
+    for cap, live_rows, nstore in ((1, 1, 1), (600, 0, 5), (4095, 4000, 37),
+                                   (4097, 3000, 2), (70001, 69000, 37)):
+        batch = _fact_batch(dev, cap, live_rows, 30 + cap)
+        store, day, amount, qty = batch.columns
+        store.data.remainder_(nstore)
+        sw = W.sort_for_window(batch, [store], [(day, True, True)])
+        n = cap
+        valid = t(rng.random(n) < 0.85)
+        # K15
+        f = rng.integers(-30, 30, n).astype(np.float64)
+        pick = rng.random(n) < 0.2
+        f[pick] = rng.choice(specials, int(pick.sum()))
+        keys = {"int16": t(rng.integers(-50, 50, n).astype(np.int16)),
+                "int32": t(rng.integers(-50, 50, n).astype(np.int32)),
+                "int64": t(rng.integers(-50, 50, n)),
+                "float64": t(f)}
+        for kname, key in keys.items():
+            for nf in (True, False):
+                for lower, upper in ((-3, 2), (1, 4), (-1.5, 0.5),
+                                     (-100000, 100000), (None, -2)):
+                    for perm in (sw.perm, None):
+                        args = (sw, key, valid, perm, lower, upper, nf)
+                        for side, (g, w) in enumerate(zip(
+                                W.range_bounds(*args),
+                                W.range_bounds_plain(*args))):
+                            if w is not None:
+                                exact(f"range_bounds {kname} cap={cap} "
+                                      f"nf={nf} {lower},{upper} "
+                                      f"side {side}", g, w)
+                        cases += 1
+        given, _ = W.range_bounds(sw, keys["int64"], valid, sw.perm, -3,
+                                  None, True)
+        # K16
+        d = rng.random(n) * 200 - 100
+        pick = rng.random(n) < 0.3
+        d[pick] = rng.choice(specials, int(pick.sum()))
+        values = {"int8": t(rng.integers(-100, 100, n).astype(np.int8)),
+                  "int16": t(rng.integers(-300, 300, n).astype(np.int16)),
+                  "int32": t(rng.integers(-9, 9, n).astype(np.int32)),
+                  "int64": t(rng.integers(-10**12, 10**12, n)),
+                  "float32": t(d.astype(np.float32)), "float64": t(d),
+                  "bool": t(rng.random(n) < 0.5)}
+        pcnt = W.window_prefix(None, valid, sw.live, sw.perm, torch.int64)
+        frames = [W.Frame(kernels.WIN_OFFSET, kernels.WIN_OFFSET, -2, 1),
+                  W.Frame(kernels.WIN_SEG, kernels.WIN_OFFSET, 0, 0),
+                  W.Frame(kernels.WIN_OFFSET, kernels.WIN_OFFSET, 3, 5),
+                  W.Frame(kernels.WIN_OFFSET, kernels.WIN_OFFSET, -40, 40),
+                  W.Frame(kernels.WIN_SEG, kernels.WIN_SEG),
+                  W.Frame(kernels.WIN_GIVEN, kernels.WIN_PEER,
+                          start=given)]
+        for vname, v in values.items():
+            for fr in frames:
+                for is_max in (False, True):
+                    for perm in (sw.perm, None):
+                        g = W.frame_minmax_eval(v, valid, sw, fr, is_max,
+                                                pcnt, perm)
+                        w = W.frame_minmax_plain(v, valid, sw, fr, is_max,
+                                                 pcnt, perm)
+                        what = (f"frame_minmax {vname} cap={cap} "
+                                f"{fr.start_kind}/{fr.end_kind} "
+                                f"{fr.lower},{fr.upper} max={is_max}")
+                        same_bits(what, g[0], w[0])
+                        exact(what + " validity", g[1], w[1])
+                        cases += 1
+        # K17
+        picks = [W.Pick(k, fr, pcnt=pcnt) for k in (
+            kernels.PICK_FIRST, kernels.PICK_LAST, kernels.PICK_FIRST_VALID,
+            kernels.PICK_LAST_VALID) for fr in frames[:4] + frames[5:]]
+        picks += [W.Pick(kernels.PICK_SHIFT, offset=o)
+                  for o in (1, 2, 3, -1, -2, -3, 100000, -100000)]
+        for perm in (sw.perm, None):
+            for k, ((gs, gh), (ws, wh)) in enumerate(zip(
+                    W.frame_pick(sw, picks, perm),
+                    W.frame_pick_plain(sw, picks, perm))):
+                exact(f"frame_pick cap={cap} pick {k} src", gs, ws)
+                exact(f"frame_pick cap={cap} pick {k} has", gh, wh)
+                cases += 1
+        # K14's inverse and new kinds
+        exact(f"window_inverse cap={cap}", W.inverse_permutation(sw.perm),
+              W.inverse_permutation_plain(sw.perm))
+        reqs = [W.WinRequest(kernels.WIN_PERCENT_RANK),
+                W.WinRequest(kernels.WIN_CUME_DIST)] + [
+            W.WinRequest(kernels.WIN_NTILE, buckets=b) for b in (1, 3, 7)]
+        for perm in (sw.perm, None):
+            for k, ((gd, gv), (wd, wv)) in enumerate(zip(
+                    W.window_eval(sw, reqs, perm),
+                    W.window_eval_plain(sw, reqs, perm))):
+                same_bits(f"window_eval cap={cap} rank kind {k}", gd, wd)
+                exact(f"window_eval cap={cap} rank kind {k} validity", gv,
+                      wv)
+            cases += 2
     torch.cuda.synchronize()
     return cases
 
@@ -1791,6 +2132,353 @@ def run_slice4(dev, root, oracles, fused: bool) -> dict:
     return out
 
 
+def slice5_oracles(fact_paths) -> dict:
+    """numpy answers of the four slice-5 window queries over the facts.
+    Rows sorted by (store, day, amount), which is unique at seed 0 (the
+    ROWS frames ordered by (day, amount) are then deterministic; the run
+    fails if it is not). Per-row answers of running_query and
+    moving_query are kept in amount order, which identifies each input
+    row, for `check_rows`; range_query's by (store, day); u2u_query's by
+    store."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    t = pa.concat_tables([pq.read_table(p) for p in fact_paths])
+    store = t.column("store").to_numpy()
+    day = t.column("day").to_numpy()
+    amount = t.column("amount").to_numpy()
+    qty = t.column("qty").to_numpy()
+    order = np.lexsort((amount, day, store))
+    st, dy, am, qt = store[order], day[order], amount[order], qty[order]
+    if ((st[1:] == st[:-1]) & (dy[1:] == dy[:-1])
+            & (am[1:] == am[:-1])).any():
+        fail("(store, day, amount) is not unique: the ROWS frames are not "
+             "deterministic")
+    n = len(st)
+    counts = np.bincount(st, minlength=STORES)
+    starts = np.cumsum(counts) - counts
+    pos = np.arange(n) - starts[st]
+    plen = counts[st]
+    bounds = np.append(starts, n)
+
+    # running_query
+    run_sum = np.empty(n)
+    run_min = np.empty(n)
+    run_max = np.empty(n)
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        run_sum[a:b] = np.cumsum(am[a:b])
+        run_min[a:b] = np.minimum.accumulate(am[a:b])
+        run_max[a:b] = np.maximum.accumulate(am[a:b])
+    rn = (pos + 1).astype(np.int32)
+    running = {"rn": rn, "rk": rn, "drk": rn, "run_sum": run_sum,
+               "run_min": run_min, "run_max": run_max,
+               "run_cnt": (pos + 1).astype(np.int64)}
+
+    # moving_query
+    def shifted(x, k, fill):
+        """x[i + k] inside the row's partition, else fill."""
+        out = np.full(n, fill, dtype=x.dtype)
+        inside = (pos + k >= 0) & (pos + k < plen)
+        src = np.clip(np.arange(n) + k, 0, n - 1)
+        out[inside] = x[src[inside]]
+        return out, inside
+
+    s7 = np.zeros(n)
+    c7 = np.zeros(n, np.int64)
+    m7 = np.full(n, -np.inf)
+    for k in range(7):
+        v, inside = shifted(am, -k, 0.0)
+        s7 += v
+        c7 += inside
+        m7 = np.maximum(m7, np.where(inside, v, -np.inf))
+    q3 = np.full(n, np.iinfo(np.int64).max)
+    for k in range(-3, 4):
+        v, inside = shifted(qt, k, np.iinfo(np.int64).max)
+        q3 = np.minimum(q3, v)
+    prev, has_prev = shifted(am, -1, 0.0)
+    next2, _ = shifted(am, 2, 0.0)
+    first7 = am[np.arange(n) - np.minimum(pos, 6)]
+    moving = {"avg7": s7 / c7, "max7": m7, "min_qty": q3, "prev": prev,
+              "prev#valid": has_prev, "next2": next2, "first7": first7,
+              "last7": am}
+
+    by_amount = np.argsort(am)
+
+    # range_query: per (store, day)
+    key = st * 365 + dy
+    cnt = np.bincount(key, minlength=STORES * 365).reshape(STORES, 365)
+    sums = np.bincount(key, weights=am,
+                       minlength=STORES * 365).reshape(STORES, 365)
+    run_starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    mins = np.full(STORES * 365, np.inf)
+    mins[key[run_starts]] = am[run_starts]  # the run's first row
+    qmax = np.full(STORES * 365, np.iinfo(np.int64).min)
+    qmax[key[run_starts]] = np.maximum.reduceat(qt, run_starts)
+    mins, qmax = mins.reshape(STORES, 365), qmax.reshape(STORES, 365)
+    sum7 = np.zeros((STORES, 365))
+    cnt7 = np.zeros((STORES, 365), np.int64)
+    min7 = np.full((STORES, 365), np.inf)
+    qmax7 = np.full((STORES, 365), np.iinfo(np.int64).min)
+    for k in range(7):
+        sum7[:, k:] += sums[:, :365 - k]
+        cnt7[:, k:] += cnt[:, :365 - k]
+        min7[:, k:] = np.minimum(min7[:, k:], mins[:, :365 - k])
+        qmax7[:, k:] = np.maximum(qmax7[:, k:], qmax[:, :365 - k])
+    before = (np.cumsum(cnt, axis=1) - cnt).reshape(-1)
+    length = counts.repeat(365)
+    prk = np.where(length > 1, before / np.maximum(length - 1, 1), 0.0)
+    cd = (before + cnt.reshape(-1)) / np.maximum(length, 1)
+    q, r = plen // 4, plen % 4
+    thr = r * (q + 1)
+    ntile = np.where(pos < thr, pos // np.maximum(q + 1, 1),
+                     r + (pos - thr) // np.maximum(q, 1)) + 1
+    ranged = {"sum7d": sum7.reshape(-1), "cnt7d": cnt7.reshape(-1),
+              "min7d": min7.reshape(-1), "max_qty7d": qmax7.reshape(-1),
+              "prk": prk, "cd": cd,
+              "q4_counts": np.bincount(key * 5 + ntile,
+                                       minlength=STORES * 365 * 5)}
+
+    # u2u_query: per store
+    tot = np.bincount(st, weights=am, minlength=STORES)
+    u2u = {"tot": tot, "mean": tot / counts,
+           "lo": np.minimum.reduceat(am, starts),
+           "qmax": np.maximum.reduceat(qt, starts), "n": counts}
+    return {"amount": am[by_amount],
+            "running": {k: v[by_amount] for k, v in running.items()},
+            "moving": {k: v[by_amount] for k, v in moving.items()},
+            "range": ranged, "u2u": u2u}
+
+
+#: the largest relative difference of each slice-5 float64 sum and average
+#: from its oracle, per query and run
+SLICE5_REL_ERR = {}
+
+
+def _host(col, fill=0):
+    import pyarrow.compute as pc
+
+    return pc.fill_null(col, fill).to_numpy()
+
+
+def _valid(col):
+    import pyarrow.compute as pc
+
+    return pc.is_valid(col).to_numpy(zero_copy_only=False)
+
+
+def _close(name: str, query: str, got, want) -> None:
+    """float64 results within REL_TOL relative (numpy or device arrays)."""
+    import numpy as np
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        rel = float(((got - want).abs()
+                     / want.abs().clamp(min=1e-300)).max().item())
+    else:
+        rel = float((np.abs(got - want)
+                     / np.maximum(np.abs(want), 1e-300)).max())
+    SLICE5_REL_ERR.setdefault(query, []).append(rel)
+    if not rel <= REL_TOL:
+        fail(f"{query}: {name} off by {rel} relative")
+
+
+#: columns of running_query and moving_query compared within REL_TOL
+_SUMMED = ("run_sum", "avg7")
+
+
+def check_rows(query: str, got, want, dev) -> None:
+    """running_query or moving_query: every input row once, and each
+    column equal to the oracle's answer for its row (found by its amount
+    on the card); sums and averages within REL_TOL, the rest exact."""
+    import numpy as np
+    import torch
+
+    if got.num_rows != ROWS:
+        fail(f"{query}: {got.num_rows} rows, not {ROWS}")
+    amount = torch.from_numpy(got.column("amount").to_numpy()).to(dev)
+    idx = torch.searchsorted(want["amount"], amount).clamp_(max=ROWS - 1)
+    if not torch.equal(want["amount"][idx], amount):
+        fail(f"{query}: rows whose amount is not the input's")
+    if not bool((torch.bincount(idx, minlength=ROWS) == 1).all()):
+        fail(f"{query}: the result is not the input's rows once each")
+    for name, w in want[query].items():
+        if name.endswith("#valid"):
+            continue
+        col = got.column(name)
+        g = torch.from_numpy(_host(col)).to(dev)
+        wv = w[idx]
+        valid = torch.from_numpy(_valid(col)).to(dev)
+        want_valid = want[query].get(f"{name}#valid")
+        want_valid = (torch.ones_like(valid) if want_valid is None
+                      else want_valid[idx])
+        if not torch.equal(valid, want_valid):
+            fail(f"{query}: {name}'s nulls differ from the oracle's")
+        g, wv = g[valid], wv[valid]
+        if name in _SUMMED:
+            _close(name, query, g, wv)
+        elif not torch.equal(g.to(wv.dtype), wv):
+            fail(f"{query}: {name} differs from the oracle")
+    del amount, idx
+
+
+def check_range(got, want) -> None:
+    """range_query: each row's RANGE sums, counts, min and max, and its
+    percent_rank and cume_dist by (store, day); ntile(4) as a multiset
+    within each (store, day) run (the order inside a run is free)."""
+    import numpy as np
+
+    if got.num_rows != ROWS:
+        fail(f"range: {got.num_rows} rows, not {ROWS}")
+    key = _host(got.column("store")) * 365 + _host(got.column("day"))
+    for name in ("cnt7d", "min7d", "max_qty7d", "prk", "cd"):
+        if not np.array_equal(_host(got.column(name)), want[name][key]):
+            fail(f"range: {name} differs from the oracle")
+    _close("sum7d", "range", _host(got.column("sum7d")), want["sum7d"][key])
+    q4 = _host(got.column("q4")).astype(np.int64)
+    counts = np.bincount(key * 5 + q4, minlength=STORES * 365 * 5)
+    if not np.array_equal(counts, want["q4_counts"]):
+        fail("range: ntile(4) is not the oracle's within each peer run")
+
+
+def check_u2u(got, want) -> None:
+    """u2u_query: each row carries its store's total, mean, minimum,
+    maximum qty and count."""
+    import numpy as np
+
+    if got.num_rows != ROWS:
+        fail(f"u2u: {got.num_rows} rows, not {ROWS}")
+    st = _host(got.column("store"))
+    for name in ("lo", "qmax", "n"):
+        if not np.array_equal(_host(got.column(name)), want[name][st]):
+            fail(f"u2u: {name} differs from the oracle")
+    for name in ("tot", "mean"):
+        _close(name, "u2u", _host(got.column(name)), want[name][st])
+
+
+#: the window mode (presorted, halo, mode) the planner picks for each
+#: slice-5 query
+SLICE5_MODES = {"running": (True, None, "running"),
+                "moving": (True, 6, None),
+                "range": (False, None, None),
+                "u2u": (False, None, "u2u")}
+_WINDOW_BASE = ("pack_keys", "sort_words", "group_bounds", "seg_minmax",
+                "window_inverse", "gather_leaves")
+#: kernels each slice-5 query must launch on each engine; the fused engine
+#: evaluates every window over the whole partition
+SLICE5_PATH_KERNELS = {
+    ("aqe", "running"): _WINDOW_BASE + ("window_prefix", "window_eval",
+                                        "frame_minmax"),
+    ("fused", "running"): _WINDOW_BASE + ("window_prefix", "window_eval",
+                                          "frame_minmax"),
+    ("aqe", "moving"): _WINDOW_BASE + ("window_prefix", "window_eval",
+                                       "frame_minmax", "frame_pick"),
+    ("fused", "moving"): _WINDOW_BASE + ("window_prefix", "window_eval",
+                                         "frame_minmax", "frame_pick"),
+    ("aqe", "range"): _WINDOW_BASE + ("range_bounds", "window_prefix",
+                                      "window_eval", "frame_minmax"),
+    ("fused", "range"): _WINDOW_BASE + ("range_bounds", "window_prefix",
+                                        "window_eval", "frame_minmax"),
+    ("aqe", "u2u"): ("seg_sum_count", "seg_minmax", "pack_keys",
+                     "sort_words", "probe_ranges", "gather_leaves"),
+    ("fused", "u2u"): _WINDOW_BASE + ("window_prefix", "window_eval",
+                                      "frame_minmax"),
+}
+
+
+def _upload_oracle(dev, want: dict, query: str) -> dict:
+    """The per-row oracle of one query on the card (amount order)."""
+    import torch
+
+    return {"amount": torch.from_numpy(want["amount"]).to(dev),
+            query: {k: torch.from_numpy(v).to(dev)
+                    for k, v in want[query].items()}}
+
+
+def run_slice5(dev, root, oracles, fused: bool) -> dict:
+    """Phase 7: running_query, moving_query, range_query and u2u_query
+    through the port's session on the adaptive engine or (bench.py's conf)
+    the fused engine at spark.rapids.sql.batchSizeRows 2^20, so the
+    adaptive engine's running and halo modes carry across about four
+    chunks a partition. The planner must pick each query's mode. Returns
+    {query: record}, each with its peak device bytes beyond the checker's
+    own arrays."""
+    import torch
+
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+    from spark_rapids_tpu_torch.q5 import (
+        moving_query,
+        range_query,
+        running_query,
+        u2u_query,
+    )
+
+    spark = (TpuSparkSession.builder
+             .config("spark.sql.shuffle.partitions", 8)
+             .config("spark.rapids.sql.reader.batchSizeRows", 1 << 23)
+             .config("spark.rapids.sql.batchSizeRows", 1 << 20)
+             .config("spark.rapids.shuffle.mode", "DEVICE")
+             .config("spark.rapids.sql.fusedExec.enabled", fused)
+             .getOrCreate())
+    engine = "fused" if fused else "aqe"
+    t0 = time.monotonic()
+    fact = spark.read.parquet(os.path.join(root, "fact")).cache(
+        storage="device")
+    spark.cache_manager.lookup(fact._plan).materialize()
+    torch.cuda.synchronize()
+    upload_s = time.monotonic() - t0
+    queries = {"running": running_query, "moving": moving_query,
+               "range": range_query, "u2u": u2u_query}
+    out = {}
+    for name, build_df in queries.items():
+        mode = _window_mode(build_df(fact))
+        if mode != SLICE5_MODES[name]:
+            fail(f"{engine} {name}: the planner picked {mode}, not "
+                 f"{SLICE5_MODES[name]}")
+        base = torch.cuda.memory_allocated(dev)
+        if name in ("running", "moving"):
+            want = _upload_oracle(dev, oracles, name)
+
+            def check(got, q=name, w=want):
+                check_rows(q, got, w, dev)
+        else:
+            want = None
+            check = (lambda got: check_range(got, oracles["range"])) \
+                if name == "range" else (
+                lambda got: check_u2u(got, oracles["u2u"]))
+        checker_bytes = torch.cuda.memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = timed_runs(lambda: build_df(fact).collect_arrow(), check)
+        peak = int(torch.cuda.max_memory_allocated(dev)) - checker_bytes
+        del want, check
+        ex = spark.last_execution
+        if ex["engine"] != engine or ex["fallbacks"]:
+            fail(f"{name} ran on {ex['engine']}, not {engine}: {ex}")
+        missing_launches(f"{engine} {name}", rec["launches"],
+                         SLICE5_PATH_KERNELS[(engine, name)])
+        rec.update(engine=ex["engine"], aqe=ex["aqe"], fused=ex["fused"],
+                   mode=list(mode), upload_s=upload_s,
+                   peak_device_bytes=peak)
+        out[name] = rec
+        torch.cuda.empty_cache()
+    spark.stop()
+    return out
+
+
+def _window_mode(df):
+    def find(node):
+        if type(node).__name__ == "TpuWindowExec":
+            return node
+        for c in node.children:
+            w = find(c)
+            if w is not None:
+                return w
+        return None
+
+    w = find(df._physical()[0])
+    return (w.presorted, w.halo, w.mode)
+
+
 def profile_run(run) -> dict:
     """One more hot run under torch.profiler: the device's busy time (its
     kernels and copies, one stream, so they do not overlap) against the
@@ -1861,6 +2549,7 @@ def main() -> int:
     records.update(check_slice2_kernels(dev))
     records.update(check_slice3_kernels(dev))
     records.update(check_slice4_kernels(dev))
+    records.update(check_slice5_kernels(dev))
     for kname, r in records.items():
         lib = r["library_ms"]
         print(f"{kname}: {r['shape']}: kernel_ms={r['ms']:.4f} "
@@ -1876,7 +2565,8 @@ def main() -> int:
               f"library_ms={r['library_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.6f}", flush=True)
     cases = (check_edge_shapes(dev) + check_slice2_edges(dev)
-             + check_slice3_edges(dev) + check_slice4_edges(dev))
+             + check_slice3_edges(dev) + check_slice4_edges(dev)
+             + check_slice5_edges(dev))
     print(f"edge shapes: {cases} cases exact against the plain versions",
           flush=True)
 
@@ -1948,10 +2638,39 @@ def main() -> int:
                   flush=True)
             WINDOW_REL_ERR.clear()
 
-    # each kernel's launches: the sum over every path's cold run (q5_plan,
-    # aqe q5 and dupjoin, fused q5 and dupjoin), each read right after it
-    launches = {k: sum(r["launches"].get(k, 0) for r in runs.values())
-                for k in records}
+        # phase 7: slice 5's window modes
+        t0 = time.monotonic()
+        oracles5 = slice5_oracles(fact_paths)
+        print(f"slice 5 oracles in {time.monotonic() - t0:.1f} s",
+              flush=True)
+        for engine, fused in (("aqe", False), ("fused", True)):
+            session = run_slice5(dev, tmp, oracles5, fused)
+            for qname, rec in session.items():
+                runs[f"{engine} {qname}"] = rec
+                prof = rec["profile"]
+                print(f"{engine} {qname}: mode={rec['mode']} "
+                      f"rows={rec['result_rows']} "
+                      f"cold_s={rec['cold_s']:.4f} "
+                      f"hot_median_s={rec['hot_median_s']:.4f} "
+                      f"host_syncs={rec['host_syncs']} "
+                      f"device_busy_ms={prof['device_busy_ms']} "
+                      f"idle_share={prof['device_idle_share']} "
+                      f"peak_device_bytes={rec['peak_device_bytes']}",
+                      flush=True)
+                print(f"{engine} {qname} launches per query: "
+                      + json.dumps(rec["launches"]), flush=True)
+                print(f"{engine} {qname}: " + json.dumps(rec), flush=True)
+            print(f"{engine} slice 5 sums and averages vs the oracles, "
+                  f"largest relative difference per check: "
+                  f"{json.dumps(SLICE5_REL_ERR)}", flush=True)
+            SLICE5_REL_ERR.clear()
+        del oracles5
+
+    # each kernel's launches: the sum over every path's cold run (phases
+    # 3-7), each read right after it
+    launches = {k: sum(r["launches"].get(rec.get("counter", k), 0)
+                       for r in runs.values())
+                for k, rec in records.items()}
     kernels_line = [
         dict(name=k, route=r["route"], source=r["source"],
              replaces=r["replaces"], launches=launches[k],

@@ -2,8 +2,8 @@
 for the port's slice: the cached-relation source, the parquet scan
 (PERFILE), filter, project, the hash aggregate in complete, partial and
 final modes, the hash and range shuffle exchanges with device-resident
-blocks, the out-of-core sort, the local limit and the whole-partition
-window.
+blocks, the out-of-core sort, the local limit and the window in the
+reference planner's four modes (whole partition, halo, running, u2u).
 
 The hash aggregate keeps the reference's two grouping paths:
 - binned (`_partial_binned`): when every group key is an integer column
@@ -56,6 +56,10 @@ from spark_rapids_tpu_torch.expr.aggregates import (
     AggregateFunction,
     Average,
     Count,
+    First,
+    Last,
+    Max,
+    Min,
     Sum,
 )
 from spark_rapids_tpu_torch.expr.core import Alias, EvalContext
@@ -754,19 +758,29 @@ class TpuLocalLimitExec(PhysicalPlan):
 
 # ----------------------------------------------------------------- window
 
+def _is_wide_decimal(dt) -> bool:
+    """A decimal wider than 18 digits (the reference's two-limb
+    DECIMAL128 carry shapes)."""
+    from spark_rapids_tpu_torch.sqltypes import DecimalType
+
+    return isinstance(dt, DecimalType) and dt.precision > 18
+
+
 def window_streaming_mode(window_exprs: List[Alias]) -> Optional[str]:
     """The reference's streaming strategy for specs the bounded-halo path
     can't chunk (GpuRunningWindowExec.scala,
-    GpuUnboundedToUnboundedAggWindowExec.scala), over the port's functions:
+    GpuUnboundedToUnboundedAggWindowExec.scala):
 
     - "running": every expression is row_number/rank/dense_rank or a
-      sum/count over ROWS UNBOUNDED PRECEDING..CURRENT ROW;
+      sum/min/max/count over ROWS UNBOUNDED PRECEDING..CURRENT ROW of
+      fixed-width, non-wide inputs, over fixed-width keys;
     - "u2u": every expression is an aggregate over the WHOLE partition
-      (unbounded..unbounded, or no frame and no order).
+      (unbounded..unbounded, or no frame and no order), never first/last
+      (order-sensitive: the two passes see chunk-arrival order).
 
-    None -> the whole-partition evaluation."""
+    None -> the whole-partition evaluation. Every function the port has
+    is jittable in the reference's sense (fixed output shapes)."""
     from spark_rapids_tpu_torch.expr import windows as we
-    from spark_rapids_tpu_torch.expr.aggregates import AggregateFunction
 
     spec = window_exprs[0].children[0].spec
 
@@ -784,7 +798,7 @@ def window_streaming_mode(window_exprs: List[Alias]) -> Optional[str]:
         if isinstance(fn, (we.RowNumber, we.Rank, we.DenseRank)):
             kinds.add("running")
             continue
-        if not isinstance(fn, AggregateFunction):
+        if not isinstance(fn, AggregateFunction) or isinstance(fn, First):
             return None
         whole = (frame is not None and frame.lower is None
                  and frame.upper is None) or (
@@ -792,10 +806,12 @@ def window_streaming_mode(window_exprs: List[Alias]) -> Optional[str]:
         if whole:
             kinds.add("u2u")
             continue
-        if (isinstance(fn, (Sum, Count))
+        if (isinstance(fn, (Sum, Min, Max, Count))
                 and frame is not None and frame.frame_type == "rows"
                 and frame.lower is None and frame.upper == 0
-                and all(fixed_width(c) for c in fn.children)):
+                and not _is_wide_decimal(fn.dtype)
+                and all(fixed_width(c) and not _is_wide_decimal(c.dtype)
+                        for c in fn.children)):
             kinds.add("running")
             continue
         return None
@@ -829,17 +845,62 @@ def window_halo(window_exprs: List[Alias]) -> Optional[int]:
     return halo
 
 
+def _float_minmax(a: torch.Tensor, b: torch.Tensor,
+                  is_max: bool) -> torch.Tensor:
+    """jnp.minimum / jnp.maximum on the CPU backend: NaN if either is NaN
+    (the canonical NaN), and -0.0 below 0.0 in either argument order;
+    integers as they are."""
+    if not a.dtype.is_floating_point:
+        return torch.maximum(a, b) if is_max else torch.minimum(a, b)
+    ka = segmented._float_keys(a, True)
+    kb = segmented._float_keys(b, True)
+    pick_b = (kb > ka) if is_max else (kb < ka)
+    out = torch.where(pick_b, b, a)
+    nan = torch.isnan(a) | torch.isnan(b)
+    return torch.where(nan, torch.full_like(out, float("nan")), out)
+
+
+def _row_select(cond: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Rows of a where cond, else of b (byte matrices padded to one
+    width)."""
+    if a.dim() == 2:
+        w = max(int(a.shape[1]), int(b.shape[1]))
+        a = torch.nn.functional.pad(a, (0, w - int(a.shape[1])))
+        b = torch.nn.functional.pad(b, (0, w - int(b.shape[1])))
+        return torch.where(cond[:, None], a, b)
+    return torch.where(cond, a, b.to(a.dtype))
+
+
 class TpuWindowExec(PhysicalPlan):
     """Window operator (GpuWindowExec analog): one sorted pass per
     (partitionBy, orderBy) spec (ops/windowops.py `sort_for_window`: K9,
-    K10, K12) evaluates every function in one K14 launch, whose results
-    land at their input rows: input rows are preserved and the window
-    columns appended. The port evaluates row_number, rank, dense_rank and
-    sum/count/avg over the default frame and ROWS frames, over the whole
-    partition (the reduce partition's batches concatenated). The planner's
-    batched (halo), "running" and "u2u" modes, explicit RANGE frames and
-    every other window function raise NotImplementedError (ROADMAP
-    A11b)."""
+    K10, K12) evaluates every function: one K14 launch for the rank family
+    and the prefix-sum frames (sum, count, avg), K16 for each min/max
+    frame, K15 for RANGE bounds, and one K17 launch with one K8 gather for
+    first/last frames and lead/lag. Every result lands at its input row:
+    input rows are preserved and the window columns appended.
+
+    Modes, as the reference's planner picks them:
+    - whole partition (the default): the reduce partition's batches
+      concatenated and evaluated at once;
+    - presorted with `halo` H (bounded ROWS frames and lead/lag; the child
+      is a chunked TpuSortExec on the partition and order keys): each
+      sorted chunk is evaluated with H rows of the previous chunk before
+      it and H of the next after it, and its own rows sliced out (K8);
+    - "running" (ranks and running sum/count/min/max; the same chunked
+      child): each chunk is evaluated alone and the prefix that continues
+      the previous chunk's partition is fixed up from a carry of 1-row
+      device tensors, with no host read a chunk;
+    - "u2u" (aggregates over whole partitions): a partial aggregate a
+      chunk, folded every spark.rapids.sql.window.unboundedFoldEvery
+      chunks, a final aggregate, then each chunk probes its partition's
+      result (K9's build, K2's search over null-safe keys). The chunks
+      wait in a Python list, as the sort's runs do, until ROADMAP A10
+      brings the spill catalog.
+
+    Variance/stddev and collect frames are not ported (the planner
+    refuses them: ROADMAP A12, and A3 for array columns)."""
 
     def __init__(self, window_exprs: List[Alias], child, conf=None,
                  presorted: bool = False, halo: Optional[int] = None,
@@ -865,67 +926,486 @@ class TpuWindowExec(PhysicalPlan):
         order_cols = [(o.expr.eval(ctx), o.ascending, o.nulls_first)
                       for o in spec0.orders]
         sw = W.sort_for_window(batch, part_cols, order_cols)
+        inv = W.inverse_permutation(sw.perm)
         has_order = bool(spec0.orders)
-        prefixes = {}
+        prefixes, frames = {}, {}
 
         def prefix(col: Optional[DeviceColumn], dtype, count: bool):
             """K14's prefix of a column's values (or of its valid rows,
-            a count), read through the sort permutation; each once."""
+            a count), read through the sort permutation; each once. A
+            float64 prefix restarts at each partition."""
             key = (id(col), dtype, count)
             if key not in prefixes:
                 vals = None if count else col.data.to(dtype)
                 prefixes[key] = W.window_prefix(
                     vals, None if col is None else col.validity, sw.live,
-                    sw.perm, dtype)
+                    sw.perm, dtype,
+                    sw.seg_start if dtype == torch.float64 else None)
             return prefixes[key]
+
+        def frame_of(wexpr):
+            """Each distinct frame once (K15 for RANGE offsets)."""
+            fr = wexpr.spec.frame
+            key = None if fr is None else fr.key()
+            if key not in frames:
+                order = ((order_cols[0][0], order_cols[0][2])
+                         if order_cols else None)
+                frames[key] = W.frame_of(fr, has_order, sw, order)
+            return frames[key]
 
         ranks = {we.RowNumber: kernels.WIN_ROW_NUMBER,
                  we.Rank: kernels.WIN_RANK,
-                 we.DenseRank: kernels.WIN_DENSE_RANK}
-        reqs = []
+                 we.DenseRank: kernels.WIN_DENSE_RANK,
+                 we.PercentRank: kernels.WIN_PERCENT_RANK,
+                 we.CumeDist: kernels.WIN_CUME_DIST}
+        # per output: ("eval", request index) | ("col", column) |
+        # ("pick", pick index, input column, default column or None)
+        slots, reqs, picks = [], [], []
+        inputs = {}
+
+        def input_of(fn):
+            key = fn.input.key()
+            if key not in inputs:
+                inputs[key] = fn.input.eval(ctx)
+            return inputs[key]
+
         for alias in self.window_exprs:
             wexpr = alias.children[0]
             fn = wexpr.function
-            if type(fn) in ranks:
-                reqs.append(W.WinRequest(ranks[type(fn)]))
-                continue
-            if not isinstance(fn, (Count, Sum, Average)):
+            if type(fn) in ranks or isinstance(fn, we.NTile):
+                kind = ranks.get(type(fn), kernels.WIN_NTILE)
+                slots.append(("eval", len(reqs)))
+                reqs.append(W.WinRequest(
+                    kind, buckets=fn.n if isinstance(fn, we.NTile) else 0))
+            elif isinstance(fn, we.Lead):  # Lag subclasses Lead
+                slots.append(("pick", len(picks), input_of(fn),
+                              None if fn.default is None
+                              else fn.default.eval(ctx)))
+                picks.append(W.Pick(kernels.PICK_SHIFT, offset=fn.offset))
+            elif isinstance(fn, First):  # Last subclasses First
+                inp = input_of(fn)
+                last = isinstance(fn, Last)
+                if fn.ignore_nulls:
+                    kind = (kernels.PICK_LAST_VALID if last
+                            else kernels.PICK_FIRST_VALID)
+                    pcnt = prefix(inp, torch.int64, True)
+                else:
+                    kind = kernels.PICK_LAST if last else kernels.PICK_FIRST
+                    pcnt = None
+                slots.append(("pick", len(picks), inp, None))
+                picks.append(W.Pick(kind, frame_of(wexpr), pcnt=pcnt))
+            elif isinstance(fn, (Min, Max)):
+                inp = input_of(fn)
+                d, v = W.frame_minmax_eval(
+                    inp.data, inp.validity, sw, frame_of(wexpr),
+                    isinstance(fn, Max), prefix(inp, torch.int64, True),
+                    perm=sw.perm, inv=inv)
+                slots.append(("col", DeviceColumn(wexpr.dtype, d, v)))
+            elif isinstance(fn, (Count, Sum, Average)):
+                fr = frame_of(wexpr)
+                inp = input_of(fn) if fn.input is not None else None
+                pcnt = prefix(inp, torch.int64, True)
+                slots.append(("eval", len(reqs)))
+                if isinstance(fn, Count):
+                    reqs.append(W.WinRequest(kernels.WIN_COUNT, fr,
+                                             pcnt=pcnt))
+                elif isinstance(fn, Average):
+                    reqs.append(W.WinRequest(
+                        kernels.WIN_AVG, fr,
+                        prefix(inp, torch.float64, False), pcnt))
+                else:
+                    acc = torch_dtype(wexpr.dtype)
+                    kind = (kernels.WIN_SUM_F64 if acc == torch.float64
+                            else kernels.WIN_SUM_I64)
+                    reqs.append(W.WinRequest(kind, fr,
+                                             prefix(inp, acc, False), pcnt))
+            else:
                 raise NotImplementedError(
                     f"window function {type(fn).__name__} is not ported "
-                    f"yet (ROADMAP {W.NOT_PORTED})")
-            fr = W.frame_of(wexpr.spec.frame, has_order)
-            inp = fn.input.eval(ctx) if fn.input is not None else None
-            pcnt = prefix(inp, torch.int64, True)
-            if isinstance(fn, Count):
-                reqs.append(W.WinRequest(kernels.WIN_COUNT, fr, pcnt=pcnt))
-            elif isinstance(fn, Average):
-                reqs.append(W.WinRequest(
-                    kernels.WIN_AVG, fr, prefix(inp, torch.float64, False),
-                    pcnt))
+                    "yet (ROADMAP A12)")
+        evals = W.window_eval(sw, reqs, sw.perm, inv) if reqs else []
+        picked = W.frame_pick(sw, picks, sw.perm, inv) if picks else []
+        # every picked leaf in one K8 launch
+        srcs, idxs = [], []
+        for slot in slots:
+            if slot[0] == "pick":
+                leaves = slot[2].leaves()
+                srcs += leaves
+                idxs += [picked[slot[1]][0]] * len(leaves)
+        gathered = iter(gather_leaves(srcs, idxs) if srcs else [])
+        new_cols = []
+        for alias, slot in zip(self.window_exprs, slots):
+            dt = alias.children[0].dtype
+            if slot[0] == "eval":
+                d, v = evals[slot[1]]
+                new_cols.append(DeviceColumn(dt, d, v))
+            elif slot[0] == "col":
+                new_cols.append(slot[1])
             else:
-                acc = torch_dtype(wexpr.dtype)
-                kind = (kernels.WIN_SUM_F64 if acc == torch.float64
-                        else kernels.WIN_SUM_I64)
-                reqs.append(W.WinRequest(kind, fr, prefix(inp, acc, False),
-                                         pcnt))
-        outs = W.window_eval(sw, reqs, perm=sw.perm)
-        new_cols = [DeviceColumn(a.dtype, d, v)
-                    for a, (d, v) in zip(self.window_exprs, outs)]
+                _, k, inp, default = slot
+                has = picked[k][1]
+                col = inp.with_leaves([next(gathered)
+                                       for _ in inp.leaves()])
+                col = col.replace(dtype=dt, validity=col.validity & has,
+                                  vrange=None)
+                if default is not None:
+                    col = col.replace(
+                        data=_row_select(has, col.data, default.data),
+                        validity=torch.where(has, col.validity,
+                                             default.validity),
+                        lengths=None if col.lengths is None else
+                        torch.where(has, col.lengths, default.lengths))
+                new_cols.append(col)
         return ColumnBatch(self.schema, list(batch.columns) + new_cols,
                            batch.num_rows)
 
     def execute_partition(self, pid, ctx):
         if self.presorted and self.halo is not None:
-            raise NotImplementedError(
-                "the batched bounded-frame window (halo mode) is not "
-                "ported yet (ROADMAP A11b)")
-        if self.mode is not None:
-            raise NotImplementedError(
-                f"the {self.mode!r} streaming window mode is not ported "
-                "yet (ROADMAP A11b)")
+            yield from self._execute_batched(pid, ctx)
+            return
+        if self.mode == "running":
+            yield from self._execute_running(pid, ctx)
+            return
+        if self.mode == "u2u":
+            yield from self._execute_u2u(pid, ctx)
+            return
         pending = list(self.children[0].execute_partition(pid, ctx))
         if not pending:
             return
         merged = concat_batches(pending) if len(pending) > 1 \
             else pending[0]
         yield self._run(merged)
+
+    # --- bounded-frame batched path (GpuBatchedBoundedWindowExec role) ---
+
+    @staticmethod
+    def _slice_rows(batch: ColumnBatch, start: int, count: int
+                    ) -> ColumnBatch:
+        """Rows [start, start + count) at a capacity bucket (one K8
+        gather)."""
+        cap = next_capacity(count)
+        idx = (torch.arange(cap, dtype=torch.int32, device=batch.device)
+               + start).clamp(0, batch.capacity - 1)
+        return batch.gather(idx, count)
+
+    def _window_chunk(self, prefix: Optional[ColumnBatch],
+                      chunk: ColumnBatch,
+                      suffix: Optional[ColumnBatch]) -> ColumnBatch:
+        """Evaluate one sorted chunk with halo context and slice out the
+        chunk's own rows. Input order is sorted order (the child is a
+        chunked TpuSortExec), so row positions survive the window's own
+        sort: K9's sort is stable."""
+        parts = [p for p in (prefix, chunk, suffix) if p is not None]
+        merged = concat_batches(parts) if len(parts) > 1 else parts[0]
+        out = self._run(merged)
+        start = prefix.row_count() if prefix is not None else 0
+        return self._slice_rows(out, start, chunk.row_count())
+
+    def _execute_batched(self, pid, ctx):
+        h = max(self.halo, 1)
+        prefix: Optional[ColumnBatch] = None  # last h rows seen
+        pending: Optional[ColumnBatch] = None  # chunk awaiting suffix
+        for batch in self.children[0].execute_partition(pid, ctx):
+            if pending is not None:
+                suffix = self._slice_rows(batch, 0,
+                                          min(h, batch.row_count()))
+                yield self._window_chunk(prefix, pending, suffix)
+                joined = (concat_batches([prefix, pending])
+                          if prefix is not None else pending)
+                tail_n = min(h, joined.row_count())
+                prefix = self._slice_rows(joined, joined.row_count() - tail_n,
+                                          tail_n)
+            pending = batch
+        if pending is not None:
+            yield self._window_chunk(prefix, pending, None)
+
+    # --- running-window streaming path (GpuRunningWindowExec role) ---
+
+    def _running_plan(self) -> List[str]:
+        """Per window expression, how the carried state adjusts the
+        in-chunk value."""
+        from spark_rapids_tpu_torch.expr import windows as we
+
+        plan = []
+        for a in self.window_exprs:
+            fn = a.children[0].function
+            if isinstance(fn, we.RowNumber):
+                plan.append("rownum")
+            elif isinstance(fn, we.DenseRank):
+                plan.append("dense")
+            elif isinstance(fn, we.Rank):
+                plan.append("rank")
+            elif isinstance(fn, Count):
+                plan.append("count")
+            elif isinstance(fn, Sum):
+                plan.append("sum")
+            elif isinstance(fn, Min):
+                plan.append("min")
+            else:
+                assert isinstance(fn, Max), fn
+                plan.append("max")
+        return plan
+
+    @staticmethod
+    def _rows_eq(col: DeviceColumn, ref_data: torch.Tensor,
+                 ref_valid: torch.Tensor) -> torch.Tensor:
+        """Per-row null-safe equality of a key column against a 1-row
+        carried reference (null == null, and NaN == NaN: partition
+        membership uses the sort's total order, where NaNs group)."""
+        d = col.data
+        if d.dim() == 2:
+            eq = (d == ref_data).all(dim=1)
+        else:
+            r = ref_data.reshape(())
+            eq = d == r
+            if d.dtype.is_floating_point:
+                eq = eq | (torch.isnan(d) & torch.isnan(r))
+        rv = ref_valid.reshape(())
+        return (~col.validity & ~rv) | (col.validity & rv & eq)
+
+    def _running_fix(self, out: ColumnBatch, carry: dict):
+        """Adjust the prefix of a sorted chunk that continues the carried
+        partition, then refresh the carry from the chunk's last row. All
+        state stays on the device (1-row tensors); elementwise torch, as
+        the reference's fix-up is elementwise exec code."""
+        ctx = EvalContext(out)
+        spec = self.spec0
+        nbase = len(self.schema.fields) - len(self.window_exprs)
+        live = out.live_mask()
+        nr = out.num_rows
+        if isinstance(nr, torch.Tensor):
+            has = nr.reshape(()) > 0
+            last = (nr.to(torch.int64) - 1).clamp(min=0).reshape(1)
+        else:  # a host count: no copy to the card
+            has = nr > 0
+            last = torch.full((1,), max(nr - 1, 0), dtype=torch.int64,
+                              device=out.device)
+
+        def at_last(x):
+            return x.index_select(0, last)
+
+        pcols = [p.eval(ctx) for p in spec.partitions]
+        ocols = [o.expr.eval(ctx) for o in spec.orders]
+        mask = live & carry["live"].reshape(())
+        for i, c in enumerate(pcols):
+            mask = mask & self._rows_eq(c, carry[f"pk{i}"],
+                                        carry[f"pkv{i}"])
+        peer = mask
+        for j, c in enumerate(ocols):
+            peer = peer & self._rows_eq(c, carry[f"ok{j}"],
+                                        carry[f"okv{j}"])
+
+        plan = self._running_plan()
+        n_carry = carry["n"].reshape(())
+        new_cols = list(out.columns)
+        for i, kind in enumerate(plan):
+            col = out.columns[nbase + i]
+            cvs = carry[f"v{i}"].reshape(())
+            cvvs = carry[f"vv{i}"].reshape(())
+            dt = col.data.dtype
+            if kind == "rownum":
+                col = col.replace(data=torch.where(
+                    mask, col.data + n_carry, col.data).to(dt))
+            elif kind == "rank":
+                shifted = col.data + n_carry
+                d = torch.where(peer, cvs.to(shifted.dtype), shifted)
+                col = col.replace(data=torch.where(mask, d, col.data).to(dt))
+            elif kind == "dense":
+                # the chunk's first distinct order-group continues the
+                # carried group iff the first masked row is a peer (the
+                # reference's any(peer & (cumsum(mask) == 1)): peer rows
+                # are masked rows)
+                first = mask.to(torch.int32).argmax().reshape(1)
+                first_peer = peer.index_select(0, first).reshape(())
+                off = cvs - first_peer.to(cvs.dtype)
+                col = col.replace(data=torch.where(
+                    mask, col.data + off, col.data).to(dt))
+            elif kind == "count":
+                col = col.replace(data=torch.where(
+                    mask & cvvs, col.data + cvs.to(dt), col.data))
+            else:  # sum / min / max with a null-skipping combine
+                both = mask & cvvs & col.validity
+                c_only = mask & cvvs & ~col.validity
+                cv = cvs.to(dt).expand_as(col.data)
+                if kind == "sum":
+                    comb = col.data + cv
+                else:
+                    comb = _float_minmax(col.data, cv, kind == "max")
+                d = torch.where(both, comb, torch.where(c_only, cv,
+                                                        col.data))
+                col = col.replace(data=d,
+                                  validity=col.validity | (mask & cvvs))
+            new_cols[nbase + i] = col
+        fixed = ColumnBatch(out.schema, new_cols, out.num_rows)
+
+        # refresh the carry from the FIXED chunk's last row
+
+        def keep(new, old):
+            if isinstance(has, bool):
+                return new if has else old
+            return torch.where(has, new, old)
+
+        nc = dict(carry)
+        nc["live"] = keep(torch.ones_like(carry["live"]), carry["live"])
+        for i, c in enumerate(pcols):
+            nc[f"pk{i}"] = keep(at_last(c.data), carry[f"pk{i}"])
+            nc[f"pkv{i}"] = keep(at_last(c.validity), carry[f"pkv{i}"])
+        for j, c in enumerate(ocols):
+            nc[f"ok{j}"] = keep(at_last(c.data), carry[f"ok{j}"])
+            nc[f"okv{j}"] = keep(at_last(c.validity), carry[f"okv{j}"])
+        # rows so far in the last row's partition
+        in_last = live
+        for c in pcols:
+            in_last = in_last & self._rows_eq(c, at_last(c.data),
+                                              at_last(c.validity))
+        cnt = in_last.sum().to(torch.int64)
+        cont = at_last(mask).reshape(())  # last row still in the carry's
+        nc["n"] = keep((cnt + torch.where(cont, n_carry,
+                                          torch.zeros_like(n_carry)))
+                       .reshape(1), carry["n"])
+        for i in range(len(plan)):
+            col = fixed.columns[nbase + i]
+            nc[f"v{i}"] = keep(at_last(col.data), carry[f"v{i}"])
+            nc[f"vv{i}"] = keep(at_last(col.validity), carry[f"vv{i}"])
+        return fixed, nc
+
+    def _running_init_carry(self, batch: ColumnBatch) -> dict:
+        """Zero carry matching the chunk's key and value shapes."""
+        ctx = EvalContext(batch)
+        spec = self.spec0
+        nbase = len(self.schema.fields) - len(self.window_exprs)
+        dev = batch.device
+        carry = {"live": torch.zeros(1, dtype=torch.bool, device=dev),
+                 "n": torch.zeros(1, dtype=torch.int64, device=dev)}
+
+        def z(c):
+            return (torch.zeros((1,) + tuple(c.data.shape[1:]),
+                                dtype=c.data.dtype, device=dev),
+                    torch.zeros(1, dtype=torch.bool, device=dev))
+
+        for i, p in enumerate(spec.partitions):
+            carry[f"pk{i}"], carry[f"pkv{i}"] = z(p.eval(ctx))
+        for j, o in enumerate(spec.orders):
+            carry[f"ok{j}"], carry[f"okv{j}"] = z(o.expr.eval(ctx))
+        for i in range(len(self.window_exprs)):
+            f = self.schema.fields[nbase + i]
+            carry[f"v{i}"] = torch.zeros(1, dtype=torch_dtype(f.dataType),
+                                         device=dev)
+            carry[f"vv{i}"] = torch.zeros(1, dtype=torch.bool, device=dev)
+        return carry
+
+    def _execute_running(self, pid, ctx):
+        """Sorted chunks plus the carried per-partition scan state: device
+        residency stays O(chunk) while ranks and running frames stay
+        exact across chunk boundaries."""
+        carry = None
+        for batch in self.children[0].execute_partition(pid, ctx):
+            if carry is None:
+                carry = self._running_init_carry(batch)
+            out, carry = self._running_fix(self._run(batch), carry)
+            yield out
+
+    # --- unbounded-to-unbounded two-pass path ---
+
+    @staticmethod
+    def _null_safe_keys(batch: ColumnBatch, key_cols):
+        """Append [IsNull marker, zero-filled value] per key column so null
+        partitions probe-match their own group (the join probe drops null
+        keys; zero-filling invalid rows plus the marker makes every key
+        column non-null while keeping keys distinct). -> (work batch, key
+        ordinals)."""
+        from spark_rapids_tpu_torch.sqltypes.datatypes import boolean
+
+        cols = list(batch.columns)
+        fields = list(batch.schema.fields)
+        idxs = []
+        for k, c in enumerate(key_cols):
+            ones = torch.ones(c.capacity, dtype=torch.bool, device=c.device)
+            isn = DeviceColumn(boolean, ~c.validity, ones)
+            vb = c.validity[:, None] if c.data.dim() == 2 else c.validity
+            coal = c.replace(
+                data=torch.where(vb, c.data, torch.zeros_like(c.data)),
+                validity=ones,
+                lengths=None if c.lengths is None
+                else torch.where(c.validity, c.lengths, 0))
+            idxs.append(len(cols))
+            cols.append(isn)
+            fields.append(StructField(f"__wn{k}", boolean, False))
+            idxs.append(len(cols))
+            cols.append(coal)
+            fields.append(StructField(f"__wv{k}", c.dtype, False))
+        return (ColumnBatch(StructType(fields), cols, batch.num_rows),
+                idxs)
+
+    def _execute_u2u(self, pid, ctx):
+        """Two passes (GpuUnboundedToUnboundedAggWindowExec role): (1) keep
+        the chunks while folding per-chunk partition partials into one
+        bounded buffer batch; (2) finalize the aggregates and re-scan the
+        kept chunks, each row looking up its partition's result (null-safe
+        key probe). The chunks wait in a Python list until ROADMAP A10's
+        spill catalog can park them."""
+        spec = self.spec0
+        grouping = [Alias(p, f"__wk{i}")
+                    for i, p in enumerate(spec.partitions)]
+        aggs = [Alias(a.children[0].function, a.name)
+                for a in self.window_exprs]
+        child = self.children[0]
+        agg = TpuHashAggregateExec("partial", grouping, aggs, child,
+                                   self.conf)
+        fold_every = _conf_get(self.conf, rc.WINDOW_U2U_FOLD, 8)
+        parked: List[ColumnBatch] = []
+        pend_parts: List[ColumnBatch] = []
+        partials = None
+
+        def fold_partials():
+            """Fold pending per-chunk partials into the buffer batch,
+            every fold_every chunks, so the concat's host sync and the
+            whole-buffer re-merge amortize."""
+            nonlocal partials
+            if not pend_parts:
+                return
+            bs = ([] if partials is None else [partials]) + pend_parts
+            partials = agg._merge_buffers(concat_batches(bs))
+            pend_parts.clear()
+
+        for batch in child.execute_partition(pid, ctx):
+            parked.append(batch)
+            pend_parts.append(agg._partial(batch))
+            if len(pend_parts) >= fold_every:
+                fold_partials()
+        if not parked:
+            return
+        fold_partials()
+        # a final-mode twin evaluates buffers -> results (its schema is the
+        # result layout; the partial's is the buffer layout)
+        agg_f = TpuHashAggregateExec("final", grouping, aggs, child,
+                                     self.conf)
+        final = agg_f._merge_final(partials)   # [keys, results]
+        nk = len(grouping)
+        build = None
+        if nk:
+            fwork, fidx = self._null_safe_keys(
+                final, [final.columns[i] for i in range(nk)])
+            build = joinops.build_side(fwork, fidx)
+        while parked:
+            b = parked.pop(0)
+            if nk:
+                ctx2 = EvalContext(b)
+                key_cols = [g.children[0].eval(ctx2) for g in grouping]
+                pwork, pidx = self._null_safe_keys(b, key_cols)
+                lo, counts = joinops.probe_ranges(build, pwork, pidx)
+                safe = lo.clamp(0, build.batch.capacity - 1)
+                src = build.batch
+                matched = counts > 0
+            else:
+                # one global partition: broadcast row 0
+                safe = torch.zeros(b.capacity, dtype=torch.int32,
+                                   device=b.device)
+                src = final
+                matched = torch.ones(b.capacity, dtype=torch.bool,
+                                     device=b.device)
+            res = gather_columns([(src.columns[nk + i], safe)
+                                  for i in range(len(self.window_exprs))])
+            res = [c.replace(validity=c.validity & matched) for c in res]
+            yield ColumnBatch(self.schema, list(b.columns) + res,
+                              b.num_rows)

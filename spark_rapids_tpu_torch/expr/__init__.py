@@ -5,6 +5,10 @@ from spark_rapids_tpu_torch.expr.aggregates import (  # noqa: F401
     AggregateFunction,
     Average,
     Count,
+    First,
+    Last,
+    Max,
+    Min,
     Sum,
 )
 from spark_rapids_tpu_torch.expr.arith import (  # noqa: F401

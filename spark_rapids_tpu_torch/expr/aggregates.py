@@ -1,10 +1,10 @@
 """Declarative aggregate functions with update / merge / evaluate phases —
 counterpart of `spark_rapids_tpu/expr/aggregates.py` for Sum, Count and
-Average over long and double inputs (decimal buffers and the 128-bit sums
-are not ported yet).
+Average over long and double inputs, Min and Max, and First and Last
+(decimal buffers and the 128-bit sums are not ported yet).
 
 - update: raw input values -> per-group partial buffers (segmented
-  reductions, kernel K4),
+  reductions: sums and counts in kernel K4, minima and maxima in K12),
 - merge: partial buffers from many batches -> combined buffers,
 - evaluate: buffers -> final value.
 """
@@ -155,3 +155,78 @@ class Average(AggregateFunction):
         safe = cnt.data.clamp(min=1)
         data = s.data.to(torch.float64) / safe.to(torch.float64)
         return DeviceColumn(self.dtype, data, cnt.data > 0)
+
+
+class _MinMax(AggregateFunction):
+    """Min and Max: one buffer, the extremum of the valid rows (K12's
+    segmented min/max), valid where the group has one."""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def dtype(self):
+        return self.children[0].dtype
+
+    def buffer_types(self):
+        return [self.dtype]
+
+    def _seg(self, data, valid, gid, cap):
+        raise NotImplementedError
+
+    def update(self, values, live, gid, cap):
+        valid = values.validity & live
+        r = self._seg(values.data, valid, gid, cap)
+        cnt = segmented.seg_count(valid, gid, cap)
+        return [DeviceColumn(self.dtype, r, cnt > 0)]
+
+    def merge(self, buffers, live, gid, cap):
+        valid = buffers[0].validity & live
+        r = self._seg(buffers[0].data, valid, gid, cap)
+        cnt = segmented.seg_count(valid, gid, cap)
+        return [DeviceColumn(buffers[0].dtype, r, cnt > 0)]
+
+    def evaluate(self, buffers):
+        return buffers[0]
+
+
+class Min(_MinMax):
+    name = "min"
+
+    def _seg(self, data, valid, gid, cap):
+        return segmented.seg_min(data, valid, gid, cap)
+
+
+class Max(_MinMax):
+    name = "max"
+
+    def _seg(self, data, valid, gid, cap):
+        return segmented.seg_max(data, valid, gid, cap)
+
+
+class First(AggregateFunction):
+    """first(col[, ignorenulls]). The port evaluates it over window frames
+    only (TpuWindowExec, kernel K17); as a group-by aggregate the planner
+    refuses it (ROADMAP A12)."""
+
+    name = "first"
+
+    def __init__(self, child: Expression, ignore_nulls: bool = True):
+        super().__init__([child])
+        self.ignore_nulls = ignore_nulls
+
+    @property
+    def dtype(self):
+        return self.children[0].dtype
+
+    def key(self):
+        return ("first", self.ignore_nulls, self.children[0].key())
+
+
+class Last(First):
+    """last(col[, ignorenulls]): First from the frame's other end."""
+
+    name = "last"
+
+    def key(self):
+        return ("last", self.ignore_nulls, self.children[0].key())

@@ -9,9 +9,9 @@ or any AggregateFunction) with a `WindowSpecDef` (partition exprs, sort
 orders, frame). Evaluation happens inside `TpuWindowExec`
 (exec/operators.py) over ops/windowops.py; expression nodes here only
 carry structure and types.
-The port evaluates row_number, rank, dense_rank and sum/count/avg frames;
-the other functions are nodes already, and `TpuWindowExec` raises for
-them (ROADMAP A11b).
+The port evaluates every function here, and the aggregates Sum, Count,
+Average, Min, Max, First and Last over frames; the planner refuses the
+reference's other window aggregates (collect and variance frames).
 """
 
 from __future__ import annotations

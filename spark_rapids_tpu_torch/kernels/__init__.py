@@ -25,9 +25,17 @@ module that the JAX package keeps the function in:
 - K13 `ops.sortops.merge_runs`, behind `merge_sorted`
   (csrc/merge_runs.cu, with the key search of csrc/search.cuh shared
   with K2)
-- K14 `ops.windowops.window_prefix` (the frame prefix sums) and
-  `ops.windowops.window_eval` (frames, ranks and the write-back to input
-  order) (csrc/window_frames.cu)
+- K14 `ops.windowops.window_prefix` (the frame prefix sums),
+  `ops.windowops.inverse_permutation` (the write-back's inverse
+  permutation) and `ops.windowops.window_eval` (frames, the rank family
+  with percent_rank, cume_dist and ntile, and the write-back to input
+  order) (csrc/window_frames.cu, with the frame sides of
+  csrc/window_frame.cuh shared with K15-K17)
+- K15 `ops.windowops.range_bounds`, behind `range_frame_bounds` and the
+  RANGE frames of `frame_of` (csrc/range_bounds.cu)
+- K16 `ops.windowops.frame_minmax` (csrc/frame_minmax.cu)
+- K17 `ops.windowops.frame_pick`, behind `frame_first_last` and
+  `lead_lag` (csrc/frame_pick.cu)
 
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel (adding one to its count in `launches`) or
@@ -64,7 +72,11 @@ launches: Dict[str, int] = {
     "seg_minmax": 0,
     "merge_runs": 0,
     "window_prefix": 0,
+    "window_inverse": 0,
     "window_eval": 0,
+    "range_bounds": 0,
+    "frame_minmax": 0,
+    "frame_pick": 0,
 }
 
 
@@ -137,13 +149,49 @@ class WinOut(ctypes.Structure):
                 ("out", ctypes.c_void_p), ("out_valid", ctypes.c_void_p)]
 
 
-#: WinOut.kind values (WinKind in csrc/window_frames.cu)
+#: WinOut.kind values (WinKind in csrc/window_frames.cu); WIN_NTILE takes
+#: its bucket count in WinOut.lower
 (WIN_ROW_NUMBER, WIN_RANK, WIN_DENSE_RANK, WIN_SUM_F64, WIN_SUM_I64,
- WIN_COUNT, WIN_AVG) = range(7)
-#: WinOut.start_kind / end_kind values (WinBound)
+ WIN_COUNT, WIN_AVG, WIN_PERCENT_RANK, WIN_CUME_DIST, WIN_NTILE) = range(10)
+#: frame side kinds, WinOut.start_kind / end_kind and WinFrame's
+#: (WinBound in csrc/window_frame.cuh)
 WIN_SEG, WIN_PEER, WIN_OFFSET, WIN_GIVEN = range(4)
 #: outputs one K14 evaluation launch writes (kMaxWinOuts)
 MAX_WIN_OUTS = 8
+
+
+class WinFrame(ctypes.Structure):
+    """One frame as K16 and K17 take it (WinFrame in
+    csrc/window_frame.cuh)."""
+
+    _fields_ = [("start_kind", ctypes.c_int), ("end_kind", ctypes.c_int),
+                ("lower", ctypes.c_longlong), ("upper", ctypes.c_longlong),
+                ("start", ctypes.c_void_p), ("end", ctypes.c_void_p)]
+
+
+#: K15's key types (RangeKeyType in csrc/range_bounds.cu)
+RANGE_TYPES = {torch.int16: 0, torch.int32: 1, torch.int64: 2,
+               torch.float32: 3, torch.float64: 4, torch.int8: 5}
+#: K16's value types (MmType in csrc/frame_minmax.cu)
+MINMAX_TYPES = {torch.int16: 0, torch.int32: 1, torch.int64: 2,
+                torch.float32: 3, torch.float64: 4, torch.bool: 5,
+                torch.int8: 6}
+
+
+class PickOut(ctypes.Structure):
+    """One output of a K17 launch (PickOut in csrc/frame_pick.cu)."""
+
+    _fields_ = [("kind", ctypes.c_int), ("pad", ctypes.c_int),
+                ("frame", WinFrame), ("offset", ctypes.c_longlong),
+                ("pcnt", ctypes.c_void_p), ("src", ctypes.c_void_p),
+                ("has", ctypes.c_void_p)]
+
+
+#: PickOut.kind values (PickKind in csrc/frame_pick.cu)
+PICK_FIRST, PICK_LAST, PICK_FIRST_VALID, PICK_LAST_VALID, PICK_SHIFT = \
+    range(5)
+#: outputs one K17 launch picks (kMaxPickOuts)
+MAX_PICK_OUTS = 8
 
 
 def struct_array(cls, items) -> ctypes.c_void_p:

@@ -49,6 +49,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 #: C entry points: name -> argtypes (every one returns a cudaError_t)
 _SIGNATURES = {
     "srtpu_compact_perm": [_P, _I, _P, _P, _P, _P],
@@ -68,9 +69,14 @@ _SIGNATURES = {
     "srtpu_seg_minmax": [_I, _I, _P, _P, _P, _L, _I, _P, _I, _I, _P],
     "srtpu_merge_runs": [_P, _L, _P, _L, _I, _P, _P, _L, _P, _I, _P, _I, _I,
                          _P],
-    "srtpu_window_prefix": [_I, _P, _P, _P, _P, _L, _P, _P, _P],
-    "srtpu_window_eval": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _P],
+    "srtpu_window_prefix": [_I, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
+    "srtpu_window_inverse": [_P, _L, _P, _I, _P],
+    "srtpu_window_eval": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _I, _P],
+    "srtpu_range_bounds": [_I, _I, _P, _P, _P, _P, _L, _I, _L, _L, _D, _D,
+                           _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "srtpu_frame_minmax": [_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _I, _P],
+    "srtpu_frame_pick": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 _lock = threading.Lock()

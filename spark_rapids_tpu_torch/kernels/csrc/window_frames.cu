@@ -2,31 +2,43 @@
 // the write-back of every result to its input row.
 //
 // Replaces spark_rapids_tpu/ops/windowops.py:227 _prefix, :234 frame_count,
-// :245 frame_sum, :397-411 row_number / rank / dense_rank, and the inverse
-// permutation of sort_for_window (:113) with the takes through it that
-// exec/operators.py's TpuWindowExec._run does (`to_original`), all of
-// which XLA compiles. Rows are in the window's sorted order; perm[j] is
-// the input row at sorted position j.
+// :245 frame_sum, :397-433 row_number / rank / dense_rank / percent_rank /
+// cume_dist / ntile, and the inverse permutation of sort_for_window (:113)
+// with the takes through it that exec/operators.py's TpuWindowExec._run
+// does (`to_original`), all of which XLA compiles. Rows are in the
+// window's sorted order; perm[j] is the input row at sorted position j.
 //
 // 1. srtpu_window_prefix: the inclusive prefix p[0] = 0,
 //    p[j + 1] = p[j] + c[j] of one contribution vector over the sorted
 //    rows, c[j] = live_s[j] and valid[perm[j]] ? vals[perm[j]] : 0 (int64
 //    or float64; a count takes 1 for vals), read through perm so the input
-//    column needs no gather first.
-// 2. srtpu_window_eval: per sorted row j and per requested output, one of
-//      row_number = j - seg_start + 1
-//      rank       = peer_start - seg_start + 1
-//      dense_rank = pid[j] - pid[seg_start] + 1   (pid: the peer-run id,
-//                   which is the reference's cumsum of new peer runs - 1)
+//    column needs no gather first; with seg_start (float64 sums) the
+//    prefix restarts at each partition, p[j + 1] = c[seg_start[j]] + ... +
+//    c[j]. The reference keeps one whole-batch prefix, and a frame's sum,
+//    a difference of two prefixes, then loses up to the prefix's rounding
+//    (2e-7 relative for a store's first small amount at 37.7M rows).
+// 2. srtpu_window_inverse: inv[perm[j]] = j, the reference's `inv`.
+// 3. srtpu_window_eval: per sorted row j and per requested output, one of
+//      row_number   = j - seg_start + 1
+//      rank         = peer_start - seg_start + 1
+//      dense_rank   = pid[j] - pid[seg_start] + 1   (pid: the peer-run id,
+//                     which is the reference's cumsum of new peer runs - 1)
+//      percent_rank = len > 1 ? (rank - 1) / max(len - 1, 1) : 0
+//      cume_dist    = (peer_end - seg_start + 1) / len
+//      ntile(k)     = the reference's integer arithmetic over
+//                     idx = j - seg_start, q = len / k, r = len % k (floor
+//                     division, as jnp's //, also where len <= 0)
 //      frame sum / count / average over [start, end]:
-//                   p[clip(end + 1, 0, n)] - p[clip(start, 0, n)], or 0
+//                   p[clip(end + 1, 0, n)] - p[clip(start, 0, n)] (a
+//                   restarted float64 prefix takes 0 for the second term
+//                   where start is the partition's first row), or 0
 //                   where end < start, with validity count > 0 (sum,
 //                   average) or always (count)
-//    where start is seg_start, peer_start, max(j + lower, seg_start) or a
-//    given array, and end is seg_end, peer_end, min(j + upper, seg_end) or
-//    a given array; with perm each result lands at its input row perm[j]
-//    (else at j): the reference's scatter of the positions into its
-//    inverse permutation followed by a take.
+//    with len = seg_end - seg_start + 1 and the frame's sides as
+//    window_frame.cuh resolves them; with inv each result lands at its
+//    input row (out[i] is sorted row inv[i]'s), else at j: the reference's
+//    scatter of the positions into its inverse permutation followed by a
+//    take.
 //
 // Bound on the H100: bytes. For the window query over 36M rows (row_number,
 // rank, dense_rank and a running sum of a double) the function reads perm,
@@ -36,9 +48,11 @@
 //
 // Design: the prefix is K1's three-launch tile scan (tile sums, which also
 // park c[j] in p[j + 1]; one block scans the tile sums; each tile scans its
-// parked values in place), in a fixed order, so it is deterministic. The
+// parked values in place), in a fixed order, so it is deterministic; the
+// restarted prefix scans (restart flag, value) pairs the same way, a tile
+// carrying out its sum from its last partition start. The
 // evaluation writes in input order: one launch scatters the inverse
-// permutation (inv[perm[j]] = j, the reference's `inv`), then one thread an
+// permutation once per window (K15-K17 read it too), then one thread an
 // input row i evaluates sorted row inv[i] for up to eight outputs (their
 // descriptors in parameter space) and writes out[i]. So the random access
 // is one 4-byte write and a few reads a row; writing every output through
@@ -46,29 +60,28 @@
 // of a 32-byte sector) took 20.6 ms at 37.7M rows on the H100, 30x its
 // bound.
 
-#include "common.cuh"
+#include "window_frame.cuh"
 
 namespace srtpu {
 
 enum WinKind {
   kRowNumber = 0, kRank = 1, kDenseRank = 2, kSumF64 = 3, kSumI64 = 4,
-  kCount = 5, kAvg = 6
+  kCount = 5, kAvg = 6, kPercentRank = 7, kCumeDist = 8, kNtile = 9
 };
-enum WinBound { kSeg = 0, kPeer = 1, kOffset = 2, kGiven = 3 };
 
 struct WinOut {
   int kind;           // WinKind
   int start_kind;     // WinBound: seg_start, peer_start, j + lower, given
   int end_kind;       // WinBound: seg_end, peer_end, j + upper, given
   int pad;
-  long long lower;    // offsets of kOffset bounds
+  long long lower;    // offsets of kOffset bounds; ntile's bucket count
   long long upper;
   const int* start;   // given bounds (kGiven)
   const int* end;
   const void* psum;   // [n + 1] float64 or int64 prefix (sums, averages)
   const long long* pcnt;  // [n + 1] int64 count prefix (counts, averages;
                           // a sum's validity, none without it)
-  void* out;          // [n] int32 (ranks), float64 or int64
+  void* out;          // [n] int32 (ranks, ntile), float64 or int64
   uint8_t* out_valid;  // [n] bool, or null
 };
 
@@ -147,17 +160,185 @@ prefix_scan_kernel(i64 n, const T* __restrict__ offsets, T* __restrict__ p) {
   }
 }
 
+// Inclusive scan of (flag, value) pairs in thread order over a block of
+// NW warps, where a flag restarts the sum at its row: returns the row's
+// sum since the last flag at or before it (or since the block's first
+// row), with `f` set when there was one; tot_f / tot_v: the block's pair.
+// As block_exclusive_scan, successive calls alternate between two pairs
+// of warp buffers.
+template <typename T, int NW>
+__device__ __forceinline__ T block_seg_scan(int& f, T v, int* warp_f,
+                                            T* warp_v, int& tot_f,
+                                            T& tot_v) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T vo = __shfl_up_sync(kFull, v, off);
+    const int fo = __shfl_up_sync(kFull, f, off);
+    if (lane >= off) {
+      if (!f) v = vo + v;
+      f |= fo;
+    }
+  }
+  if (lane == 31) {
+    warp_f[warp] = f;
+    warp_v[warp] = v;
+  }
+  __syncthreads();
+  int pf = 0;
+  T pv = 0;
+  tot_f = 0;
+  tot_v = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int wf = warp_f[w];
+    const T wv = warp_v[w];
+    if (w < warp) {
+      pv = wf ? wv : pv + wv;
+      pf |= wf;
+    }
+    tot_v = wf ? wv : tot_v + wv;
+    tot_f |= wf;
+  }
+  const T out = f ? v : pv + v;
+  f |= pf;
+  return out;
+}
+
+// Partition-restarted prefix (seg_start given), launch 1: park c[j] in
+// p[j + 1]; per tile the sum from its last partition start on (the whole
+// tile without one) and whether it holds a start.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+prefix_park_seg_kernel(const T* __restrict__ vals,
+                       const uint8_t* __restrict__ valid,
+                       const uint8_t* __restrict__ live_s,
+                       const int* __restrict__ perm,
+                       const int* __restrict__ seg_start, i64 n,
+                       T* __restrict__ p, T* __restrict__ sums,
+                       uint8_t* __restrict__ flags) {
+  __shared__ T warp_tot[kWarps];
+  __shared__ long long warp_last[kWarps];
+  const i64 base = (i64)blockIdx.x * kTile;
+  T cl[kItems];
+  long long last = -1;
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const i64 j = base + r * kThreads + threadIdx.x;
+    T c = 0;
+    if (j < n) {
+      if (live_s[j]) {
+        const i64 src = perm != nullptr ? (i64)perm[j] : j;
+        if (valid == nullptr || valid[src])
+          c = vals != nullptr ? vals[src] : T(1);
+      }
+      p[j + 1] = c;
+      if (seg_start[j] == j) last = j;
+    }
+    cl[r] = c;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const long long o = __shfl_down_sync(kFull, last, off);
+    if (o > last) last = o;
+  }
+  if ((threadIdx.x & 31) == 0) warp_last[threadIdx.x >> 5] = last;
+  __syncthreads();
+  long long tile_last = -1;
+  for (int w = 0; w < kWarps; ++w)
+    if (warp_last[w] > tile_last) tile_last = warp_last[w];
+  T s = 0;
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const i64 j = base + r * kThreads + threadIdx.x;
+    if (j >= tile_last) s += cl[r];
+  }
+  s = warp_sum(s);
+  if ((threadIdx.x & 31) == 0) warp_tot[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T t = 0;
+    for (int w = 0; w < kWarps; ++w) t += warp_tot[w];
+    sums[blockIdx.x] = t;
+    flags[blockIdx.x] = tile_last >= 0;
+  }
+}
+
+// launch 2, in ONE block: after[t] = the sum carried out of tile t
+// (restarted at the tile's last start, if it holds one)
+template <typename T>
+__global__ void __launch_bounds__(kScanThreads)
+seg_scan_tiles_kernel(const T* __restrict__ sums,
+                      const uint8_t* __restrict__ flags, int tiles,
+                      T* __restrict__ after) {
+  __shared__ int warp_f[2][kScanThreads / 32];
+  __shared__ T warp_v[2][kScanThreads / 32];
+  T carry = 0;
+  int round = 0;
+  for (int base = 0; base < tiles; base += kScanThreads, ++round) {
+    const int i = base + threadIdx.x;
+    int f = i < tiles ? flags[i] : 0;
+    const T v = i < tiles ? sums[i] : T(0);
+    int tf;
+    T tv;
+    const T inc = block_seg_scan<T, kScanThreads / 32>(
+        f, v, warp_f[round & 1], warp_v[round & 1], tf, tv);
+    if (i < tiles) after[i] = f ? inc : carry + inc;
+    carry = tf ? tv : carry + tv;
+  }
+}
+
+// launch 3: each tile turns its parked values into the prefix restarted
+// at each partition start, carrying in the tile before's sum
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+prefix_seg_scan_kernel(i64 n, const int* __restrict__ seg_start,
+                       const T* __restrict__ after, T* __restrict__ p) {
+  __shared__ int warp_f[2][kWarps];
+  __shared__ T warp_v[2][kWarps];
+  const i64 base = (i64)blockIdx.x * kTile;
+  T carry = blockIdx.x == 0 ? T(0) : after[blockIdx.x - 1];
+  if (blockIdx.x == 0 && threadIdx.x == 0) p[0] = 0;
+  for (int r = 0; r < kItems; ++r) {
+    const i64 j = base + r * kThreads + threadIdx.x;
+    if (base + r * kThreads >= n) break;  // uniform across the block
+    int f = j < n && seg_start[j] == j;
+    const T c = j < n ? p[j + 1] : T(0);
+    int tf;
+    T tv;
+    const T inc = block_seg_scan<T, kWarps>(f, c, warp_f[r & 1],
+                                            warp_v[r & 1], tf, tv);
+    if (j < n) p[j + 1] = f ? inc : carry + inc;
+    carry = tf ? tv : carry + tv;
+  }
+}
+
 template <typename T>
 int window_prefix(const T* vals, const uint8_t* valid,
-                  const uint8_t* live_s, const int* perm, i64 n, T* p,
-                  T* scratch, cudaStream_t s) {
+                  const uint8_t* live_s, const int* perm,
+                  const int* seg_start, i64 n, T* p, T* scratch,
+                  uint8_t* flags, cudaStream_t s) {
   const int tiles = num_tiles(n);
   T* sums = scratch;
   T* offsets = scratch + tiles;
   T* total = scratch + 2 * tiles;
+  cudaError_t e;
+  if (seg_start != nullptr) {
+    prefix_park_seg_kernel<T><<<tiles, kThreads, 0, s>>>(
+        vals, valid, live_s, perm, seg_start, n, p, sums, flags);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    seg_scan_tiles_kernel<T><<<1, kScanThreads, 0, s>>>(sums, flags, tiles,
+                                                        offsets);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    prefix_seg_scan_kernel<T><<<tiles, kThreads, 0, s>>>(n, seg_start,
+                                                         offsets, p);
+    return (int)cudaGetLastError();
+  }
   prefix_park_kernel<T><<<tiles, kThreads, 0, s>>>(vals, valid, live_s,
                                                    perm, n, p, sums);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scan_tiles_kernel<T><<<1, kScanThreads, 0, s>>>(sums, tiles, offsets,
                                                   total);
@@ -167,8 +348,9 @@ int window_prefix(const T* vals, const uint8_t* valid,
   return (int)cudaGetLastError();
 }
 
-__device__ __forceinline__ i64 clip(i64 v, i64 lo, i64 hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
+__device__ __forceinline__ i64 floordiv(i64 a, i64 b) {
+  const i64 q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -179,56 +361,61 @@ inverse_kernel(const int* __restrict__ perm, i64 n, int* __restrict__ inv) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-window_eval_kernel(WinOuts outs, int nouts, i64 n,
-                   const int* __restrict__ seg_start,
-                   const int* __restrict__ seg_end,
-                   const int* __restrict__ peer_start,
-                   const int* __restrict__ peer_end,
+window_eval_kernel(WinOuts outs, int nouts, i64 n, SegBounds b,
                    const int* __restrict__ pid,
                    const int* __restrict__ inv) {
   for (i64 dst = (i64)blockIdx.x * blockDim.x + threadIdx.x; dst < n;
        dst += (i64)gridDim.x * blockDim.x) {
     const i64 j = inv != nullptr ? (i64)inv[dst] : dst;
-    const i64 ss = seg_start[j];
+    const i64 ss = b.seg_start[j];
     for (int k = 0; k < nouts; ++k) {
       const WinOut& o = outs.o[k];
-      if (o.kind <= kDenseRank) {
+      if (o.kind <= kDenseRank || o.kind == kNtile) {
         int v;
-        if (o.kind == kRowNumber)
+        if (o.kind == kRowNumber) {
           v = (int)(j - ss + 1);
-        else if (o.kind == kRank)
-          v = (int)(peer_start[j] - ss + 1);
-        else
+        } else if (o.kind == kRank) {
+          v = (int)(b.peer_start[j] - ss + 1);
+        } else if (o.kind == kDenseRank) {
           v = pid[j] - pid[clip(ss, 0, n - 1)] + 1;
+        } else {
+          const i64 len = b.seg_end[j] - ss + 1, idx = j - ss;
+          const i64 q = floordiv(len, o.lower), r = len - q * o.lower;
+          const i64 threshold = r * (q + 1);
+          v = (int)((idx < threshold
+                         ? floordiv(idx, q + 1 > 1 ? q + 1 : 1)
+                         : r + floordiv(idx - threshold, q > 1 ? q : 1)) +
+                    1);
+        }
         ((int*)o.out)[dst] = v;
         if (o.out_valid != nullptr) o.out_valid[dst] = 1;
         continue;
       }
+      if (o.kind == kPercentRank || o.kind == kCumeDist) {
+        const i64 len = b.seg_end[j] - ss + 1;
+        double v;
+        if (o.kind == kPercentRank)
+          v = len > 1 ? (double)(b.peer_start[j] - ss) / (double)(len - 1)
+                      : 0.0;
+        else
+          v = (double)(b.peer_end[j] - ss + 1) / (double)len;
+        ((double*)o.out)[dst] = v;
+        if (o.out_valid != nullptr) o.out_valid[dst] = 1;
+        continue;
+      }
       i64 start, end;
-      switch (o.start_kind) {
-        case kSeg: start = ss; break;
-        case kPeer: start = peer_start[j]; break;
-        case kOffset: start = j + o.lower > ss ? j + o.lower : ss; break;
-        default: start = o.start[j];
-      }
-      switch (o.end_kind) {
-        case kSeg: end = seg_end[j]; break;
-        case kPeer: end = peer_end[j]; break;
-        case kOffset: {
-          const i64 se = seg_end[j];
-          end = j + o.upper < se ? j + o.upper : se;
-          break;
-        }
-        default: end = o.end[j];
-      }
+      frame_bounds(o.start_kind, o.end_kind, o.lower, o.upper, o.start,
+                   o.end, b, j, start, end);
       const bool any = end >= start;
       const i64 hi = clip(end + 1, 0, n), lo = clip(start, 0, n);
       const long long cnt =
           any && o.pcnt != nullptr ? o.pcnt[hi] - o.pcnt[lo] : 0;
       bool ok = cnt > 0;
+      // a float64 prefix restarts at the partition: below its start, 0
       if (o.kind == kSumF64) {
         const double* ps = (const double*)o.psum;
-        ((double*)o.out)[dst] = any ? ps[hi] - ps[lo] : 0.0;
+        ((double*)o.out)[dst] =
+            any ? ps[hi] - (lo == ss ? 0.0 : ps[lo]) : 0.0;
       } else if (o.kind == kSumI64) {
         const long long* ps = (const long long*)o.psum;
         ((long long*)o.out)[dst] = any ? ps[hi] - ps[lo] : 0;
@@ -237,7 +424,7 @@ window_eval_kernel(WinOuts outs, int nouts, i64 n,
         ok = true;
       } else {  // kAvg
         const double* ps = (const double*)o.psum;
-        const double sum = any ? ps[hi] - ps[lo] : 0.0;
+        const double sum = any ? ps[hi] - (lo == ss ? 0.0 : ps[lo]) : 0.0;
         ((double*)o.out)[dst] = sum / (double)(cnt > 1 ? cnt : 1);
       }
       if (o.out_valid != nullptr) o.out_valid[dst] = ok;
@@ -251,50 +438,59 @@ using namespace srtpu;
 
 // is_f64: float64 values and prefix, else int64; vals: [>= rows perm
 // names] or null (a count: c = 1); valid: [same] bool or null; live_s: [n]
-// bool, sorted order; perm: [n] int32 or null (values already sorted); p:
-// [n + 1]; scratch: 2 * ceil(n / 4096) + 1 values of the prefix's type.
+// bool, sorted order; perm: [n] int32 or null (values already sorted);
+// seg_start: [n] int32 or null (the prefix restarts at each row j with
+// seg_start[j] == j); p: [n + 1]; scratch: 2 * ceil(n / 4096) + 1 values
+// of the prefix's type; flags: ceil(n / 4096) bytes (with seg_start).
 extern "C" int srtpu_window_prefix(int is_f64, const void* vals,
                                    const void* valid, const void* live_s,
-                                   const void* perm, long long n, void* p,
-                                   void* scratch, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+                                   const void* perm, const void* seg_start,
+                                   long long n, void* p, void* scratch,
+                                   void* flags, void* stream) {
+  if (n < 1 || (seg_start != nullptr && flags == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_f64)
-    return window_prefix<double>((const double*)vals, (const uint8_t*)valid,
-                                 (const uint8_t*)live_s, (const int*)perm, n,
-                                 (double*)p, (double*)scratch, s);
+    return window_prefix<double>(
+        (const double*)vals, (const uint8_t*)valid, (const uint8_t*)live_s,
+        (const int*)perm, (const int*)seg_start, n, (double*)p,
+        (double*)scratch, (uint8_t*)flags, s);
   return window_prefix<long long>(
       (const long long*)vals, (const uint8_t*)valid, (const uint8_t*)live_s,
-      (const int*)perm, n, (long long*)p, (long long*)scratch, s);
+      (const int*)perm, (const int*)seg_start, n, (long long*)p,
+      (long long*)scratch, (uint8_t*)flags, s);
+}
+
+// perm: [n] int32; inv: [n] int32 out, inv[perm[j]] = j.
+extern "C" int srtpu_window_inverse(const void* perm, long long n, void* inv,
+                                    int sm_count, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  inverse_kernel<<<row_blocks(n, sm_count), kThreads, 0,
+                   (cudaStream_t)stream>>>((const int*)perm, n, (int*)inv);
+  return (int)cudaGetLastError();
 }
 
 // outs: host array of nouts WinOut (at most 8); the bounds and pid: [n]
-// int32, sorted order; perm: [n] int32 or null (results in sorted order);
-// inv: [n] int32 scratch (with perm; with_inv 0 reuses the inverse the
-// last call left there).
+// int32, sorted order; inv: [n] int32 (srtpu_window_inverse's), or null
+// (results in sorted order).
 extern "C" int srtpu_window_eval(const WinOut* outs, int nouts, long long n,
                                  const void* seg_start, const void* seg_end,
                                  const void* peer_start, const void* peer_end,
-                                 const void* pid, const void* perm,
-                                 void* inv, int with_inv, int sm_count,
-                                 void* stream) {
-  if (nouts < 1 || nouts > kMaxWinOuts || n < 1 ||
-      (perm != nullptr && inv == nullptr))
+                                 const void* pid, const void* inv,
+                                 int sm_count, void* stream) {
+  if (nouts < 1 || nouts > kMaxWinOuts || n < 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   WinOuts t = {};
-  for (int k = 0; k < nouts; ++k) t.o[k] = outs[k];
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 16LL * sm_count) blocks = 16LL * sm_count;
-  if (perm != nullptr && with_inv) {
-    inverse_kernel<<<(unsigned)blocks, kThreads, 0, s>>>((const int*)perm,
-                                                         n, (int*)inv);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+  for (int k = 0; k < nouts; ++k) {
+    t.o[k] = outs[k];
+    if (outs[k].kind == kNtile && outs[k].lower < 1)
+      return (int)cudaErrorInvalidValue;
   }
-  window_eval_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      t, nouts, n, (const int*)seg_start, (const int*)seg_end,
-      (const int*)peer_start, (const int*)peer_end, (const int*)pid,
-      perm != nullptr ? (const int*)inv : nullptr);
+  const SegBounds b = {(const int*)seg_start, (const int*)seg_end,
+                       (const int*)peer_start, (const int*)peer_end};
+  window_eval_kernel<<<row_blocks(n, sm_count), kThreads, 0,
+                       (cudaStream_t)stream>>>(t, nouts, n, b,
+                                               (const int*)pid,
+                                               (const int*)inv);
   return (int)cudaGetLastError();
 }

@@ -23,17 +23,38 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
+import torch
+
 from spark_rapids_tpu_torch.config import rapids_conf as rc
 from spark_rapids_tpu_torch.exec import operators as ops
 from spark_rapids_tpu_torch.exec.base import PhysicalPlan
 from spark_rapids_tpu_torch.exec.joins import TpuBroadcastHashJoinExec
-from spark_rapids_tpu_torch.expr import BoundReference
+from spark_rapids_tpu_torch.expr import BoundReference, First, Max, Min
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.typesig import (
+    PORTED_EXPRESSIONS,
     expr_unsupported_reasons,
     key_type_supported,
     type_supported,
 )
+from spark_rapids_tpu_torch.sqltypes import (
+    ArrayType,
+    MapType,
+    NumericType,
+    StringType,
+    StructType,
+)
+
+#: window aggregates of the reference the port has no expression for yet,
+#: by the ROADMAP item that ports them (collect frames need array columns)
+_UNPORTED_WINDOW_AGGS = {
+    "CollectList": "A3 (array columns)", "CollectSet": "A3 (array columns)",
+    "VariancePop": "A12", "VarianceSamp": "A12", "StddevPop": "A12",
+    "StddevSamp": "A12",
+}
+
+#: torch dtypes whose group-by min/max K12 reduces
+_K12_TYPES = (torch.int32, torch.int64, torch.float32, torch.float64)
 
 #: logical nodes outside the slice, by the ROADMAP item that ports them
 _NOT_PORTED = {
@@ -106,6 +127,7 @@ class TpuOverrides:
                 r = key_type_supported(g.dtype)
                 if r:
                     meta.cannot_run(r)
+            self._tag_aggregates(node, meta)
         elif isinstance(node, L.Join):
             self._exprs(meta, node.left_keys + node.right_keys)
             for e in node.left_keys + node.right_keys:
@@ -146,13 +168,45 @@ class TpuOverrides:
         self.metas.append(meta)
         return meta
 
+    def _tag_aggregates(self, node: L.Aggregate, meta: PlanMeta) -> None:
+        """Group-by aggregates the port has no device path for: first and
+        last (window frames only), and min/max of a type K12 does not
+        reduce."""
+        from spark_rapids_tpu_torch.sqltypes.datatypes import torch_dtype
+
+        def walk(e):
+            if isinstance(e, First):
+                meta.cannot_run(f"{e.name} as a group-by aggregate is not "
+                                "ported yet (ROADMAP A12)")
+            elif isinstance(e, (Min, Max)):
+                dt = e.input.dtype
+                if (getattr(dt, "np_dtype", None) is None
+                        or isinstance(dt, StringType)
+                        or torch_dtype(dt) not in _K12_TYPES):
+                    meta.cannot_run(f"group-by {e.name} of {dt} is not "
+                                    "ported yet (ROADMAP A12)")
+            for c in e.children:
+                walk(c)
+
+        for a in node.aggregates:
+            walk(a)
+
     def _tag_window(self, node: L.Window, meta: PlanMeta) -> None:
-        """The reference's window checks, for the functions the port has:
-        ranking and offset functions need ORDER BY; every partition,
-        order and input expression must be ported. Which functions and
-        frames evaluate is TpuWindowExec's to say (ROADMAP A11b)."""
+        """The reference's window checks (its `_tag_window`): ranking and
+        offset functions need ORDER BY; partition, order, input and
+        default expressions must be ported; string min/max is refused;
+        RANGE offsets need exactly one ascending numeric ORDER BY key;
+        the reference's other window aggregates (collect, variance and
+        stddev frames) are not ported. Where the reference plans its CPU
+        window instead, the port raises with the reference's reason and
+        the ROADMAP item that will port it."""
         from spark_rapids_tpu_torch.expr import windows as we
 
+        for f in node.children[0].schema.fields:
+            if isinstance(f.dataType, StructType):
+                meta.cannot_run(
+                    f"struct payload column {f.name!r}: device window "
+                    "has no struct lowering (ROADMAP A3)")
         for a in node.window_exprs:
             wexpr = a.children[0]
             self._exprs(meta, list(wexpr.spec.partitions)
@@ -169,8 +223,40 @@ class TpuOverrides:
                         f"{type(fn).__name__} requires ORDER BY")
                 if isinstance(fn, we.Lead):
                     self._exprs(meta, fn.children)
-            elif fn.input is not None:
-                self._exprs(meta, [fn.input])
+            elif type(fn).__name__ in _UNPORTED_WINDOW_AGGS:
+                meta.cannot_run(
+                    f"window {type(fn).__name__} is not ported yet (ROADMAP "
+                    f"{_UNPORTED_WINDOW_AGGS[type(fn).__name__]})")
+            elif not isinstance(fn, PORTED_EXPRESSIONS):
+                meta.cannot_run(f"window function {type(fn).__name__} is "
+                                "not ported yet (ROADMAP A12)")
+            else:
+                if fn.input is not None:
+                    self._exprs(meta, [fn.input])
+                    if isinstance(fn.input.dtype, (ArrayType, MapType)):
+                        meta.cannot_run(
+                            f"window {type(fn).__name__} over "
+                            f"{fn.input.dtype} is not ported yet (ROADMAP "
+                            "A3)")
+                if (isinstance(fn, (Min, Max))
+                        and isinstance(fn.input.dtype, StringType)):
+                    meta.cannot_run(
+                        "string min/max over window frames runs on the "
+                        "reference's CPU window, which is not ported yet "
+                        "(ROADMAP A9, exec/cpu_eval.py)")
+            frame = wexpr.spec.frame
+            if (frame is not None and frame.frame_type == "range"
+                    and (frame.lower not in (None, 0)
+                         or frame.upper not in (None, 0))):
+                orders = wexpr.spec.orders
+                if (len(orders) != 1 or not orders[0].ascending
+                        or not isinstance(orders[0].expr.dtype,
+                                          NumericType)):
+                    meta.cannot_run(
+                        "RANGE frame offsets need one ascending numeric "
+                        "ORDER BY key on device; the reference's CPU "
+                        "window is not ported yet (ROADMAP A9, "
+                        "exec/cpu_eval.py)")
 
     # ----- conversion -----
 
@@ -291,9 +377,7 @@ class TpuOverrides:
                         child: PhysicalPlan) -> PhysicalPlan:
         """The reference's choice of window mode: the bounded-halo batched
         path, the "running" and "u2u" streaming paths, or the
-        whole-partition evaluation. The port's TpuWindowExec evaluates the
-        whole-partition mode; the others raise when executed (ROADMAP
-        A11b)."""
+        whole-partition evaluation."""
         conf = self.conf
         spec = node.window_exprs[0].children[0].spec
         if child.num_partitions > 1:

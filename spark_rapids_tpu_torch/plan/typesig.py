@@ -21,11 +21,15 @@ from spark_rapids_tpu_torch.expr import (
     Divide,
     EqualTo,
     Expression,
+    First,
     GreaterThan,
     GreaterThanOrEqual,
+    Last,
     LessThan,
     LessThanOrEqual,
     Literal,
+    Max,
+    Min,
     Multiply,
     Not,
     Or,
@@ -54,7 +58,7 @@ DEVICE_TYPES = (BooleanType, IntegralType, FloatType, DoubleType,
 PORTED_EXPRESSIONS = (BoundReference, Literal, Alias, Add, Subtract,
                       Multiply, Divide, EqualTo, LessThan, GreaterThan,
                       LessThanOrEqual, GreaterThanOrEqual, And, Or, Not,
-                      Sum, Count, Average)
+                      Sum, Count, Average, Min, Max, First, Last)
 
 
 def type_supported(dt: DataType) -> Optional[str]:

@@ -24,8 +24,15 @@ bench's duplicate-key dimension too (`root/dup/dup-0.parquet`).
 against the port's DataFrame API; `topn_query`, `sorted_q5_query`,
 `dedup_query` and `window_query` are ScaleTest's TopN (q7), sorted
 aggregate (q5), distinct (q10) and window (q6, widened to the rank family
-and a running sum) shapes over the same tables. Through the port's session with
-bench.py's conf they run on the fused engine (exec/fused.py); with
+and a running sum) shapes over the same tables; `q6_query` is ScaleTest
+q6 as written (row_number alone) over the facts, and `running_query`,
+`moving_query`, `range_query` and `u2u_query` drive each window mode the
+reference's planner picks: the "running" carry, the batched bounded
+frames (halo), the whole partition with RANGE frames and the rank
+arithmetic, and the two-pass whole-partition aggregate. Through the
+port's session with bench.py's conf they run on the fused engine
+(exec/fused.py), which evaluates every window over the whole partition;
+with
 spark.rapids.sql.fusedExec.enabled off, the planner's plan (a
 bloom-prefiltered broadcast join, a binned partial aggregate, a murmur3
 hash exchange and a final aggregate) runs on the `aqe` engine.
@@ -174,6 +181,91 @@ def window_query(base):
                        F.rank().over(w).alias("rk"),
                        F.dense_rank().over(w).alias("drk"),
                        F.sum("amount").over(w).alias("run_amount"))
+
+
+def q6_query(base):
+    """ScaleTest q6 as written, over the facts: row_number per store by
+    day (the "running" mode on the adaptive engine)."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.window import Window
+
+    w = Window.partitionBy("store").orderBy("day")
+    return base.select("store", "day",
+                       F.row_number().over(w).alias("rn"))
+
+
+def running_query(base):
+    """The "running" mode: ranks and running sum, min, max and count of
+    amount per store, ordered by (day, amount) so that ROWS frames are
+    deterministic."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.window import Window
+
+    w = Window.partitionBy("store").orderBy("day", "amount")
+    run = w.rowsBetween(Window.unboundedPreceding, Window.currentRow)
+    return base.select("store", "day", "amount",
+                       F.row_number().over(w).alias("rn"),
+                       F.rank().over(w).alias("rk"),
+                       F.dense_rank().over(w).alias("drk"),
+                       F.sum("amount").over(run).alias("run_sum"),
+                       F.min("amount").over(run).alias("run_min"),
+                       F.max("amount").over(run).alias("run_max"),
+                       F.count("amount").over(run).alias("run_cnt"))
+
+
+def moving_query(base):
+    """The batched bounded-frame mode (halo 6): moving average and maximum
+    of amount over the week before each sale, the minimum qty three sales
+    around it, lag and lead (with a default), and first/last of the
+    week's frame, per store ordered by (day, amount)."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.window import Window
+
+    w = Window.partitionBy("store").orderBy("day", "amount")
+    week = w.rowsBetween(-6, 0)
+    return base.select("store", "day", "amount", "qty",
+                       F.avg("amount").over(week).alias("avg7"),
+                       F.max("amount").over(week).alias("max7"),
+                       F.min("qty").over(w.rowsBetween(-3, 3)).alias(
+                           "min_qty"),
+                       F.lag("amount", 1).over(w).alias("prev"),
+                       F.lead("amount", 2, 0.0).over(w).alias("next2"),
+                       F.first("amount").over(week).alias("first7"),
+                       F.last("amount", ignorenulls=True).over(week).alias(
+                           "last7"))
+
+
+def range_query(base):
+    """The whole-partition mode with RANGE frames: sum, count and min of
+    amount and max of qty over the days [day - 6, day] of each store, and
+    percent_rank, cume_dist and ntile(4) by day."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.window import Window
+
+    w = Window.partitionBy("store").orderBy("day")
+    days = w.rangeBetween(-6, 0)
+    return base.select("store", "day", "amount", "qty",
+                       F.sum("amount").over(days).alias("sum7d"),
+                       F.count("amount").over(days).alias("cnt7d"),
+                       F.min("amount").over(days).alias("min7d"),
+                       F.max("qty").over(days).alias("max_qty7d"),
+                       F.percent_rank().over(w).alias("prk"),
+                       F.cume_dist().over(w).alias("cd"),
+                       F.ntile(4).over(w).alias("q4"))
+
+
+def u2u_query(base):
+    """The two-pass "u2u" mode: per-store totals beside every sale."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.window import Window
+
+    w = Window.partitionBy("store")
+    return base.select("store", "amount", "qty",
+                       F.sum("amount").over(w).alias("tot"),
+                       F.avg("amount").over(w).alias("mean"),
+                       F.min("amount").over(w).alias("lo"),
+                       F.max("qty").over(w).alias("qmax"),
+                       F.count("*").over(w).alias("n"))
 
 
 def q5_plan(fact_entry, dim_entry,

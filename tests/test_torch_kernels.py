@@ -756,6 +756,9 @@ _WRAPPERS = [
     (port_segmented, "seg_min"), (port_segmented, "seg_max"),
     (port_sortops, "merge_runs"), (port_windowops, "window_prefix"),
     (port_windowops, "window_eval"),
+    (port_windowops, "inverse_permutation"),
+    (port_windowops, "range_bounds"), (port_windowops, "frame_minmax_eval"),
+    (port_windowops, "frame_pick"),
 ]
 
 
@@ -823,7 +826,30 @@ def _plain_case(name, pb):
                     port_windowops.Frame(port_kernels.WIN_SEG,
                                          port_kernels.WIN_PEER),
                     torch.arange(n + 1, dtype=torch.int64),
-                    torch.arange(n + 1, dtype=torch.int64))], perm),
+                    torch.arange(n + 1, dtype=torch.int64)),
+                port_windowops.WinRequest(port_kernels.WIN_PERCENT_RANK),
+                port_windowops.WinRequest(port_kernels.WIN_CUME_DIST),
+                port_windowops.WinRequest(port_kernels.WIN_NTILE,
+                                          buckets=3)], perm),
+        "inverse_permutation_plain":
+            lambda: port_windowops.inverse_permutation_plain(perm),
+        "range_bounds_plain": lambda: port_windowops.range_bounds_plain(
+            _plain_window(n, perm, live), l_col.data, l_col.validity, perm,
+            -3, 2.5, True),
+        "frame_minmax_plain": lambda: port_windowops.frame_minmax_plain(
+            l_col.data.to(torch.float64), l_col.validity,
+            _plain_window(n, perm, live),
+            port_windowops.Frame(port_kernels.WIN_OFFSET,
+                                 port_kernels.WIN_PEER, -40),
+            True, torch.arange(n + 1, dtype=torch.int64), perm),
+        "frame_pick_plain": lambda: port_windowops.frame_pick_plain(
+            _plain_window(n, perm, live), [
+                port_windowops.Pick(port_kernels.PICK_SHIFT, offset=-2),
+                port_windowops.Pick(
+                    port_kernels.PICK_LAST_VALID,
+                    port_windowops.Frame(port_kernels.WIN_OFFSET,
+                                         port_kernels.WIN_OFFSET, -6, 0),
+                    pcnt=torch.arange(n + 1, dtype=torch.int64))], perm),
     }
     return cases[name]()
 
@@ -846,7 +872,8 @@ def _plain_window(n, perm, live):
     "hash_column_plain", "murmur3_columns_plain", "partition_perm_plain",
     "build_plain", "might_contain_count_plain", "gather_leaves_plain",
     "decode_column_plain", "seg_minmax_plain", "merge_runs_plain",
-    "window_prefix_plain", "window_eval_plain"])
+    "window_prefix_plain", "window_eval_plain", "inverse_permutation_plain",
+    "range_bounds_plain", "frame_minmax_plain", "frame_pick_plain"])
 def test_plain_versions_reach_no_kernel_wrapper(name, monkeypatch):
     """With every kernel wrapper, wherever it is bound, replaced by one
     that raises, each plain version still runs."""
