@@ -34,7 +34,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    and K14's new kinds at 1 to 70,001 rows and every row dead, over every
    key and value type with nulls, NaN, +-inf and -0.0, empty frames and
    offsets past any partition), exact but for K14's float64 sums (1e-9
-   relative);
+   relative); K18-K21 (slice 6's string kernels: the regex DFA walk, the
+   needle search, the byte rewrite and the span assembly) at the path
+   shapes, 15,000,000 ORDERS comments of width 128 and 36,000,000 decoded
+   `region` rows of width 16 (their plain versions in 2^20-row pieces),
+   and at edge shapes: every length 0 to the width at widths 8, 12, 16,
+   24, 64 and 128, 1- to 4-byte characters, characters cut at the row's
+   end, bare continuation bytes, null rows, needles longer than the row,
+   self-overlapping or empty, empty pads and separators, Substring at
+   negative and zero positions, SubstringIndex at negative counts,
+   patterns anchored at ^, $ and neither, and a DFA too large for shared
+   memory;
 3. slice 1's hand-built q5 plan at the bench's full size (36M fact rows
    in 8 parquet files, a 2,000-row dimension with a dictionary-encoded
    `region`) over device-cached relations: upload, one cold run and 5
@@ -68,9 +78,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    planner must pick the "running", halo (6 rows), whole-partition and
    "u2u" modes, and each query must launch its kernels (K15 on range, K16
    on running, moving and range, K17 on moving, K2 and K4 on the adaptive
-   u2u).
+   u2u);
+8. slice 6's string queries (q5.py: string_q5_query, string_dup_query,
+   orders_q13_query, orders_words_query) on the adaptive and the fused
+   engine: bench.py's q5 filtered by contains, RLIKE and a negated
+   startswith on the decoded `region` and grouped by
+   upper(substring(region, 8, 2)); the duplicate-key join grouped by
+   concat_ws, rpad, replace, translate, reverse and initcap of `promo`;
+   and TPC-H q13's comment predicate and a first-word split over a
+   generated ORDERS table at SF10 (15,000,000 rows in 8 files, comments
+   drawn as dbgen draws them), each against pyarrow compute or, where its
+   semantics differ from Spark's, plain Python over the 12 regions and 5
+   promos. K18 must run on both RLIKE queries, K19-K21 where their
+   expressions run.
 
-For each query run (phases 3-7) the kernels' launch counts are reset
+For each query run (phases 3-8) the kernels' launch counts are reset
 just before the cold run and read just after it; every kernel of that
 path must have run. One more hot run counts the host syncs (torch.cuda's
 sync debug mode) and one, under torch.profiler, gives the device's busy
@@ -196,14 +218,16 @@ def device_ms(fn, what: str, iters: int = TIMING_ITERS) -> float:
     return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
 
 
-def timed(name: str, kernel, plain, library) -> dict:
+def timed(name: str, kernel, plain, library,
+          other_iters: int = TIMING_ITERS) -> dict:
     """Device times of a kernel's wrapper, its plain version and the
-    library call (None where no one PyTorch call computes the function),
-    and the CUDA-event time of the wrapper."""
+    library call (None where no one PyTorch call computes the function;
+    those two over other_iters calls), and the CUDA-event time of the
+    wrapper."""
     return dict(ms=device_ms(kernel, name),
-                plain_ms=device_ms(plain, f"{name} plain"),
+                plain_ms=device_ms(plain, f"{name} plain", other_iters),
                 library_ms=None if library is None
-                else device_ms(library, f"{name} library"),
+                else device_ms(library, f"{name} library", other_iters),
                 event_ms=time_ms(kernel))
 
 
@@ -1754,6 +1778,421 @@ def check_slice5_edges(dev) -> int:
     return cases
 
 
+#: TPC-H ORDERS at SF10 (spec 4.2.5: 1,500,000 x SF rows); o_comment is
+#: 19-78 bytes (4.2.3), so its byte matrix is 128 wide
+ORDERS_ROWS = 15_000_000
+ORDERS_WIDTH = 128
+#: rows a plain version (and an oracle's chunk) takes at once at the path
+#: shapes: the reference's byte matrices of int64 indices do not fit 80 GB
+#: whole
+PLAIN_CHUNK = 1 << 20
+PLAIN_ITERS = 3
+
+
+def _region_rows(dev, n: int, seed: int):
+    """n decoded `region` rows as K8 decodes the dimension's dictionary
+    after the join: [n, 16] uint8 (9 bytes each), lengths, validity."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dic = np.zeros((REGIONS, 16), dtype=np.uint8)
+    for i in range(REGIONS):
+        raw = f"region_{i:02d}".encode()
+        dic[i, :len(raw)] = list(raw)
+    codes = torch.from_numpy(rng.integers(0, REGIONS, n)).to(dev)
+    data = torch.from_numpy(dic).to(dev)[codes]
+    lengths = torch.full((n,), 9, dtype=torch.int32, device=dev)
+    return data, lengths, torch.ones(n, dtype=torch.bool, device=dev)
+
+
+def _comment_rows(dev, n: int, seed: int):
+    """n ORDERS comments as q5.write_orders_data draws them (a 19-78 byte
+    window of dbgen's text pool), built on the card: [n, 128] uint8 and
+    lengths."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.q5 import text_pool
+
+    rng = np.random.default_rng(seed)
+    pool = torch.from_numpy(np.frombuffer(text_pool(rng, 100_000),
+                                          dtype=np.uint8).copy()).to(dev)
+    lengths = torch.from_numpy(rng.integers(19, 79, n).astype(
+        np.int32)).to(dev)
+    starts = torch.from_numpy(rng.integers(0, len(pool) - 78, n)).to(dev)
+    data = torch.empty((n, ORDERS_WIDTH), dtype=torch.uint8, device=dev)
+    ar = torch.arange(ORDERS_WIDTH, device=dev)
+    for lo in range(0, n, PLAIN_CHUNK):
+        hi = min(n, lo + PLAIN_CHUNK)
+        idx = torch.clamp(starts[lo:hi, None] + ar, max=len(pool) - 1)
+        data[lo:hi] = torch.where(ar < lengths[lo:hi, None], pool[idx], 0)
+    return data, lengths
+
+
+def _chunked(fn, n: int, chunk: int = PLAIN_CHUNK):
+    """fn(lo, hi) over row ranges of `chunk`, each output concatenated:
+    the plain versions at the path shapes."""
+    import torch
+
+    outs = [fn(lo, min(n, lo + chunk)) for lo in range(0, n, chunk)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat([o[i] for o in outs])
+                     for i in range(len(outs[0])))
+    return torch.cat(outs)
+
+
+def _exact_all(name: str, got, want) -> float:
+    """exact() over one output or a tuple of them; the largest error, 0.0
+    once all are equal (taken without the int64 copies max_abs_err makes,
+    which would not fit beside a [15M, 512] output)."""
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    for k, (g, w) in enumerate(zip(got, want)):
+        exact(f"{name} output {k}", g, w)
+    return 0.0
+
+
+def _strcol(data, lengths, validity):
+    from spark_rapids_tpu_torch.columnar.batch import DeviceColumn
+    from spark_rapids_tpu_torch.sqltypes.datatypes import string
+
+    return DeviceColumn(string, data, validity, lengths)
+
+
+def check_slice6_kernels(dev):
+    """Phase 2, slice 6: K18-K21 against their plain versions at the path
+    shapes: 15,000,000 ORDERS comments of width 128 (the q13 pattern,
+    instr, the greedy selection, trim, replace's emission) and 36,000,000
+    decoded `region` rows of width 16 (the rlike pattern, contains,
+    substring, concat_ws with upper). The plain versions run in 2^20-row
+    pieces (their byte-matrix temporaries do not fit the card whole).
+    Returns {record name: record}."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.expr import strings as S
+    from spark_rapids_tpu_torch.ops import regexops as R
+    from spark_rapids_tpu_torch.regex import compile_search
+
+    src = "spark_rapids_tpu_torch/kernels/csrc/"
+    out = {}
+
+    def record(name, csrc, replaces, kernel, plain, library, nbytes,
+               shape, counter=None):
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        err = _exact_all(name, got, want)
+        del got, want
+        rec = dict(route="cuda", source=src + csrc, replaces=replaces,
+                   max_abs_err=err,
+                   **timed(name, kernel, plain, library, PLAIN_ITERS),
+                   bound_ms=bound_ms(nbytes), bound_by="bytes", shape=shape)
+        if counter:
+            rec["counter"] = counter
+        out[name] = rec
+        torch.cuda.empty_cache()
+
+    # the ORDERS comments
+    n = ORDERS_ROWS
+    data, lens = _comment_rows(dev, n, 31)
+    held = int(lens.sum().item())  # the bytes the rows hold
+    q13 = compile_search("special.*requests")
+    record("dfa_match", "dfa_match.cu", "spark_rapids_tpu/ops/regexops.py:18",
+           lambda: R.dfa_match(data, lens, q13),
+           lambda: _chunked(lambda lo, hi: R.dfa_match_plain(
+               data[lo:hi], lens[lo:hi], q13), n), None,
+           held + n * (4 + 1),
+           f"o_comment [{n}, 128], 'special.*requests' "
+           f"({q13.n_states} states x {q13.table.shape[1]} classes)")
+    record("str_find", "str_find.cu",
+           "spark_rapids_tpu/expr/strings.py:550",
+           lambda: S._first_match_charpos(data, lens, b"furiously", 0),
+           lambda: _chunked(lambda lo, hi: S._first_match_charpos_plain(
+               data[lo:hi], lens[lo:hi], b"furiously", 0), n), None,
+           held + n * (4 + 4), f"o_comment [{n}, 128], instr 'furiously'")
+    record("str_find_select", "str_find.cu",
+           "spark_rapids_tpu/expr/strings.py:289",
+           lambda: S._select_nonoverlapping(data, lens, b"requests"),
+           lambda: _chunked(lambda lo, hi: S._select_nonoverlapping_plain(
+               data[lo:hi], lens[lo:hi], b"requests"), n), None,
+           held + n * (4 + ORDERS_WIDTH),
+           f"o_comment [{n}, 128], the starts of 'requests'",
+           counter="str_find")
+    space = np.zeros(256, dtype=np.int16)
+    space[ord(" ")] = -1
+    trim = S.Rewrite(K.REWRITE_TRIM, space, 1, 1)
+    # trim's kept bytes: from the first byte that is not a space to the
+    # last, inside the length
+    body = (S._position_mask(data, lens) & (data != ord(" "))).to(
+        torch.uint8)
+    first = torch.argmax(body, dim=1, keepdim=True)
+    last = ORDERS_WIDTH - 1 - torch.argmax(torch.flip(body, dims=[1]), dim=1,
+                                           keepdim=True)
+    pos = torch.arange(ORDERS_WIDTH, device=dev)[None, :]
+    keep = (body.amax(dim=1, keepdim=True) > 0) & (pos >= first) & (
+        pos <= last)
+    del body, first, last, pos
+    record("str_rewrite", "str_rewrite.cu",
+           "spark_rapids_tpu/expr/strings.py:321",
+           lambda: S._rewrite(data, lens, trim),
+           lambda: _chunked(lambda lo, hi: S._rewrite_plain(
+               data[lo:hi], lens[lo:hi], trim), n),
+           lambda: torch.gather(data, 1, torch.argsort(
+               (~keep).to(torch.uint8), dim=1, stable=True)),
+           held + n * (4 + ORDERS_WIDTH + 4),
+           f"o_comment [{n}, 128], trim")
+    del keep
+    sel = S._select_nonoverlapping(data, lens, b"requests")
+    col = _strcol(data, lens, torch.ones(n, dtype=torch.bool, device=dev))
+    rep = S.Assemble(K.ASSEMBLE_REPLACE, b"reqs", 8, sel)
+    mb_out = S._width(ORDERS_WIDTH * 4)
+    record("str_assemble_replace", "str_assemble.cu",
+           "spark_rapids_tpu/expr/strings.py:625",
+           lambda: S._assemble([col], rep, mb_out),
+           lambda: _chunked(lambda lo, hi: S._assemble_plain(
+               [_strcol(data[lo:hi], lens[lo:hi], col.validity[lo:hi])],
+               rep._replace(sel=sel[lo:hi]), mb_out), n), None,
+           held + n * (4 + ORDERS_WIDTH) + n * (mb_out + 4),
+           f"o_comment [{n}, 128] -> [{n}, {mb_out}], 'requests' -> "
+           "'reqs' at K19's starts", counter="str_assemble")
+    del data, lens, sel, col, rep
+    torch.cuda.empty_cache()
+
+    # the decoded region rows
+    n = ROWS
+    data, lens, valid = _region_rows(dev, n, 32)
+    held = int(lens.sum().item())
+    rx = compile_search("region_0[1-7]")
+    record("dfa_match_region", "dfa_match.cu",
+           "spark_rapids_tpu/ops/regexops.py:18",
+           lambda: R.dfa_match(data, lens, rx),
+           lambda: _chunked(lambda lo, hi: R.dfa_match_plain(
+               data[lo:hi], lens[lo:hi], rx), n, 4 * PLAIN_CHUNK), None,
+           held + n * (4 + 1), f"region [{n}, 16], 'region_0[1-7]'",
+           counter="dfa_match")
+    record("str_find_region", "str_find.cu",
+           "spark_rapids_tpu/expr/strings.py:226",
+           lambda: S._contains(data, lens, b"_0"),
+           lambda: _chunked(lambda lo, hi: S._contains_plain(
+               data[lo:hi], lens[lo:hi], b"_0"), n, 4 * PLAIN_CHUNK), None,
+           held + n * (4 + 1), f"region [{n}, 16], contains '_0'",
+           counter="str_find")
+    sub = S.Rewrite(K.REWRITE_CHARS, a=8, b=2)
+    pos = torch.arange(16, device=dev)[None, :]
+    keep = (pos >= 7) & (pos < 9) & (pos < lens[:, None])
+    record("str_rewrite_region", "str_rewrite.cu",
+           "spark_rapids_tpu/expr/strings.py:102",
+           lambda: S._rewrite(data, lens, sub),
+           lambda: _chunked(lambda lo, hi: S._rewrite_plain(
+               data[lo:hi], lens[lo:hi], sub), n, 4 * PLAIN_CHUNK),
+           lambda: torch.gather(data, 1, torch.argsort(
+               (~keep).to(torch.uint8), dim=1, stable=True)),
+           held + n * (4 + 16 + 4), f"region [{n}, 16], substring(8, 2)",
+           counter="str_rewrite")
+    del keep
+    up, _ = S._rewrite(data, lens, S.Rewrite(K.REWRITE_MAP, S._UPPER),
+                       new_lengths=False)
+    cols = [_strcol(data, lens, valid), _strcol(up, lens, valid)]
+    ws = S.Assemble(K.ASSEMBLE_CONCAT_WS, b"|")
+    # the reference's idiom: one gather from [region | '|' | upper | 0]
+    # by each output byte's source column
+    srcm = torch.cat([data, torch.full((n, 1), ord("|"), dtype=torch.uint8,
+                                       device=dev), up,
+                      torch.zeros((n, 1), dtype=torch.uint8, device=dev)], 1)
+    j = torch.arange(64, device=dev)[None, :]
+    ln = lens[:, None].to(torch.int64)
+    idx = torch.where(j < ln, j, torch.where(
+        j == ln, 16, torch.where(j < 2 * ln + 1, j - ln - 1 + 17, 33)))
+    del ln, j
+    record("str_assemble", "str_assemble.cu",
+           "spark_rapids_tpu/expr/strings.py:679",
+           lambda: S._assemble(cols, ws, 64),
+           lambda: _chunked(lambda lo, hi: S._assemble_plain(
+               [_strcol(c.data[lo:hi], c.lengths[lo:hi], c.validity[lo:hi])
+                for c in cols], ws, 64), n, 4 * PLAIN_CHUNK),
+           lambda: torch.gather(srcm, 1, idx),
+           2 * (held + n * (4 + 1)) + n * (64 + 4),
+           f"concat_ws('|', region, upper(region)): [{n}, 16] x 2 -> "
+           f"[{n}, 64]")
+    del data, lens, valid, up, cols, srcm, idx
+    torch.cuda.empty_cache()
+    return out
+
+
+#: UTF-8 pieces the edge rows are drawn from: 1- to 4-byte characters,
+#: spaces and the needles' bytes, and bare continuation bytes (a
+#: character cut by the row's end or by a substring)
+_EDGE_PIECES = (b"a", b"a", b"b", b" ", b"_", b"0", b"\xc3\xa9", b"\xe6\x97\xa5",
+                b"\xf0\x9f\x98\x80", b"aa", b"\x80", b"\xbf")
+
+
+def _edge_rows(rng, n: int, mb: int):
+    """n rows of width mb, row i of length i % (mb + 1) cut from random
+    pieces (so a multi-byte character may be cut at its end), every tenth
+    row null and empty. Host numpy: (data, lengths, validity)."""
+    import numpy as np
+
+    data = np.zeros((n, mb), dtype=np.uint8)
+    lengths = np.zeros(n, dtype=np.int32)
+    validity = np.ones(n, dtype=bool)
+    for i in range(n):
+        if i % 10 == 9:
+            validity[i] = False
+            continue
+        want = i % (mb + 1)
+        raw = b""
+        while len(raw) < want:
+            raw += _EDGE_PIECES[rng.integers(0, len(_EDGE_PIECES))]
+        raw = raw[:want]
+        data[i, :want] = list(raw)
+        lengths[i] = want
+    return data, lengths, validity
+
+
+def check_slice6_edges(dev) -> int:
+    """Phase 2, slice 6 edge shapes of K18-K21 against their plain
+    versions: widths 8, 12 (no multiple of 8: byte loads), 16, 64 and 128
+    with every length 0 to the width, 1- to 4-byte characters, characters
+    cut at the row's end and bare continuation bytes, null rows, a batch of
+    one row and one whose rows are all null and empty (the kernels take
+    no row count: rows past the live ones are computed like any other);
+    needles longer than the row, self-overlapping ("aa" in "aaa"), empty
+    needles, pads and separators; Substring at negative, zero and
+    far-negative positions and negative lengths; SubstringIndex at counts
+    -3 to 3; patterns anchored at ^, at $ and neither, and a DFA too large
+    for shared memory (spark.rapids.sql.regexp.maxStates 16,384). Returns
+    the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+    from spark_rapids_tpu_torch.expr import strings as S
+    from spark_rapids_tpu_torch.ops import regexops as R
+    from spark_rapids_tpu_torch.regex import compile_search
+
+    rng = np.random.default_rng(17)
+    cases = 0
+
+    def check(name, kernel, plain):
+        nonlocal cases
+        _exact_all(name, kernel(), plain())
+        cases += 1
+
+    patterns = [compile_search(p) for p in (
+        "a", "^a", "a$", "^$", "^a.*b$", "\xc3\xa9.", "[0-9]+_|aa", "b|^_")]
+    big = TpuSparkSession({"spark.rapids.sql.regexp.maxStates": 1 << 14,
+                           "spark.rapids.sql.regexp.complexityLimit": 1 << 20})
+    try:
+        huge = compile_search(
+            "[a-z]*a[a-z]{11}|0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ")
+    finally:
+        big.stop()
+    s, c = huge.table.shape
+    if 512 + 2 * s * c + s <= K.smem_optin(torch.empty(1, device=dev)):
+        fail(f"the {s}-state DFA fits shared memory: no global-table case")
+    space_a = np.zeros(256, dtype=np.int16)
+    space_a[[ord(" "), ord("a")]] = -1
+    translate = np.arange(256, dtype=np.int16)
+    translate[ord("a")], translate[ord("b")], translate[0xA9] = ord("B"), -1, -1
+    needles = (b"a", b"aa", b"\xc3\xa9", b"\x80", b"a_0", b"")
+    for mb, n in ((8, 95), (12, 140), (16, 700), (64, 1300), (128, 2600),
+                  (16, 1), (24, 300)):
+        d, ln, v = _edge_rows(rng, n, mb)
+        if (mb, n) == (24, 300):  # every row null and empty
+            d[:] = 0
+            ln[:] = 0
+            v[:] = False
+        data = torch.from_numpy(d).to(dev)
+        lens = torch.from_numpy(ln).to(dev)
+        valid = torch.from_numpy(v).to(dev)
+        tag = f"mb={mb} n={n}"
+        for rx in patterns:
+            check(f"dfa_match {tag} {rx.pattern!r}",
+                  lambda: R.dfa_match(data, lens, rx),
+                  lambda: R.dfa_match_plain(data, lens, rx))
+        # K19
+        for nd in needles + (b"a" * (mb + 1),):
+            check(f"contains {tag} {nd!r}", lambda: S._contains(data, lens, nd),
+                  lambda: S._contains_plain(data, lens, nd))
+            for m in (0, 2, 5):
+                check(f"first {tag} {nd!r} {m}",
+                      lambda: S._first_match_charpos(data, lens, nd, m),
+                      lambda: S._first_match_charpos_plain(data, lens, nd, m))
+            check(f"select {tag} {nd!r}",
+                  lambda: S._select_nonoverlapping(data, lens, nd),
+                  lambda: S._select_nonoverlapping_plain(data, lens, nd))
+            if nd:
+                for cnt in (-3, -2, -1, 1, 2, 3):
+                    check(f"split {tag} {nd!r} {cnt}",
+                          lambda: S._substring_index_bounds(data, lens, nd,
+                                                            cnt),
+                          lambda: S._substring_index_bounds_plain(
+                              data, lens, nd, cnt))
+        # K20
+        lo, hi = S._substring_index_bounds(data, lens, b"a", -2)
+        rules = [S.Rewrite(K.REWRITE_MAP, S._UPPER),
+                 S.Rewrite(K.REWRITE_MAP, S._LOWER),
+                 S.Rewrite(K.REWRITE_MAP, translate),
+                 S.Rewrite(K.REWRITE_RANGE, lo=lo, hi=hi),
+                 S.Rewrite(K.REWRITE_REVERSE), S.Rewrite(K.REWRITE_INITCAP)]
+        rules += [S.Rewrite(K.REWRITE_TRIM, space_a, a, b)
+                  for a, b in ((1, 1), (1, 0), (0, 1))]
+        rules += [S.Rewrite(K.REWRITE_CHARS, a=p, b=q)
+                  for p in (1, 2, 0, -1, -3, -mb - 5)
+                  for q in (1, 3, 0, -1, 1 << 30)]
+        for rw in rules:
+            check(f"rewrite {tag} {rw.kind} {rw.a} {rw.b}",
+                  lambda: S._rewrite(data, lens, rw),
+                  lambda: S._rewrite_plain(data, lens, rw))
+        check(f"length {tag}", lambda: S._char_count(data, lens),
+              lambda: S._char_count_plain(data, lens))
+        # K21
+        c1 = _strcol(data, lens, valid)
+        c2 = _strcol(data[:, :8].contiguous(), torch.clamp(lens, max=8),
+                     torch.roll(valid, 3))
+        layouts = [([c1, c2], S.Assemble(K.ASSEMBLE_CONCAT), mb + 8),
+                   ([c2, c1, c2], S.Assemble(K.ASSEMBLE_CONCAT), mb + 16)]
+        for sep in (b"|", b"", b"--"):
+            layouts.append(([c1, c2, c1], S.Assemble(K.ASSEMBLE_CONCAT_WS,
+                                                     sep),
+                            2 * mb + 8 + 2 * len(sep)))
+        for kind in (K.ASSEMBLE_LPAD, K.ASSEMBLE_RPAD):
+            for target in (0, 3, mb + 2):
+                for pad in (b"xy", b" "):
+                    layouts.append(([c1], S.Assemble(kind, pad, target),
+                                    target + mb))
+        for times in (1, 3):
+            layouts.append(([c1], S.Assemble(K.ASSEMBLE_REPEAT, a=times),
+                            mb * times))
+        for nd, rep in ((b"a", b""), (b"aa", b"xyz"), (b"\xc3\xa9", b"e"),
+                        (b"a" * (mb + 1), b"q")):
+            sel = S._select_nonoverlapping_plain(data, lens, nd)
+            layouts.append(([c1], S.Assemble(K.ASSEMBLE_REPLACE, rep,
+                                             len(nd), sel),
+                            mb * max(1, len(rep))))
+        for cols, asm, total in layouts:
+            mb_out = S._width(total)
+            check(f"assemble {tag} {asm.kind} {asm.text!r} {asm.a}",
+                  lambda: S._assemble(cols, asm, mb_out),
+                  lambda: S._assemble_plain(cols, asm, mb_out))
+    # the DFA whose table stays in device memory, over letters and digits
+    d = rng.choice(np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789ABC",
+                                 dtype=np.uint8), (5000, 64))
+    ln = rng.integers(0, 65, 5000).astype(np.int32)
+    d[np.arange(64)[None, :] >= ln[:, None]] = 0
+    data = torch.from_numpy(d).to(dev)
+    lens = torch.from_numpy(ln).to(dev)
+    check(f"dfa_match global table ({s} states x {c} classes)",
+          lambda: R.dfa_match(data, lens, huge),
+          lambda: R.dfa_match_plain(data, lens, huge))
+    torch.cuda.synchronize()
+    return cases
+
+
 def q5_oracle(fact_paths, dim_path):
     """The same query in pyarrow on the host (bench.py's cpu_query)."""
     import pyarrow as pa
@@ -2465,6 +2904,161 @@ def run_slice5(dev, root, oracles, fused: bool) -> dict:
     return out
 
 
+#: kernels each slice-6 query must launch on either engine
+SLICE6_PATH_KERNELS = {
+    "string_q5": ("dfa_match", "str_find", "str_rewrite"),
+    "string_dup": ("str_find", "str_rewrite", "str_assemble"),
+    "orders_q13": ("dfa_match", "str_find", "str_rewrite"),
+    "orders_words": ("str_find", "str_rewrite", "str_assemble"),
+}
+
+
+def _spark_promo(promo: str):
+    """string_dup_query's two keys of one promo in plain Python, with the
+    reference's semantics (ASCII case maps; InitCap after spaces only)."""
+    rpad = (promo + "*" * 12)[:12]
+    initcap = " ".join(w[:1].upper() + w[1:].lower()
+                       for w in promo.split(" "))
+    shape = (rpad + promo.replace("_0", "#")
+             + promo.translate(str.maketrans("mo", "MX")) + promo[::-1]
+             + initcap)
+    return promo + "|" + promo.upper(), shape
+
+
+def slice6_oracles(order_paths, want_q5, want_dup) -> dict:
+    """The four string queries' answers: string_q5 and string_dup from the
+    pyarrow oracles' per-region and per-promo groups, each key mapped in
+    plain Python (12 regions, 5 promos); the two ORDERS queries in pyarrow
+    compute (match_substring_regex, utf8_length, find_substring,
+    split_pattern, replace_substring, utf8_trim, utf8_lpad)."""
+    import re
+
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    q5 = {}
+    for r in want_q5.to_pylist():
+        reg = r["region"]
+        if ("_0" in reg and re.search("region_0[1-7]", reg)
+                and not reg.startswith("region_05")):
+            key = reg[7:9].upper()
+            if key in q5:
+                fail(f"string_q5 oracle: two regions give {key}")
+            q5[(key,)] = dict(rev=r["revenue_sum"],
+                              avg_amount=r["amount_mean"],
+                              sales=r["region_count"])
+    dup = {}
+    for r in want_dup.to_pylist():
+        tag, shape = _spark_promo(r["promo"])
+        dup[(tag, shape)] = dict(n=r["promo_count"],
+                                 total_rebate=r["rebate_sum"],
+                                 tag_chars=r["promo_count"] * len(tag))
+    t = pa.concat_tables([pq.read_table(p) for p in order_paths])
+    com = t.column("o_comment")
+    keep = pc.invert(pc.match_substring_regex(com, "special.*requests"))
+    f = t.filter(keep)
+    fc = f.column("o_comment")
+    work = pa.table({"p": f.column("o_orderpriority"),
+                     "chars": pc.utf8_length(fc),
+                     "fur": pc.add(pc.find_substring(fc, "furiously"), 1)})
+    g = work.group_by("p").aggregate([("p", "count"), ("chars", "sum"),
+                                      ("fur", "max")])
+    q13 = {(r["p"],): dict(n=r["p_count"], chars=r["chars_sum"],
+                           furious_at=r["fur_max"]) for r in g.to_pylist()}
+    work = pa.table({
+        "w": pc.list_element(pc.split_pattern(com, " ", max_splits=1), 0),
+        "short": pc.utf8_length(pc.utf8_trim(
+            pc.replace_substring(com, "requests", "reqs"), " ")),
+        "padded": pc.utf8_length(pc.utf8_lpad(com, 80, "."))})
+    g = work.group_by("w").aggregate([("w", "count"), ("short", "sum"),
+                                      ("padded", "max")])
+    words = {(r["w"],): dict(n=r["w_count"], short=r["short_sum"],
+                             padded=r["padded_max"]) for r in g.to_pylist()}
+    return {"string_q5": (["rk"], q5), "string_dup": (["tag", "shape"], dup),
+            "orders_q13": (["o_orderpriority"], q13),
+            "orders_words": (["word"], words)}
+
+
+def check_groups(query: str, got, want) -> None:
+    """Groups equal, integers exact, doubles within REL_TOL relative."""
+    keys, rows = want
+    g = {tuple(r[k] for k in keys): r for r in got.to_pylist()}
+    if set(g) != set(rows) or len(g) != got.num_rows:
+        fail(f"{query}: groups differ: {sorted(g)[:8]} vs "
+             f"{sorted(rows)[:8]} ({got.num_rows} rows)")
+    for key, row in rows.items():
+        for col, v in row.items():
+            mine = g[key][col]
+            if isinstance(v, float):
+                rel = abs(mine - v) / max(abs(v), 1e-300)
+                if not rel <= REL_TOL:
+                    fail(f"{query} {key}: {col} {mine} vs {v} ({rel} "
+                         "relative)")
+            elif mine != v:
+                fail(f"{query} {key}: {col} {mine} != {v}")
+
+
+def run_slice6(dev, root, oracles, fused: bool) -> dict:
+    """Phase 8: the four string queries (q5.py) through the port's session
+    with bench.py's conf on the adaptive engine or the fused engine, over
+    the cached facts, dimensions and ORDERS. Returns {query: record}, each
+    with its peak device bytes."""
+    import torch
+
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+    from spark_rapids_tpu_torch.q5 import (
+        orders_q13_query,
+        orders_words_query,
+        string_dup_query,
+        string_q5_query,
+    )
+
+    spark = (TpuSparkSession.builder
+             .config("spark.sql.shuffle.partitions", 8)
+             .config("spark.rapids.sql.reader.batchSizeRows", 1 << 23)
+             .config("spark.rapids.sql.batchSizeRows", 1 << 23)
+             .config("spark.rapids.shuffle.mode", "DEVICE")
+             .config("spark.rapids.sql.fusedExec.enabled", fused)
+             .getOrCreate())
+    engine = "fused" if fused else "aqe"
+    frames = {}
+    t0 = time.monotonic()
+    for name in ("fact", "dim", "dup", "orders"):
+        df = spark.read.parquet(os.path.join(root, name)).cache(
+            storage="device")
+        spark.cache_manager.lookup(df._plan).materialize()
+        frames[name] = df
+    torch.cuda.synchronize()
+    upload_s = time.monotonic() - t0
+    queries = {
+        "string_q5": lambda: string_q5_query(frames["fact"], frames["dim"]),
+        "string_dup": lambda: string_dup_query(frames["fact"],
+                                               frames["dup"]),
+        "orders_q13": lambda: orders_q13_query(frames["orders"]),
+        "orders_words": lambda: orders_words_query(frames["orders"]),
+    }
+    out = {}
+    for name, build_df in queries.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = timed_runs(lambda: build_df().collect_arrow(),
+                         lambda got, q=name: check_groups(q, got,
+                                                          oracles[q]))
+        ex = spark.last_execution
+        if ex["engine"] != engine or ex["fallbacks"]:
+            fail(f"{name} ran on {ex['engine']}, not {engine}: {ex}")
+        missing_launches(f"{engine} {name}", rec["launches"],
+                         SLICE6_PATH_KERNELS[name])
+        rec.update(engine=ex["engine"], aqe=ex["aqe"], fused=ex["fused"],
+                   upload_s=upload_s,
+                   peak_device_bytes=int(torch.cuda.max_memory_allocated(
+                       dev)))
+        out[name] = rec
+        torch.cuda.empty_cache()
+    spark.stop()
+    return out
+
+
 def _window_mode(df):
     def find(node):
         if type(node).__name__ == "TpuWindowExec":
@@ -2525,7 +3119,7 @@ def main() -> int:
     sys.path.insert(0, here)
     from spark_rapids_tpu_torch import resolve_device
     from spark_rapids_tpu_torch.kernels import build
-    from spark_rapids_tpu_torch.q5 import write_q5_data
+    from spark_rapids_tpu_torch.q5 import write_orders_data, write_q5_data
 
     # phase 1: the card, the build
     smi = subprocess.run(
@@ -2550,6 +3144,7 @@ def main() -> int:
     records.update(check_slice3_kernels(dev))
     records.update(check_slice4_kernels(dev))
     records.update(check_slice5_kernels(dev))
+    records.update(check_slice6_kernels(dev))
     for kname, r in records.items():
         lib = r["library_ms"]
         print(f"{kname}: {r['shape']}: kernel_ms={r['ms']:.4f} "
@@ -2566,7 +3161,7 @@ def main() -> int:
               f"bound_ms={r['bound_ms']:.6f}", flush=True)
     cases = (check_edge_shapes(dev) + check_slice2_edges(dev)
              + check_slice3_edges(dev) + check_slice4_edges(dev)
-             + check_slice5_edges(dev))
+             + check_slice5_edges(dev) + check_slice6_edges(dev))
     print(f"edge shapes: {cases} cases exact against the plain versions",
           flush=True)
 
@@ -2666,8 +3261,34 @@ def main() -> int:
             SLICE5_REL_ERR.clear()
         del oracles5
 
+        # phase 8: slice 6's string queries, with TPC-H ORDERS at SF10
+        t0 = time.monotonic()
+        order_paths = write_orders_data(tmp, ORDERS_ROWS, FILES, seed=0)
+        oracles6 = slice6_oracles(order_paths, want_q5, want_dup)
+        print(f"orders: {ORDERS_ROWS} rows in {FILES} files and the slice 6 "
+              f"oracles in {time.monotonic() - t0:.1f} s", flush=True)
+        for engine, fused in (("aqe", False), ("fused", True)):
+            session = run_slice6(dev, tmp, oracles6, fused)
+            for qname, rec in session.items():
+                runs[f"{engine} {qname}"] = rec
+                prof = rec["profile"]
+                print(f"{engine} {qname}: rows={rec['result_rows']} "
+                      f"fused={json.dumps(rec['fused'])} "
+                      f"upload_s={rec['upload_s']:.3f} "
+                      f"cold_s={rec['cold_s']:.4f} "
+                      f"hot_median_s={rec['hot_median_s']:.4f} "
+                      f"host_syncs={rec['host_syncs']} "
+                      f"device_busy_ms={prof['device_busy_ms']} "
+                      f"idle_share={prof['device_idle_share']} "
+                      f"peak_device_bytes={rec['peak_device_bytes']}",
+                      flush=True)
+                print(f"{engine} {qname} launches per query: "
+                      + json.dumps(rec["launches"]), flush=True)
+                print(f"{engine} {qname}: " + json.dumps(rec), flush=True)
+        del oracles6
+
     # each kernel's launches: the sum over every path's cold run (phases
-    # 3-7), each read right after it
+    # 3-8), each read right after it
     launches = {k: sum(r["launches"].get(rec.get("counter", k), 0)
                        for r in runs.values())
                 for k, rec in records.items()}

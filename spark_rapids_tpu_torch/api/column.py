@@ -1,8 +1,9 @@
 """Column — user-facing expression wrapper with Spark's operator surface;
 counterpart of `spark_rapids_tpu/api/column.py` for the operators whose
 expressions the port has: arithmetic (+ - * /), comparisons, boolean
-& | ~, `alias`, the sort directions (`asc`, `desc` and their nulls
-variants, consumed by orderBy and window specs) and `over`."""
+& | ~, `alias`, the string predicates `startswith`, `endswith`,
+`contains` and `rlike`, the sort directions (`asc`, `desc` and their
+nulls variants, consumed by orderBy and window specs) and `over`."""
 
 from __future__ import annotations
 
@@ -12,7 +13,9 @@ from spark_rapids_tpu_torch.expr import (
     Add,
     Alias,
     And,
+    Contains,
     Divide,
+    EndsWith,
     EqualTo,
     GreaterThan,
     GreaterThanOrEqual,
@@ -22,6 +25,8 @@ from spark_rapids_tpu_torch.expr import (
     Multiply,
     Not,
     Or,
+    RLike,
+    StartsWith,
     Subtract,
 )
 from spark_rapids_tpu_torch.expr.core import Expression
@@ -106,6 +111,20 @@ class Column:
 
     def __invert__(self):
         return Column(Not(self.expr))
+
+    # strings
+
+    def startswith(self, s: str):
+        return Column(StartsWith(self.expr, s))
+
+    def endswith(self, s: str):
+        return Column(EndsWith(self.expr, s))
+
+    def contains(self, s: str):
+        return Column(Contains(self.expr, s))
+
+    def rlike(self, pattern: str):
+        return Column(RLike(self.expr, pattern))
 
     # sort direction / window
 

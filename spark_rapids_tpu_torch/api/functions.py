@@ -2,8 +2,13 @@
 `spark_rapids_tpu/api/functions.py` the port's expressions cover: `col`,
 `lit`, the sum, avg (mean), count, min, max, first and last aggregates
 (first and last over window frames only), the sort directions `asc` and
-`desc`, and the window functions `row_number`, `rank`, `dense_rank`,
-`percent_rank`, `cume_dist`, `ntile`, `lead` and `lag`."""
+`desc`, the window functions `row_number`, `rank`, `dense_rank`,
+`percent_rank`, `cume_dist`, `ntile`, `lead` and `lag`, and the string
+functions (`concat`, `substring`, `upper`, `lower`, `length`, the trim
+and pad families, `repeat`, `reverse`, `initcap`, `instr`, `locate`,
+`translate`, `replace`, `concat_ws`, `ascii`, `chr_`, `substring_index`)
+with `rlike`, `regexp_extract` and `regexp_replace` (the last two have no
+device implementation: the planner refuses them, naming ROADMAP A9)."""
 
 from __future__ import annotations
 
@@ -11,14 +16,38 @@ from typing import Any
 
 from spark_rapids_tpu_torch.api.column import Column, SortColumn, _expr
 from spark_rapids_tpu_torch.expr import (
+    Ascii,
     Average,
+    Chr,
+    Concat,
+    ConcatWs,
     Count,
     First,
+    InitCap,
     Last,
+    Length,
     Literal,
+    Lower,
     Max,
     Min,
+    RegexpExtract,
+    RegexpReplace,
+    RLike,
+    StringInstr,
+    StringLocate,
+    StringLPad,
+    StringRepeat,
+    StringReplace,
+    StringReverse,
+    StringRPad,
+    StringTranslate,
+    StringTrim,
+    StringTrimLeft,
+    StringTrimRight,
+    Substring,
+    SubstringIndex,
     Sum,
+    Upper,
 )
 
 
@@ -142,3 +171,88 @@ def lag(c, offset: int = 1, default=None) -> Column:
 
     d = None if default is None else _expr(lit_or(default))
     return Column(Lag(expr_of(c), offset, d))
+
+
+# ---------------------------------------------------------------- strings
+
+def concat(*cs) -> Column:
+    return Column(Concat(*[expr_of(c) for c in cs]))
+
+
+def substring(c, pos: int, length: int) -> Column:
+    return Column(Substring(expr_of(c), pos, length))
+
+
+def _u(cls):
+    def f(c):
+        return Column(cls(expr_of(c)))
+    f.__name__ = cls.__name__.lower()
+    return f
+
+
+upper = _u(Upper)
+lower = _u(Lower)
+length = _u(Length)
+ascii = _u(Ascii)  # noqa: A001
+initcap = _u(InitCap)
+#: strings only: array reverse comes with nested columns (ROADMAP A3)
+reverse = _u(StringReverse)
+ltrim = _u(StringTrimLeft)
+rtrim = _u(StringTrimRight)
+trim = _u(StringTrim)
+
+
+def lpad(c, length: int, pad: str = " ") -> Column:
+    return Column(StringLPad(expr_of(c), length, pad))
+
+
+def rpad(c, length: int, pad: str = " ") -> Column:
+    return Column(StringRPad(expr_of(c), length, pad))
+
+
+def repeat(c, n: int) -> Column:
+    return Column(StringRepeat(expr_of(c), n))
+
+
+def instr(c, substr: str) -> Column:
+    return Column(StringInstr(expr_of(c), substr))
+
+
+def locate(substr: str, c, pos: int = 1) -> Column:
+    return Column(StringLocate(expr_of(c), substr, pos))
+
+
+def translate(c, matching: str, replace: str) -> Column:
+    return Column(StringTranslate(expr_of(c), matching, replace))
+
+
+def regexp_replace_literal(c, search: str, replacement: str) -> Column:
+    """Literal (non-regex) replace — Spark's `replace`."""
+    return Column(StringReplace(expr_of(c), search, replacement))
+
+
+replace = regexp_replace_literal
+
+
+def concat_ws(sep: str, *cs) -> Column:
+    return Column(ConcatWs(sep, *[expr_of(c) for c in cs]))
+
+
+def chr_(c) -> Column:
+    return Column(Chr(expr_of(lit_or(c))))
+
+
+def substring_index(c, delim: str, count: int) -> Column:
+    return Column(SubstringIndex(expr_of(c), delim, count))
+
+
+def rlike(c, pattern: str) -> Column:
+    return Column(RLike(expr_of(c), pattern))
+
+
+def regexp_extract(c, pattern: str, idx: int = 1) -> Column:
+    return Column(RegexpExtract(expr_of(c), pattern, idx))
+
+
+def regexp_replace(c, pattern: str, replacement: str) -> Column:
+    return Column(RegexpReplace(expr_of(c), pattern, replacement))

@@ -1205,7 +1205,8 @@ PORT_READ_KEYS = frozenset(e.key for e in (
     JOIN_BLOOM_FILTER, ADAPTIVE_ENABLED, MESH_SIZE, FUSED_EXEC,
     FUSED_EXPANSION, FUSED_MAX_EXPANSION, FUSED_GROUP_CAP, FUSED_LOOKUP_JOIN,
     FUSED_AGG_PUSHDOWN, FUSED_SINGLE_SYNC_FETCH_BYTES, FUSED_SHAPE_BUCKETS,
-    ANSI_ENABLED, WINDOW_STREAMING, WINDOW_U2U_FOLD))
+    ANSI_ENABLED, WINDOW_STREAMING, WINDOW_U2U_FOLD, REGEXP_ENABLED,
+    REGEX_MAX_STATES, REGEX_COMPLEXITY_LIMIT))
 
 
 def check_port_settings(conf: "RapidsConf", keys) -> List[str]:

@@ -474,9 +474,8 @@ class TpuHashAggregateExec(PhysicalPlan):
                 pending_rows = compacted.row_count()
         if not pending:
             if not self.grouping and self.mode != "partial":
-                raise NotImplementedError(
-                    "global aggregation over empty input is not ported "
-                    "yet (ROADMAP A8)")
+                # global aggregation over empty input -> one default row
+                yield self._empty_global_result()
             return
         merged = concat_batches(pending)
         if self.mode == "partial":
@@ -485,6 +484,29 @@ class TpuHashAggregateExec(PhysicalPlan):
             yield from self._finalize_partitioned(merged)
         else:
             yield self._merge_final(merged)
+
+    def _empty_global_result(self) -> ColumnBatch:
+        """The reference's `_empty_global_result`: count 0, every other
+        aggregate null."""
+        dev = conf_device(self.conf)
+        cap = 1024
+        cols = []
+        for a in self.aggs:
+            dt = a.dtype
+            if isinstance(a.children[0], Count):
+                cols.append(DeviceColumn(
+                    long, torch.zeros(cap, dtype=torch.int64, device=dev),
+                    torch.ones(cap, dtype=torch.bool, device=dev)))
+            elif isinstance(dt, StringType):
+                cols.append(DeviceColumn(
+                    dt, torch.zeros((cap, 8), dtype=torch.uint8, device=dev),
+                    torch.zeros(cap, dtype=torch.bool, device=dev),
+                    torch.zeros(cap, dtype=torch.int32, device=dev)))
+            else:
+                cols.append(DeviceColumn(
+                    dt, torch.zeros(cap, dtype=torch_dtype(dt), device=dev),
+                    torch.zeros(cap, dtype=torch.bool, device=dev)))
+        return ColumnBatch(self.schema, cols, 1)
 
     def _finalize_partitioned(self, merged: ColumnBatch):
         """High-cardinality final merge: re-partition the buffers by key

@@ -1,5 +1,5 @@
-"""Expressions: references, literals, predicates, arithmetic and
-aggregate functions."""
+"""Expressions: references, literals, predicates, arithmetic, aggregate
+functions, string functions and regex."""
 
 from spark_rapids_tpu_torch.expr.aggregates import (  # noqa: F401
     AggregateFunction,
@@ -33,4 +33,35 @@ from spark_rapids_tpu_torch.expr.predicates import (  # noqa: F401
     LessThanOrEqual,
     Not,
     Or,
+)
+from spark_rapids_tpu_torch.expr.regexexpr import (  # noqa: F401
+    RegexpExtract,
+    RegexpReplace,
+    RLike,
+)
+from spark_rapids_tpu_torch.expr.strings import (  # noqa: F401
+    Ascii,
+    Chr,
+    Concat,
+    ConcatWs,
+    Contains,
+    EndsWith,
+    InitCap,
+    Length,
+    Lower,
+    StartsWith,
+    StringInstr,
+    StringLocate,
+    StringLPad,
+    StringRepeat,
+    StringReplace,
+    StringReverse,
+    StringRPad,
+    StringTranslate,
+    StringTrim,
+    StringTrimLeft,
+    StringTrimRight,
+    Substring,
+    SubstringIndex,
+    Upper,
 )

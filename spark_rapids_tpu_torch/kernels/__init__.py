@@ -36,6 +36,17 @@ module that the JAX package keeps the function in:
 - K16 `ops.windowops.frame_minmax` (csrc/frame_minmax.cu)
 - K17 `ops.windowops.frame_pick`, behind `frame_first_last` and
   `lead_lag` (csrc/frame_pick.cu)
+- K18 `ops.regexops.dfa_match`, behind RLike (csrc/dfa_match.cu)
+- K19 `expr.strings._contains`, `_first_match_charpos`,
+  `_select_nonoverlapping` and `_substring_index_bounds`: a literal
+  needle's matches (csrc/str_find.cu)
+- K20 `expr.strings._rewrite` and `_char_count`: byte maps, the kept
+  bytes of a rule left-packed (Substring, the trim family, Translate,
+  SubstringIndex), Reverse, InitCap and Length (csrc/str_rewrite.cu)
+- K21 `expr.strings._assemble`: Concat, ConcatWs, the pads, Repeat and
+  Replace's emission (csrc/str_assemble.cu)
+
+K18-K21 share the row reader and writer of csrc/strings.cuh.
 
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel (adding one to its count in `launches`) or
@@ -77,6 +88,10 @@ launches: Dict[str, int] = {
     "range_bounds": 0,
     "frame_minmax": 0,
     "frame_pick": 0,
+    "dfa_match": 0,
+    "str_find": 0,
+    "str_rewrite": 0,
+    "str_assemble": 0,
 }
 
 
@@ -194,6 +209,28 @@ PICK_FIRST, PICK_LAST, PICK_FIRST_VALID, PICK_LAST_VALID, PICK_SHIFT = \
 MAX_PICK_OUTS = 8
 
 
+#: K19's modes (FindMode in csrc/str_find.cu)
+FIND_ANY, FIND_FIRST, FIND_SELECT, FIND_SPLIT = range(4)
+#: K20's kinds (RewriteKind in csrc/str_rewrite.cu)
+(REWRITE_MAP, REWRITE_CHARS, REWRITE_TRIM, REWRITE_RANGE, REWRITE_REVERSE,
+ REWRITE_INITCAP, REWRITE_LENGTH) = range(7)
+#: K21's kinds (AssembleKind in csrc/str_assemble.cu)
+(ASSEMBLE_CONCAT, ASSEMBLE_CONCAT_WS, ASSEMBLE_LPAD, ASSEMBLE_RPAD,
+ ASSEMBLE_REPEAT, ASSEMBLE_REPLACE) = range(6)
+
+
+class StrCol(ctypes.Structure):
+    """One input column of a K21 launch (StrCol in csrc/str_assemble.cu)."""
+
+    _fields_ = [("data", ctypes.c_void_p), ("lengths", ctypes.c_void_p),
+                ("validity", ctypes.c_void_p), ("width", ctypes.c_int),
+                ("pad", ctypes.c_int)]
+
+
+#: input columns one K21 launch takes (kMaxStrCols)
+MAX_STR_COLS = 16
+
+
 def struct_array(cls, items) -> ctypes.c_void_p:
     """(pointer, array): a ctypes array of structures and the pointer a C
     entry takes; the caller keeps the array alive across the call."""
@@ -232,6 +269,15 @@ def sm_count(t: torch.Tensor) -> int:
 def smem_optin(t: torch.Tensor) -> int:
     """Dynamic shared memory one block may opt into on t's device."""
     return _device_limits(t.device.index)[1]
+
+
+def byte_rows(data: torch.Tensor) -> torch.Tensor:
+    """A string byte matrix as K18-K21 read it: contiguous, its rows
+    starting 8-byte aligned (a copy where a view is not)."""
+    data = data.contiguous()
+    if data.data_ptr() % 8:
+        data = data.clone()
+    return data
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -77,6 +77,13 @@ _SIGNATURES = {
     "srtpu_frame_minmax": [_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _I, _P],
     "srtpu_frame_pick": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _I, _P],
+    "srtpu_dfa_match": [_P, _P, _L, _I, _P, _P, _I, _I, _P, _I, _P, _I, _I,
+                        _P],
+    "srtpu_str_find": [_I, _P, _P, _L, _I, _P, _I, _L, _P, _P, _I, _P],
+    "srtpu_str_rewrite": [_I, _P, _P, _L, _I, _P, _L, _L, _P, _P, _P, _P,
+                          _I, _P],
+    "srtpu_str_assemble": [_I, _P, _I, _L, _P, _I, _L, _P, _P, _I, _P, _I,
+                           _P],
 }
 
 _lock = threading.Lock()

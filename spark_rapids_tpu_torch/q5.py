@@ -29,7 +29,12 @@ q6 as written (row_number alone) over the facts, and `running_query`,
 `moving_query`, `range_query` and `u2u_query` drive each window mode the
 reference's planner picks: the "running" carry, the batched bounded
 frames (halo), the whole partition with RANGE frames and the rank
-arithmetic, and the two-pass whole-partition aggregate. Through the
+arithmetic, and the two-pass whole-partition aggregate.
+`string_q5_query` and `string_dup_query` filter, project and group
+bench.py's two queries by string expressions and RLIKE;
+`orders_q13_query` and `orders_words_query` run TPC-H q13's comment
+predicate and word split over an ORDERS-shaped table that
+`write_orders_data` generates. Through the
 port's session with bench.py's conf they run on the fused engine
 (exec/fused.py), which evaluates every window over the whole partition;
 with
@@ -266,6 +271,184 @@ def u2u_query(base):
                        F.min("amount").over(w).alias("lo"),
                        F.max("qty").over(w).alias("qmax"),
                        F.count("*").over(w).alias("n"))
+
+
+def _functions(F):
+    if F is None:
+        from spark_rapids_tpu_torch.api import functions as F
+    return F
+
+
+def string_q5_query(base, dim, F=None):
+    """bench.py's q5 with string predicates on the dictionary-encoded
+    region (contains, RLIKE and a negated startswith), grouped by an
+    expression of it: upper(substring(region, 8, 2)). `F` is the
+    functions module to build it with (the port's by default)."""
+    F = _functions(F)
+    region = F.col("region")
+    return (base
+            .filter(F.col("amount") > 10.0)
+            .join(dim, on="store", how="inner")
+            .filter(region.contains("_0") & region.rlike("region_0[1-7]")
+                    & ~region.startswith("region_05"))
+            .select(F.upper(F.substring("region", 8, 2)).alias("rk"),
+                    (F.col("amount") * F.col("qty")).alias("revenue"),
+                    "amount")
+            .groupBy("rk")
+            .agg(F.sum("revenue").alias("rev"),
+                 F.avg("amount").alias("avg_amount"),
+                 F.count("*").alias("sales")))
+
+
+def string_dup_query(base, dup, F=None):
+    """bench.py's duplicate-key join, its plain `promo` rewritten by the
+    string functions: grouped by `tag` = concat_ws("|", promo,
+    upper(promo)) and `shape`, the concatenation of rpad, replace,
+    translate, reverse and initcap of promo, with the count, the rebate's
+    sum and the sum of length(tag)."""
+    F = _functions(F)
+    promo = F.col("promo")
+    shape = F.concat(F.rpad(promo, 12, "*"), F.replace(promo, "_0", "#"),
+                     F.translate(promo, "mo", "MX"), F.reverse(promo),
+                     F.initcap(promo))
+    tag = F.concat_ws("|", promo, F.upper(promo))
+    return (base
+            .filter(F.col("amount") > 50.0)
+            .join(dup, on="store", how="inner")
+            .select(tag.alias("tag"), shape.alias("shape"),
+                    F.length(tag).alias("tag_len"),
+                    (F.col("amount") * F.col("discount")).alias("rebate"))
+            .groupBy("tag", "shape")
+            .agg(F.count("*").alias("n"),
+                 F.sum("rebate").alias("total_rebate"),
+                 F.sum("tag_len").alias("tag_chars")))
+
+
+def orders_q13_query(orders, F=None):
+    """TPC-H q13's comment predicate over ORDERS: the orders whose
+    comment does not match 'special.*requests', per order priority: the
+    count, the comments' total characters and the latest position of
+    'furiously'."""
+    F = _functions(F)
+    return (orders
+            .filter(~F.rlike("o_comment", "special.*requests"))
+            .select("o_orderpriority",
+                    F.length("o_comment").alias("chars"),
+                    F.instr("o_comment", "furiously").alias("furious_at"))
+            .groupBy("o_orderpriority")
+            .agg(F.count("*").alias("n"), F.sum("chars").alias("chars"),
+                 F.max("furious_at").alias("furious_at")))
+
+
+def orders_words_query(orders, F=None):
+    """ORDERS grouped by the comment's first word (substring_index on a
+    space): the count, the total characters of the trimmed comment with
+    'requests' shortened to 'reqs', and the longest comment padded on the
+    left to 80 characters."""
+    F = _functions(F)
+    comment = F.col("o_comment")
+    return (orders
+            .select(F.substring_index(comment, " ", 1).alias("word"),
+                    F.length(F.trim(F.replace(comment, "requests",
+                                              "reqs"))).alias("short"),
+                    F.length(F.lpad(comment, 80, ".")).alias("padded"))
+            .groupBy("word")
+            .agg(F.count("*").alias("n"), F.sum("short").alias("short"),
+                 F.max("padded").alias("padded")))
+
+
+#: TPC-H's o_orderpriority values (spec 4.2.2.13: PRIORITIES)
+ORDER_PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
+                    "5-LOW")
+#: words of dbgen's text grammar (TPC-H spec 4.2.2.14)
+_NOUNS = ("foxes", "ideas", "theodolites", "pinto beans", "instructions",
+          "dependencies", "excuses", "platelets", "asymptotes", "courts",
+          "dolphins", "multipliers", "sauternes", "warthogs", "frets",
+          "dinos", "attainments", "somas", "Tiresias", "patterns", "forges",
+          "braids", "hockey players", "frays", "warhorses", "dugouts",
+          "notornis", "epitaphs", "pearls", "tithes", "waters", "orbits",
+          "gifts", "sheaves", "depths", "sentiments", "decoys", "realms",
+          "pains", "grouches", "escapades", "packages", "requests",
+          "accounts", "deposits")
+_VERBS = ("sleep", "wake", "are", "cajole", "haggle", "nag", "use", "boost",
+          "affix", "detect", "integrate", "maintain", "nod", "was", "lose",
+          "sublate", "solve", "thrash", "promise", "engage", "hinder",
+          "print", "x-ray", "breach", "eat", "grow", "impress", "mold",
+          "poach", "serve", "run", "dazzle", "snooze", "doze", "unwind",
+          "kindle", "play", "hang", "believe", "doubt")
+_ADJECTIVES = ("furious", "sly", "careful", "blithe", "quick", "fluffy",
+               "slow", "quiet", "ruthless", "thin", "close", "dogged",
+               "daring", "brave", "stealthy", "permanent", "enticing",
+               "idle", "busy", "regular", "final", "ironic", "even", "bold",
+               "silent", "special", "pending", "express", "unusual")
+_ADVERBS = ("sometimes", "always", "never", "furiously", "slyly",
+            "carefully", "blithely", "quickly", "fluffily", "slowly",
+            "quietly", "ruthlessly", "thinly", "closely", "doggedly",
+            "daringly", "bravely", "stealthily", "permanently",
+            "enticingly", "idly", "busily", "regularly", "finally",
+            "ironically", "evenly", "boldly", "silently")
+_PREPOSITIONS = ("about", "above", "according to", "across", "after",
+                 "against", "along", "alongside of", "among", "around",
+                 "at", "atop", "before", "behind", "beneath", "beside",
+                 "besides", "between", "beyond", "by", "despite", "during",
+                 "except", "for", "from", "in place of", "inside",
+                 "instead of", "into", "near", "of", "on", "outside",
+                 "over", "past", "since", "through", "throughout", "to",
+                 "toward", "under", "until", "up", "upon", "without",
+                 "with", "within")
+_TERMINATORS = (".", ";", ":", "?", "!", "--")
+
+
+def text_pool(rng, sentences: int) -> bytes:
+    """dbgen's text pool in miniature: sentences of the grammar's
+    'adjective noun adverb verb preposition the adjective noun' shape."""
+    parts = [(_ADJECTIVES, 1), (_NOUNS, 1), (_ADVERBS, 1), (_VERBS, 1),
+             (_PREPOSITIONS, 1), (("the",), 0), (_ADJECTIVES, 1),
+             (_NOUNS, 1)]
+    cols = [np.asarray(words)[rng.integers(0, len(words), sentences)]
+            for words, _ in parts]
+    term = np.asarray(_TERMINATORS)[rng.integers(0, len(_TERMINATORS),
+                                                 sentences)]
+    return " ".join(" ".join(ws) + t for *ws, t in zip(*cols, term)).encode()
+
+
+def write_orders_data(root: str, rows: int, files: int = 8, seed: int = 0
+                      ) -> List[str]:
+    """Write an ORDERS-shaped table under root/orders in `files` parquet
+    files: o_orderkey (int64), o_orderpriority (one of TPC-H's 5, plain,
+    not dictionary-encoded) and o_comment, dbgen's TEXT(19, 78): a random
+    19 to 78 byte window of a text pool made from dbgen's grammar, cut
+    mid-word as dbgen cuts it. The comments are built as an Arrow
+    StringArray from offset and byte buffers; returns the paths."""
+    out_dir = os.path.join(root, "orders")
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    pool = np.frombuffer(text_pool(rng, 100_000), dtype=np.uint8)
+    prio = pa.array(ORDER_PRIORITIES)
+    per = -(-rows // files)
+    paths = []
+    for i in range(files):
+        n = min(per, rows - i * per)
+        lengths = rng.integers(19, 79, n)
+        starts = rng.integers(0, len(pool) - 78, n)
+        offsets = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(lengths, out=offsets[1:])
+        src = (np.arange(offsets[-1], dtype=np.int64)
+               - np.repeat(offsets[:-1] - starts, lengths))
+        comment = pa.LargeStringArray.from_buffers(
+            n, pa.py_buffer(offsets.tobytes()),
+            pa.py_buffer(pool[src].tobytes())).cast(pa.string())
+        t = pa.table({
+            "o_orderkey": pa.array(np.arange(i * per, i * per + n) * 4 + 1,
+                                   type=pa.int64()),
+            "o_orderpriority": prio.take(pa.array(
+                rng.integers(0, len(ORDER_PRIORITIES), n))),
+            "o_comment": comment,
+        })
+        path = os.path.join(out_dir, f"orders-{i}.parquet")
+        pq.write_table(t, path, compression="NONE", use_dictionary=False)
+        paths.append(path)
+    return paths
 
 
 def q5_plan(fact_entry, dim_entry,

@@ -362,3 +362,30 @@ def test_small_batches_merge_early_and_finalize_in_pieces(data):
     assert spark.last_execution["engine"] == "aqe"
     assert want.num_rows == BENCH.STORES
     _assert_equal(got, want, "store")
+
+
+def test_global_aggregate_over_empty_input_matches_reference(tmp_path):
+    """A global aggregate over a 0-row parquet file (fused engine off)
+    yields the reference's default row: count 0, every other aggregate
+    null (its exec/operators.py `_empty_global_result`)."""
+    from spark_rapids_tpu.api import functions as JF
+    from spark_rapids_tpu_torch.api import functions as PF
+
+    pq.write_table(pa.table({"a": pa.array([], pa.int64()),
+                             "b": pa.array([], pa.float64())}),
+                   str(tmp_path / "empty.parquet"))
+    out = []
+    for F, spark in ((JF, JaxSession(dict(CONF))),
+                     (PF, TpuSparkSession(dict(PORT_CONF)))):
+        try:
+            df = spark.read.parquet(str(tmp_path)).agg(
+                F.count("a").alias("n"), F.sum("b").alias("s"),
+                F.max("a").alias("m"), F.avg("b").alias("mean"))
+            out.append(df.collect_arrow())
+            assert spark.last_execution["engine"] != "fused"
+        finally:
+            spark.stop()
+    want, got = out
+    assert got.schema == want.schema
+    assert got.to_pylist() == want.to_pylist() == [
+        {"n": 0, "s": None, "m": None, "mean": None}]

@@ -286,8 +286,10 @@ def test_cache_parts_are_narrowed(data):
 
 
 def test_unread_setting_warns():
-    """A setting nothing in the port reads is accepted with a warning."""
-    key = "spark.rapids.sql.regexp.enabled"
+    """A setting nothing in the port reads is accepted with a warning
+    (the UDF compiler is not ported; the regexp settings are read since
+    the port's RLIKE)."""
+    key = "spark.rapids.sql.udfCompiler.enabled"
     with pytest.warns(UserWarning, match=key):
         spark = TpuSparkSession({"spark.rapids.torch.device": "cpu",
                                  key: False})

@@ -737,6 +737,9 @@ from spark_rapids_tpu_torch import kernels as port_kernels  # noqa: E402
 from spark_rapids_tpu_torch.columnar import batch as port_batch  # noqa: E402
 from spark_rapids_tpu_torch.ops import sortops as port_sortops  # noqa: E402
 from spark_rapids_tpu_torch.ops import windowops as port_windowops  # noqa: E402,E501
+from spark_rapids_tpu_torch.expr import strings as port_strings  # noqa: E402
+from spark_rapids_tpu_torch.ops import regexops as port_regexops  # noqa: E402
+from spark_rapids_tpu_torch.regex import compile_search as port_compile  # noqa: E402,E501
 
 # every kernel wrapper: on a CUDA tensor each one launches its kernel, so
 # a plain version (the kernel's check on the card) must reach none of them
@@ -758,8 +761,67 @@ _WRAPPERS = [
     (port_windowops, "window_eval"),
     (port_windowops, "inverse_permutation"),
     (port_windowops, "range_bounds"), (port_windowops, "frame_minmax_eval"),
-    (port_windowops, "frame_pick"),
+    (port_windowops, "frame_pick"), (port_regexops, "dfa_match"),
+    (port_strings, "_find"), (port_strings, "_contains"),
+    (port_strings, "_first_match_charpos"),
+    (port_strings, "_select_nonoverlapping"),
+    (port_strings, "_substring_index_bounds"), (port_strings, "_rewrite"),
+    (port_strings, "_char_count"), (port_strings, "_assemble"),
 ]
+
+
+def _string_plain_cases(s_col):
+    """K18-K21's plain versions, each mode and kind once."""
+    S, K = port_strings, port_kernels
+    d, ln = s_col.data, s_col.lengths
+    n = d.shape[0]
+    lo = torch.full((n,), 1, dtype=torch.int32)
+    hi = torch.full((n,), 5, dtype=torch.int32)
+    table = np.arange(256, dtype=np.int16)
+    table[ord("a")] = -1
+    cases = {
+        "dfa_match_plain": lambda: port_regexops.dfa_match_plain(
+            d, ln, port_compile("a.b|^x")),
+        "_contains_plain": lambda: S._contains_plain(d, ln, b"ab"),
+        "_first_match_charpos_plain": lambda: S._first_match_charpos_plain(
+            d, ln, b"b", 1),
+        "_select_nonoverlapping_plain":
+            lambda: S._select_nonoverlapping_plain(d, ln, b"a"),
+        "_substring_index_bounds_plain[2]":
+            lambda: S._substring_index_bounds_plain(d, ln, b"a", 2),
+        "_substring_index_bounds_plain[-1]":
+            lambda: S._substring_index_bounds_plain(d, ln, b"a", -1),
+        "_char_count_plain": lambda: S._char_count_plain(d, ln),
+    }
+    rewrites = {
+        "map": S.Rewrite(K.REWRITE_MAP, table),
+        "chars": S.Rewrite(K.REWRITE_CHARS, a=-3, b=2),
+        "trim": S.Rewrite(K.REWRITE_TRIM, table, 1, 1),
+        "range": S.Rewrite(K.REWRITE_RANGE, lo=lo, hi=hi),
+        "reverse": S.Rewrite(K.REWRITE_REVERSE),
+        "initcap": S.Rewrite(K.REWRITE_INITCAP)}
+    for kind, rw in rewrites.items():
+        cases[f"_rewrite_plain[{kind}]"] = \
+            lambda rw=rw: S._rewrite_plain(d, ln, rw)
+    assembles = {
+        "concat": ([s_col, s_col], S.Assemble(K.ASSEMBLE_CONCAT)),
+        "concat_ws": ([s_col, s_col], S.Assemble(K.ASSEMBLE_CONCAT_WS,
+                                                 b"|")),
+        "lpad": ([s_col], S.Assemble(K.ASSEMBLE_LPAD, b"xy", 9)),
+        "rpad": ([s_col], S.Assemble(K.ASSEMBLE_RPAD, b"-", 3)),
+        "repeat": ([s_col], S.Assemble(K.ASSEMBLE_REPEAT, a=2)),
+        "replace": ([s_col], S.Assemble(K.ASSEMBLE_REPLACE, b"zz", 1))}
+    for kind, (cols, asm) in assembles.items():
+        cases[f"_assemble_plain[{kind}]"] = \
+            lambda cols=cols, asm=asm: S._assemble_plain(
+                cols, asm._replace(sel=S._select_nonoverlapping_plain(
+                    d, ln, b"a")), 128)
+    return cases
+
+
+_STRING_PLAIN = sorted(_string_plain_cases(port_strings.DeviceColumn(
+    None, torch.zeros((1, 8), dtype=torch.uint8), torch.ones(1, dtype=bool),
+    torch.zeros(1, dtype=torch.int32))))
 
 
 def _plain_case(name, pb):
@@ -851,6 +913,7 @@ def _plain_case(name, pb):
                                          port_kernels.WIN_OFFSET, -6, 0),
                     pcnt=torch.arange(n + 1, dtype=torch.int64))], perm),
     }
+    cases.update(_string_plain_cases(s_col))
     return cases[name]()
 
 
@@ -873,7 +936,8 @@ def _plain_window(n, perm, live):
     "build_plain", "might_contain_count_plain", "gather_leaves_plain",
     "decode_column_plain", "seg_minmax_plain", "merge_runs_plain",
     "window_prefix_plain", "window_eval_plain", "inverse_permutation_plain",
-    "range_bounds_plain", "frame_minmax_plain", "frame_pick_plain"])
+    "range_bounds_plain", "frame_minmax_plain", "frame_pick_plain",
+    *_STRING_PLAIN])
 def test_plain_versions_reach_no_kernel_wrapper(name, monkeypatch):
     """With every kernel wrapper, wherever it is bound, replaced by one
     that raises, each plain version still runs."""
