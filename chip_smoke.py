@@ -44,7 +44,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    self-overlapping or empty, empty pads and separators, Substring at
    negative and zero positions, SubstringIndex at negative counts,
    patterns anchored at ^, $ and neither, and a DFA too large for shared
-   memory;
+   memory; K22-K24 (slice 7's string parse, time-zone rebase and text
+   format) in every mode at the path shapes, the text of 15,000,000 ORDERS
+   rows (dates, keys, prices and booleans of width 8 and 16), their LA
+   midnights and their dates, keys and wall clocks, and at edge shapes
+   (`check_slice7_edges`: the cast edge sets with random strings at widths
+   8 to 64, a literal as a row-stride-0 view, every transition of three
+   zones, the int64 and calendar ends, every DateFormat token);
 3. slice 1's hand-built q5 plan at the bench's full size (36M fact rows
    in 8 parquet files, a 2,000-row dimension with a dictionary-encoded
    `region`) over device-cached relations: upload, one cold run and 5
@@ -90,11 +96,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    drawn as dbgen draws them), each against pyarrow compute or, where its
    semantics differ from Spark's, plain Python over the 12 regions and 5
    promos. K18 must run on both RLIKE queries, K19-K21 where their
-   expressions run.
+   expressions run;
+9. slice 7's date queries (q5.py: orders_q4_window_query,
+   orders_ingest_query, orders_monthly_query) on the adaptive and the
+   fused engine over a dated ORDERS table at SF10 (15,000,000 rows in 8
+   files, written typed and as dbgen's .tbl text): TPC-H q4's date window
+   in UTC, the typing casts of a text load and a monthly report in
+   America/Los_Angeles, each against numpy over the typed table and
+   zoneinfo over the 2,406 distinct dates. K22 must run on the text load
+   and on q4's date literal, K23 on both Los Angeles queries, K24 on the
+   monthly report.
 
-For each query run (phases 3-8) the kernels' launch counts are reset
+For each query run (phases 3-9) the kernels' launch counts are reset
 just before the cold run and read just after it; every kernel of that
-path must have run. One more hot run counts the host syncs (torch.cuda's
+path must have run. Phases 3-5 time 5 hot runs a query, phases 6-9 3.
+One more hot run counts the host syncs (torch.cuda's
 sync debug mode) and one, under torch.profiler, gives the device's busy
 time against wall time and must hold no library sort or scan kernel.
 
@@ -117,6 +133,8 @@ FILES = 8
 STORES = 2000
 REGIONS = 12
 HOT_RUNS = 5
+#: hot runs of each query in phases 6-9 (phases 3-5 keep HOT_RUNS)
+LATER_HOT_RUNS = 3
 TIMING_ITERS = 20
 DUP_PER_STORE = 2       # rows per store in the duplicate-key dimension
 REL_TOL = 1e-9          # sums and averages against the oracles
@@ -2193,6 +2211,379 @@ def check_slice6_edges(dev) -> int:
     return cases
 
 
+#: K22's timestamp text of a date: 'yyyy-MM-dd' (orders_tbl's o_orderdate)
+ZONE_LA = "America/Los_Angeles"
+ZONE_IST = "Asia/Kolkata"
+US_PER_DAY = 86_400_000_000
+
+
+def _text_rows(dev, arr, width: int):
+    """A pyarrow string array as the port's byte matrix on the card:
+    [n, width] uint8 (zero past each length) and int32 lengths."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    arr = arr.cast(pa.large_string())
+    n = len(arr)
+    offsets = np.frombuffer(arr.buffers()[1], dtype=np.int64)[
+        arr.offset:arr.offset + n + 1]
+    off = torch.from_numpy(offsets.copy()).to(dev)
+    buf = torch.from_numpy(np.frombuffer(arr.buffers()[2],
+                                         dtype=np.uint8).copy()).to(dev)
+    lens = (off[1:] - off[:-1]).to(torch.int32)
+    if int(lens.max().item()) > width:
+        fail(f"text rows wider than {width}")
+    data = torch.empty((n, width), dtype=torch.uint8, device=dev)
+    ar = torch.arange(width, device=dev)
+    for lo in range(0, n, PLAIN_CHUNK):
+        hi = min(n, lo + PLAIN_CHUNK)
+        idx = torch.clamp(off[lo:hi, None] + ar, max=max(len(buf) - 1, 0))
+        data[lo:hi] = torch.where(ar < lens[lo:hi, None], buf[idx], 0)
+    return data, lens
+
+
+def _orders_text(dev, n: int, seed: int):
+    """ORDERS as write_orders_dated draws and prints it, on the card: the
+    order dates (int32 days), the keys (int64) and the text of the date
+    [n, 16], the key [n, 8] and the price [n, 16]."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import torch
+
+    from spark_rapids_tpu_torch.q5 import orders_dated_draws
+
+    d = orders_dated_draws(n, files=1, seed=seed)[0]
+    cents = d["cents"]
+    date = pa.array(d["o_orderdate"], type=pa.date32())
+    price = pc.binary_join_element_wise(
+        pc.cast(pa.array(cents // 100), pa.string()),
+        pc.utf8_lpad(pc.cast(pa.array(cents % 100), pa.string()), 2, "0"),
+        ".")
+    return dict(
+        days=torch.from_numpy(d["o_orderdate"]).to(dev),
+        keys=torch.from_numpy(d["o_orderkey"]).to(dev),
+        date_text=_text_rows(dev, pc.cast(date, pa.string()), 16),
+        key_text=_text_rows(dev, pc.cast(pa.array(d["o_orderkey"]),
+                                         pa.string()), 8),
+        price_text=_text_rows(dev, price, 16),
+        bool_text=_text_rows(dev, pa.array(
+            ["true", "false", "yes", "no", "t", "f", "1", "0", " TRUE ",
+             "maybe"]).take(pa.array(
+                 np.random.default_rng(seed).integers(0, 10, n))), 8))
+
+
+def check_slice7_kernels(dev):
+    """Phase 2, slice 7: K22-K24 against their plain versions at the path
+    shapes: the text of 15,000,000 ORDERS rows as orders_tbl holds it
+    (K22: the date and timestamp of o_orderdate [15M, 16], the key [15M,
+    8], the price [15M, 16], and booleans [15M, 8]), the LA midnights of
+    the order dates (K23, both directions), and the order dates, keys and
+    LA wall clocks (K24: 'yyyy-MM', cast to string of a date, an int64 and
+    a timestamp). The plain versions run in 2^22-row pieces. Returns
+    {record name: record}."""
+    import torch
+
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.expr import cast as C
+    from spark_rapids_tpu_torch.expr import datetimes as DT
+    from spark_rapids_tpu_torch.ops import stringcast as SC
+    from spark_rapids_tpu_torch.ops import tzdb
+    from spark_rapids_tpu_torch.sqltypes import datatypes as T
+
+    src = "spark_rapids_tpu_torch/kernels/csrc/"
+    out = {}
+
+    def record(name, csrc, replaces, kernel, plain, library, nbytes,
+               shape, counter=None):
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        for k, (g, w) in enumerate(zip(got, want)):
+            same_bits(f"{name} output {k}", g, w)
+        del got, want
+        rec = dict(route="cuda", source=src + csrc, replaces=replaces,
+                   max_abs_err=0.0,
+                   **timed(name, kernel, plain, library, PLAIN_ITERS),
+                   bound_ms=bound_ms(nbytes), bound_by="bytes", shape=shape)
+        if counter:
+            rec["counter"] = counter
+        out[name] = rec
+        torch.cuda.empty_cache()
+
+    n = ORDERS_ROWS
+    o = _orders_text(dev, n, 41)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+
+    def col(text):
+        return _strcol(text[0], text[1], valid)
+
+    def parse(fn, text, dtype):
+        c = col(text)
+        return lambda: (lambda r: (r.data, r.validity))(fn(c, dtype))
+
+    def parse_plain(fn, text, dtype):
+        data, lens = text
+        return lambda: _chunked(lambda lo, hi: (lambda r: (
+            r.data, r.validity))(fn(_strcol(data[lo:hi], lens[lo:hi],
+                                            valid[lo:hi]), dtype)), n,
+            4 * PLAIN_CHUNK)
+
+    parses = (
+        ("str_parse", SC.parse_date, SC.parse_date_plain, "date_text",
+         T.date, 4, ":313", "o_orderdate [{n}, 16] -> date"),
+        ("str_parse_timestamp", SC.parse_timestamp,
+         SC.parse_timestamp_plain, "date_text", T.timestamp, 8, ":319",
+         "o_orderdate [{n}, 16] -> timestamp"),
+        ("str_parse_long", SC.parse_long, SC.parse_long_plain, "key_text",
+         T.long, 8, ":71", "o_orderkey [{n}, 8] -> bigint"),
+        ("str_parse_double", SC.parse_double, SC.parse_double_plain,
+         "price_text", T.double, 8, ":180",
+         "o_totalprice [{n}, 16] -> double"),
+        ("str_parse_bool", SC.parse_bool, SC.parse_bool_plain, "bool_text",
+         T.boolean, 1, ":236", "booleans [{n}, 8] -> boolean"))
+    for name, fn, plain, key, dtype, size, line, shape in parses:
+        text = o[key]
+        held = int(text[1].sum().item())
+        record(name, "str_parse.cu",
+               "spark_rapids_tpu/ops/stringcast.py" + line,
+               parse(fn, text, dtype), parse_plain(plain, text, dtype), None,
+               held + n * (4 + 1 + size + 1), shape.format(n=n),
+               counter=None if name == "str_parse" else "str_parse")
+
+    # K23 over the LA midnights of the order dates
+    local = o["days"].to(torch.int64) * US_PER_DAY
+    utc = tzdb.local_to_utc_plain(local, ZONE_LA)
+    trans, offsets, _ = tzdb.device_tables(ZONE_LA, str(dev))
+    record("tz_rebase", "tz_rebase.cu", "spark_rapids_tpu/ops/tzdb.py:210",
+           lambda: tzdb.utc_to_local(utc, ZONE_LA),
+           lambda: tzdb.utc_to_local_plain(utc, ZONE_LA),
+           lambda: utc + offsets[torch.searchsorted(trans, utc, right=True)],
+           n * 16, f"[{n}] int64, {ZONE_LA} ({int(trans.shape[0])} "
+           "transitions), UTC -> local")
+    record("tz_rebase_to_utc", "tz_rebase.cu",
+           "spark_rapids_tpu/ops/tzdb.py:221",
+           lambda: tzdb.local_to_utc(local, ZONE_LA),
+           lambda: tzdb.local_to_utc_plain(local, ZONE_LA), None,
+           n * 16, f"[{n}] int64, {ZONE_LA}, local -> UTC (gap rule)",
+           counter="tz_rebase")
+
+    # K24
+    days = o["days"]
+    record("str_format", "str_format.cu",
+           "spark_rapids_tpu/expr/datetimes.py:633",
+           lambda: DT._pattern_to_string(days, True, "yyyy-MM"),
+           lambda: _chunked(lambda lo, hi: DT._pattern_to_string_plain(
+               days[lo:hi], True, "yyyy-MM"), n, 4 * PLAIN_CHUNK), None,
+           n * (4 + 8 + 4), f"date_format [{n}] dates, 'yyyy-MM' -> "
+           f"[{n}, 8]")
+    record("str_format_date", "str_format.cu",
+           "spark_rapids_tpu/expr/cast.py:323",
+           lambda: C._format(K.FORMAT_DATE, days, 16, days_input=True),
+           lambda: _chunked(lambda lo, hi: C._date_to_string_plain(
+               days[lo:hi]), n, 4 * PLAIN_CHUNK), None,
+           n * (4 + 16 + 4), f"cast [{n}] dates as string -> [{n}, 16]",
+           counter="str_format")
+    keys = o["keys"]
+    record("str_format_int", "str_format.cu",
+           "spark_rapids_tpu/expr/cast.py:284",
+           lambda: C._format(K.FORMAT_INT, keys, 32),
+           lambda: _chunked(lambda lo, hi: C._int_to_string_plain(
+               keys[lo:hi]), n, 4 * PLAIN_CHUNK), None,
+           n * (8 + 32 + 4), f"cast [{n}] bigint keys as string -> "
+           f"[{n}, 32]", counter="str_format")
+    record("str_format_timestamp", "str_format.cu",
+           "spark_rapids_tpu/expr/cast.py:349",
+           lambda: C._format(K.FORMAT_TIMESTAMP, local, 32),
+           lambda: _chunked(lambda lo, hi: C._timestamp_to_string_plain(
+               local[lo:hi]), n, 4 * PLAIN_CHUNK), None,
+           n * (8 + 32 + 4), f"cast [{n}] LA-local timestamps as string -> "
+           f"[{n}, 32]", counter="str_format")
+    del o, local, utc, days, keys
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the parse edge sets of check_slice7_edges
+_INT_TEXT = (
+    "0", "1", "-1", "+42", "  17  ", "\t-8\n", "2147483647", "2147483648",
+    "-2147483648", "-2147483649", "9223372036854775807",
+    "-9223372036854775808", "9223372036854775808", "-9223372036854775809",
+    "", "  ", "abc", "1.5", "1e3", "--5", "+-5", "5-", "00012",
+    "999999999999999999999999", "+", "-", "127", "-128", "128", "32767",
+    "-32769", "\x01\x1f 7\x0b", "0000000000000000000000001")
+_FLOAT_TEXT = (
+    "0", "1.5", "-2.25", "+3.", ".5", "-.5", "1e3", "1E-3", "2.5e+2",
+    "  7.25 ", "Infinity", "-Infinity", "+Infinity", "inf", "-inf", "NaN",
+    "nan", "1e999", "1e-999", "", "abc", "1.2.3", "1e", "e5", "1.5e2.5",
+    "00.50", "9007199254740993", "-nan", "INF", "infinit",
+    "123456789012345678901234", "0.000000000000000000000123", "1e308",
+    "1.7976931348623157e308", "4.9e-324", "2.2250738585072014e-308",
+    "1e-400", "0e999999", "-0", "-0.0", "1e+", "1e-", "+", ".", "474582.62",
+    "0.1", "3.14159265358979323846", "1e-310", "-12.5E-3")
+_DATE_TEXT = (
+    "2020-01-01", "2020-1-1", "2020-12-31", "2020-02-29", "2021-02-29",
+    "1999-13-01", "1999-00-10", "2020-06-31", "2020", "2020-06",
+    "2020-06-15T12:00:00", "2020-06-15 anything", "  2020-06-15  ",
+    "0001-01-01", "20-1-1", "abc", "", "2020-6-15-3", "9999-12-31",
+    "10000-01-01", "1234567-1-1", "12345678", "0000-03-01", "1969-12-31",
+    "1900-02-29", "2000-02-29", "1600-02-29", "-2020-01-01", "+2020-01-01",
+    "2020-01-01T", "2020--01", "2020-001-01", "1950-07-04")
+_TS_TEXT = (
+    "2020-01-01 00:00:00", "2020-01-01T23:59:59", "2020-01-01 12:30",
+    "2020-01-01 1:2:3", "2020-01-01 12:30:45.5",
+    "2020-01-01 12:30:45.123456", "2020-01-01", "2020-02-29 10:00:00",
+    "2021-02-29 10:00:00", "2020-01-01 24:00:00", "2020-01-01 12:61:00",
+    "abc", "", "  2020-01-01 06:07:08  ", "2020-01-01 12",
+    "2020-01-01 12:30:45.1234567", "2020-01-01 12:30.5",
+    "2020-01-01 12:30:45.", "1969-12-31 23:59:59.999999",
+    "0001-01-01 00:00:00", "2021-03-14 02:30:00", "2021-11-07 01:30:00")
+_BOOL_TEXT = ("true", "TRUE", " t ", "yes", "Y", "1", "false", "F", "no",
+              "N", "0", "tr", "2", "", "trUE", "ye s", " \x01n\x1f",
+              "falsey")
+
+
+def check_slice7_edges(dev) -> int:
+    """Phase 2, slice 7 edge shapes of K22-K24 against their plain
+    versions: each parse mode (every integral width) over the edge sets
+    above (signs, whitespace below 0x20, overflow, INT64_MIN, exponents,
+    inf/nan, subnormals, invalid days, years past 9,999, pre-1970 times)
+    plus 3,000 seeded random strings over each parser's alphabet, at
+    widths 8, 12 (no multiple of 8: byte loads), 16, 32 and 64, with nulls;
+    a string literal as a row-stride-0 view; K23 at, and one microsecond
+    around, every transition and wall-clock transition of
+    America/Los_Angeles, Asia/Kolkata and Europe/London and at random
+    instants to the int64 ends, both directions; K24 over the int64 ends,
+    dates from -5,000,000 to 5,000,000 days and past the int32 ends'
+    calendars, instants to the int64 ends, fractions of every length, and
+    patterns of every token. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.expr import cast as C
+    from spark_rapids_tpu_torch.expr import datetimes as DT
+    from spark_rapids_tpu_torch.ops import stringcast as SC
+    from spark_rapids_tpu_torch.ops import tzdb
+    from spark_rapids_tpu_torch.sqltypes import datatypes as T
+
+    rng = np.random.default_rng(71)
+    cases = 0
+
+    def check(name, kernel, plain):
+        nonlocal cases
+        got, want = kernel(), plain()
+        for k, (g, w) in enumerate(zip(got, want)):
+            same_bits(f"{name} output {k}", g, w)
+        cases += 1
+
+    def text(strs, mb):
+        d = np.zeros((len(strs), mb), dtype=np.uint8)
+        ln = np.zeros(len(strs), dtype=np.int32)
+        for i, s in enumerate(strs):
+            raw = s.encode("latin-1")[:mb]
+            d[i, :len(raw)] = list(raw)
+            ln[i] = len(raw)
+        return (torch.from_numpy(d).to(dev), torch.from_numpy(ln).to(dev),
+                torch.from_numpy(rng.random(len(strs)) > 0.05).to(dev))
+
+    def fuzz(alphabet, count, max_len):
+        return ["".join(rng.choice(list(alphabet), int(rng.integers(
+            0, max_len + 1)))) for _ in range(count)]
+
+    num = "0123456789" * 3 + "+-.eE \tx\x00InNaf"
+    date = "0123456789" * 3 + "-- T:.\x1fa"
+    sets = (
+        (_INT_TEXT, num, [(SC.parse_long, SC.parse_long_plain, t)
+                          for t in (T.long, T.integer, T.short, T.byte)]),
+        (_FLOAT_TEXT, num, [(SC.parse_double, SC.parse_double_plain,
+                             T.double), (SC.parse_double,
+                                         SC.parse_double_plain, T.float_t)]),
+        (_BOOL_TEXT, "tTrRuUeEfFsSyYnN01 ", [(SC.parse_bool,
+                                              SC.parse_bool_plain,
+                                              T.boolean)]),
+        (_DATE_TEXT, date, [(SC.parse_date, SC.parse_date_plain, T.date)]),
+        (_TS_TEXT + _DATE_TEXT, date, [(SC.parse_timestamp,
+                                        SC.parse_timestamp_plain,
+                                        T.timestamp)]))
+    for fixed, alphabet, fns in sets:
+        strs = list(fixed) + fuzz(alphabet, 3000, 30)
+        for mb in (8, 12, 16, 32, 64):
+            d, ln, v = text(strs, mb)
+            c = _strcol(d, ln, v)
+            for fn, plain, dtype in fns:
+                check(f"{fn.__name__} {dtype} width {mb}",
+                      lambda: (lambda r: (r.data, r.validity))(fn(c, dtype)),
+                      lambda: (lambda r: (r.data, r.validity))(plain(c,
+                                                                     dtype)))
+        for s in fixed:  # a literal: one row as a row-stride-0 view
+            d, ln, _ = text([s], 16)
+            view = d[0][None, :].expand(37, 16)
+            c = _strcol(view, ln.expand(37).contiguous(),
+                        torch.ones(37, dtype=torch.bool, device=dev))
+            fn, plain, dtype = fns[0]
+            check(f"{fn.__name__} literal {s!r}",
+                  lambda: (lambda r: (r.data, r.validity))(fn(c, dtype)),
+                  lambda: (lambda r: (r.data, r.validity))(plain(c, dtype)))
+
+    i64 = np.iinfo(np.int64)
+    for zone in (ZONE_LA, ZONE_IST, "Europe/London"):
+        trans, _, wall = tzdb.tables(zone)
+        x = np.concatenate([
+            trans, trans - 1, trans + 1, wall, wall - 1, wall + 1,
+            wall + 3_600_000_000, rng.integers(i64.min, i64.max, 20_000,
+                                               dtype=np.int64),
+            rng.integers(-5 * 10 ** 15, 5 * 10 ** 15, 20_000),
+            np.array([i64.min, i64.max, 0, -1], np.int64)]).astype(np.int64)
+        xt = torch.from_numpy(x).to(dev)
+        check(f"utc_to_local {zone}", lambda: (tzdb.utc_to_local(xt, zone),),
+              lambda: (tzdb.utc_to_local_plain(xt, zone),))
+        check(f"local_to_utc {zone}", lambda: (tzdb.local_to_utc(xt, zone),),
+              lambda: (tzdb.local_to_utc_plain(xt, zone),))
+        check(f"utc_to_local {zone} (one row)",
+              lambda: (tzdb.utc_to_local(xt[:1], zone),),
+              lambda: (tzdb.utc_to_local_plain(xt[:1], zone),))
+
+    ints = torch.from_numpy(np.concatenate([
+        rng.integers(i64.min, i64.max, 20_000, dtype=np.int64),
+        rng.integers(-1000, 1000, 2000),
+        np.array([0, 1, -1, 9, 10, -10, i64.min, i64.max, i64.min + 1,
+                  10 ** 18, -10 ** 18], np.int64)])).to(dev)
+    check("int to string", lambda: C._format(K.FORMAT_INT, ints, 32),
+          lambda: C._int_to_string_plain(ints))
+    days = torch.from_numpy(np.concatenate([
+        rng.integers(-5_000_000, 5_000_000, 20_000),
+        rng.integers(-800_000, 800_000, 20_000),
+        np.array([0, -1, 8035, 10440, -719528, -719529, -719162, 2932896,
+                  2932897, -865565, -865566, 2 ** 31 - 1, -2 ** 31],
+                 np.int64)]).astype(np.int32)).to(dev)
+    check("date to string",
+          lambda: C._format(K.FORMAT_DATE, days, 16, days_input=True),
+          lambda: C._date_to_string_plain(days))
+    us = torch.from_numpy(np.concatenate([
+        rng.integers(i64.min, i64.max, 20_000, dtype=np.int64),
+        rng.integers(-10 ** 17, 10 ** 17, 20_000),
+        rng.integers(-10 ** 6, 10 ** 6, 6000) * US_PER_DAY
+        + rng.integers(0, 10, 6000) * 10 ** rng.integers(0, 7, 6000),
+        np.array([0, -1, 1, i64.min, i64.max, 1500000], np.int64)])).to(dev)
+    check("timestamp to string",
+          lambda: C._format(K.FORMAT_TIMESTAMP, us, 32),
+          lambda: C._timestamp_to_string_plain(us))
+    for fmt in ("yyyy-MM", "yyyy-MM-dd HH:mm:ss", "dd/MM/yyyy HH:mm:ss.SSS",
+                "yyyyMMdd", "HH", "ss:mm:HH dd MM yyyy [SSS] ==="):
+        for vals, di in ((days, True), (us, False)):
+            check(f"date_format {fmt!r} days={di}",
+                  lambda: DT._pattern_to_string(vals, di, fmt),
+                  lambda: DT._pattern_to_string_plain(vals, di, fmt))
+    torch.cuda.synchronize()
+    return cases
+
+
 def q5_oracle(fact_paths, dim_path):
     """The same query in pyarrow on the host (bench.py's cpu_query)."""
     import pyarrow as pa
@@ -2287,9 +2678,9 @@ def count_host_syncs(run) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def timed_runs(run, check) -> dict:
+def timed_runs(run, check, hot_runs: int = HOT_RUNS) -> dict:
     """Reset the launch counts, one cold run, read the counts; then
-    HOT_RUNS hot runs, each checked against the oracle; one run counting
+    hot_runs hot runs, each checked against the oracle; one run counting
     its host syncs; one profiled run."""
     import torch
 
@@ -2303,7 +2694,7 @@ def timed_runs(run, check) -> dict:
     launches = dict(kernels.launches)
     check(got)
     hot = []
-    for _ in range(HOT_RUNS):
+    for _ in range(hot_runs):
         t0 = time.monotonic()
         got = run()
         torch.cuda.synchronize()
@@ -2556,7 +2947,7 @@ def run_slice4(dev, root, oracles, fused: bool) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         want = oracles[name]
         rec = timed_runs(lambda: build_df().collect_arrow(),
-                         lambda got: check(got, want))
+                         lambda got: check(got, want), LATER_HOT_RUNS)
         ex = spark.last_execution
         if ex["engine"] != engine or ex["fallbacks"]:
             fail(f"{name} ran on {ex['engine']}, not {engine}: {ex}")
@@ -2887,7 +3278,8 @@ def run_slice5(dev, root, oracles, fused: bool) -> dict:
                 lambda got: check_u2u(got, oracles["u2u"]))
         checker_bytes = torch.cuda.memory_allocated(dev) - base
         torch.cuda.reset_peak_memory_stats(dev)
-        rec = timed_runs(lambda: build_df(fact).collect_arrow(), check)
+        rec = timed_runs(lambda: build_df(fact).collect_arrow(), check,
+                         LATER_HOT_RUNS)
         peak = int(torch.cuda.max_memory_allocated(dev)) - checker_bytes
         del want, check
         ex = spark.last_execution
@@ -3043,7 +3435,8 @@ def run_slice6(dev, root, oracles, fused: bool) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         rec = timed_runs(lambda: build_df().collect_arrow(),
                          lambda got, q=name: check_groups(q, got,
-                                                          oracles[q]))
+                                                          oracles[q]),
+                         LATER_HOT_RUNS)
         ex = spark.last_execution
         if ex["engine"] != engine or ex["fallbacks"]:
             fail(f"{name} ran on {ex['engine']}, not {engine}: {ex}")
@@ -3056,6 +3449,182 @@ def run_slice6(dev, root, oracles, fused: bool) -> dict:
         out[name] = rec
         torch.cuda.empty_cache()
     spark.stop()
+    return out
+
+
+#: the slice-7 kernels each query must launch (phase 9): K22 on the text
+#: load and on the date literal of q4's window, K23 on both queries in Los
+#: Angeles' zone, K24 on the monthly report's text
+SLICE7_PATH_KERNELS = {
+    "orders_q4_window": ("str_parse",),
+    "orders_ingest": ("str_parse", "tz_rebase"),
+    "orders_monthly": ("tz_rebase", "str_format"),
+}
+#: each query's session zone (phase 9)
+SLICE7_ZONES = {"orders_q4_window": "UTC", "orders_ingest": ZONE_LA,
+                "orders_monthly": ZONE_LA}
+
+
+def slice7_oracles(typed_paths) -> dict:
+    """The three date queries' answers from the typed table in pyarrow and
+    numpy, and the zones from the standard library: zoneinfo over the
+    2,406 distinct order dates, mapped onto the rows with numpy."""
+    import datetime as dtm
+    from zoneinfo import ZoneInfo
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    t = pa.concat_tables([pq.read_table(p) for p in typed_paths])
+    days = t.column("o_orderdate").cast(pa.int32()).to_numpy()
+    keys = t.column("o_orderkey").to_numpy()
+    price = t.column("o_totalprice").to_numpy()
+    prio = t.column("o_orderpriority").combine_chunks().dictionary_encode()
+    prio_code = prio.indices.to_numpy()
+    prio_name = prio.dictionary.to_pylist()
+    lo = int(days.min())
+    epoch = dtm.date(1970, 1, 1)
+    dates = [epoch + dtm.timedelta(days=int(d))
+             for d in range(lo, int(days.max()) + 1)]
+    la, ist = ZoneInfo(ZONE_LA), ZoneInfo(ZONE_IST)
+    # unix seconds of each date's midnight in Los Angeles
+    midnight = np.array([int(dtm.datetime(d.year, d.month, d.day,
+                                          tzinfo=la).timestamp())
+                         for d in dates], np.int64)
+    # that instant in Kolkata's wall clock, read back as an instant in LA
+    ist_hour = np.array([dtm.datetime.fromtimestamp(
+        int(m) + int(dtm.datetime.fromtimestamp(int(m), ist).utcoffset()
+                     .total_seconds()), la).hour for m in midnight])
+    ts_chars = np.array([len(dtm.datetime.fromtimestamp(int(m), la)
+                             .replace(tzinfo=None).isoformat(sep=" "))
+                         for m in midnight])
+    year = np.array([d.year for d in dates])
+    row = days - lo
+
+    def groups(codes, names, sel, aggs):
+        """{key: {column: value}} over the rows `sel`, grouped by `codes`
+        (one int64 code a row, named by names(code))."""
+        uniq, inv = np.unique(codes[sel], return_inverse=True)
+        out = {}
+        cols = {name: fn(inv, len(uniq), sel) for name, fn in aggs.items()}
+        for g, code in enumerate(uniq):
+            out[names(int(code))] = {name: v[g] for name, v in cols.items()}
+        return out
+
+    def count(inv, k, sel):
+        return [int(c) for c in np.bincount(inv, minlength=k)]
+
+    def total(values):
+        return lambda inv, k, sel: [
+            float(v) for v in np.bincount(inv, weights=values[sel],
+                                          minlength=k)]
+
+    def int_total(values):
+        def f(inv, k, sel):
+            acc = np.zeros(k, np.int64)
+            np.add.at(acc, inv, values[sel])
+            return [int(v) for v in acc]
+        return f
+
+    def extreme(values, ufunc, init, conv):
+        def f(inv, k, sel):
+            acc = np.full(k, init, np.int64)
+            ufunc.at(acc, inv, values[sel])
+            return [conv(int(v)) for v in acc]
+        return f
+
+    def as_date(d):
+        return epoch + dtm.timedelta(days=d)
+
+    everything = np.ones(len(days), dtype=bool)
+    start = (dtm.date(1993, 7, 1) - epoch).days
+    end = (dtm.date(1993, 10, 1) - epoch).days
+    q4 = groups(prio_code.astype(np.int64),
+                lambda c: (prio_name[c],), (days >= start) & (days < end),
+                dict(order_count=count, revenue=total(price),
+                     first_date=extreme(days, np.minimum, 2 ** 40, as_date),
+                     last_date=extreme(days, np.maximum, -2 ** 40,
+                                       as_date)))
+    ingest = groups(year[row].astype(np.int64), lambda c: (c,), everything,
+                    dict(n=count, revenue=total(price),
+                         max_key=extreme(keys, np.maximum, -2 ** 62, int),
+                         ts_sum=int_total(midnight[row])))
+    key_chars = np.floor(np.log10(keys)).astype(np.int64) + 1
+    month_code = np.array([d.year * 12 + d.month - 1 for d in dates],
+                          np.int64)
+
+    def month_hour(c):
+        return (f"{c // 100 // 12:04d}-{c // 100 % 12 + 1:02d}", c % 100)
+
+    monthly = groups(month_code[row] * 100 + ist_hour[row], month_hour,
+                     everything,
+                     dict(revenue=total(price), n=count,
+                          key_chars=int_total(key_chars),
+                          ts_chars=int_total(ts_chars[row])))
+    return {"orders_q4_window": (["o_orderpriority"], q4),
+            "orders_ingest": (["o_year"], ingest),
+            "orders_monthly": (["month", "ist_hour"], monthly)}
+
+
+def run_slice7(dev, root, oracles, fused: bool) -> dict:
+    """Phase 9: the three date queries (q5.py) through the port's session
+    with bench.py's conf on the adaptive or the fused engine, over the
+    typed ORDERS and its .tbl text cached on the card, each in its zone (a
+    session a zone). Returns {query: record}, each with its peak device
+    bytes."""
+    import torch
+
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+    from spark_rapids_tpu_torch.q5 import (
+        orders_ingest_query,
+        orders_monthly_query,
+        orders_q4_window_query,
+    )
+
+    engine = "fused" if fused else "aqe"
+    builds = {"orders_q4_window": (orders_q4_window_query, "orders_dated"),
+              "orders_ingest": (orders_ingest_query, "orders_tbl"),
+              "orders_monthly": (orders_monthly_query, "orders_dated")}
+    out = {}
+    for zone in ("UTC", ZONE_LA):
+        spark = (TpuSparkSession.builder
+                 .config("spark.sql.shuffle.partitions", 8)
+                 .config("spark.rapids.sql.reader.batchSizeRows", 1 << 23)
+                 .config("spark.rapids.sql.batchSizeRows", 1 << 23)
+                 .config("spark.rapids.shuffle.mode", "DEVICE")
+                 .config("spark.rapids.sql.fusedExec.enabled", fused)
+                 .config("spark.sql.session.timeZone", zone)
+                 .getOrCreate())
+        names = [q for q, z in SLICE7_ZONES.items() if z == zone]
+        frames = {}
+        t0 = time.monotonic()
+        for table in sorted({builds[q][1] for q in names}):
+            df = spark.read.parquet(os.path.join(root, table)).cache(
+                storage="device")
+            spark.cache_manager.lookup(df._plan).materialize()
+            frames[table] = df
+        torch.cuda.synchronize()
+        upload_s = time.monotonic() - t0
+        for name in names:
+            build, table = builds[name]
+            torch.cuda.reset_peak_memory_stats(dev)
+            rec = timed_runs(
+                lambda: build(frames[table]).collect_arrow(),
+                lambda got, q=name: check_groups(q, got, oracles[q]),
+                LATER_HOT_RUNS)
+            ex = spark.last_execution
+            if ex["engine"] != engine or ex["fallbacks"]:
+                fail(f"{name} ran on {ex['engine']}, not {engine}: {ex}")
+            missing_launches(f"{engine} {name}", rec["launches"],
+                             SLICE7_PATH_KERNELS[name])
+            rec.update(engine=ex["engine"], aqe=ex["aqe"], fused=ex["fused"],
+                       zone=zone, upload_s=upload_s,
+                       peak_device_bytes=int(
+                           torch.cuda.max_memory_allocated(dev)))
+            out[name] = rec
+            torch.cuda.empty_cache()
+        spark.stop()
     return out
 
 
@@ -3119,7 +3688,11 @@ def main() -> int:
     sys.path.insert(0, here)
     from spark_rapids_tpu_torch import resolve_device
     from spark_rapids_tpu_torch.kernels import build
-    from spark_rapids_tpu_torch.q5 import write_orders_data, write_q5_data
+    from spark_rapids_tpu_torch.q5 import (
+        write_orders_data,
+        write_orders_dated,
+        write_q5_data,
+    )
 
     # phase 1: the card, the build
     smi = subprocess.run(
@@ -3145,6 +3718,7 @@ def main() -> int:
     records.update(check_slice4_kernels(dev))
     records.update(check_slice5_kernels(dev))
     records.update(check_slice6_kernels(dev))
+    records.update(check_slice7_kernels(dev))
     for kname, r in records.items():
         lib = r["library_ms"]
         print(f"{kname}: {r['shape']}: kernel_ms={r['ms']:.4f} "
@@ -3161,7 +3735,8 @@ def main() -> int:
               f"bound_ms={r['bound_ms']:.6f}", flush=True)
     cases = (check_edge_shapes(dev) + check_slice2_edges(dev)
              + check_slice3_edges(dev) + check_slice4_edges(dev)
-             + check_slice5_edges(dev) + check_slice6_edges(dev))
+             + check_slice5_edges(dev) + check_slice6_edges(dev)
+             + check_slice7_edges(dev))
     print(f"edge shapes: {cases} cases exact against the plain versions",
           flush=True)
 
@@ -3287,8 +3862,38 @@ def main() -> int:
                 print(f"{engine} {qname}: " + json.dumps(rec), flush=True)
         del oracles6
 
+        # phase 9: slice 7's casts, dates and session zones over the dated
+        # ORDERS at SF10, typed and as .tbl text
+        t0 = time.monotonic()
+        typed_paths, _ = write_orders_dated(tmp, ORDERS_ROWS, FILES, seed=0)
+        oracles7 = slice7_oracles(typed_paths)
+        print(f"dated orders: {ORDERS_ROWS} rows in {FILES} files, typed "
+              f"and as text, and the slice 7 oracles in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        for engine, fused in (("aqe", False), ("fused", True)):
+            session = run_slice7(dev, tmp, oracles7, fused)
+            for qname, rec in session.items():
+                runs[f"{engine} {qname}"] = rec
+                prof = rec["profile"]
+                print(f"{engine} {qname}: zone={rec['zone']} "
+                      f"rows={rec['result_rows']} "
+                      f"fused={json.dumps(rec['fused'])} "
+                      f"upload_s={rec['upload_s']:.3f} "
+                      f"cold_s={rec['cold_s']:.4f} "
+                      f"hot_median_s={rec['hot_median_s']:.4f} "
+                      f"host_syncs={rec['host_syncs']} "
+                      f"device_busy_ms={prof['device_busy_ms']} "
+                      f"idle_share={prof['device_idle_share']} "
+                      f"peak_device_bytes={rec['peak_device_bytes']}",
+                      flush=True)
+                print(f"{engine} {qname} launches per query: "
+                      + json.dumps(rec["launches"]), flush=True)
+                print(f"{engine} {qname}: " + json.dumps(rec, default=str),
+                      flush=True)
+        del oracles7
+
     # each kernel's launches: the sum over every path's cold run (phases
-    # 3-8), each read right after it
+    # 3-9), each read right after it
     launches = {k: sum(r["launches"].get(rec.get("counter", k), 0)
                        for r in runs.values())
                 for k, rec in records.items()}

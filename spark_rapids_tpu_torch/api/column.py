@@ -1,7 +1,7 @@
 """Column — user-facing expression wrapper with Spark's operator surface;
 counterpart of `spark_rapids_tpu/api/column.py` for the operators whose
 expressions the port has: arithmetic (+ - * /), comparisons, boolean
-& | ~, `alias`, the string predicates `startswith`, `endswith`,
+& | ~, `alias`, `cast`, the string predicates `startswith`, `endswith`,
 `contains` and `rlike`, the sort directions (`asc`, `desc` and their
 nulls variants, consumed by orderBy and window specs) and `over`."""
 
@@ -13,6 +13,7 @@ from spark_rapids_tpu_torch.expr import (
     Add,
     Alias,
     And,
+    Cast,
     Contains,
     Divide,
     EndsWith,
@@ -57,6 +58,15 @@ class Column:
         base = self.expr.children[0] if isinstance(self.expr, Alias) \
             else self.expr
         return Column(Alias(base, name), name)
+
+    def cast(self, to) -> "Column":
+        if isinstance(to, str):
+            from spark_rapids_tpu_torch.sqltypes.datatypes import (
+                parse_type_name,
+            )
+
+            to = parse_type_name(to)
+        return Column(Cast(self.expr, to))
 
     # arithmetic
     def __add__(self, o):

@@ -3,7 +3,9 @@
 (window expressions extracted into Window nodes), `filter`/`where`,
 inner `join`, `groupBy(...).agg(...)`, `orderBy`/`sort`, `limit`,
 `distinct`, device caching, `collect_arrow`/`collect`, `count` and
-`explain`.
+`explain`. Every resolved expression gets the session's time zone
+(`_stamp_session`), and a collect pins current_date and
+current_timestamp to one literal a query (`_pin_query_time`).
 
 A collect plans the query (cache substitution, the optimizer, the
 planner) and dispatches it to an engine, recording which one ran in
@@ -54,6 +56,57 @@ def _resolve(expr, schema) -> Expression:
     raise TypeError(f"cannot resolve {expr!r}")
 
 
+def _stamp_session(expr: Expression, session) -> Expression:
+    """Stamp spark.sql.session.timeZone on the time-zone-aware nodes (the
+    zone becomes part of their keys), as the reference does after
+    resolution."""
+    from spark_rapids_tpu_torch.config import rapids_conf as rc
+    from spark_rapids_tpu_torch.expr.cast import Cast
+    from spark_rapids_tpu_torch.expr.datetimes import (
+        CurrentDate,
+        CurrentTimestamp,
+        TzAware,
+    )
+
+    tz = session.rapids_conf.get(rc.SESSION_TZ) if session else "UTC"
+
+    def fn(node):
+        if isinstance(node, (TzAware, Cast, CurrentDate, CurrentTimestamp)):
+            node.tz = tz  # node is a fresh copy from transform()
+        return node
+
+    return expr.transform(fn)
+
+
+def _pin_query_time(plan):
+    """Replace the current_date/current_timestamp markers with ONE literal
+    a query (Spark pins both at query start), at physical planning."""
+    import time
+
+    import numpy as np
+
+    from spark_rapids_tpu_torch.expr.core import Literal
+    from spark_rapids_tpu_torch.expr.datetimes import (
+        CurrentDate,
+        CurrentTimestamp,
+    )
+    from spark_rapids_tpu_torch.ops import tzdb
+    from spark_rapids_tpu_torch.sqltypes.datatypes import date, timestamp
+
+    now_us = int(time.time() * 1_000_000)
+
+    def efn(node):
+        if isinstance(node, CurrentTimestamp):
+            return Literal(now_us, timestamp)
+        if isinstance(node, CurrentDate):
+            local = int(tzdb.utc_to_local_np(
+                np.array([now_us], np.int64), getattr(node, "tz", "UTC"))[0])
+            return Literal(local // 86_400_000_000, date)
+        return node
+
+    return L.transform_expressions(plan, lambda e: e.transform(efn))
+
+
 def _named(expr: Expression, fallback: str) -> Alias:
     if isinstance(expr, Alias):
         return expr
@@ -93,9 +146,10 @@ class DataFrame:
 
     def _col_expr(self, c) -> Expression:
         if isinstance(c, str):
-            return self[c].expr
+            return _stamp_session(self[c].expr, self.session)
         if isinstance(c, Column):
-            return _resolve(c.expr, self.schema)
+            return _stamp_session(_resolve(c.expr, self.schema),
+                                  self.session)
         raise TypeError(repr(c))
 
     def select(self, *cols) -> "DataFrame":
@@ -193,8 +247,10 @@ class DataFrame:
                     else [ascending] * len(cols))
         for c, asc in zip(cols, asc_list):
             if isinstance(c, SortColumn):
-                orders.append(L.SortOrder(_resolve(c.expr, self.schema),
-                                          c.ascending, c.nulls_first))
+                orders.append(L.SortOrder(
+                    _stamp_session(_resolve(c.expr, self.schema),
+                                   self.session),
+                    c.ascending, c.nulls_first))
                 continue
             a = True if asc is None else bool(asc)
             orders.append(L.SortOrder(self._col_expr(c), a))
@@ -245,7 +301,10 @@ class DataFrame:
         from spark_rapids_tpu_torch.plan.optimizer import optimize
         from spark_rapids_tpu_torch.plan.overrides import plan_query
 
+        # cache substitution first: pinning rebuilds nodes, and the cache
+        # matches subtrees by identity
         plan = self.session.cache_manager.substitute(self._plan)
+        plan = _pin_query_time(plan)
         return plan_query(optimize(plan), self.session.rapids_conf)
 
     def collect_arrow(self) -> pa.Table:

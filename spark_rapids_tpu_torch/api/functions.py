@@ -8,16 +8,24 @@ functions (`concat`, `substring`, `upper`, `lower`, `length`, the trim
 and pad families, `repeat`, `reverse`, `initcap`, `instr`, `locate`,
 `translate`, `replace`, `concat_ws`, `ascii`, `chr_`, `substring_index`)
 with `rlike`, `regexp_extract` and `regexp_replace` (the last two have no
-device implementation: the planner refuses them, naming ROADMAP A9)."""
+device implementation: the planner refuses them, naming ROADMAP A9), and
+the date and time functions (`year` through `quarter`, `last_day`,
+`date_add`, `date_sub`, `datediff`, `add_months`, `months_between`,
+`next_day`, `trunc`, `date_trunc`, `unix_timestamp`, `from_unixtime`,
+`timestamp_seconds`, `make_date`, `from_utc_timestamp`,
+`to_utc_timestamp`, `date_format`, `to_date`, `to_timestamp`,
+`current_date`, `current_timestamp`)."""
 
 from __future__ import annotations
 
 from typing import Any
 
 from spark_rapids_tpu_torch.api.column import Column, SortColumn, _expr
+from spark_rapids_tpu_torch.expr import datetimes as DT
 from spark_rapids_tpu_torch.expr import (
     Ascii,
     Average,
+    Cast,
     Chr,
     Concat,
     ConcatWs,
@@ -49,6 +57,8 @@ from spark_rapids_tpu_torch.expr import (
     Sum,
     Upper,
 )
+from spark_rapids_tpu_torch.sqltypes.datatypes import date as date_t
+from spark_rapids_tpu_torch.sqltypes.datatypes import timestamp as timestamp_t
 
 
 class UnresolvedColumn:
@@ -256,3 +266,107 @@ def regexp_extract(c, pattern: str, idx: int = 1) -> Column:
 
 def regexp_replace(c, pattern: str, replacement: str) -> Column:
     return Column(RegexpReplace(expr_of(c), pattern, replacement))
+
+
+# ------------------------------------------------------- casts and dates
+
+year = _u(DT.Year)
+month = _u(DT.Month)
+dayofmonth = _u(DT.DayOfMonth)
+hour = _u(DT.Hour)
+minute = _u(DT.Minute)
+second = _u(DT.Second)
+dayofweek = _u(DT.DayOfWeek)
+weekday = _u(DT.WeekDay)
+dayofyear = _u(DT.DayOfYear)
+weekofyear = _u(DT.WeekOfYear)
+quarter = _u(DT.Quarter)
+
+
+def last_day(c) -> Column:
+    return Column(DT.LastDay(expr_of(c)))
+
+
+def date_add(c, days) -> Column:
+    return Column(DT.DateAdd(expr_of(c), expr_of(lit_or(days))))
+
+
+def date_sub(c, days) -> Column:
+    return Column(DT.DateSub(expr_of(c), expr_of(lit_or(days))))
+
+
+def datediff(end, start) -> Column:
+    return Column(DT.DateDiff(expr_of(end), expr_of(start)))
+
+
+def add_months(c, months) -> Column:
+    return Column(DT.AddMonths(expr_of(c), expr_of(lit_or(months))))
+
+
+def months_between(end, start, roundOff: bool = True) -> Column:
+    return Column(DT.MonthsBetween(expr_of(end), expr_of(start), roundOff))
+
+
+def next_day(c, dayOfWeek: str) -> Column:
+    return Column(DT.NextDay(expr_of(c), dayOfWeek))
+
+
+def trunc(c, fmt: str) -> Column:
+    return Column(DT.TruncDate(expr_of(c), fmt))
+
+
+def date_trunc(fmt: str, c) -> Column:
+    return Column(DT.DateTrunc(fmt, expr_of(c)))
+
+
+def unix_timestamp(c) -> Column:
+    """Seconds since the epoch; a string or date input is cast to a
+    timestamp first (a no-op for timestamps)."""
+    return Column(DT.UnixTimestamp(Cast(expr_of(c), timestamp_t)))
+
+
+def from_unixtime(c, fmt: str = "yyyy-MM-dd HH:mm:ss") -> Column:
+    return Column(DT.FromUnixtime(expr_of(c), fmt))
+
+
+def timestamp_seconds(c) -> Column:
+    return Column(DT.SecondsToTimestamp(expr_of(c)))
+
+
+def make_date(y, m, d) -> Column:
+    return Column(DT.MakeDate(expr_of(y), expr_of(m), expr_of(d)))
+
+
+def from_utc_timestamp(c, tz: str) -> Column:
+    return Column(DT.FromUtcTimestamp(expr_of(c), tz))
+
+
+def to_utc_timestamp(c, tz: str) -> Column:
+    return Column(DT.ToUtcTimestamp(expr_of(c), tz))
+
+
+def date_format(c, fmt: str) -> Column:
+    return Column(DT.DateFormat(expr_of(c), fmt))
+
+
+def to_date(c, fmt: str = None) -> Column:
+    if fmt is not None and fmt not in ("yyyy-MM-dd",):
+        raise ValueError(
+            f"to_date format {fmt!r} unsupported in v1 (default "
+            "'yyyy-MM-dd' only)")
+    return Column(Cast(expr_of(c), date_t))
+
+
+def to_timestamp(c, fmt: str = None) -> Column:
+    if fmt is not None and fmt not in ("yyyy-MM-dd HH:mm:ss",
+                                       "yyyy-MM-dd"):
+        raise ValueError(f"to_timestamp format {fmt!r} unsupported in v1")
+    return Column(Cast(expr_of(c), timestamp_t))
+
+
+def current_date() -> Column:
+    return Column(DT.CurrentDate())
+
+
+def current_timestamp() -> Column:
+    return Column(DT.CurrentTimestamp())

@@ -594,8 +594,11 @@ CASE_SENSITIVE = conf(
     "Case sensitivity of column resolution.", bool)
 SESSION_TZ = conf(
     "spark.sql.session.timeZone", "UTC",
-    "Session timezone; v1 device datetime ops require UTC like the "
-    "reference's default path (GpuTimeZoneDB handles others there).", str)
+    "Session time zone: stamped on every time-zone-aware expression (the "
+    "casts between strings, dates and timestamps, the date parts of "
+    "timestamps, date_format, date_trunc, current_date); a non-UTC zone "
+    "rebases through its TZif transition table on the device "
+    "(ops/tzdb.py, kernel K23).", str)
 MAX_READER_BATCH_SIZE_ROWS = conf(
     "spark.rapids.sql.reader.batchSizeRows", 1 << 20,
     "Soft cap on rows per scan batch (reference maxReadBatchSizeRows).", int)
@@ -1206,7 +1209,7 @@ PORT_READ_KEYS = frozenset(e.key for e in (
     FUSED_EXPANSION, FUSED_MAX_EXPANSION, FUSED_GROUP_CAP, FUSED_LOOKUP_JOIN,
     FUSED_AGG_PUSHDOWN, FUSED_SINGLE_SYNC_FETCH_BYTES, FUSED_SHAPE_BUCKETS,
     ANSI_ENABLED, WINDOW_STREAMING, WINDOW_U2U_FOLD, REGEXP_ENABLED,
-    REGEX_MAX_STATES, REGEX_COMPLEXITY_LIMIT))
+    REGEX_MAX_STATES, REGEX_COMPLEXITY_LIMIT, SESSION_TZ))
 
 
 def check_port_settings(conf: "RapidsConf", keys) -> List[str]:

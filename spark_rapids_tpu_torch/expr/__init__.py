@@ -1,5 +1,5 @@
 """Expressions: references, literals, predicates, arithmetic, aggregate
-functions, string functions and regex."""
+functions, string functions, regex, casts and datetimes."""
 
 from spark_rapids_tpu_torch.expr.aggregates import (  # noqa: F401
     AggregateFunction,
@@ -17,12 +17,21 @@ from spark_rapids_tpu_torch.expr.arith import (  # noqa: F401
     Multiply,
     Subtract,
 )
+from spark_rapids_tpu_torch.expr.cast import Cast  # noqa: F401
 from spark_rapids_tpu_torch.expr.core import (  # noqa: F401
     Alias,
     BoundReference,
     EvalContext,
     Expression,
     Literal,
+)
+from spark_rapids_tpu_torch.expr.datetimes import (  # noqa: F401
+    DayOfMonth,
+    Hour,
+    Minute,
+    Month,
+    Second,
+    Year,
 )
 from spark_rapids_tpu_torch.expr.predicates import (  # noqa: F401
     And,

@@ -1,0 +1,343 @@
+"""Cast — the Spark-compatible conversion matrix, counterpart of
+`spark_rapids_tpu/expr/cast.py` (GpuCast's role), non-ANSI: a cast never
+raises, and an invalid input gives null.
+
+- numeric <-> numeric: integral narrowing wraps (Java semantics); float
+  -> integral truncates toward zero and saturates, NaN -> 0 (Java's
+  (long)(double)); integral -> float widens. Elementwise torch, as it is
+  elementwise jnp in the reference.
+- boolean <-> numeric.
+- date -> timestamp: local midnight in the session zone, rebased to UTC;
+  timestamp -> date: the floor of the local day (ops/tzdb.py, K23).
+- string -> boolean/integral/float/double/date/timestamp: ops/stringcast.py
+  (kernel K22); a parsed timestamp is a wall clock in the session zone,
+  rebased to UTC (K23).
+- integral/boolean/date/timestamp -> string: integral, date and timestamp
+  text is written by kernel K24 (csrc/str_format.cu) through
+  `_int_to_string`, `_date_to_string` and `_timestamp_to_string`, whose
+  plain versions are the reference's digit-by-digit bodies; a timestamp
+  is rebased into the session zone first (K23). Widths are the
+  reference's: 32, 16 and 32 bytes.
+
+Casts to and from decimal wait for decimal columns (ROADMAP A3): the
+planner refuses the type, and `eval` raises naming A3.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import kernels
+from spark_rapids_tpu_torch.columnar.batch import DeviceColumn
+from spark_rapids_tpu_torch.expr.core import Expression
+from spark_rapids_tpu_torch.expr.datetimes import civil_from_days
+from spark_rapids_tpu_torch.kernels import build as _build
+from spark_rapids_tpu_torch.ops import tzdb
+from spark_rapids_tpu_torch.sqltypes import (
+    BooleanType,
+    DataType,
+    DateType,
+    DecimalType,
+    DoubleType,
+    FloatType,
+    IntegralType,
+    StringType,
+    TimestampType,
+)
+from spark_rapids_tpu_torch.sqltypes.datatypes import string as string_t
+from spark_rapids_tpu_torch.sqltypes.datatypes import torch_dtype
+
+_US_PER_DAY = 86_400_000_000
+_DECIMAL = ("decimal casts wait for decimal columns, which are not ported "
+            "yet (ROADMAP A3)")
+
+
+class Cast(Expression):
+    """tz: the session time zone, stamped at resolution time; it governs
+    timestamp <-> date and string conversions and is part of the key."""
+
+    tz: str = "UTC"
+
+    def __init__(self, child: Expression, to: DataType):
+        super().__init__([child])
+        self.to = to
+
+    @property
+    def dtype(self):
+        return self.to
+
+    def key(self):
+        return ("cast", repr(self.to), self.tz, self.children[0].key())
+
+    def device_supported(self) -> bool:
+        """The reference's check: wide decimals from float or string, and
+        wide decimals of scale > 18 to string, have no device lowering."""
+        frm = self.children[0].dtype
+        if _is_wide(self.to) and isinstance(
+                frm, (FloatType, DoubleType, StringType)):
+            return False
+        if (isinstance(self.to, StringType) and _is_wide(frm)
+                and frm.scale > 18):
+            return False
+        return True
+
+    def can_fail(self) -> bool:
+        """True when this cast can produce an error in ANSI mode (an
+        invalid parse, an overflow)."""
+        frm = self.children[0].dtype
+        to = self.to
+        if isinstance(frm, StringType) and not isinstance(to, StringType):
+            return True
+        if isinstance(frm, (FloatType, DoubleType)) and isinstance(
+                to, IntegralType):
+            return True
+        if isinstance(frm, IntegralType) and isinstance(to, IntegralType):
+            return _int_width(to) < _int_width(frm)
+        return isinstance(to, DecimalType)
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        frm, to = c.dtype, self.to
+        if frm == to:
+            return c
+        if isinstance(frm, DecimalType) or isinstance(to, DecimalType):
+            raise NotImplementedError(_DECIMAL)
+        if isinstance(frm, StringType):
+            return _cast_from_string(c, to, self.tz)
+        if isinstance(to, StringType):
+            return _cast_to_string(c, self.tz)
+        if isinstance(frm, BooleanType):
+            return DeviceColumn(to, c.data.to(torch_dtype(to)), c.validity)
+        if isinstance(to, BooleanType):
+            return DeviceColumn(to, c.data != 0, c.validity)
+        if isinstance(frm, DateType) and isinstance(to, TimestampType):
+            # local midnight in the session zone -> UTC instant
+            local = c.data.to(torch.int64) * _US_PER_DAY
+            if not tzdb.is_utc(self.tz):
+                local = tzdb.local_to_utc(local, self.tz)
+            return DeviceColumn(to, local, c.validity)
+        if isinstance(frm, TimestampType) and isinstance(to, DateType):
+            us = c.data
+            if not tzdb.is_utc(self.tz):
+                us = tzdb.utc_to_local(us, self.tz)
+            d = torch.div(us, _US_PER_DAY, rounding_mode="floor")
+            return DeviceColumn(to, d.to(torch.int32), c.validity)
+        if isinstance(frm, (FloatType, DoubleType)) and isinstance(
+                to, IntegralType):
+            # Java (int)/(long) of a float: truncate toward zero, saturate,
+            # NaN -> 0
+            f = c.data.to(torch.float64)
+            info = torch.iinfo(torch_dtype(to))
+            t = torch.clamp(torch.trunc(f), float(info.min), float(info.max))
+            t = torch.where(torch.isnan(f), 0.0, t)
+            return DeviceColumn(to, _float_to_int(t, torch_dtype(to)),
+                                c.validity)
+        # numeric widening and narrowing (wraps like Java), int -> float
+        return DeviceColumn(to, c.data.to(torch_dtype(to)), c.validity)
+
+
+def _float_to_int(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A saturated, truncated float64 as the integral type: exact below
+    2^63; at the int64 edge, float64(INT64_MAX) rounds to 2^63, which
+    jnp's astype saturates to INT64_MAX."""
+    if dtype != torch.int64:
+        return t.to(dtype)
+    hi = t >= 9.2233720368547758e18
+    return torch.where(hi, torch.iinfo(torch.int64).max,
+                       torch.where(hi, 0.0, t).to(torch.int64))
+
+
+def _is_wide(dt: DataType) -> bool:
+    return isinstance(dt, DecimalType) and dt.precision > 18
+
+
+def _int_width(dt: DataType) -> int:
+    return np.dtype(dt.np_dtype).itemsize
+
+
+def _cast_from_string(c: DeviceColumn, to: DataType,
+                      tz: str = "UTC") -> DeviceColumn:
+    """String parsing (ops/stringcast.py, kernel K22); invalid input
+    gives null."""
+    from spark_rapids_tpu_torch.ops import stringcast as SC
+
+    if isinstance(to, BooleanType):
+        return SC.parse_bool(c, to)
+    if isinstance(to, IntegralType):
+        return SC.parse_long(c, to)
+    if isinstance(to, (FloatType, DoubleType)):
+        return SC.parse_double(c, to)
+    if isinstance(to, DateType):
+        return SC.parse_date(c, to)
+    if isinstance(to, TimestampType):
+        out = SC.parse_timestamp(c, to)
+        if not tzdb.is_utc(tz):
+            # the parsed wall clock is in the session zone
+            out = DeviceColumn(out.dtype, tzdb.local_to_utc(out.data, tz),
+                               out.validity)
+        return out
+    raise TypeError(f"cast string -> {to} not supported on device")
+
+
+def _cast_to_string(c: DeviceColumn, tz: str = "UTC") -> DeviceColumn:
+    """Integral, boolean, date and timestamp -> UTF-8 byte matrix."""
+    if isinstance(c.dtype, TimestampType):
+        return _timestamp_to_string(c, tz)
+    if isinstance(c.dtype, BooleanType):
+        tmat = torch.zeros((2, 8), dtype=torch.uint8, device=c.data.device)
+        tmat[0, :5] = torch.tensor(list(b"false"), dtype=torch.uint8)
+        tmat[1, :4] = torch.tensor(list(b"true"), dtype=torch.uint8)
+        data = tmat[c.data.to(torch.int64)]
+        lengths = torch.where(c.data, 4, 5).to(torch.int32)
+        return DeviceColumn(string_t, data, c.validity, lengths)
+    if isinstance(c.dtype, DateType):
+        return _date_to_string(c)
+    if isinstance(c.dtype, IntegralType):
+        return _int_to_string(c.data.to(torch.int64), c.validity)
+    raise TypeError(f"cast {c.dtype} -> string not supported on device")
+
+
+# ------------------------------------------------------ K24 str_format
+
+def _format(mode: int, values: torch.Tensor, mb: int,
+            codes: Optional[torch.Tensor] = None, days_input: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One K24 launch: ([n, mb] uint8 text, int32 lengths)."""
+    dev = values.device
+    values = values.contiguous()
+    want = torch.int32 if days_input else torch.int64
+    kernels.require(values, "values", want, dev)
+    n = int(values.shape[0])
+    out = torch.empty((n, mb), dtype=torch.uint8, device=dev)
+    lengths = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        _build.check(_build.lib().srtpu_str_format(
+            mode, values.data_ptr(), int(days_input), n,
+            None if codes is None else codes.data_ptr(),
+            0 if codes is None else int(codes.shape[0]), out.data_ptr(), mb,
+            lengths.data_ptr(), kernels.sm_count(values),
+            kernels.stream_ptr(values)), "str_format")
+        kernels.launches["str_format"] += 1
+    return out, lengths
+
+
+_MAX_DIGITS = 20
+
+
+def _digit(x: torch.Tensor, p: int) -> torch.Tensor:
+    return ((x // (10 ** p)) % 10 + ord("0")).to(torch.uint8)
+
+
+def _int_to_string_plain(v: torch.Tensor) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Plain PyTorch version of K24's integral mode: the reference's
+    digit loop over |v| - 1 with a carry (INT64_MIN included)."""
+    n = v.shape[0]
+    neg = v < 0
+    mag = torch.where(neg, -(v + 1), v)  # |v| - 1 for negatives
+    carry = neg.to(torch.int64)
+    digits = []
+    rest = mag
+    for _ in range(_MAX_DIGITS):
+        d = rest % 10 + carry
+        carry = (d >= 10).to(torch.int64)
+        digits.append(d % 10)
+        rest = rest // 10
+    digs = torch.stack(digits, dim=1)  # [n, MAX], least significant first
+    nd = torch.ones(n, dtype=torch.int32, device=v.device)
+    for i in range(1, _MAX_DIGITS):
+        nd = torch.where(digs[:, i] > 0, i + 1, nd)
+    total_len = (nd + neg.to(torch.int32)).to(torch.int32)
+    mb = 32
+    pos = torch.arange(mb, dtype=torch.int32, device=v.device)[None, :]
+    digit_idx = torch.clamp(total_len[:, None] - 1 - pos, 0,
+                            _MAX_DIGITS - 1)
+    dchar = torch.gather(digs, 1, digit_idx.to(torch.int64)) + ord("0")
+    out = torch.where(neg[:, None] & (pos == 0), ord("-"), dchar)
+    out = torch.where(pos < total_len[:, None], out, 0).to(torch.uint8)
+    return out, total_len
+
+
+def _int_to_string(v: torch.Tensor, validity: torch.Tensor) -> DeviceColumn:
+    """Kernel K24 (integral mode): int64 -> decimal text, width 32."""
+    if v.device.type == "cpu":
+        data, lengths = _int_to_string_plain(v)
+    else:
+        data, lengths = _format(kernels.FORMAT_INT, v, 32)
+    return DeviceColumn(string_t, data, validity, lengths)
+
+
+def _date_to_string_plain(days: torch.Tensor) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """Plain PyTorch version of K24's date mode: 'YYYY-MM-DD', each field
+    digit by digit with flooring // and % (a year outside 0-9,999 prints
+    as those give it)."""
+    y, m, d = civil_from_days(days.to(torch.int64))
+    n = days.shape[0]
+    out = torch.zeros((n, 16), dtype=torch.uint8, device=days.device)
+    cols = [_digit(y, 3), _digit(y, 2), _digit(y, 1), _digit(y, 0), ord("-"),
+            _digit(m, 1), _digit(m, 0), ord("-"), _digit(d, 1), _digit(d, 0)]
+    for i, col in enumerate(cols):
+        out[:, i] = col
+    return out, torch.full((n,), 10, dtype=torch.int32, device=days.device)
+
+
+def _date_to_string(c: DeviceColumn) -> DeviceColumn:
+    """Kernel K24 (date mode): int32 days -> 'YYYY-MM-DD', width 16."""
+    if c.data.device.type == "cpu":
+        data, lengths = _date_to_string_plain(c.data)
+    else:
+        data, lengths = _format(kernels.FORMAT_DATE, c.data.to(torch.int32),
+                                16, days_input=True)
+    return DeviceColumn(string_t, data, c.validity, lengths)
+
+
+def _timestamp_to_string_plain(us: torch.Tensor) -> Tuple[torch.Tensor,
+                                                          torch.Tensor]:
+    """Plain PyTorch version of K24's timestamp mode over local
+    microseconds: 'YYYY-MM-DD HH:MM:SS[.ffffff]', trailing fraction zeros
+    trimmed (Spark's cast-to-string format)."""
+    days = torch.div(us, _US_PER_DAY, rounding_mode="floor")
+    in_day = us - days * _US_PER_DAY
+    y, m, d = civil_from_days(days)
+    hh = in_day // 3_600_000_000
+    mi = (in_day // 60_000_000) % 60
+    ss = (in_day // 1_000_000) % 60
+    frac = in_day % 1_000_000
+    n = us.shape[0]
+    out = torch.zeros((n, 32), dtype=torch.uint8, device=us.device)
+    fixed = [_digit(y, 3), _digit(y, 2), _digit(y, 1), _digit(y, 0),
+             ord("-"), _digit(m, 1), _digit(m, 0), ord("-"), _digit(d, 1),
+             _digit(d, 0), ord(" "), _digit(hh, 1), _digit(hh, 0), ord(":"),
+             _digit(mi, 1), _digit(mi, 0), ord(":"), _digit(ss, 1),
+             _digit(ss, 0)]
+    for i, col in enumerate(fixed):
+        out[:, i] = col
+    # the fraction: 6 digits with trailing zeros trimmed, none when 0
+    trailing = torch.zeros(n, dtype=torch.int32, device=us.device)
+    for z in range(1, 7):
+        trailing = torch.where(frac % (10 ** z) == 0, z, trailing)
+    has_frac = frac > 0
+    ndig = torch.where(has_frac, 6 - trailing, 0)
+    out[:, 19] = torch.where(has_frac, ord("."), 0).to(torch.uint8)
+    for j in range(6):
+        out[:, 20 + j] = torch.where(j < ndig, _digit(frac, 5 - j), 0).to(
+            torch.uint8)
+    lengths = (19 + torch.where(has_frac, ndig + 1, 0)).to(torch.int32)
+    return out, lengths
+
+
+def _timestamp_to_string(c: DeviceColumn, tz: str = "UTC") -> DeviceColumn:
+    """Kernel K24 (timestamp mode), after K23 rebases the instants into the
+    session zone: width 32."""
+    us = c.data
+    if not tzdb.is_utc(tz):
+        us = tzdb.utc_to_local(us, tz)
+    if us.device.type == "cpu":
+        data, lengths = _timestamp_to_string_plain(us)
+    else:
+        data, lengths = _format(kernels.FORMAT_TIMESTAMP, us, 32)
+    return DeviceColumn(string_t, data, c.validity, lengths)

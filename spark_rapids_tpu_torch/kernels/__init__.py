@@ -46,7 +46,17 @@ module that the JAX package keeps the function in:
 - K21 `expr.strings._assemble`: Concat, ConcatWs, the pads, Repeat and
   Replace's emission (csrc/str_assemble.cu)
 
-K18-K21 share the row reader and writer of csrc/strings.cuh.
+- K22 `ops.stringcast.parse_long`, `parse_double`, `parse_bool`,
+  `parse_date` and `parse_timestamp`: Spark's string parse, one mode a
+  target type (csrc/str_parse.cu)
+- K23 `ops.tzdb.utc_to_local` and `local_to_utc`: the time-zone rebase
+  through the zone's transition table (csrc/tz_rebase.cu)
+- K24 `expr.cast._int_to_string`, `_date_to_string`,
+  `_timestamp_to_string` and `expr.datetimes._pattern_to_string`
+  (DateFormat): integral, date and timestamp text (csrc/str_format.cu)
+
+K18-K22 and K24 share the row reader and writer of csrc/strings.cuh, K22
+and K24 the calendar of csrc/calendar.cuh.
 
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel (adding one to its count in `launches`) or
@@ -92,6 +102,9 @@ launches: Dict[str, int] = {
     "str_find": 0,
     "str_rewrite": 0,
     "str_assemble": 0,
+    "str_parse": 0,
+    "tz_rebase": 0,
+    "str_format": 0,
 }
 
 
@@ -229,6 +242,11 @@ class StrCol(ctypes.Structure):
 
 #: input columns one K21 launch takes (kMaxStrCols)
 MAX_STR_COLS = 16
+
+#: K22's modes (ParseMode in csrc/str_parse.cu)
+PARSE_LONG, PARSE_DOUBLE, PARSE_BOOL, PARSE_DATE, PARSE_TIMESTAMP = range(5)
+#: K24's modes (FormatMode in csrc/str_format.cu)
+FORMAT_INT, FORMAT_DATE, FORMAT_TIMESTAMP, FORMAT_PATTERN = range(4)
 
 
 def struct_array(cls, items) -> ctypes.c_void_p:

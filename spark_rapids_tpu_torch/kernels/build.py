@@ -84,6 +84,9 @@ _SIGNATURES = {
                           _I, _P],
     "srtpu_str_assemble": [_I, _P, _I, _L, _P, _I, _L, _P, _P, _I, _P, _I,
                            _P],
+    "srtpu_str_parse": [_I, _P, _L, _P, _P, _L, _I, _L, _L, _P, _P, _I, _P],
+    "srtpu_tz_rebase": [_I, _P, _L, _P, _P, _P, _I, _P, _I, _P],
+    "srtpu_str_format": [_I, _P, _I, _L, _P, _I, _P, _I, _P, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,12 @@
 """Device-support checks — the part of `spark_rapids_tpu/plan/typesig.py`
 and `plan/expr_sigs.py` that `TpuOverrides.tag` consults for the port's
 slice: which types and expression classes the port runs on the device,
-the child types of the string and regex expressions (the reference's
-ExprSig rows), the regex checks (an untranspilable pattern,
-spark.rapids.sql.regexp.enabled=false) and the regex expressions the
-reference runs on its CPU engine only.
+the child types of the string, regex, cast and datetime expressions (the
+reference's ExprSig rows), the regex checks (an untranspilable pattern,
+spark.rapids.sql.regexp.enabled=false), the expressions the reference
+runs on its CPU engine only, and the device checks of Cast and
+DateFormat (`device_supported`), whose refusals the reference would also
+send to its CPU engine.
 
 The port has no CPU engine to fall back to, so a reason returned here
 makes the planner raise NotImplementedError naming the ROADMAP item that
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 from spark_rapids_tpu_torch.config import rapids_conf as rc
+from spark_rapids_tpu_torch.expr import datetimes as D
 from spark_rapids_tpu_torch.expr import strings as S
 from spark_rapids_tpu_torch.expr import (
     Add,
@@ -23,6 +26,7 @@ from spark_rapids_tpu_torch.expr import (
     And,
     Average,
     BoundReference,
+    Cast,
     Count,
     Divide,
     EqualTo,
@@ -68,28 +72,72 @@ PORTED_EXPRESSIONS = (BoundReference, Literal, Alias, Add, Subtract,
                       Multiply, Divide, EqualTo, LessThan, GreaterThan,
                       LessThanOrEqual, GreaterThanOrEqual, And, Or, Not,
                       Sum, Count, Average, Min, Max, First, Last, RLike,
-                      *S.STRING_EXPRESSIONS)
+                      *S.STRING_EXPRESSIONS, Cast, *D.DATETIME_EXPRESSIONS)
 
 #: expressions the reference evaluates on its CPU engine only (no device
 #: implementation); the port has no CPU engine yet
 CPU_ONLY_EXPRESSIONS = (RegexpExtract, RegexpReplace)
 _REGEX_EXPRESSIONS = (RLike, RegexpExtract, RegexpReplace)
 
-#: the types every child of a string or regex expression may have (the
-#: reference's plan/expr_sigs.py rows; scalar arguments such as needles,
-#: pads and positions are constructor attributes)
+_DATETIME = (DateType, TimestampType)
+_NUMERIC = (IntegralType, FloatType, DoubleType)
+
+#: the types each child of a string, regex or datetime expression may
+#: have: one tuple for every child, or a list of one tuple a parameter
+#: (the reference's plan/expr_sigs.py rows; scalar arguments such as
+#: needles, pads, formats and zones are constructor attributes)
 _CHILD_TYPES = {cls: (StringType,)
                 for cls in (*S.STRING_EXPRESSIONS, *_REGEX_EXPRESSIONS)}
-_CHILD_TYPES[S.Chr] = (IntegralType,)
+_CHILD_TYPES.update({
+    S.Chr: (IntegralType,),
+    D.DateAdd: [(DateType,), (IntegralType,)],
+    D.DateSub: [(DateType,), (IntegralType,)],
+    D.DateDiff: _DATETIME,
+    D.AddMonths: [(DateType,), (IntegralType,)],
+    D.MonthsBetween: _DATETIME,
+    D.NextDay: (DateType,),
+    D.LastDay: _DATETIME,
+    D.TruncDate: (DateType,),
+    D.DateTrunc: (TimestampType,),
+    D.UnixTimestamp: _DATETIME,
+    D.SecondsToTimestamp: _NUMERIC,
+    D.MakeDate: (IntegralType,),
+    D.FromUtcTimestamp: (TimestampType,),
+    D.ToUtcTimestamp: (TimestampType,),
+    # FromUnixtime wraps its input in SecondsToTimestamp when it is built
+    D.FromUnixtime: (TimestampType,),
+    D.DateFormat: _DATETIME,
+})
+_CHILD_TYPES.update({cls: _DATETIME for cls in (
+    D.Year, D.Month, D.DayOfMonth, D.DayOfWeek, D.WeekDay, D.DayOfYear,
+    D.WeekOfYear, D.Quarter)})
+_CHILD_TYPES.update({cls: (TimestampType,)
+                     for cls in (D.Hour, D.Minute, D.Second)})
+
+_NO_CPU = "; the port has no CPU engine yet (ROADMAP A9)"
 
 
 def _child_type_reasons(e: Expression) -> List[str]:
-    ok = _CHILD_TYPES.get(type(e))
-    if ok is None:
+    sig = _CHILD_TYPES.get(type(e))
+    if sig is None:
         return []
     return [f"{type(e).__name__} parameter {i}: {c.dtype} input has no "
             "device lowering" for i, c in enumerate(e.children)
-            if not isinstance(c.dtype, (NullType,) + ok)]
+            if not isinstance(c.dtype, (NullType,) + (
+                sig[i] if isinstance(sig, list) else sig))]
+
+
+def _device_check_reasons(e: Expression) -> List[str]:
+    """Cast's and DateFormat's device checks (the reference's
+    `_cast_check` and `_date_format_check`); the reference runs what they
+    refuse on its CPU engine, so each names A9."""
+    if isinstance(e, Cast) and not e.device_supported():
+        return [f"cast {e.children[0].dtype} -> {e.to} runs on the "
+                "reference's CPU engine" + _NO_CPU]
+    if isinstance(e, D.DateFormat):
+        r = e.device_supported()
+        return [r + _NO_CPU] if r else []
+    return []
 
 
 def _regex_reasons(e: Expression, conf) -> List[str]:
@@ -98,14 +146,13 @@ def _regex_reasons(e: Expression, conf) -> List[str]:
     would run the expression on its CPU engine."""
     if not isinstance(e, _REGEX_EXPRESSIONS):
         return []
-    no_cpu = "; the port has no CPU engine yet (ROADMAP A9)"
     out = []
     if conf is not None and not conf.get(rc.REGEXP_ENABLED):
         out.append("regex on device disabled via "
-                   "spark.rapids.sql.regexp.enabled=false" + no_cpu)
+                   "spark.rapids.sql.regexp.enabled=false" + _NO_CPU)
     r = e.device_supported()
     if r:
-        out.append(r + no_cpu)
+        out.append(r + _NO_CPU)
     return out
 
 
@@ -134,6 +181,7 @@ def expr_unsupported_reasons(expr: Expression, conf=None) -> List[str]:
             reasons.append(f"{name} disabled via spark.rapids.sql."
                            f"expression.{name}=false")
         reasons.extend(_regex_reasons(e, conf))
+        reasons.extend(_device_check_reasons(e))
         if not isinstance(e, PORTED_EXPRESSIONS + CPU_ONLY_EXPRESSIONS):
             reasons.append(f"expression {name} is not ported yet "
                            "(ROADMAP A12)")

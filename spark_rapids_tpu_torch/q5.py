@@ -34,7 +34,11 @@ arithmetic, and the two-pass whole-partition aggregate.
 bench.py's two queries by string expressions and RLIKE;
 `orders_q13_query` and `orders_words_query` run TPC-H q13's comment
 predicate and word split over an ORDERS-shaped table that
-`write_orders_data` generates. Through the
+`write_orders_data` generates. `orders_q4_window_query`,
+`orders_ingest_query` and `orders_monthly_query` run TPC-H q4's date
+window, the typing step of a text load and a monthly report in the
+session zone over the dated ORDERS that `write_orders_dated` writes
+typed and as .tbl text. Through the
 port's session with bench.py's conf they run on the fused engine
 (exec/fused.py), which evaluates every window over the whole partition;
 with
@@ -357,6 +361,63 @@ def orders_words_query(orders, F=None):
                  F.max("padded").alias("padded")))
 
 
+def orders_q4_window_query(orders, F=None):
+    """TPC-H q4's date predicate and output over the typed ORDERS, without
+    its EXISTS subquery (a semi join, not ported yet): the orders of the
+    quarter from 1993-07-01 per priority, with the count, the revenue and
+    the first and last order date."""
+    F = _functions(F)
+    start = F.to_date(F.lit("1993-07-01"))
+    date = F.col("o_orderdate")
+    return (orders
+            .filter((date >= start) & (date < F.add_months(start, 3)))
+            .groupBy("o_orderpriority")
+            .agg(F.count("*").alias("order_count"),
+                 F.sum("o_totalprice").alias("revenue"),
+                 F.min("o_orderdate").alias("first_date"),
+                 F.max("o_orderdate").alias("last_date")))
+
+
+def orders_ingest_query(orders_tbl, F=None):
+    """The typing step of a text load over ORDERS as dbgen's .tbl prints
+    it (every column a string): the key and the price cast to numbers,
+    the date parsed with to_date and, as a timestamp in the session zone,
+    with unix_timestamp; per order year the count, the revenue, the
+    largest key and the sum of the unix timestamps."""
+    F = _functions(F)
+    return (orders_tbl
+            .select(F.col("o_orderkey").cast("bigint").alias("key"),
+                    F.col("o_totalprice").cast("double").alias("price"),
+                    F.year(F.to_date("o_orderdate")).alias("o_year"),
+                    F.unix_timestamp("o_orderdate").alias("ts"))
+            .groupBy("o_year")
+            .agg(F.count("*").alias("n"), F.sum("price").alias("revenue"),
+                 F.max("key").alias("max_key"), F.sum("ts").alias("ts_sum")))
+
+
+def orders_monthly_query(orders, F=None):
+    """A monthly revenue report in the session zone over the typed ORDERS:
+    each order date as a timestamp (local midnight), grouped by its month
+    as text and by the hour that instant reads in Asia/Kolkata's wall
+    clock; the revenue, the count, and the total characters of the key
+    and of the timestamp cast to strings."""
+    F = _functions(F)
+    ts = F.col("o_orderdate").cast("timestamp")
+    return (orders
+            .select(F.date_format(ts, "yyyy-MM").alias("month"),
+                    F.hour(F.from_utc_timestamp(ts, "Asia/Kolkata")).alias(
+                        "ist_hour"),
+                    "o_totalprice",
+                    F.length(F.col("o_orderkey").cast("string")).alias(
+                        "key_chars"),
+                    F.length(ts.cast("string")).alias("ts_chars"))
+            .groupBy("month", "ist_hour")
+            .agg(F.sum("o_totalprice").alias("revenue"),
+                 F.count("*").alias("n"),
+                 F.sum("key_chars").alias("key_chars"),
+                 F.sum("ts_chars").alias("ts_chars")))
+
+
 #: TPC-H's o_orderpriority values (spec 4.2.2.13: PRIORITIES)
 ORDER_PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
                     "5-LOW")
@@ -449,6 +510,74 @@ def write_orders_data(root: str, rows: int, files: int = 8, seed: int = 0
         pq.write_table(t, path, compression="NONE", use_dictionary=False)
         paths.append(path)
     return paths
+
+
+#: dbgen's order dates: STARTDATE 1992-01-01 to ENDDATE - 151 days
+#: (1998-08-02), as days since 1970-01-01 (TPC-H spec 4.2.3)
+ORDER_DATE_LO, ORDER_DATE_HI = 8035, 10440
+#: o_totalprice's range in cents (the smallest and largest at SF1)
+ORDER_PRICE_CENTS = (85_771, 55_528_516)
+
+
+def orders_dated_draws(rows: int, files: int = 8, seed: int = 0):
+    """The seeded draws of `write_orders_dated`, one dict of numpy arrays
+    a file: o_orderkey (int64), priority (index into ORDER_PRIORITIES),
+    o_orderdate (int32 days) and cents (int64)."""
+    rng = np.random.default_rng(seed)
+    per = -(-rows // files)
+    out = []
+    for i in range(files):
+        n = min(per, rows - i * per)
+        out.append(dict(
+            o_orderkey=np.arange(i * per, i * per + n, dtype=np.int64) * 4 + 1,
+            priority=rng.integers(0, len(ORDER_PRIORITIES), n),
+            o_orderdate=rng.integers(ORDER_DATE_LO, ORDER_DATE_HI + 1,
+                                     n).astype(np.int32),
+            cents=rng.integers(ORDER_PRICE_CENTS[0], ORDER_PRICE_CENTS[1] + 1,
+                               n)))
+    return out
+
+
+def write_orders_dated(root: str, rows: int, files: int = 8, seed: int = 0
+                       ) -> Tuple[List[str], List[str]]:
+    """Write ORDERS with its date and price twice from one set of seeded
+    draws (`orders_dated_draws`), in `files` PLAIN parquet files each:
+    root/orders_dated, typed (o_orderkey int64, o_orderpriority,
+    o_orderdate date32 uniform over dbgen's order dates, o_totalprice
+    float64 in whole cents: TPC-H declares it decimal(15,2), and decimal
+    columns are not ported yet), and root/orders_tbl, the same rows as
+    dbgen's .tbl text prints them, every column a string (the key in
+    decimal, the price as %.2f, the date as yyyy-MM-dd): what a CSV or
+    .tbl load lands before typing. Returns the two lists of paths."""
+    import pyarrow.compute as pc
+
+    prio = pa.array(ORDER_PRIORITIES)
+    typed, text = [], []
+    for sub in ("orders_dated", "orders_tbl"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i, d in enumerate(orders_dated_draws(rows, files, seed)):
+        key = pa.array(d["o_orderkey"])
+        priority = prio.take(pa.array(d["priority"]))
+        date = pa.array(d["o_orderdate"], type=pa.date32())
+        cents = d["cents"]
+        t = pa.table({"o_orderkey": key, "o_orderpriority": priority,
+                      "o_orderdate": date,
+                      "o_totalprice": pa.array(cents / 100.0)})
+        price = pc.binary_join_element_wise(
+            pc.cast(pa.array(cents // 100), pa.string()),
+            pc.utf8_lpad(pc.cast(pa.array(cents % 100), pa.string()), 2, "0"),
+            ".")
+        tbl = pa.table({"o_orderkey": pc.cast(key, pa.string()),
+                        "o_orderpriority": priority,
+                        "o_orderdate": pc.cast(date, pa.string()),
+                        "o_totalprice": price})
+        for table, sub, paths in ((t, "orders_dated", typed),
+                                  (tbl, "orders_tbl", text)):
+            path = os.path.join(root, sub, f"{sub}-{i}.parquet")
+            pq.write_table(table, path, compression="NONE",
+                           use_dictionary=False)
+            paths.append(path)
+    return typed, text
 
 
 def q5_plan(fact_entry, dim_entry,

@@ -740,6 +740,10 @@ from spark_rapids_tpu_torch.ops import windowops as port_windowops  # noqa: E402
 from spark_rapids_tpu_torch.expr import strings as port_strings  # noqa: E402
 from spark_rapids_tpu_torch.ops import regexops as port_regexops  # noqa: E402
 from spark_rapids_tpu_torch.regex import compile_search as port_compile  # noqa: E402,E501
+from spark_rapids_tpu_torch.ops import stringcast as port_stringcast  # noqa: E402,E501
+from spark_rapids_tpu_torch.ops import tzdb as port_tzdb  # noqa: E402
+from spark_rapids_tpu_torch.expr import cast as port_cast  # noqa: E402
+from spark_rapids_tpu_torch.expr import datetimes as port_datetimes  # noqa: E402,E501
 
 # every kernel wrapper: on a CUDA tensor each one launches its kernel, so
 # a plain version (the kernel's check on the card) must reach none of them
@@ -767,6 +771,14 @@ _WRAPPERS = [
     (port_strings, "_select_nonoverlapping"),
     (port_strings, "_substring_index_bounds"), (port_strings, "_rewrite"),
     (port_strings, "_char_count"), (port_strings, "_assemble"),
+    (port_stringcast, "_parse"), (port_stringcast, "parse_long"),
+    (port_stringcast, "parse_double"), (port_stringcast, "parse_bool"),
+    (port_stringcast, "parse_date"), (port_stringcast, "parse_timestamp"),
+    (port_tzdb, "_rebase"), (port_tzdb, "utc_to_local"),
+    (port_tzdb, "local_to_utc"), (port_cast, "_format"),
+    (port_cast, "_int_to_string"), (port_cast, "_date_to_string"),
+    (port_cast, "_timestamp_to_string"),
+    (port_datetimes, "_pattern_to_string"),
 ]
 
 
@@ -817,6 +829,45 @@ def _string_plain_cases(s_col):
                 cols, asm._replace(sel=S._select_nonoverlapping_plain(
                     d, ln, b"a")), 128)
     return cases
+
+
+def _slice7_plain_cases():
+    """K22-K24's plain versions, each mode once."""
+    from spark_rapids_tpu_torch.sqltypes import datatypes as T
+
+    texts = ["  -42 ", "1.5e3", "yes", "2020-02-29", "2020-01-01 12:30:45.5",
+             "", "x", "9223372036854775808"]
+    d = torch.zeros((len(texts), 32), dtype=torch.uint8)
+    for i, s in enumerate(texts):
+        d[i, :len(s)] = torch.tensor(list(s.encode()), dtype=torch.uint8)
+    col = port_strings.DeviceColumn(
+        T.string, d, torch.ones(len(texts), dtype=torch.bool),
+        torch.tensor([len(s) for s in texts], dtype=torch.int32))
+    sc, tz, ca = port_stringcast, port_tzdb, port_cast
+    us = torch.tensor([0, -1, 1615712400000000, 1636273800000000,
+                       -880000000000000], dtype=torch.int64)
+    days = torch.tensor([0, -1, 8035, -719528], dtype=torch.int32)
+    la = "America/Los_Angeles"
+    return {
+        "parse_long_plain": lambda: sc.parse_long_plain(col, T.integer),
+        "parse_double_plain": lambda: sc.parse_double_plain(col, T.double),
+        "parse_bool_plain": lambda: sc.parse_bool_plain(col, T.boolean),
+        "parse_date_plain": lambda: sc.parse_date_plain(col, T.date),
+        "parse_timestamp_plain": lambda: sc.parse_timestamp_plain(
+            col, T.timestamp),
+        "utc_to_local_plain": lambda: tz.utc_to_local_plain(us, la),
+        "local_to_utc_plain": lambda: tz.local_to_utc_plain(us, la),
+        "_int_to_string_plain": lambda: ca._int_to_string_plain(us),
+        "_date_to_string_plain": lambda: ca._date_to_string_plain(days),
+        "_timestamp_to_string_plain":
+            lambda: ca._timestamp_to_string_plain(us),
+        "_pattern_to_string_plain[days]":
+            lambda: port_datetimes._pattern_to_string_plain(
+                days, True, "yyyy-MM"),
+        "_pattern_to_string_plain[us]":
+            lambda: port_datetimes._pattern_to_string_plain(
+                us, False, "dd/MM/yyyy HH:mm:ss.SSS"),
+    }
 
 
 _STRING_PLAIN = sorted(_string_plain_cases(port_strings.DeviceColumn(
@@ -914,6 +965,7 @@ def _plain_case(name, pb):
                     pcnt=torch.arange(n + 1, dtype=torch.int64))], perm),
     }
     cases.update(_string_plain_cases(s_col))
+    cases.update(_slice7_plain_cases())
     return cases[name]()
 
 
@@ -937,7 +989,7 @@ def _plain_window(n, perm, live):
     "decode_column_plain", "seg_minmax_plain", "merge_runs_plain",
     "window_prefix_plain", "window_eval_plain", "inverse_permutation_plain",
     "range_bounds_plain", "frame_minmax_plain", "frame_pick_plain",
-    *_STRING_PLAIN])
+    *_STRING_PLAIN, *sorted(_slice7_plain_cases())])
 def test_plain_versions_reach_no_kernel_wrapper(name, monkeypatch):
     """With every kernel wrapper, wherever it is bound, replaced by one
     that raises, each plain version still runs."""
