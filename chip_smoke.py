@@ -50,7 +50,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    midnights and their dates, keys and wall clocks, and at edge shapes
    (`check_slice7_edges`: the cast edge sets with random strings at widths
    8 to 64, a literal as a row-stride-0 view, every transition of three
-   zones, the int64 and calendar ends, every DateFormat token);
+   zones, the int64 and calendar ends, every DateFormat token); K4's
+   multi-sum (k = 5 and 8), K25 (rank selection and interpolation) and
+   K26 (collect ranks and scatter) at the slice-8 path shapes (a 2^20-row
+   batch of the price statistics in 35 groups, the daily line's
+   2^20-row partial and its 2,406 sorted price rows) and at edge shapes
+   (`check_slice8_edges`: k = 1 to 16, the privatised bins' limit, groups
+   of one row, all-NaN and empty groups, ties at a target, max_elems = 1,
+   every element kind with NaN, -0.0 and nulls);
 3. slice 1's hand-built q5 plan at the bench's full size (36M fact rows
    in 8 parquet files, a 2,000-row dimension with a dictionary-encoded
    `region`) over device-cached relations: upload, one cold run and 5
@@ -105,11 +112,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    America/Los_Angeles, each against numpy over the typed table and
    zoneinfo over the 2,406 distinct dates. K22 must run on the text load
    and on q4's date literal, K23 on both Los Angeles queries, K24 on the
-   monthly report.
+   monthly report;
+10. slice 8's statistical queries (q5.py: orders_price_stats_query,
+   orders_daily_distinct_query, orders_price_window_query) on the
+   adaptive and the fused engine over the same dated ORDERS at
+   spark.rapids.sql.batchSizeRows 2^20: the variances, stddevs, skewness,
+   kurtosis, covariances and corr of the price per (priority, year)
+   against the reference's formulas over math.fsum sums (within 1e-9 of
+   their terms' size), bool_and/or exact, percentile_approx within 4/128
+   of its rank; each day's count and distinct customers exact and median
+   within 1e-12; every order's 100-row stddev and its priority's variance
+   against extended-precision prefix sums. The fused engine runs the
+   statistics and the windows and falls back to the adaptive one for the
+   daily line (count(DISTINCT), percentile). K4 and K25's selection must
+   run on the statistics, K26 and K25's interpolation on the daily line,
+   K14 on the windows.
 
-For each query run (phases 3-9) the kernels' launch counts are reset
+For each query run (phases 3-10) the kernels' launch counts are reset
 just before the cold run and read just after it; every kernel of that
-path must have run. Phases 3-5 time 5 hot runs a query, phases 6-9 3.
+path must have run. Phases 3-5 time 3 hot runs a query, phases 6-10 2,
+and each kernel's device time in phase 2 is the mean of 10 calls.
 One more hot run counts the host syncs (torch.cuda's
 sync debug mode) and one, under torch.profiler, gives the device's busy
 time against wall time and must hold no library sort or scan kernel.
@@ -132,10 +154,10 @@ ROWS = 36_000_000
 FILES = 8
 STORES = 2000
 REGIONS = 12
-HOT_RUNS = 5
+HOT_RUNS = 3
 #: hot runs of each query in phases 6-9 (phases 3-5 keep HOT_RUNS)
-LATER_HOT_RUNS = 3
-TIMING_ITERS = 20
+LATER_HOT_RUNS = 2
+TIMING_ITERS = 10
 DUP_PER_STORE = 2       # rows per store in the duplicate-key dimension
 REL_TOL = 1e-9          # sums and averages against the oracles
 MERGE_ROWS = 1 << 22    # rows of each run in K13's record
@@ -3628,6 +3650,731 @@ def run_slice7(dev, root, oracles, fused: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- slice 8
+
+#: orders_price_stats' partial's rows (a cached part of the 15M ORDERS is
+#: read in 2^20-row batches) and its groups; orders_daily_distinct's days
+STAT_PART_ROWS = 1 << 20
+STAT_GROUPS = 35
+DAILY_GROUPS = 2406
+
+
+def _f64_close(name: str, got, want, tol: float) -> float:
+    """float64 results within tol relative (NaN where both are); returns
+    the largest absolute difference."""
+    import torch
+
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    same = (got == want) | both_nan
+    d = torch.where(same, torch.zeros_like(got), (got - want).abs())
+    rel = torch.where(same, torch.zeros_like(got),
+                      d / want.abs().clamp(min=1e-300))
+    worst = float(rel.max().item()) if rel.numel() else 0.0
+    if not worst <= tol:
+        fail(f"{name}: kernel differs from its plain version by {worst} "
+             "relative")
+    return float(d.max().item()) if d.numel() else 0.0
+
+
+def _same_selection(name: str, got, want, sgid, nseg: int) -> None:
+    """K25's selection against its plain version, bit for bit, over the
+    groups up to the largest id in sgid (the kernel leaves the groups past
+    it, which lie past the batch's group count, unwritten)."""
+    live = max(0, min(nseg, int(sgid[-1].item()) + 1))
+    outs, total = got
+    outs_p, total_p = want
+    for j, (g, w) in enumerate(zip(outs + [total], outs_p + [total_p])):
+        same_bits(f"{name} output {j}", g[:live], w[:live])
+
+
+def check_slice8_kernels(dev):
+    """Phase 2, slice 8: K4's multi-sum (k = 5, corr's sums, and k = 8) at
+    orders_price_stats' partial's shape (a 2^20-row batch in 35 sorted
+    groups); K25's selection at the same shape (K = 128 targets over rows
+    sorted by (group, price), unit weights, 2^20 segments, as the update
+    gives it) and at its merge's (a 2^20-row buffer batch of 35 groups
+    flattened to 2^27 points, weights n on the scale of K), and its
+    interpolation at orders_daily_distinct's final (2,406 days of ~6,200
+    sorted prices, padded to 6,500); K26's rank and scatter at
+    orders_daily_distinct's 2^20-row partial (o_custkey, 2,406 days of
+    ~436 rows, duplicates dropped). Returns {record name: record}."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import next_capacity
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.ops import segmented as S
+
+    src = "spark_rapids_tpu_torch/kernels/csrc/"
+    rng = np.random.default_rng(81)
+    out = {}
+    n = STAT_PART_ROWS
+    gid = torch.from_numpy(np.sort(rng.integers(0, STAT_GROUPS, n)).astype(
+        np.int32)).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    price = torch.from_numpy(rng.integers(85_771, 55_528_517, n) / 100.0).to(
+        dev)
+    day = torch.from_numpy(rng.integers(0, 2406, n).astype(np.float64)).to(
+        dev)
+    for k in (5, 8):
+        vecs = ([price, day, price * day, price * price, day * day]
+                if k == 5 else [price ** (1 + j % 4) * (j + 1)
+                                for j in range(k)])
+
+        def k4(vecs=vecs):
+            r = S.seg_sum_count_multi(vecs, valid, gid, STAT_GROUPS)
+            return [r.count] + r.sums
+
+        def k4_plain(vecs=vecs):
+            r = S.seg_sum_count_plain(vecs, valid, gid, STAT_GROUPS)
+            return [r.count] + r.sums
+
+        got, want = k4(), k4_plain()
+        torch.cuda.synchronize()
+        exact(f"seg_multi_sum k={k} count", got[0], want[0])
+        err = max(_f64_close(f"seg_multi_sum k={k} sum {j}", g, w,
+                             F64_ATOMIC_TOL)
+                  for j, (g, w) in enumerate(zip(got[1:], want[1:])))
+        out[f"seg_multi_sum_k{k}"] = dict(
+            route="cuda", source=src + "seg_sum_count.cu",
+            replaces="spark_rapids_tpu/ops/segmented.py:392",
+            max_abs_err=err, counter="seg_sum_count",
+            **timed(f"seg_multi_sum k={k}", k4, k4_plain,
+                    lambda vecs=vecs: [S.seg_sum(v, valid, gid, STAT_GROUPS)
+                                       for v in vecs]),
+            # valid for every row; gid and the k values for the valid rows;
+            # k sums and a count out
+            bound_ms=bound_ms(n + n * (4 + 8 * k) + STAT_GROUPS * 8 * (k + 1)),
+            bound_by="bytes",
+            shape=f"{k} float64 vectors of [{n}], {STAT_GROUPS} sorted groups",
+            library_call=f"{k} separate K4 launches")
+        del vecs, got, want
+    # K25 select: the sorted update of one part
+    cap = n  # a 2^20-row batch is its own capacity bucket
+    K = 128
+    perm = A._sort_by_group(gid, price, valid)
+    svals, sgid = price[perm.long()], gid[perm.long()]
+    slive = valid.clone()
+
+    def k25():
+        return A.rank_select(svals, sgid, None, slive, cap, K, 1e-12)
+
+    def k25_plain():
+        return A.rank_select_plain(svals, sgid, None, slive, cap, K, 1e-12)
+
+    _same_selection("rank_select", k25(), k25_plain(), sgid, cap)
+    bounds = torch.searchsorted(sgid, torch.arange(
+        STAT_GROUPS + 1, dtype=torch.int32, device=dev)).tolist()
+    qs = torch.linspace(0, 1, K, dtype=torch.float64, device=dev)
+    out["rank_select"] = dict(
+        route="cuda", source=src + "rank_select.cu",
+        replaces="spark_rapids_tpu/expr/aggregates.py:996",
+        max_abs_err=0.0,
+        **timed("rank_select", k25, k25_plain,
+                lambda: [torch.quantile(svals[lo:hi], qs,
+                                        interpolation="lower")
+                         for lo, hi in zip(bounds[:-1], bounds[1:])],
+                PLAIN_ITERS),
+        # gid and the live mask of every row, the K selected values and
+        # the K + 1 outputs of each live group
+        bound_ms=bound_ms(n * 5 + STAT_GROUPS * K * 8
+                          + STAT_GROUPS * (K + 1) * 8),
+        bound_by="bytes",
+        shape=f"{n} sorted rows, {STAT_GROUPS} groups, K = {K}, {cap} "
+              "segments",
+        library_call="torch.quantile a group")
+    del svals, sgid, slive, perm
+    # K25 select at the merge: 35 live buffer rows of 2^20, their K
+    # points each with weight n (the merge's n/K on the scale of K); the
+    # dead rows' points sort after the last group's live ones, as K10
+    # gives dead rows the last group's id
+    flat = cap * K
+    mgid = torch.full((flat,), STAT_GROUPS - 1, dtype=torch.int32,
+                      device=dev)
+    mgid[:STAT_GROUPS * K] = torch.repeat_interleave(torch.arange(
+        STAT_GROUPS, dtype=torch.int32, device=dev), K)
+    mw = torch.zeros(flat, dtype=torch.int64, device=dev)
+    mw[:STAT_GROUPS * K] = torch.from_numpy(np.repeat(rng.integers(
+        20_000, 40_000, STAT_GROUPS), K)).to(dev)
+    mvals = torch.sort(torch.from_numpy(rng.normal(
+        3e5, 1e5, STAT_GROUPS * K)).to(dev)).values
+    mvals = torch.cat([mvals, torch.full((flat - STAT_GROUPS * K,),
+                                         float("inf"), device=dev,
+                                         dtype=torch.float64)])
+    # sorted by (group, value): each live group's K points are a run
+    mvals[:STAT_GROUPS * K] = mvals[:STAT_GROUPS * K].reshape(
+        STAT_GROUPS, K).sort(dim=1).values.reshape(-1)
+
+    def k25m():
+        return A.rank_select(mvals, mgid, mw, None, cap, K, 1e-12 * K)
+
+    def k25m_plain():
+        return A.rank_select_plain(mvals, mgid, mw, None, cap, K, 1e-12 * K)
+
+    _same_selection("rank_select merge", k25m(), k25m_plain(), mgid, cap)
+    out["rank_select_merge"] = dict(
+        route="cuda", source=src + "rank_select.cu",
+        replaces="spark_rapids_tpu/expr/aggregates.py:1049",
+        max_abs_err=0.0, counter="rank_select",
+        **timed("rank_select merge", k25m, k25m_plain, None, PLAIN_ITERS),
+        # gid and weight of the live points, the values of the targets
+        # hit and the K + 1 outputs of each live group (the dead points'
+        # are never read)
+        bound_ms=bound_ms(STAT_GROUPS * K * (4 + 8 + 8)
+                          + STAT_GROUPS * (K + 1) * 8),
+        bound_by="bytes",
+        shape=f"{flat} points, {STAT_GROUPS} live groups of {K} (the dead "
+              f"points in the last), {cap} segments, weights n")
+    del mgid, mw, mvals
+    # K25 interpolate: the daily final's sorted price rows
+    rows, me = next_capacity(DAILY_GROUPS), 6500
+    lens = torch.from_numpy(np.where(
+        np.arange(rows) < DAILY_GROUPS, rng.integers(5900, 6500, rows),
+        0).astype(np.int32)).to(dev)
+    sv = torch.sort(torch.from_numpy(rng.integers(85_771, 55_528_517,
+                                                  (rows, me)) / 100.0).to(
+        dev), dim=1).values
+
+    def interp():
+        return A.rank_interp(sv, lens, 0.5)
+
+    def interp_plain():
+        return A.rank_interp_plain(sv, lens, 0.5)
+
+    same_bits("rank_interp", interp(), interp_plain())
+    out["rank_interp"] = dict(
+        route="cuda", source=src + "rank_select.cu",
+        replaces="spark_rapids_tpu/expr/aggregates.py:934",
+        max_abs_err=0.0,
+        **timed("rank_interp", interp, interp_plain, None),
+        bound_ms=bound_ms(rows * (4 + 2 * 8 + 8)), bound_by="bytes",
+        shape=f"[{rows}, {me}] sorted prices, {DAILY_GROUPS} rows live")
+    del sv
+    # K26: the daily partial of one 2^20-row batch, a set of o_custkey
+    m = 1 << 20
+    dgid = torch.from_numpy(np.sort(rng.integers(0, DAILY_GROUPS, m)).astype(
+        np.int32)).to(dev)
+    cust = torch.from_numpy(rng.integers(1, 1_500_001, m)).to(dev)
+    dvalid = torch.ones(m, dtype=torch.bool, device=dev)
+    dperm = A._sort_by_group(dgid, cust, dvalid)
+    cust, dgid = cust[dperm.long()], dgid[dperm.long()]
+    nseg = next_capacity(DAILY_GROUPS)
+
+    def rank():
+        return A.collect_rank(cust, dvalid, dgid, nseg, True)
+
+    def rank_plain():
+        return A.collect_rank_plain(cust, dvalid, dgid, nseg, True)
+
+    got, want = rank(), rank_plain()
+    for j, (g, w) in enumerate(zip(got, want)):
+        exact(f"collect_rank output {j}", g, w)
+    keep, rk, counts = want
+    me = max(int(counts.max()), 1)
+    kept = int(keep.sum().item())
+    out["collect_rank"] = dict(
+        route="cuda", source=src + "collect_scatter.cu",
+        replaces="spark_rapids_tpu/expr/aggregates.py:668",
+        max_abs_err=0.0,
+        **timed("collect_rank", rank, rank_plain, None),
+        # valid, gid and the value (and its predecessor's) a row; keep and
+        # rank out; the counts
+        bound_ms=bound_ms(m * (1 + 4 + 8 + 1 + 4) + nseg * 4),
+        bound_by="bytes",
+        shape=f"[{m}] int64 o_custkey, {DAILY_GROUPS} sorted days, "
+              "duplicates dropped")
+
+    def scatter():
+        return A.collect_scatter(cust, keep, rk, dgid, counts, nseg, me)
+
+    def scatter_plain():
+        return A.collect_scatter_plain(cust, keep, rk, dgid, counts, nseg,
+                                       me)
+
+    def library():
+        order = torch.argsort(dgid, stable=True)
+        o = torch.zeros((nseg, me), dtype=cust.dtype, device=dev)
+        sel = order[keep[order]]
+        o.index_put_((dgid[sel].long(), rk[sel].long()), cust[sel])
+        return o
+
+    got, want = scatter(), scatter_plain()
+    for j, (g, w) in enumerate(zip(got, want)):
+        exact(f"collect_scatter output {j}", g, w)
+    out["collect_scatter"] = dict(
+        route="cuda", source=src + "collect_scatter.cu",
+        replaces="spark_rapids_tpu/expr/aggregates.py:723",
+        max_abs_err=0.0,
+        **timed("collect_scatter", scatter, scatter_plain, library),
+        # keep a row; rank, gid and the value of the kept rows; the counts;
+        # the [nseg, me] matrix and its validity out
+        bound_ms=bound_ms(m + kept * (4 + 4 + 8) + nseg * 4
+                          + nseg * me * (8 + 1)),
+        bound_by="bytes",
+        shape=f"{kept} kept rows into [{nseg}, {me}] int64",
+        library_call="stable argsort + index_put_")
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_slice8_edges(dev) -> int:
+    """Phase 2, slice 8 edge shapes against the plain versions: K4 at k = 1
+    to 8, 9 and 16 (split launches), int64 and float64, sorted and
+    unsorted ids, at 1,709 and 1,710 bins with k = 8 (the privatised
+    bins' shared-memory limit, and one past it), ids outside the bins;
+    K25's selection at K = 1, 2, 16 and 128 over groups of one row,
+    all-NaN groups, groups with no live row, empty groups, ties of the
+    running weight at a target (unit weights, totals multiple of K - 1,
+    and merge weights), one position; its interpolation at widths 1 to 9
+    and lengths 0 to the width, p = 0, 1 and between; K26 over every
+    element kind with NaN, -0.0 and nulls, with and without the duplicate
+    test, max_elems = 1, ids past the groups, one row. Returns the number
+    of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.expr import aggregates as A
+    from spark_rapids_tpu_torch.ops import segmented as S
+
+    rng = np.random.default_rng(82)
+    cases = 0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for k in (1, 2, 3, 4, 5, 6, 7, 8, 9, 16):
+        for n, nseg, sort_ids, ty in ((1, 1, True, np.int64),
+                                      (5000, 7, True, np.float64),
+                                      (70001, 1709, False, np.int64),
+                                      (70001, 1710, False, np.float64),
+                                      (4097, 3, False, np.int64)):
+            gid = rng.integers(-2, nseg + 2, n).astype(np.int32)
+            if sort_ids:
+                gid = np.sort(gid)
+            gid, valid = t(gid), t(rng.random(n) > 0.3)
+            vals = [t((rng.integers(-1000, 1000, n)
+                       * (10 if j % 2 else 1)).astype(ty)) for j in range(k)]
+            masks = [t(rng.random(n) > 0.5) if j % 3 == 1 else None
+                     for j in range(k)]
+            if sort_ids:
+                got = S.seg_sum_count_multi(vals, valid, gid, nseg, masks,
+                                            value_counts=True)
+            else:
+                with S.unsorted_gids():
+                    got = S.seg_sum_count_multi(vals, valid, gid, nseg,
+                                                masks, value_counts=True)
+            want = S.seg_sum_count_plain(vals, valid, gid, nseg, masks,
+                                         True, True)
+            name = f"seg_sum_count k={k} n={n} bins={nseg}"
+            exact(f"{name} count", got.count, want.count)
+            for j in range(k):
+                exact(f"{name} value count {j}", got.value_counts[j],
+                      want.value_counts[j])
+                if ty == np.int64:
+                    exact(f"{name} sum {j}", got.sums[j], want.sums[j])
+                else:
+                    _f64_close(f"{name} sum {j}", got.sums[j], want.sums[j],
+                               F64_ATOMIC_TOL)
+            cases += 1
+    # K25 select
+    for K in (1, 2, 16, 128):
+        for weighted in (False, True):
+            sizes = [1, 1, 8, 127 * 2, 0, 3, 500, 1, 0, 60]
+            gid = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+            n = len(gid)
+            vals = rng.normal(size=n)
+            vals[gid == 2] = np.nan            # an all-NaN group
+            vals = np.sort(vals)               # any order; K25 reads rows
+            live = rng.random(n) > 0.2
+            live[gid == 5] = False             # a group with no live row
+            live[gid == 3] = True              # a tie at every target
+            # the live rows first in each group, as the sorts give them
+            live = live[np.lexsort((~live, gid))]
+            w = np.where(live, 1, 0) * (K if weighted else 1)
+            sv, sg = t(vals), t(gid)
+            args = ((t(w.astype(np.int64)), None) if weighted
+                    else (None, t(live)))
+            eps = 1e-12 * (K if weighted else 1)
+            for nseg in (len(sizes), 6, 1024):
+                _same_selection(
+                    f"rank_select K={K} w={weighted} nseg={nseg}",
+                    A.rank_select(sv, sg, *args, nseg, K, eps),
+                    A.rank_select_plain(sv, sg, *args, nseg, K, eps), sg,
+                    nseg)
+                cases += 1
+    one = (t(np.array([2.5])), t(np.array([0], np.int32)), None,
+           t(np.array([True])), 1, 128, 1e-12)
+    _same_selection("rank_select one position", A.rank_select(*one),
+                    A.rank_select_plain(*one), one[1], 1)
+    cases += 1
+    # K25 interpolate
+    for me in range(1, 10):
+        sv = t(np.sort(rng.normal(size=(me + 2, me)), axis=1))
+        lens = t(np.arange(me + 2).clip(max=me).astype(np.int32))
+        for p in (0.0, 1.0, 0.5, 0.9, 1 / 3):
+            same_bits(f"rank_interp me={me} p={p}", A.rank_interp(sv, lens, p),
+                      A.rank_interp_plain(sv, lens, p))
+            cases += 1
+    # K26
+    kinds = {
+        "bool": lambda n: rng.random(n) > 0.5,
+        "int8": lambda n: rng.integers(-3, 3, n).astype(np.int8),
+        "int16": lambda n: rng.integers(-3, 3, n).astype(np.int16),
+        "int32": lambda n: rng.integers(-3, 3, n).astype(np.int32),
+        "int64": lambda n: rng.integers(-3, 3, n),
+        "float32": lambda n: rng.choice(np.array(
+            [0.0, -0.0, np.nan, 1.0, -np.inf], np.float32), n),
+        "float64": lambda n: rng.choice(np.array(
+            [0.0, -0.0, np.nan, 1.0, np.inf], np.float64), n),
+    }
+    for kind, draw in kinds.items():
+        for n, groups, nseg in ((1, 1, 1), (300, 300, 300), (5000, 40, 37),
+                                (70001, 900, 1024)):
+            gid = t(np.sort(rng.integers(0, groups, n)).astype(np.int32))
+            vals, valid = t(draw(n)), t(rng.random(n) > 0.1)
+            for dedup in (False, True):
+                if dedup:
+                    perm = A._sort_by_group(gid, vals, valid).long()
+                    v2, g2, ok2 = vals[perm], gid[perm], valid[perm]
+                else:
+                    v2, g2, ok2 = vals, gid, valid
+                got = A.collect_rank(v2, ok2, g2, nseg, dedup)
+                want = A.collect_rank_plain(v2, ok2, g2, nseg, dedup)
+                name = f"collect {kind} n={n} nseg={nseg} dedup={dedup}"
+                for j, (g, wn) in enumerate(zip(got, want)):
+                    exact(f"{name} rank output {j}", g, wn)
+                keep, rk, counts = want
+                me = max(int(counts.max()), 1)
+                for width in {me, 1}:
+                    sg = A.collect_scatter(v2, keep, rk, g2, counts, nseg,
+                                           width)
+                    sw = A.collect_scatter_plain(v2, keep, rk, g2, counts,
+                                                 nseg, width)
+                    for j, (g, wn) in enumerate(zip(sg, sw)):
+                        if g.dtype.is_floating_point:
+                            same_bits(f"{name} width {width} output {j}", g,
+                                      wn)
+                        else:
+                            exact(f"{name} width {width} output {j}", g, wn)
+                cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+#: the slice-8 kernels each query must launch (phase 10): K4 and K25's
+#: selection on the price statistics, K26 and K25's interpolation on the
+#: daily distinct counts and medians, K14 on the variance windows
+SLICE8_PATH_KERNELS = {
+    "orders_price_stats": ("seg_sum_count", "rank_select", "sort_words"),
+    "orders_daily_distinct": ("collect_rank", "collect_scatter",
+                              "rank_interp", "sort_words"),
+    "orders_price_window": ("window_prefix", "window_eval"),
+}
+#: the engine each query runs on when the fused engine is on
+SLICE8_FUSED_ENGINE = {"orders_price_stats": "fused",
+                       "orders_daily_distinct": "aqe",
+                       "orders_price_window": "fused"}
+#: percentile_approx's rank error allowed against the exact rank: a few
+#: merge levels of K = 128 points (the sketch's O(1/K) a level)
+P90_RANK_TOL = 4 / 128
+#: the largest rank error and moment deviation seen, per engine
+SLICE8_ERRS = {}
+
+
+def _moment_terms(x, y):
+    """Per group: n and the fsum power and cross sums, with the sums of
+    the absolute values the tolerance reads."""
+    import math
+
+    import numpy as np
+
+    n = float(len(x))
+    s = [math.fsum((x ** p).tolist()) for p in range(1, 5)]
+    # the terms' sizes only scale the tolerance: a plain sum will do
+    a = [float(np.sum(np.abs(x) ** p)) for p in range(1, 5)]
+    sy, syy, sxy = (math.fsum(v.tolist()) for v in (y, y * y, x * y))
+    ay, axy = float(np.sum(np.abs(y))), float(np.sum(np.abs(x * y)))
+    return n, s, a, sy, syy, sxy, ay, axy
+
+
+def _stats_oracle(x, y):
+    """The reference's formulas over exact sums, each with the size of its
+    terms: {column: (value or None, scale)}."""
+    import math
+
+    n, (s1, s2, s3, s4), (a1, a2, a3, a4), sy, syy, sxy, ay, axy = \
+        _moment_terms(x, y)
+    mu = s1 / n
+    m2 = max(s2 - s1 * mu, 0.0)
+    m3 = s3 - 3.0 * mu * s2 + 2.0 * mu * mu * s1
+    m4 = s4 - 4.0 * mu * s3 + 6.0 * mu * mu * s2 - 3.0 * mu ** 3 * s1
+    am = a1 / n
+    var_scale = a2 + a1 * am
+    cov = sxy - s1 * sy / n
+    vy = max(syy - sy * sy / n, 0.0)
+    cov_scale = axy + a1 * ay / n
+    return {
+        "var_samp": (m2 / (n - 1), var_scale / (n - 1)),
+        "var_pop": (m2 / n, var_scale / n),
+        "sd_samp": (math.sqrt(m2 / (n - 1)), var_scale / (n - 1)),
+        "sd_pop": (math.sqrt(m2 / n), var_scale / n),
+        "skew": (math.sqrt(n) * m3 / m2 ** 1.5,
+                 math.sqrt(n) * (a3 + 3 * am * a2 + 2 * am * am * a1)
+                 / m2 ** 1.5),
+        "kurt": (n * m4 / (m2 * m2) - 3.0,
+                 n * (a4 + 4 * am * a3 + 6 * am * am * a2
+                      + 3 * am ** 3 * a1) / (m2 * m2)),
+        "cov_pop": (cov / n, cov_scale / n),
+        "cov_samp": (cov / (n - 1), cov_scale / (n - 1)),
+        "corr": (max(-1.0, min(1.0, cov / (math.sqrt(m2) * math.sqrt(vy)))),
+                 cov_scale / (math.sqrt(m2) * math.sqrt(vy))),
+    }
+
+
+def slice8_oracles(typed_paths) -> dict:
+    """Phase 10's answers from the typed ORDERS in numpy: the price
+    statistics per (priority, year) over math.fsum sums and the
+    reference's formulas, each group's sorted prices for the p90's rank;
+    each day's count, distinct customers and median (the rank
+    interpolation over the sorted prices); each order's 100-row stddev and
+    its priority's variance from extended-precision prefix sums."""
+    import math
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    t = pa.concat_tables([pq.read_table(p) for p in typed_paths])
+    days = t.column("o_orderdate").cast(pa.int32()).to_numpy()
+    price = t.column("o_totalprice").to_numpy()
+    cust = t.column("o_custkey").to_numpy()
+    keys = t.column("o_orderkey").to_numpy()
+    prio = t.column("o_orderpriority").combine_chunks().dictionary_encode()
+    pcode = prio.indices.to_numpy().astype(np.int64)
+    pname = prio.dictionary.to_pylist()
+    years = days.astype("datetime64[D]").astype("datetime64[Y]").astype(
+        np.int64) + 1970
+    day_no = (days - 8035).astype(np.float64)  # datediff from 1992-01-01
+    # the statistics
+    gkey = pcode * 100 + (years - 1990)
+    order = np.argsort(gkey, kind="stable")
+    uniq, starts = np.unique(gkey[order], return_index=True)
+    ends = list(starts[1:]) + [len(order)]
+    stats = {}
+    for g, lo, hi in zip(uniq, starts, ends):
+        rows = order[lo:hi]
+        x, y = price[rows], day_no[rows]
+        want = _stats_oracle(x, y)
+        want["all_over_900"] = (bool((x > 900.0).all()), 0.0)
+        want["any_over_500k"] = (bool((x > 500000.0).any()), 0.0)
+        stats[(pname[g // 100], int(g % 100) + 1990)] = (want, np.sort(x))
+    # the daily line
+    dorder = np.lexsort((price, days))
+    sd, sp = days[dorder], price[dorder]
+    duniq, dstart, dcount = np.unique(sd, return_index=True,
+                                      return_counts=True)
+    pairs = np.unique(days.astype(np.int64) << 32 | cust)
+    distinct = np.bincount((pairs >> 32) - duniq[0],
+                           minlength=len(duniq))
+    daily = {}
+    for i, (d, lo, n) in enumerate(zip(duniq, dstart, dcount)):
+        rk = 0.5 * max(n - 1, 0)
+        lo_i, hi_i = int(math.floor(rk)), int(math.ceil(rk))
+        vlo, vhi = sp[lo + lo_i], sp[lo + hi_i]
+        daily[int(d)] = (int(n), int(distinct[d - duniq[0]]),
+                         vlo + (vhi - vlo) * (rk - lo_i))
+    # the windows: rows sorted by (priority, date, key); 100-row frames
+    worder = np.lexsort((keys, days, pcode))
+    wp = pcode[worder]
+    xl = price[worder].astype(np.longdouble)
+    c1 = np.concatenate([[0.0], np.cumsum(xl)])
+    c2 = np.concatenate([[0.0], np.cumsum(xl * xl)])
+    pstart = np.concatenate([[0], np.nonzero(np.diff(wp))[0] + 1])
+    pend = np.concatenate([pstart[1:], [len(wp)]])
+    start_of = np.repeat(pstart, pend - pstart)
+    end_of = np.repeat(pend, pend - pstart)
+    idx = np.arange(len(wp))
+    lo = np.maximum(start_of, idx - 99)
+    n = (idx + 1 - lo).astype(np.longdouble)
+    s1, s2 = c1[idx + 1] - c1[lo], c2[idx + 1] - c2[lo]
+    m2 = np.maximum(s2 - s1 * s1 / n, 0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        var100 = (m2 / (n - 1)).astype(np.float64)
+        scale100 = ((s2 + s1 * s1 / n) / (n - 1)).astype(np.float64)
+    pn = (end_of - start_of).astype(np.longdouble)
+    ps1, ps2 = c1[end_of] - c1[start_of], c2[end_of] - c2[start_of]
+    pvar = (np.maximum(ps2 - ps1 * ps1 / pn, 0) / pn).astype(np.float64)
+    pscale = ((ps2 + ps1 * ps1 / pn) / pn).astype(np.float64)
+    # indexed by original row: o_orderkey = 4 * row + 1
+    back = np.empty(len(worder), np.int64)
+    back[worder] = idx
+    window = dict(var100=var100[back], scale100=scale100[back],
+                  n100=(idx + 1 - lo)[back], pvar=pvar[back],
+                  pscale=pscale[back], pcode=pcode, pname=pname,
+                  days=days, price=price)
+    return {"orders_price_stats": stats, "orders_daily_distinct": daily,
+            "orders_price_window": window}
+
+
+def _p90_rank_err(value, sorted_x) -> float:
+    import numpy as np
+
+    lo = np.searchsorted(sorted_x, value, side="left") / len(sorted_x)
+    hi = np.searchsorted(sorted_x, value, side="right") / len(sorted_x)
+    return 0.0 if lo <= 0.9 <= hi else min(abs(lo - 0.9), abs(hi - 0.9))
+
+
+def check_price_stats(engine: str, got, want) -> None:
+    """Groups equal; each moment within 1e-9 of its terms' size; bools
+    exact; the p90's rank within P90_RANK_TOL of 0.9."""
+    rows = {(r["o_orderpriority"], r["o_year"]): r for r in got.to_pylist()}
+    if set(rows) != set(want):
+        fail(f"orders_price_stats: groups differ: {sorted(rows)[:5]} vs "
+             f"{sorted(want)[:5]}")
+    errs = SLICE8_ERRS.setdefault(engine, {"p90_rank": 0.0, "moment": 0.0})
+    for key, (cols, sorted_x) in want.items():
+        r = rows[key]
+        for col, (v, scale) in cols.items():
+            mine = r[col]
+            if isinstance(v, bool):
+                if mine != v:
+                    fail(f"orders_price_stats {key}: {col} {mine} != {v}")
+                continue
+            d = abs(mine - v)
+            if col.startswith("sd"):
+                d = abs(mine * mine - v * v)
+            errs["moment"] = max(errs["moment"], d / scale)
+            if not d <= 1e-9 * scale:
+                fail(f"orders_price_stats {key}: {col} {mine} vs {v} "
+                     f"(terms {scale})")
+        e = _p90_rank_err(r["p90"], sorted_x)
+        errs["p90_rank"] = max(errs["p90_rank"], e)
+        if not e <= P90_RANK_TOL:
+            fail(f"orders_price_stats {key}: p90 {r['p90']} is {e} off its "
+                 "rank")
+
+
+def check_daily_distinct(got, want) -> None:
+    """Each day's count and distinct customers exact, its median within
+    1e-12 relative."""
+    import numpy as np
+
+    import pyarrow as pa
+
+    d = got.column("o_orderdate").cast(pa.int32()).to_numpy()
+    n = got.column("n").to_numpy()
+    c = got.column("customers").to_numpy()
+    med = got.column("median").to_numpy()
+    if sorted(d.tolist()) != sorted(want):
+        fail("orders_daily_distinct: days differ")
+    w = np.array([want[int(x)] for x in d], dtype=object)
+    if not (n == np.array([v[0] for v in w])).all():
+        fail("orders_daily_distinct: counts differ")
+    if not (c == np.array([v[1] for v in w])).all():
+        fail("orders_daily_distinct: distinct customers differ")
+    wm = np.array([v[2] for v in w], dtype=np.float64)
+    rel = np.abs(med - wm) / np.abs(wm)
+    if not rel.max() <= 1e-12:
+        fail(f"orders_daily_distinct: medians off by {rel.max()} relative")
+
+
+def check_price_window(engine: str, got, want) -> None:
+    """Every order's 100-row stddev (squared) and its priority's variance
+    within 1e-9 of the size of their terms; the passed-through columns
+    exact."""
+    import numpy as np
+    import pyarrow as pa
+
+    keys = got.column("o_orderkey").to_numpy()
+    row = (keys - 1) // 4
+    if len(row) != len(want["price"]) or len(np.unique(row)) != len(row):
+        fail("orders_price_window: rows differ")
+    sd = got.column("sd100").to_numpy(zero_copy_only=False)
+    pv = got.column("prio_var").to_numpy()
+    n = want["n100"][row]
+    v100 = want["var100"][row]
+    d = np.where(n >= 2, np.abs(sd.astype(np.float64) ** 2 - v100), 0.0)
+    if not (np.isnan(sd) == (n < 2)).all():
+        fail("orders_price_window: the stddev's nulls differ")
+    worst = float(np.max(d / np.where(n >= 2, want["scale100"][row], 1.0)))
+    dp = np.abs(pv - want["pvar"][row]) / want["pscale"][row]
+    worst = max(worst, float(dp.max()))
+    errs = SLICE8_ERRS.setdefault(engine, {"p90_rank": 0.0, "moment": 0.0})
+    errs["window"] = max(errs.get("window", 0.0), worst)
+    if not worst <= 1e-9:
+        fail(f"orders_price_window: variances off by {worst} of their "
+             "terms")
+    prio = got.column("o_orderpriority").combine_chunks().dictionary_encode()
+    code = np.array([want["pname"].index(p)
+                     for p in prio.dictionary.to_pylist()])[
+        prio.indices.to_numpy()]
+    if not ((got.column("o_totalprice").to_numpy() == want["price"][row]).all()
+            and (got.column("o_orderdate").cast(pa.int32()).to_numpy()
+                 == want["days"][row]).all()
+            and (code == want["pcode"][row]).all()):
+        fail("orders_price_window: passed-through columns differ")
+
+
+def run_slice8(dev, root, oracles, fused: bool) -> dict:
+    """Phase 10: the three statistical queries (q5.py) through the port's
+    session with the fused engine on or off over the typed ORDERS cached on
+    the card, at spark.rapids.sql.batchSizeRows 2^20. Returns {query:
+    record}, each with its peak device bytes."""
+    import torch
+
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+    from spark_rapids_tpu_torch.q5 import (
+        orders_daily_distinct_query,
+        orders_price_stats_query,
+        orders_price_window_query,
+    )
+
+    engine = "fused" if fused else "aqe"
+    builds = {"orders_price_stats": orders_price_stats_query,
+              "orders_daily_distinct": orders_daily_distinct_query,
+              "orders_price_window": orders_price_window_query}
+    checks = {"orders_price_stats": lambda g: check_price_stats(
+                  engine, g, oracles["orders_price_stats"]),
+              "orders_daily_distinct": lambda g: check_daily_distinct(
+                  g, oracles["orders_daily_distinct"]),
+              "orders_price_window": lambda g: check_price_window(
+                  engine, g, oracles["orders_price_window"])}
+    spark = (TpuSparkSession.builder
+             .config("spark.sql.shuffle.partitions", 8)
+             .config("spark.rapids.sql.reader.batchSizeRows", 1 << 20)
+             .config("spark.rapids.sql.batchSizeRows", 1 << 20)
+             .config("spark.rapids.shuffle.mode", "DEVICE")
+             .config("spark.rapids.sql.fusedExec.enabled", fused)
+             .getOrCreate())
+    out = {}
+    t0 = time.monotonic()
+    df = spark.read.parquet(os.path.join(root, "orders_dated")).cache(
+        storage="device")
+    spark.cache_manager.lookup(df._plan).materialize()
+    torch.cuda.synchronize()
+    upload_s = time.monotonic() - t0
+    for name, build in builds.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = timed_runs(lambda: build(df).collect_arrow(), checks[name],
+                         LATER_HOT_RUNS)
+        ex = spark.last_execution
+        want_engine = SLICE8_FUSED_ENGINE[name] if fused else "aqe"
+        if ex["engine"] != want_engine:
+            fail(f"{name} ran on {ex['engine']}, not {want_engine}: {ex}")
+        fell = [e for e, _ in ex["fallbacks"]]
+        if fell != (["fused"] if fused and want_engine == "aqe" else []):
+            fail(f"{name}: unexpected fallbacks {ex['fallbacks']}")
+        missing_launches(f"{engine} {name}", rec["launches"],
+                         SLICE8_PATH_KERNELS[name])
+        rec.update(engine=ex["engine"], aqe=ex["aqe"], fused=ex["fused"],
+                   upload_s=upload_s, peak_device_bytes=int(
+                       torch.cuda.max_memory_allocated(dev)))
+        out[name] = rec
+        torch.cuda.empty_cache()
+    spark.stop()
+    return out
+
+
 def _window_mode(df):
     def find(node):
         if type(node).__name__ == "TpuWindowExec":
@@ -3694,6 +4441,12 @@ def main() -> int:
         write_q5_data,
     )
 
+    t_start = time.monotonic()
+
+    def stamp(what: str) -> None:
+        print(f"{what} at {time.monotonic() - t_start:.1f} s of the run",
+              flush=True)
+
     # phase 1: the card, the build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3719,6 +4472,7 @@ def main() -> int:
     records.update(check_slice5_kernels(dev))
     records.update(check_slice6_kernels(dev))
     records.update(check_slice7_kernels(dev))
+    records.update(check_slice8_kernels(dev))
     for kname, r in records.items():
         lib = r["library_ms"]
         print(f"{kname}: {r['shape']}: kernel_ms={r['ms']:.4f} "
@@ -3736,9 +4490,11 @@ def main() -> int:
     cases = (check_edge_shapes(dev) + check_slice2_edges(dev)
              + check_slice3_edges(dev) + check_slice4_edges(dev)
              + check_slice5_edges(dev) + check_slice6_edges(dev)
-             + check_slice7_edges(dev))
+             + check_slice7_edges(dev) + check_slice8_edges(dev))
     print(f"edge shapes: {cases} cases exact against the plain versions",
           flush=True)
+
+    stamp("phase 2 done")
 
     # phases 3-5 at full size: slice 1's plan, the session on the
     # adaptive engine, the session on the fused engine
@@ -3780,6 +4536,8 @@ def main() -> int:
             print(f"{engine} peak device bytes: "
                   f"{session['peak_device_bytes']}", flush=True)
 
+        stamp("phases 3-5 done")
+
         # phase 6: slice 4's sort, TopN, distinct and window queries
         t0 = time.monotonic()
         oracles = slice4_oracles(fact_paths, want_q5)
@@ -3807,6 +4565,8 @@ def main() -> int:
                   f"relative difference per run: {WINDOW_REL_ERR}",
                   flush=True)
             WINDOW_REL_ERR.clear()
+
+        stamp("phase 6 done")
 
         # phase 7: slice 5's window modes
         t0 = time.monotonic()
@@ -3836,6 +4596,8 @@ def main() -> int:
             SLICE5_REL_ERR.clear()
         del oracles5
 
+        stamp("phase 7 done")
+
         # phase 8: slice 6's string queries, with TPC-H ORDERS at SF10
         t0 = time.monotonic()
         order_paths = write_orders_data(tmp, ORDERS_ROWS, FILES, seed=0)
@@ -3861,6 +4623,8 @@ def main() -> int:
                       + json.dumps(rec["launches"]), flush=True)
                 print(f"{engine} {qname}: " + json.dumps(rec), flush=True)
         del oracles6
+
+        stamp("phase 8 done")
 
         # phase 9: slice 7's casts, dates and session zones over the dated
         # ORDERS at SF10, typed and as .tbl text
@@ -3892,8 +4656,42 @@ def main() -> int:
                       flush=True)
         del oracles7
 
+        stamp("phase 9 done")
+
+        # phase 10: slice 8's statistical, distinct and percentile
+        # aggregates and variance windows over the same dated ORDERS
+        t0 = time.monotonic()
+        oracles8 = slice8_oracles(typed_paths)
+        print(f"slice 8 oracles in {time.monotonic() - t0:.1f} s",
+              flush=True)
+        for engine, fused in (("aqe", False), ("fused", True)):
+            session = run_slice8(dev, tmp, oracles8, fused)
+            for qname, rec in session.items():
+                runs[f"{engine} {qname}"] = rec
+                prof = rec["profile"]
+                print(f"{engine} {qname}: engine={rec['engine']} "
+                      f"rows={rec['result_rows']} "
+                      f"fused={json.dumps(rec['fused'])} "
+                      f"upload_s={rec['upload_s']:.3f} "
+                      f"cold_s={rec['cold_s']:.4f} "
+                      f"hot_median_s={rec['hot_median_s']:.4f} "
+                      f"host_syncs={rec['host_syncs']} "
+                      f"device_busy_ms={prof['device_busy_ms']} "
+                      f"idle_share={prof['device_idle_share']} "
+                      f"peak_device_bytes={rec['peak_device_bytes']}",
+                      flush=True)
+                print(f"{engine} {qname} launches per query: "
+                      + json.dumps(rec["launches"]), flush=True)
+                print(f"{engine} {qname}: " + json.dumps(rec, default=str),
+                      flush=True)
+        print("slice 8 largest deviations (p90 rank error; moments and "
+              "window variances as a share of their terms): "
+              + json.dumps(SLICE8_ERRS), flush=True)
+        del oracles8
+        stamp("phase 10 done")
+
     # each kernel's launches: the sum over every path's cold run (phases
-    # 3-9), each read right after it
+    # 3-10), each read right after it
     launches = {k: sum(r["launches"].get(rec.get("counter", k), 0)
                        for r in runs.values())
                 for k, rec in records.items()}

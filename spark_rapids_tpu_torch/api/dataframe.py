@@ -15,7 +15,9 @@ DEVICE mode's place. The port has three rungs of the reference's ladder:
 `fused` (exec/fused.py; spark.rapids.sql.fusedExec.enabled, on by
 default), whose settled factors and lowerings land in
 `last_execution["fused"]` and whose `FusedCompileError` is recorded as a
-fallback; `aqe` (adaptive execution, whenever the plan has an exchange
+fallback (in `["fallbacks"]`, and as `{"fallback": reason}` in
+`["fused"]`: a query holding count(DISTINCT), sum(DISTINCT) or
+percentile falls back so, as the reference's does); `aqe` (adaptive execution, whenever the plan has an exchange
 and spark.sql.adaptive.enabled is on); and `eager`. The reference's
 demotion ladder (circuit breaker, OOM injection) is not ported and there
 is no CPU rung: a failure on the card propagates.
@@ -350,6 +352,7 @@ class DataFrame:
             except FusedCompileError as e:
                 # no fused lowering: structural, not a failure
                 fell_back("fused", str(e))
+                rec["fused"] = {"fallback": str(e)}
 
         def has_exchange(n):
             return isinstance(n, TpuShuffleExchangeExec) or any(

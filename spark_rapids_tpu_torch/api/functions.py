@@ -1,7 +1,13 @@
 """Column functions — counterpart of the part of
 `spark_rapids_tpu/api/functions.py` the port's expressions cover: `col`,
-`lit`, the sum, avg (mean), count, min, max, first and last aggregates
-(first and last over window frames only), the sort directions `asc` and
+`lit`, the sum, avg (mean), count, min, max, first, last and any_value
+aggregates, the statistical ones (`stddev`, `stddev_pop`, `stddev_samp`,
+`variance`, `var_pop`, `var_samp`, `skewness`, `kurtosis`, `corr`,
+`covar_pop`, `covar_samp`), `bool_and` (`every`) and `bool_or` (`some`),
+`countDistinct`, `sumDistinct`, `approx_count_distinct` (exact, as the
+reference's), `percentile` and `percentile_approx`, `collect_list` and
+`collect_set` (their array results are refused by the planner, naming
+ROADMAP A3), the sort directions `asc` and
 `desc`, the window functions `row_number`, `rank`, `dense_rank`,
 `percent_rank`, `cume_dist`, `ntile`, `lead` and `lag`, and the string
 functions (`concat`, `substring`, `upper`, `lower`, `length`, the trim
@@ -21,6 +27,7 @@ from __future__ import annotations
 from typing import Any
 
 from spark_rapids_tpu_torch.api.column import Column, SortColumn, _expr
+from spark_rapids_tpu_torch.expr import aggregates as AGG
 from spark_rapids_tpu_torch.expr import datetimes as DT
 from spark_rapids_tpu_torch.expr import (
     Ascii,
@@ -117,6 +124,113 @@ def first(c, ignorenulls: bool = False) -> Column:
 
 def last(c, ignorenulls: bool = False) -> Column:
     return Column(Last(expr_of(c), ignore_nulls=ignorenulls), "last")
+
+
+def _agg1(cls, c) -> Column:
+    return Column(cls(expr_of(c)))
+
+
+def stddev(c) -> Column:
+    return _agg1(AGG.StddevSamp, c)
+
+
+stddev_samp = stddev
+
+
+def stddev_pop(c) -> Column:
+    return _agg1(AGG.StddevPop, c)
+
+
+def variance(c) -> Column:
+    return _agg1(AGG.VarianceSamp, c)
+
+
+var_samp = variance
+
+
+def var_pop(c) -> Column:
+    return _agg1(AGG.VariancePop, c)
+
+
+def skewness(c) -> Column:
+    return _agg1(AGG.Skewness, c)
+
+
+def kurtosis(c) -> Column:
+    return _agg1(AGG.Kurtosis, c)
+
+
+def corr(x, y) -> Column:
+    return Column(AGG.Corr(expr_of(x), expr_of(y)))
+
+
+def covar_pop(x, y) -> Column:
+    return Column(AGG.CovarPop(expr_of(x), expr_of(y)))
+
+
+def covar_samp(x, y) -> Column:
+    return Column(AGG.CovarSamp(expr_of(x), expr_of(y)))
+
+
+def collect_list(c) -> Column:
+    return _agg1(AGG.CollectList, c)
+
+
+array_agg = collect_list
+
+
+def collect_set(c) -> Column:
+    return _agg1(AGG.CollectSet, c)
+
+
+def countDistinct(c) -> Column:
+    return _agg1(AGG.CountDistinct, c)
+
+
+count_distinct = countDistinct
+
+
+def sumDistinct(c) -> Column:
+    return _agg1(AGG.SumDistinct, c)
+
+
+sum_distinct = sumDistinct
+
+
+def approx_count_distinct(c, rsd: float = 0.05) -> Column:
+    """The exact distinct count, as the reference gives it (its contract
+    is an approximation; `rsd` is taken for API parity)."""
+    return _agg1(AGG.CountDistinct, c)
+
+
+def percentile(c, percentage: float) -> Column:
+    return Column(AGG.Percentile(expr_of(c), percentage))
+
+
+def percentile_approx(c, percentage: float,
+                      accuracy: int = 10000) -> Column:
+    return Column(AGG.ApproxPercentile(expr_of(c), percentage, accuracy))
+
+
+approx_percentile = percentile_approx
+
+
+def bool_and(c) -> Column:
+    return _agg1(AGG.BoolAnd, c)
+
+
+every = bool_and
+
+
+def bool_or(c) -> Column:
+    return _agg1(AGG.BoolOr, c)
+
+
+some = bool_or
+
+
+def any_value(c, ignorenulls: bool = True) -> Column:
+    return Column(AGG.AnyValue(expr_of(c), ignore_nulls=ignorenulls))
 
 
 def asc(c) -> SortColumn:

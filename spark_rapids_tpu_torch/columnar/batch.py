@@ -12,11 +12,16 @@ every kernel can be diffed array for array against the JAX package:
 - columns are validity-masked flat tensors; strings are a zero-padded
   [cap, max_bytes] uint8 matrix plus int32 `lengths`; dictionary-encoded
   strings are int16/int32 codes plus a shared `DeviceDictionary`
-  (columnar/encoding.py), with `vrange` = (0, K-1) on the codes.
+  (columnar/encoding.py), with `vrange` = (0, K-1) on the codes;
+- array columns exist only as aggregate buffers (collect_list/set,
+  count(DISTINCT), sum(DISTINCT) and percentile): data [cap, max_elems]
+  of the element type, `lengths` the element count and `elem_validity`
+  [cap, max_elems] bool, the reference's layout. They travel through
+  gathers, the exchange, slices and concatenation (each piece padded to
+  the widest max_elems); no array column reaches `device_to_arrow`.
 
 Rows at index >= num_rows are garbage; every operator masks with
-``row_mask(capacity, num_rows)``. Only primitive, string and encoded
-columns exist in this slice of the port.
+``row_mask(capacity, num_rows)``.
 
 Row gathers go through kernel K8 (kernels/csrc/gather_leaves.cu):
 `gather_columns` moves every leaf of every column it is given in one
@@ -35,7 +40,12 @@ import torch
 
 from spark_rapids_tpu_torch import kernels
 from spark_rapids_tpu_torch.kernels import build as _build
-from spark_rapids_tpu_torch.sqltypes import DataType, StringType, StructType
+from spark_rapids_tpu_torch.sqltypes import (
+    ArrayType,
+    DataType,
+    StringType,
+    StructType,
+)
 from spark_rapids_tpu_torch.sqltypes.datatypes import torch_dtype
 
 MIN_CAPACITY = 1024
@@ -70,26 +80,31 @@ class DeviceColumn:
     """One device column: data (+ lengths for strings) + validity.
 
     data:     [cap] of the dtype's torch type; [cap, max_bytes] uint8 for
-              strings; [cap] int16/int32 codes for encoded strings
+              strings; [cap] int16/int32 codes for encoded strings;
+              [cap, max_elems] of the element type for arrays
     validity: [cap] bool, True = valid (non-null row)
-    lengths:  [cap] int32 byte counts (plain strings only)
+    lengths:  [cap] int32 byte counts (plain strings), element counts
+              (arrays)
     vrange:   static (lo, hi) bound on integer values or codes; enables
               the sort-free binned group-by. Gathers keep it.
     encoding: DeviceDictionary for dictionary-encoded strings
+    elem_validity: [cap, max_elems] bool, per-element validity (arrays)
     """
 
     __slots__ = ("dtype", "data", "validity", "lengths", "vrange",
-                 "encoding")
+                 "encoding", "elem_validity")
 
     def __init__(self, dtype: DataType, data: torch.Tensor,
                  validity: torch.Tensor, lengths: Optional[torch.Tensor] = None,
-                 vrange=None, encoding=None):
+                 vrange=None, encoding=None,
+                 elem_validity: Optional[torch.Tensor] = None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
         self.lengths = lengths
         self.vrange = vrange
         self.encoding = encoding
+        self.elem_validity = elem_validity
 
     @property
     def is_string(self) -> bool:
@@ -108,6 +123,14 @@ class DeviceColumn:
         return int(self.data.shape[1]) \
             if self.is_string and self.data.dim() == 2 else None
 
+    @property
+    def is_array(self) -> bool:
+        return isinstance(self.dtype, ArrayType)
+
+    @property
+    def max_elems(self) -> Optional[int]:
+        return int(self.data.shape[1]) if self.is_array else None
+
     def replace(self, **kw) -> "DeviceColumn":
         """Copy with selected leaves replaced."""
         return DeviceColumn(
@@ -116,7 +139,8 @@ class DeviceColumn:
             kw.get("validity", self.validity),
             kw.get("lengths", self.lengths),
             kw.get("vrange", self.vrange),
-            kw.get("encoding", self.encoding))
+            kw.get("encoding", self.encoding),
+            kw.get("elem_validity", self.elem_validity))
 
     def leaves(self) -> List[torch.Tensor]:
         """The row-shaped tensors a gather moves; an encoded column's
@@ -124,12 +148,17 @@ class DeviceColumn:
         out = [self.data, self.validity]
         if self.lengths is not None:
             out.append(self.lengths)
+        if self.elem_validity is not None:
+            out.append(self.elem_validity)
         return out
 
     def with_leaves(self, leaves: Sequence[torch.Tensor]) -> "DeviceColumn":
+        rest = iter(leaves[2:])
         return self.replace(
             data=leaves[0], validity=leaves[1],
-            lengths=leaves[2] if self.lengths is not None else None)
+            lengths=next(rest) if self.lengths is not None else None,
+            elem_validity=(next(rest) if self.elem_validity is not None
+                           else None))
 
     def gather(self, indices: torch.Tensor) -> "DeviceColumn":
         """Row gather; indices must lie in [0, capacity) (the kernel traps
@@ -360,10 +389,13 @@ def _concat_columns(pieces, cap: int, total: int,
     first = pieces[0][0]
 
     def cat(parts):
-        if parts[0].dim() == 2:  # string byte matrices: align widths
+        if parts[0].dim() == 2:
+            # string byte and array element matrices: zero-pad to the
+            # widest piece
             width = max(int(p.shape[1]) for p in parts)
-            parts = [p if p.shape[1] == width else torch.nn.functional.pad(
-                p, (0, width - int(p.shape[1]))) for p in parts]
+            parts = [p if p.shape[1] == width else torch.cat(
+                [p, p.new_zeros((p.shape[0], width - int(p.shape[1])))],
+                dim=1) for p in parts]
         return _pad_rows(torch.cat(parts, dim=0), cap)
 
     data = cat([c.data[:n] for c, n in pieces])
@@ -371,6 +403,9 @@ def _concat_columns(pieces, cap: int, total: int,
     lens = None
     if first.lengths is not None:
         lens = cat([c.lengths[:n] for c, n in pieces])
+    ev = None
+    if first.elem_validity is not None:
+        ev = cat([c.elem_validity[:n] for c, n in pieces])
     # encoded columns keep their [0, K) code bound through concat (the
     # binned group-by depends on it); plain columns drop vrange here,
     # as the reference does
@@ -378,7 +413,7 @@ def _concat_columns(pieces, cap: int, total: int,
         first.encoding is not None
         and all(c.vrange == first.vrange for c, _ in pieces)) else None
     return DeviceColumn(dtype, data, val, lens, vrange=vr,
-                        encoding=first.encoding)
+                        encoding=first.encoding, elem_validity=ev)
 
 
 def concat_batches(batches: List[ColumnBatch]) -> ColumnBatch:

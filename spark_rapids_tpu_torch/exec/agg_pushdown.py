@@ -31,9 +31,9 @@ Correctness:
   probe-pure expressions inline below the pre-aggregate (same rows),
   build-pure expressions run after the join on buffer rows (build
   attributes are constant per join-key group under uniqueness);
-- order-sensitive aggregates (first/last) and variable-width ones
-  (collect/percentile) would be excluded; the port has only Sum, Count
-  and Average, which all qualify;
+- order-sensitive aggregates (first/last/any_value) and variable-width
+  ones (collect, count(DISTINCT), sum(DISTINCT), percentile: not
+  jittable) are excluded, as the reference's gate excludes them;
 - a mixed probe+build expression anywhere disables the rewrite.
 """
 
@@ -44,7 +44,7 @@ from typing import List, Optional
 
 from spark_rapids_tpu_torch.exec import joins as J
 from spark_rapids_tpu_torch.exec import operators as ops
-from spark_rapids_tpu_torch.expr import Alias, BoundReference
+from spark_rapids_tpu_torch.expr import Alias, BoundReference, First
 from spark_rapids_tpu_torch.expr.core import Expression
 from spark_rapids_tpu_torch.sqltypes import StructType
 
@@ -95,6 +95,9 @@ def rewrite_chain(nodes: list) -> Optional[list]:
     if not isinstance(ag, ops.TpuHashAggregateExec):
         return None
     if ag.mode not in ("partial", "complete"):
+        return None
+    fns = [a.children[0] for a in ag.aggs]
+    if any(not f.jittable or isinstance(f, First) for f in fns):
         return None
     join_idx = [i for i, n in enumerate(nodes[:-1])
                 if isinstance(n, J.TpuBroadcastHashJoinExec)]

@@ -255,6 +255,10 @@ _UNPORTED = {
 }
 
 
+def _agg_jittable(node: ops.TpuHashAggregateExec) -> bool:
+    return all(a.children[0].jittable for a in node.aggs)
+
+
 class _Flags:
     """The run's flags: 0-d device bools (read in the one host sync at
     the end) or host bools (already known)."""
@@ -368,6 +372,11 @@ class FusedSingleChipExecutor:
                 ops.TpuHashAggregateExec, ops.TpuShuffleExchangeExec,
                 J.TpuBroadcastHashJoinExec, ops.TpuSortExec,
                 ops.TpuWindowExec, ops.TpuLocalLimitExec)):
+            raise FusedCompileError(f"{name} has no fused lowering")
+        if (isinstance(node, ops.TpuHashAggregateExec)
+                and not _agg_jittable(node)):
+            # buffers as wide as the largest group: the reference's fused
+            # programs have no static shape for them
             raise FusedCompileError(f"{name} has no fused lowering")
         for c in node.children:
             self._validate(c)

@@ -56,11 +56,16 @@ from spark_rapids_tpu_torch.expr.aggregates import (
     AggregateFunction,
     Average,
     Count,
+    CountDistinct,
     First,
     Last,
     Max,
     Min,
+    StddevPop,
+    StddevSamp,
     Sum,
+    VariancePop,
+    VarianceSamp,
 )
 from spark_rapids_tpu_torch.expr.core import Alias, EvalContext
 from spark_rapids_tpu_torch.io import readers
@@ -73,7 +78,12 @@ from spark_rapids_tpu_torch.ops import (
 )
 from spark_rapids_tpu_torch.ops.common import sort_words
 from spark_rapids_tpu_torch.shuffle.manager import get_shuffle_manager
-from spark_rapids_tpu_torch.sqltypes import StringType, StructField, StructType
+from spark_rapids_tpu_torch.sqltypes import (
+    ArrayType,
+    StringType,
+    StructField,
+    StructType,
+)
 from spark_rapids_tpu_torch.sqltypes.datatypes import long, torch_dtype
 
 
@@ -212,6 +222,17 @@ def _buffer_schema(grouping: List[Alias], aggs: List[Alias]) -> StructType:
     return StructType(fields)
 
 
+def _inputs_at(cols: List[DeviceColumn], ci: int, k: int):
+    """An aggregate's input columns from position ci: None for none
+    (count(*)), the column for one, a list for two or more (corr,
+    covar)."""
+    if k == 0:
+        return None
+    if k == 1:
+        return cols[ci]
+    return [cols[ci + j] for j in range(k)]
+
+
 class TpuHashAggregateExec(PhysicalPlan):
     """mode='partial' emits [keys..., buffers...] per input partition;
     mode='final' consumes them after the exchange and emits
@@ -224,7 +245,16 @@ class TpuHashAggregateExec(PhysicalPlan):
     (`_merge_buffers`) once their rows pass 2 * target_rows
     (spark.rapids.sql.batchSizeRows); a final merge over more than
     target_rows groups re-partitions the buffers by key and finalises
-    each piece (`_finalize_partitioned`)."""
+    each piece (`_finalize_partitioned`).
+
+    An aggregate holding a non-jittable function (collect_list/set,
+    count(DISTINCT), sum(DISTINCT), percentile: buffers as wide as the
+    largest group) takes the reference's eager path: its partial and
+    merges read the group count on the host and size every buffer to
+    `next_capacity(num_groups)` rows, where the reference keeps the
+    batch's row capacity (an array buffer of 2^20 rows by ~520 elements
+    would take 4.4 GB a partial; the answers are the same). Such
+    functions are not `binned_safe`, so they take the sorted grouping."""
 
     #: default of spark.rapids.sql.batchSizeRows when built without conf
     target_rows = 1 << 20
@@ -245,6 +275,9 @@ class TpuHashAggregateExec(PhysicalPlan):
         super().__init__([child], out_schema, conf)
         if conf is not None:
             self.target_rows = conf.get(rc.BATCH_SIZE_ROWS)
+        #: a function's buffers are as wide as its largest group: size
+        #: the buffers' rows to the group count, read on the host
+        self.eager = any(not a.children[0].jittable for a in aggs)
 
     @property
     def num_partitions(self):
@@ -299,18 +332,27 @@ class TpuHashAggregateExec(PhysicalPlan):
             # live mask come from the real data
             work = batch
         ranges = self._bin_ranges(work, nkeys)
-        if ranges is not None:
+        if ranges is not None and all(a.children[0].binned_safe
+                                      for a in self.aggs):
             return self._partial_binned(work, ranges, input_groups, live)
         g = segmented.group_by(work, list(range(nkeys)), live)
-        cap = work.capacity
-        out_cols = self._keys_prefix(g, nkeys, cap)
+        cap = self._buffer_rows(g, work.capacity)
+        out_cols = self._keys_prefix(g, nkeys, work.capacity, cap)
         ci = nkeys
         for a, grp in zip(self.aggs, input_groups):
-            vals = g.sorted_batch.columns[ci] if grp else None
+            vals = _inputs_at(g.sorted_batch.columns, ci, len(grp))
             ci += len(grp)
             out_cols.extend(a.children[0].update(vals, g.live, g.gid, cap))
         return ColumnBatch(_buffer_schema(self.grouping, self.aggs),
                            out_cols, g.num_groups)
+
+    def _buffer_rows(self, g, capacity: int) -> int:
+        """Rows of the buffers a grouping gives: the batch's capacity, or
+        on the eager path the capacity bucket of its group count (one
+        host read)."""
+        if not self.eager:
+            return capacity
+        return next_capacity(int(g.num_groups))
 
     def _partial_binned(self, work: ColumnBatch, ranges, input_groups,
                         live=None) -> ColumnBatch:
@@ -356,7 +398,7 @@ class TpuHashAggregateExec(PhysicalPlan):
                 counts = segmented.seg_count(live, gid, bcap)
                 ci = nkeys
                 for a, grp in zip(self.aggs, input_groups):
-                    vals = work.columns[ci] if grp else None
+                    vals = _inputs_at(work.columns, ci, len(grp))
                     ci += len(grp)
                     out_cols.extend(a.children[0].update(vals, live, gid,
                                                          bcap))
@@ -376,7 +418,8 @@ class TpuHashAggregateExec(PhysicalPlan):
         took), and the occupancy count over `live` is count(*). Returns
         (occupancy counts, buffer columns), or None when the shape does
         not qualify (another function, count(expr), sums of mixed types or
-        more than four columns): the per-function update loop then runs."""
+        more than eight columns): the per-function update loop then
+        runs."""
         slots = []     # per aggregate: index of its value vector, or None
         vec_of = {}    # work column index -> value vector index
         values, masks, out_types = [], [], []
@@ -397,7 +440,8 @@ class TpuHashAggregateExec(PhysicalPlan):
             else:
                 return None
             ci += len(grp)
-        if len(values) > 4 or len({v.dtype for v in values}) > 1:
+        if (len(values) > segmented.K4_MAX_VECTORS
+                or len({v.dtype for v in values}) > 1):
             return None
         red = segmented.seg_sum_count_multi(values, live, gid, bcap, masks,
                                             value_counts=True)
@@ -413,11 +457,13 @@ class TpuHashAggregateExec(PhysicalPlan):
         return red.count, out_cols
 
     @staticmethod
-    def _keys_prefix(g, nkeys: int, cap: int) -> List[DeviceColumn]:
-        """Group key columns: the first row of each segment, in one
-        gather. It keeps an encoded key's dictionary; plain keys drop
-        vrange, as in the reference."""
-        safe = g.first_pos.clamp(0, cap - 1)
+    def _keys_prefix(g, nkeys: int, cap: int,
+                     rows: Optional[int] = None) -> List[DeviceColumn]:
+        """Group key columns: the first row of each of the first `rows`
+        segments (all of them by default), in one gather. It keeps an
+        encoded key's dictionary; plain keys drop vrange, as in the
+        reference."""
+        safe = g.first_pos[:rows].clamp(0, cap - 1)
         out_cols = gather_columns([(g.sorted_batch.columns[ki], safe)
                                    for ki in range(nkeys)])
         return [c.replace(vrange=None)
@@ -429,8 +475,8 @@ class TpuHashAggregateExec(PhysicalPlan):
         otherwise the merged buffers come back (`_merge_buffers`)."""
         nkeys = len(self.grouping)
         g = segmented.group_by(batch, list(range(nkeys)))
-        cap = batch.capacity
-        out_cols = self._keys_prefix(g, nkeys, cap)
+        cap = self._buffer_rows(g, batch.capacity)
+        out_cols = self._keys_prefix(g, nkeys, batch.capacity, cap)
         ci = nkeys
         for a in self.aggs:
             fn: AggregateFunction = a.children[0]
@@ -486,17 +532,27 @@ class TpuHashAggregateExec(PhysicalPlan):
             yield self._merge_final(merged)
 
     def _empty_global_result(self) -> ColumnBatch:
-        """The reference's `_empty_global_result`: count 0, every other
+        """The reference's `_empty_global_result`: count and
+        count(DISTINCT) 0, collect_list/set an empty array, every other
         aggregate null."""
         dev = conf_device(self.conf)
         cap = 1024
         cols = []
         for a in self.aggs:
             dt = a.dtype
-            if isinstance(a.children[0], Count):
+            fn = a.children[0]
+            if fn.zero_when_empty:
                 cols.append(DeviceColumn(
                     long, torch.zeros(cap, dtype=torch.int64, device=dev),
                     torch.ones(cap, dtype=torch.bool, device=dev)))
+            elif isinstance(dt, ArrayType):
+                cols.append(DeviceColumn(
+                    dt, torch.zeros((cap, 1), dtype=torch_dtype(
+                        dt.elementType), device=dev),
+                    torch.ones(cap, dtype=torch.bool, device=dev),
+                    torch.zeros(cap, dtype=torch.int32, device=dev),
+                    elem_validity=torch.zeros((cap, 1), dtype=torch.bool,
+                                              device=dev)))
             elif isinstance(dt, StringType):
                 cols.append(DeviceColumn(
                     dt, torch.zeros((cap, 8), dtype=torch.uint8, device=dev),
@@ -800,8 +856,8 @@ def window_streaming_mode(window_exprs: List[Alias]) -> Optional[str]:
       (unbounded..unbounded, or no frame and no order), never first/last
       (order-sensitive: the two passes see chunk-arrival order).
 
-    None -> the whole-partition evaluation. Every function the port has
-    is jittable in the reference's sense (fixed output shapes)."""
+    None -> the whole-partition evaluation, also for an aggregate that is
+    not jittable (buffers as wide as the largest group)."""
     from spark_rapids_tpu_torch.expr import windows as we
 
     spec = window_exprs[0].children[0].spec
@@ -820,7 +876,11 @@ def window_streaming_mode(window_exprs: List[Alias]) -> Optional[str]:
         if isinstance(fn, (we.RowNumber, we.Rank, we.DenseRank)):
             kinds.add("running")
             continue
-        if not isinstance(fn, AggregateFunction) or isinstance(fn, First):
+        if not isinstance(fn, AggregateFunction) or not fn.jittable:
+            return None
+        if isinstance(fn, First):
+            # first/last are ORDER-sensitive; the two-pass aggregate
+            # sees chunk-arrival order, not the spec's ORDER BY
             return None
         whole = (frame is not None and frame.lower is None
                  and frame.upper is None) or (
@@ -865,6 +925,25 @@ def window_halo(window_exprs: List[Alias]) -> Optional[int]:
             return None
         halo = max(halo, abs(frame.lower), abs(frame.upper))
     return halo
+
+
+def _frame_variance(fn, cnt: torch.Tensor, s1: torch.Tensor,
+                    s2: torch.Tensor) -> DeviceColumn:
+    """var_pop / var_samp (stddev: their square roots) of a frame from its
+    count and sums of x and x^2, as the reference's window evaluates
+    them."""
+    n = cnt.to(torch.float64)
+    one = torch.tensor(1.0, dtype=torch.float64, device=n.device)
+    m2 = torch.clamp(s2 - s1 * (s1 / torch.maximum(n, one)), min=0.0)
+    if isinstance(fn, VarianceSamp):
+        d = m2 / torch.maximum(n - 1.0, one)
+        v = cnt >= 2
+    else:
+        d = m2 / torch.maximum(n, one)
+        v = cnt >= 1
+    if isinstance(fn, (StddevPop, StddevSamp)):
+        d = torch.sqrt(d)
+    return DeviceColumn(fn.dtype, d, v)
 
 
 def _float_minmax(a: torch.Tensor, b: torch.Tensor,
@@ -921,8 +1000,9 @@ class TpuWindowExec(PhysicalPlan):
       wait in a Python list, as the sort's runs do, until ROADMAP A10
       brings the spill catalog.
 
-    Variance/stddev and collect frames are not ported (the planner
-    refuses them: ROADMAP A12, and A3 for array columns)."""
+    Variance and stddev frames take K14's frame count and sums of x and
+    x^2 (three outputs of its one evaluation launch). Collect frames are
+    not ported (the planner refuses them: ROADMAP A3, array columns)."""
 
     def __init__(self, window_exprs: List[Alias], child, conf=None,
                  presorted: bool = False, halo: Optional[int] = None,
@@ -1023,6 +1103,25 @@ class TpuWindowExec(PhysicalPlan):
                     isinstance(fn, Max), prefix(inp, torch.int64, True),
                     perm=sw.perm, inv=inv)
                 slots.append(("col", DeviceColumn(wexpr.dtype, d, v)))
+            elif isinstance(fn, (VariancePop, VarianceSamp)):
+                # moments over frames from K14's prefix frames of x and
+                # x^2 and its count (StddevPop/Samp subclass these), as
+                # the reference's whole-partition evaluation
+                fr = frame_of(wexpr)
+                inp = input_of(fn)
+                sq_key = ("x^2", fn.input.key())
+                if sq_key not in inputs:
+                    x = inp.data.to(torch.float64)
+                    inputs[sq_key] = inp.replace(data=x * x)
+                pcnt = prefix(inp, torch.int64, True)
+                slots.append(("var", len(reqs), fn))
+                reqs += [W.WinRequest(kernels.WIN_COUNT, fr, pcnt=pcnt),
+                         W.WinRequest(kernels.WIN_SUM_F64, fr,
+                                      prefix(inp, torch.float64, False),
+                                      pcnt),
+                         W.WinRequest(kernels.WIN_SUM_F64, fr,
+                                      prefix(inputs[sq_key], torch.float64,
+                                             False), pcnt)]
             elif isinstance(fn, (Count, Sum, Average)):
                 fr = frame_of(wexpr)
                 inp = input_of(fn) if fn.input is not None else None
@@ -1061,6 +1160,9 @@ class TpuWindowExec(PhysicalPlan):
             if slot[0] == "eval":
                 d, v = evals[slot[1]]
                 new_cols.append(DeviceColumn(dt, d, v))
+            elif slot[0] == "var":
+                new_cols.append(_frame_variance(
+                    slot[2], *[evals[slot[1] + i][0] for i in range(3)]))
             elif slot[0] == "col":
                 new_cols.append(slot[1])
             else:

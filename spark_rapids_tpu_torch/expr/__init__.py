@@ -3,13 +3,31 @@ functions, string functions, regex, casts and datetimes."""
 
 from spark_rapids_tpu_torch.expr.aggregates import (  # noqa: F401
     AggregateFunction,
+    AnyValue,
+    ApproxPercentile,
     Average,
+    BoolAnd,
+    BoolOr,
+    CollectList,
+    CollectSet,
+    Corr,
     Count,
+    CountDistinct,
+    CovarPop,
+    CovarSamp,
     First,
+    Kurtosis,
     Last,
     Max,
     Min,
+    Percentile,
+    Skewness,
+    StddevPop,
+    StddevSamp,
     Sum,
+    SumDistinct,
+    VariancePop,
+    VarianceSamp,
 )
 from spark_rapids_tpu_torch.expr.arith import (  # noqa: F401
     Add,

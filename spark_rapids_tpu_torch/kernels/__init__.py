@@ -55,6 +55,13 @@ module that the JAX package keeps the function in:
   `_timestamp_to_string` and `expr.datetimes._pattern_to_string`
   (DateFormat): integral, date and timestamp text (csrc/str_format.cu)
 
+- K25 `expr.aggregates.rank_select` and `rank_interp`: the percentile
+  aggregates' rank selection over rows sorted by (group, value)
+  (csrc/rank_select.cu)
+- K26 `expr.aggregates.collect_rank` and `collect_scatter`: the collect
+  family's ranks within a group (with the set's duplicate test) and its
+  [groups, max_elems] buffers (csrc/collect_scatter.cu)
+
 K18-K22 and K24 share the row reader and writer of csrc/strings.cuh, K22
 and K24 the calendar of csrc/calendar.cuh.
 
@@ -105,6 +112,10 @@ launches: Dict[str, int] = {
     "str_parse": 0,
     "tz_rebase": 0,
     "str_format": 0,
+    "rank_select": 0,
+    "rank_interp": 0,
+    "collect_rank": 0,
+    "collect_scatter": 0,
 }
 
 
@@ -242,6 +253,13 @@ class StrCol(ctypes.Structure):
 
 #: input columns one K21 launch takes (kMaxStrCols)
 MAX_STR_COLS = 16
+
+#: K26's element kinds (ElemKind in csrc/collect_scatter.cu)
+ELEM_KINDS = {torch.int8: 0, torch.uint8: 0, torch.bool: 0, torch.int16: 1,
+              torch.int32: 2, torch.int64: 3, torch.float32: 4,
+              torch.float64: 5}
+#: targets one K25 select launch takes (kRsMaxK in csrc/rank_select.cu)
+MAX_RANK_TARGETS = 128
 
 #: K22's modes (ParseMode in csrc/str_parse.cu)
 PARSE_LONG, PARSE_DOUBLE, PARSE_BOOL, PARSE_DATE, PARSE_TIMESTAMP = range(5)

@@ -87,6 +87,12 @@ _SIGNATURES = {
     "srtpu_str_parse": [_I, _P, _L, _P, _P, _L, _I, _L, _L, _P, _P, _I, _P],
     "srtpu_tz_rebase": [_I, _P, _L, _P, _P, _P, _I, _P, _I, _P],
     "srtpu_str_format": [_I, _P, _I, _L, _P, _I, _P, _I, _P, _I, _P],
+    "srtpu_rank_select": [_P, _P, _P, _P, _L, _I, _I, _D, _P, _P, _I, _P],
+    "srtpu_rank_interp": [_P, _P, _I, _I, _D, _P, _I, _P],
+    "srtpu_collect_rank": [_P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _I,
+                           _P],
+    "srtpu_collect_scatter": [_P, _I, _P, _P, _P, _L, _P, _I, _I, _P, _P,
+                              _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,12 @@
-// K4 seg_sum_count: masked segmented sums of k <= 4 value vectors, each
+// K4 seg_sum_count: masked segmented sums of k <= 8 value vectors, each
 // with its own optional mask and count, plus a row count, over segment
 // ids, in one pass over the rows.
 //
 // Replaces spark_rapids_tpu/ops/segmented.py:349 seg_count, :358 seg_sum
-// and :371 seg_sum_count (jax.ops.segment_sum on the CPU backend), and the
-// one-sweep partial of exec/operators.py:1005 _binned_all_sums (the TPU's
+// and :371 seg_sum_count (jax.ops.segment_sum on the CPU backend), :392
+// seg_multi_sum (the moment and bivariate aggregates' power and cross
+// sums, expr/aggregates.py:407, :533), and the one-sweep partial of
+// exec/operators.py:1005 _binned_all_sums (the TPU's
 // f32-chunk one-hot matmul, _mm_pass_multi :192, is a TPU limit and is not
 // copied). For every row r with valid[r] and 0 <= g = gid[r] < nseg:
 //   counts[g] += 1, and for each j with no mask or mask[j][r]:
@@ -15,21 +17,23 @@
 // Bound on the H100: bytes. It must read valid (1 B) for every row, and
 // gid (4 B) and each mask (1 B) for the valid rows and each value (8 B)
 // where its mask holds: q5's binned partial (k = 2 float64 vectors, about
-// 3.7M valid rows in 4,194,304 slots) is about 86 MB, 26 us at 3.35 TB/s.
+// 3.7M valid rows in 4,194,304 slots) is about 86 MB, 26 us at 3.35 TB/s;
+// corr's five sums (k = 5) read 45 bytes a valid row.
 //
 // Design: grid-stride over rows. When the ids are unsorted (the binned
 // aggregate) and the bins fit in shared memory, each block keeps private
 // bins (k sums, k counts and a row count per segment), adds into them with
 // shared-memory atomics, and flushes its occupied bins with global
 // atomics, so device memory sees a few atomics per block instead of one
-// per row. Sorted ids (the merge after a sort) or bins too large for
-// shared memory add straight into device memory.
+// per row (k = 8 takes 136 bytes a bin: 1,709 bins fit 227 KB). Sorted
+// ids (the merge after a sort) or bins too large for shared memory add
+// straight into device memory.
 
 #include "common.cuh"
 
 namespace srtpu {
 
-constexpr int kMaxK = 4;
+constexpr int kMaxK = 8;
 
 struct SegInputs {
   const void* v[kMaxK];     // value vectors [n]

@@ -1,11 +1,13 @@
 """Sort-based grouping and segmented reductions — counterpart of
 `spark_rapids_tpu/ops/segmented.py`.
 
-`seg_sum_count_multi` is kernel K4 (kernels/csrc/seg_sum_count.cu): k <= 4
-segmented sums, each under its own mask and with its own count, plus a row
-count, in one pass over the rows; `seg_count`, `seg_sum` and
-`seg_sum_count` are its three simple shapes, and the binned aggregate's
-partial takes all its reductions from one launch. The reference's TPU
+`seg_sum_count_multi` is kernel K4 (kernels/csrc/seg_sum_count.cu): k <= 8
+segmented sums a launch, each under its own mask and with its own count,
+plus a row count, in one pass over the rows (a larger set takes launches
+of at most 8); the moment and bivariate aggregates take their power and
+cross sums from it (the reference's `seg_multi_sum`), `seg_count`,
+`seg_sum` and `seg_sum_count` are its simple shapes, and the binned
+aggregate's partial takes all its reductions from one launch. The reference's TPU
 route (f32-chunk one-hot matmuls on the MXU) is a TPU limit and is not
 copied: int64 sums are exact, float64 sums are exact up to summation
 order.
@@ -103,24 +105,45 @@ def seg_sum_count_plain(values: Sequence[torch.Tensor], valid: torch.Tensor,
     return SegSums(sums, vcounts if value_counts else None, count)
 
 
+#: value vectors one K4 launch sums (kMaxK in csrc/seg_sum_count.cu)
+K4_MAX_VECTORS = 8
+
+
 def seg_sum_count_multi(values: Sequence[torch.Tensor], valid: torch.Tensor,
                         gid: torch.Tensor, num_segments: int,
                         masks: Optional[Sequence[Optional[torch.Tensor]]]
                         = None, with_count: bool = True,
                         value_counts: bool = False) -> SegSums:
     """Kernel K4, in one pass over the rows with `valid` and
-    0 <= gid < num_segments: the segmented sums of k <= 4 value vectors
-    (all int64 or all float64), each over the rows its mask admits
-    (`masks[j]`, None for all of them), with `value_counts` the number of
-    rows each sum took, and with `with_count` the count of the rows."""
+    0 <= gid < num_segments: the segmented sums of k value vectors (all
+    int64 or all float64; at most 8 a launch, a larger set in launches of
+    8), each over the rows its mask admits (`masks[j]`, None for all of
+    them), with `value_counts` the number of rows each sum took, and with
+    `with_count` the count of the rows."""
     if valid.device.type == "cpu":
         return seg_sum_count_plain(values, valid, gid, num_segments, masks,
                                    with_count, value_counts)
+    k = len(values)
+    masks = list(masks) if masks is not None else [None] * k
+    if k > K4_MAX_VECTORS:
+        m = K4_MAX_VECTORS
+        parts = [_seg_sum_count_launch(
+            values[lo:lo + m], valid, gid, num_segments, masks[lo:lo + m],
+            with_count and lo == 0, value_counts)
+            for lo in range(0, k, m)]
+        return SegSums(
+            [s for p in parts for s in p.sums],
+            [c for p in parts for c in p.value_counts]
+            if value_counts else None, parts[0].count)
+    return _seg_sum_count_launch(values, valid, gid, num_segments, masks,
+                                 with_count, value_counts)
+
+
+def _seg_sum_count_launch(values, valid, gid, num_segments, masks,
+                          with_count, value_counts) -> SegSums:
+    """One K4 launch over at most K4_MAX_VECTORS value vectors."""
     dev = valid.device
     k = len(values)
-    if k > 4:
-        raise ValueError(f"K4 sums at most 4 vectors, got {k}")
-    masks = list(masks) if masks is not None else [None] * k
     if len(masks) != k:
         raise ValueError(f"{len(masks)} masks for {k} value vectors")
     n = valid.shape[0]
@@ -142,8 +165,9 @@ def seg_sum_count_multi(values: Sequence[torch.Tensor], valid: torch.Tensor,
                if k and value_counts else None)
     count = (torch.empty(num_segments, dtype=torch.int64, device=dev)
              if with_count else None)
-    vptrs = (ctypes.c_void_p * 4)(*[v.data_ptr() for v in values])
-    mptrs = (ctypes.c_void_p * 4)(
+    vptrs = (ctypes.c_void_p * K4_MAX_VECTORS)(
+        *[v.data_ptr() for v in values])
+    mptrs = (ctypes.c_void_p * K4_MAX_VECTORS)(
         *[None if m is None else m.data_ptr() for m in masks])
     _build.check(_build.lib().srtpu_seg_sum_count(
         int(dtype == torch.float64), k, vptrs, mptrs, valid.data_ptr(),

@@ -29,7 +29,8 @@ from spark_rapids_tpu_torch.config import rapids_conf as rc
 from spark_rapids_tpu_torch.exec import operators as ops
 from spark_rapids_tpu_torch.exec.base import PhysicalPlan
 from spark_rapids_tpu_torch.exec.joins import TpuBroadcastHashJoinExec
-from spark_rapids_tpu_torch.expr import BoundReference, First, Max, Min
+from spark_rapids_tpu_torch.expr import aggregates as AGG
+from spark_rapids_tpu_torch.expr import BoundReference, Max, Min
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.typesig import (
     PORTED_EXPRESSIONS,
@@ -45,13 +46,10 @@ from spark_rapids_tpu_torch.sqltypes import (
     StructType,
 )
 
-#: window aggregates of the reference the port has no expression for yet,
-#: by the ROADMAP item that ports them (collect frames need array columns)
-_UNPORTED_WINDOW_AGGS = {
-    "CollectList": "A3 (array columns)", "CollectSet": "A3 (array columns)",
-    "VariancePop": "A12", "VarianceSamp": "A12", "StddevPop": "A12",
-    "StddevSamp": "A12",
-}
+#: the aggregates the reference's window evaluates on the device (its
+#: `supported_aggs`); collect frames need array columns (ROADMAP A3)
+_WINDOW_AGGS = (AGG.Sum, AGG.Count, AGG.Min, AGG.Max, AGG.Average,
+                AGG.First, AGG.VariancePop, AGG.VarianceSamp)
 
 #: torch dtypes whose group-by min/max K12 reduces
 _K12_TYPES = (torch.int32, torch.int64, torch.float32, torch.float64)
@@ -169,16 +167,31 @@ class TpuOverrides:
         return meta
 
     def _tag_aggregates(self, node: L.Aggregate, meta: PlanMeta) -> None:
-        """Group-by aggregates the port has no device path for: first and
-        last (window frames only), and min/max of a type K12 does not
-        reduce."""
+        """The reference's aggregate checks: the moment, bivariate and
+        percentile families need numeric input; collect and distinct over
+        string, array or decimal input run on the reference's CPU engine
+        (ROADMAP A9 here). And min/max of a type K12 does not reduce."""
+        from spark_rapids_tpu_torch.sqltypes import DecimalType
         from spark_rapids_tpu_torch.sqltypes.datatypes import torch_dtype
 
+        for a in node.aggregates:
+            fn = a.children[0]
+            if (isinstance(fn, (AGG.CollectList, AGG.CountDistinct))
+                    and fn.input is not None
+                    and isinstance(fn.input.dtype, (StringType, ArrayType,
+                                                    DecimalType))):
+                meta.cannot_run(
+                    f"{fn.name} over {fn.input.dtype} input runs on the "
+                    "reference's CPU engine; the port has no CPU engine "
+                    "yet (ROADMAP A9)")
+            if isinstance(fn, (AGG._Moments, AGG._Bivariate,
+                               AGG.Percentile)):
+                for e in fn.children:
+                    if not isinstance(e.dtype, NumericType):
+                        meta.cannot_run(f"{fn.name} requires numeric input")
+
         def walk(e):
-            if isinstance(e, First):
-                meta.cannot_run(f"{e.name} as a group-by aggregate is not "
-                                "ported yet (ROADMAP A12)")
-            elif isinstance(e, (Min, Max)):
+            if isinstance(e, (Min, Max)):
                 dt = e.input.dtype
                 if (getattr(dt, "np_dtype", None) is None
                         or isinstance(dt, StringType)
@@ -196,8 +209,10 @@ class TpuOverrides:
         offset functions need ORDER BY; partition, order, input and
         default expressions must be ported; string min/max is refused;
         RANGE offsets need exactly one ascending numeric ORDER BY key;
-        the reference's other window aggregates (collect, variance and
-        stddev frames) are not ported. Where the reference plans its CPU
+        collect frames are not ported (array columns), and an aggregate
+        the reference's window does not evaluate on its device (skewness,
+        corr, count(DISTINCT), ...) runs on its CPU engine. Where the
+        reference plans its CPU
         window instead, the port raises with the reference's reason and
         the ROADMAP item that will port it."""
         from spark_rapids_tpu_torch.expr import windows as we
@@ -223,13 +238,18 @@ class TpuOverrides:
                         f"{type(fn).__name__} requires ORDER BY")
                 if isinstance(fn, we.Lead):
                     self._exprs(meta, fn.children)
-            elif type(fn).__name__ in _UNPORTED_WINDOW_AGGS:
+            elif isinstance(fn, AGG.CollectList):
                 meta.cannot_run(
                     f"window {type(fn).__name__} is not ported yet (ROADMAP "
-                    f"{_UNPORTED_WINDOW_AGGS[type(fn).__name__]})")
+                    "A3: array columns)")
             elif not isinstance(fn, PORTED_EXPRESSIONS):
                 meta.cannot_run(f"window function {type(fn).__name__} is "
                                 "not ported yet (ROADMAP A12)")
+            elif not isinstance(fn, _WINDOW_AGGS):
+                meta.cannot_run(
+                    f"window function {type(fn).__name__} has no device "
+                    "implementation; the reference runs it on its CPU "
+                    "engine, which is not ported yet (ROADMAP A9)")
             else:
                 if fn.input is not None:
                     self._exprs(meta, [fn.input])

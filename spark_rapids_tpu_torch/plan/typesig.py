@@ -20,6 +20,7 @@ from typing import List, Optional
 from spark_rapids_tpu_torch.config import rapids_conf as rc
 from spark_rapids_tpu_torch.expr import datetimes as D
 from spark_rapids_tpu_torch.expr import strings as S
+from spark_rapids_tpu_torch.expr import aggregates as AGG
 from spark_rapids_tpu_torch.expr import (
     Add,
     Alias,
@@ -72,7 +73,9 @@ PORTED_EXPRESSIONS = (BoundReference, Literal, Alias, Add, Subtract,
                       Multiply, Divide, EqualTo, LessThan, GreaterThan,
                       LessThanOrEqual, GreaterThanOrEqual, And, Or, Not,
                       Sum, Count, Average, Min, Max, First, Last, RLike,
-                      *S.STRING_EXPRESSIONS, Cast, *D.DATETIME_EXPRESSIONS)
+                      *S.STRING_EXPRESSIONS, Cast, *D.DATETIME_EXPRESSIONS,
+                      AGG._Moments, AGG._Bivariate, AGG._BoolReduce,
+                      AGG.CollectList, AGG.CountDistinct, AGG.Percentile)
 
 #: expressions the reference evaluates on its CPU engine only (no device
 #: implementation); the port has no CPU engine yet

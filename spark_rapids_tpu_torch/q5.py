@@ -38,7 +38,10 @@ predicate and word split over an ORDERS-shaped table that
 `orders_ingest_query` and `orders_monthly_query` run TPC-H q4's date
 window, the typing step of a text load and a monthly report in the
 session zone over the dated ORDERS that `write_orders_dated` writes
-typed and as .tbl text. Through the
+typed and as .tbl text; `orders_price_stats_query`,
+`orders_daily_distinct_query` and `orders_price_window_query` run the
+statistical, distinct and percentile aggregates and the variance window
+frames over its typed table. Through the
 port's session with bench.py's conf they run on the fused engine
 (exec/fused.py), which evaluates every window over the whole partition;
 with
@@ -418,6 +421,65 @@ def orders_monthly_query(orders, F=None):
                  F.sum("ts_chars").alias("ts_chars")))
 
 
+def orders_price_stats_query(orders, F=None):
+    """The spread of order value per priority and order year (35 groups):
+    sample and population variance and stddev, skewness and kurtosis of
+    o_totalprice, its covariance and correlation with the order's day
+    number, its approximate 90th percentile, and whether every order is
+    over 900 and whether any is over 500,000. Every aggregate is
+    jittable: the fused engine runs it."""
+    F = _functions(F)
+    price = F.col("o_totalprice")
+    return (orders
+            .select("o_orderpriority",
+                    F.year("o_orderdate").alias("o_year"), "o_totalprice",
+                    F.datediff(F.col("o_orderdate"),
+                               F.to_date(F.lit("1992-01-01"))).alias("day"))
+            .groupBy("o_orderpriority", "o_year")
+            .agg(F.var_samp("o_totalprice").alias("var_samp"),
+                 F.var_pop("o_totalprice").alias("var_pop"),
+                 F.stddev_samp("o_totalprice").alias("sd_samp"),
+                 F.stddev_pop("o_totalprice").alias("sd_pop"),
+                 F.skewness("o_totalprice").alias("skew"),
+                 F.kurtosis("o_totalprice").alias("kurt"),
+                 F.covar_pop("o_totalprice", "day").alias("cov_pop"),
+                 F.covar_samp("o_totalprice", "day").alias("cov_samp"),
+                 F.corr("o_totalprice", "day").alias("corr"),
+                 F.percentile_approx("o_totalprice", 0.9).alias("p90"),
+                 F.bool_and(price > 900.0).alias("all_over_900"),
+                 F.bool_or(price > 500000.0).alias("any_over_500k")))
+
+
+def orders_daily_distinct_query(orders, F=None):
+    """A dashboard's daily line (2,406 groups at SF10): the orders, the
+    distinct customers and the median order value of each order date.
+    count(DISTINCT) and percentile are not jittable: the fused engine
+    falls back to the adaptive one, as the reference's does."""
+    F = _functions(F)
+    return (orders
+            .groupBy("o_orderdate")
+            .agg(F.count("*").alias("n"),
+                 F.countDistinct("o_custkey").alias("customers"),
+                 F.percentile("o_totalprice", 0.5).alias("median")))
+
+
+def orders_price_window_query(orders, F=None, Window=None):
+    """Variance window frames over every order: the sample stddev of
+    o_totalprice over the 100 orders up to each one of its priority (in
+    date and key order: ROWS 99 PRECEDING to CURRENT ROW), and the
+    population variance over the whole priority. `Window` is the window
+    builder of the package `F` belongs to (the port's by default)."""
+    F = _functions(F)
+    if Window is None:
+        from spark_rapids_tpu_torch.api.window import Window
+    prio = Window.partitionBy("o_orderpriority")
+    moving = prio.orderBy("o_orderdate", "o_orderkey").rowsBetween(-99, 0)
+    return orders.select(
+        "o_orderkey", "o_orderpriority", "o_orderdate", "o_totalprice",
+        F.stddev_samp("o_totalprice").over(moving).alias("sd100"),
+        F.var_pop("o_totalprice").over(prio).alias("prio_var"))
+
+
 #: TPC-H's o_orderpriority values (spec 4.2.2.13: PRIORITIES)
 ORDER_PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
                     "5-LOW")
@@ -522,8 +584,10 @@ ORDER_PRICE_CENTS = (85_771, 55_528_516)
 def orders_dated_draws(rows: int, files: int = 8, seed: int = 0):
     """The seeded draws of `write_orders_dated`, one dict of numpy arrays
     a file: o_orderkey (int64), priority (index into ORDER_PRIORITIES),
-    o_orderdate (int32 days) and cents (int64)."""
+    o_orderdate (int32 days), cents (int64) and o_custkey (int64, from a
+    generator of its own, so the other draws stay as they were)."""
     rng = np.random.default_rng(seed)
+    crng = np.random.default_rng([seed, 3])
     per = -(-rows // files)
     out = []
     for i in range(files):
@@ -534,8 +598,20 @@ def orders_dated_draws(rows: int, files: int = 8, seed: int = 0):
             o_orderdate=rng.integers(ORDER_DATE_LO, ORDER_DATE_HI + 1,
                                      n).astype(np.int32),
             cents=rng.integers(ORDER_PRICE_CENTS[0], ORDER_PRICE_CENTS[1] + 1,
-                               n)))
+                               n),
+            o_custkey=_custkeys(crng, n, rows)))
     return out
+
+
+def _custkeys(rng, n: int, rows: int) -> np.ndarray:
+    """o_custkey as dbgen draws it (TPC-H spec 4.2.3): uniform over
+    [1, SF * 150,000] (SF = rows / 1,500,000), a multiple of 3 moved to
+    the next key (the last key, itself a multiple of 3, to the one
+    before): a third of the customers place no order."""
+    top = max(rows // 10, 3)
+    k = rng.integers(1, top + 1, n).astype(np.int64)
+    k = k + (k % 3 == 0)
+    return np.where(k > top, top - 1, k)
 
 
 def write_orders_dated(root: str, rows: int, files: int = 8, seed: int = 0
@@ -548,7 +624,8 @@ def write_orders_dated(root: str, rows: int, files: int = 8, seed: int = 0
     columns are not ported yet), and root/orders_tbl, the same rows as
     dbgen's .tbl text prints them, every column a string (the key in
     decimal, the price as %.2f, the date as yyyy-MM-dd): what a CSV or
-    .tbl load lands before typing. Returns the two lists of paths."""
+    .tbl load lands before typing. The typed table also holds o_custkey
+    (int64, as dbgen draws it). Returns the two lists of paths."""
     import pyarrow.compute as pc
 
     prio = pa.array(ORDER_PRIORITIES)
@@ -562,7 +639,8 @@ def write_orders_dated(root: str, rows: int, files: int = 8, seed: int = 0
         cents = d["cents"]
         t = pa.table({"o_orderkey": key, "o_orderpriority": priority,
                       "o_orderdate": date,
-                      "o_totalprice": pa.array(cents / 100.0)})
+                      "o_totalprice": pa.array(cents / 100.0),
+                      "o_custkey": pa.array(d["o_custkey"])})
         price = pc.binary_join_element_wise(
             pc.cast(pa.array(cents // 100), pa.string()),
             pc.utf8_lpad(pc.cast(pa.array(cents % 100), pa.string()), 2, "0"),

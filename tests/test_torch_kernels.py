@@ -744,6 +744,7 @@ from spark_rapids_tpu_torch.ops import stringcast as port_stringcast  # noqa: E4
 from spark_rapids_tpu_torch.ops import tzdb as port_tzdb  # noqa: E402
 from spark_rapids_tpu_torch.expr import cast as port_cast  # noqa: E402
 from spark_rapids_tpu_torch.expr import datetimes as port_datetimes  # noqa: E402,E501
+from spark_rapids_tpu_torch.expr import aggregates as port_aggregates  # noqa: E402,E501
 
 # every kernel wrapper: on a CUDA tensor each one launches its kernel, so
 # a plain version (the kernel's check on the card) must reach none of them
@@ -779,6 +780,9 @@ _WRAPPERS = [
     (port_cast, "_int_to_string"), (port_cast, "_date_to_string"),
     (port_cast, "_timestamp_to_string"),
     (port_datetimes, "_pattern_to_string"),
+    (port_segmented, "_seg_sum_count_launch"),
+    (port_aggregates, "rank_select"), (port_aggregates, "rank_interp"),
+    (port_aggregates, "collect_rank"), (port_aggregates, "collect_scatter"),
 ]
 
 
@@ -867,6 +871,33 @@ def _slice7_plain_cases():
         "_pattern_to_string_plain[us]":
             lambda: port_datetimes._pattern_to_string_plain(
                 us, False, "dd/MM/yyyy HH:mm:ss.SSS"),
+    }
+
+
+def _slice8_plain_cases():
+    """K4's multi-sum (8 vectors), K25's two modes and K26's two modes."""
+    rng = np.random.default_rng(81)
+    n = 900
+    gid = t(np.sort(rng.integers(0, 40, n)).astype(np.int32))
+    valid = t(rng.random(n) > 0.2)
+    x = t(rng.choice(np.array([0.0, -0.0, np.nan, 1.5, 2.5, -3.0]), n))
+    sv = t(np.sort(rng.normal(size=n)))
+    w = t(rng.integers(0, 4, n) * 128)
+    A, S = port_aggregates, port_segmented
+    keep, rank, counts = A.collect_rank_plain(x, valid, gid, 64, True)
+    return {
+        "seg_sum_count_plain[k=8]": lambda: S.seg_sum_count_plain(
+            [x * j for j in range(8)], valid, gid, 64),
+        "rank_select_plain[live]": lambda: A.rank_select_plain(
+            sv, gid, None, valid, 64, 128, 1e-12),
+        "rank_select_plain[weights]": lambda: A.rank_select_plain(
+            sv, gid, w, None, 64, 128, 128e-12),
+        "rank_interp_plain": lambda: A.rank_interp_plain(
+            sv[:896].reshape(64, 14), counts.clamp(max=14), 0.9),
+        "collect_rank_plain": lambda: A.collect_rank_plain(
+            x, valid, gid, 64, True),
+        "collect_scatter_plain": lambda: A.collect_scatter_plain(
+            x, keep, rank, gid, counts, 64, max(int(counts.max()), 1)),
     }
 
 
@@ -966,6 +997,7 @@ def _plain_case(name, pb):
     }
     cases.update(_string_plain_cases(s_col))
     cases.update(_slice7_plain_cases())
+    cases.update(_slice8_plain_cases())
     return cases[name]()
 
 
@@ -989,7 +1021,8 @@ def _plain_window(n, perm, live):
     "decode_column_plain", "seg_minmax_plain", "merge_runs_plain",
     "window_prefix_plain", "window_eval_plain", "inverse_permutation_plain",
     "range_bounds_plain", "frame_minmax_plain", "frame_pick_plain",
-    *_STRING_PLAIN, *sorted(_slice7_plain_cases())])
+    *_STRING_PLAIN, *sorted(_slice7_plain_cases()),
+    *sorted(_slice8_plain_cases())])
 def test_plain_versions_reach_no_kernel_wrapper(name, monkeypatch):
     """With every kernel wrapper, wherever it is bound, replaced by one
     that raises, each plain version still runs."""

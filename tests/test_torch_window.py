@@ -414,21 +414,19 @@ def test_range_frames_raise_a11b(data, lower, upper, monkeypatch):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("CollectList", "A3"), ("CollectSet", "A3"), ("VariancePop", "A12"),
-    ("StddevSamp", "A12")])
+    ("CollectList", "A3"), ("CollectSet", "A3"), ("Skewness", "A9"),
+    ("CountDistinct", "A9")])
 def test_collect_and_variance_frames_raise(data, name, item):
-    """Window aggregates the port has no expression for yet raise naming
-    the ROADMAP item that ports them: collect frames need array columns
-    (A3), variance and stddev frames are A12's."""
+    """Window aggregates the port does not evaluate raise naming the
+    ROADMAP item that ports them: collect frames need array columns (A3);
+    an aggregate the reference's window runs on its CPU engine (skewness,
+    count(DISTINCT)) names A9. Variance and stddev frames ran into A12
+    here until slice 8 ported them (K14's frame sums of x and x^2)."""
     from spark_rapids_tpu_torch.api.column import Column
     from spark_rapids_tpu_torch.api.functions import UnresolvedColumn
-    from spark_rapids_tpu_torch.expr.aggregates import AggregateFunction
-    from spark_rapids_tpu_torch.sqltypes.datatypes import double
+    from spark_rapids_tpu_torch.expr import aggregates as AGG
 
-    class Unported(AggregateFunction):
-        dtype = double
-
-    fn = type(name, (Unported,), {})([UnresolvedColumn("amount")])
+    fn = getattr(AGG, name)(UnresolvedColumn("amount"))
     port = TpuSparkSession(dict(CONF, **{"spark.rapids.torch.device":
                                          "cpu"}))
     fact = port.read.parquet(os.path.join(data, "fact"))

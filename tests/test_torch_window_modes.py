@@ -389,14 +389,27 @@ def test_min_max_group_by_match_reference(data, fused):
 
 
 def test_first_as_group_by_aggregate_raises_a12(data):
+    """Group-by first() was refused naming A12 until slice 8 ported it
+    (K12 over positions, K8's gather): it now plans, and each store's
+    value is one of its amounts (which one follows the order its
+    partials arrive in; tests/test_torch_aggregates.py holds it to the
+    reference's)."""
     spark = _session("port", dict(STREAM_CONF))
     try:
         fact = spark.read.parquet(os.path.join(data, "fact"))
-        df = fact.groupBy("store").agg(PF.first("amount").alias("f"))
-        with pytest.raises(NotImplementedError, match="A12"):
-            df.collect_arrow()
+        got = fact.groupBy("store").agg(
+            PF.first("amount").alias("f")).collect_arrow()
+        facts = pq.read_table(os.path.join(data, "fact"))
     finally:
         spark.stop()
+    amounts = {}
+    for st, am in zip(facts.column("store").to_pylist(),
+                      facts.column("amount").to_pylist()):
+        amounts.setdefault(st, set()).add(am)
+    rows = got.to_pylist()
+    assert len(rows) == len(amounts)
+    for r in rows:
+        assert r["f"] in amounts[r["store"]], r
 
 
 @pytest.mark.parametrize("case,match", [
