@@ -57,7 +57,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    2^20-row partial and its 2,406 sorted price rows) and at edge shapes
    (`check_slice8_edges`: k = 1 to 16, the privatised bins' limit, groups
    of one row, all-NaN and empty groups, ties at a target, max_elems = 1,
-   every element kind with NaN, -0.0 and nulls);
+   every element kind with NaN, -0.0 and nulls); K27 (the join's probe
+   marks, build marks and coverage), K28 (the round-robin partition) and
+   K29 (the dictionary re-encode) at the slice-9 path shapes (150,000,000
+   pair slots of 2^28 into 2^24 marks and into the bands' marks, 900,000
+   probe ranges into 2^20 build rows, 4,500,000 rows into 16 partitions,
+   1,500,000 codes through 5 entries) and at edge shapes
+   (`check_slice9_edges`: no pairs, all and none ok, int64 indices,
+   clipped and ORed marks, ranges past the build's end, n = 1 and n
+   above the rows, codes at 0, K - 1 and past K, the shared-memory
+   table's limit, and whole joins on the card against the CPU over null,
+   NaN and -0.0 keys and empty sides);
 3. slice 1's hand-built q5 plan at the bench's full size (36M fact rows
    in 8 parquet files, a 2,000-row dimension with a dictionary-encoded
    `region`) over device-cached relations: upload, one cold run and 5
@@ -126,11 +136,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    statistics and the windows and falls back to the adaptive one for the
    daily line (count(DISTINCT), percentile). K4 and K25's selection must
    run on the statistics, K26 and K25's interpolation on the daily line,
-   K14 on the windows.
+   K14 on the windows;
+11. slice 9's joins (q5.py: q13_outer_query, q22_anti_query,
+   orders_yoy_full_query, orders_price_bands_query,
+   customer_segments_query, orders_union_rr_query) over CUSTOMER (1,500,000
+   rows as dbgen makes them) and ORDERS with customers and comments
+   (15,000,000 rows in 8 files) at SF10, a 10-row price-band table and a
+   5-row segment-quota table, with every hash join shuffled
+   (spark.sql.autoBroadcastJoinThreshold=-1), on the adaptive and the
+   fused engine (the nested-loop bands query on the adaptive engine
+   alone: neither package's fused engine lowers it): TPC-H q13 (a
+   conditional left outer join), q22's NOT EXISTS (a left anti join), a
+   year-over-year full outer join, a condition-only full outer
+   nested-loop join, a join on two dictionaries' codes and a union with a
+   round-robin repartition, each against pyarrow (Table.join left outer,
+   left anti, full outer) and numpy: counts exact, sums within 1e-9
+   relative. K27's probe marks must run on q13 and the bands, its build
+   marks on the bands, its coverage on the full join, K29 on the segment
+   join, K28 on the adaptive engine's round-robin exchange.
 
-For each query run (phases 3-10) the kernels' launch counts are reset
+For each query run (phases 3-11) the kernels' launch counts are reset
 just before the cold run and read just after it; every kernel of that
-path must have run. Phases 3-5 time 3 hot runs a query, phases 6-10 2,
+path must have run. Phases 3-5 time 3 hot runs a query, phases 6-11 2,
 and each kernel's device time in phase 2 is the mean of 10 calls.
 One more hot run counts the host syncs (torch.cuda's
 sync debug mode) and one, under torch.profiler, gives the device's busy
@@ -3001,7 +3028,12 @@ def slice5_oracles(fact_paths) -> dict:
     day = t.column("day").to_numpy()
     amount = t.column("amount").to_numpy()
     qty = t.column("qty").to_numpy()
-    order = np.lexsort((amount, day, store))
+    # the (store, day, amount) order in two passes, an order by amount made
+    # stable by (store, day) (a third of np.lexsort's time); equal amounts
+    # within a (store, day) fail below
+    by_amount_in = np.argsort(amount)
+    order = by_amount_in[np.argsort(
+        (store * 365 + day)[by_amount_in].astype(np.int32), kind="stable")]
     st, dy, am, qt = store[order], day[order], amount[order], qty[order]
     if ((st[1:] == st[:-1]) & (dy[1:] == dy[:-1])
             & (am[1:] == am[:-1])).any():
@@ -3029,12 +3061,15 @@ def slice5_oracles(fact_paths) -> dict:
 
     # moving_query
     def shifted(x, k, fill):
-        """x[i + k] inside the row's partition, else fill."""
+        """x[i + k] inside the row's partition, else fill (a slice copy:
+        a row inside its partition has i + k in range)."""
         out = np.full(n, fill, dtype=x.dtype)
+        if k >= 0:
+            out[:n - k] = x[k:]
+        else:
+            out[-k:] = x[:n + k]
         inside = (pos + k >= 0) & (pos + k < plen)
-        src = np.clip(np.arange(n) + k, 0, n - 1)
-        out[inside] = x[src[inside]]
-        return out, inside
+        return np.where(inside, out, fill), inside
 
     s7 = np.zeros(n)
     c7 = np.zeros(n, np.int64)
@@ -3055,7 +3090,11 @@ def slice5_oracles(fact_paths) -> dict:
               "prev#valid": has_prev, "next2": next2, "first7": first7,
               "last7": am}
 
-    by_amount = np.argsort(am)
+    # rows of the sorted order by amount: the inverse of `order` through
+    # the amount order already made
+    inv = np.empty(n, np.int64)
+    inv[order] = np.arange(n)
+    by_amount = inv[by_amount_in]
 
     # range_query: per (store, day)
     key = st * 365 + dy
@@ -4061,6 +4100,358 @@ def check_slice8_edges(dev) -> int:
     return cases
 
 
+#: phase 2's slice-9 shapes: TPC-H SF10's 1,500,000 customers and
+#: 15,000,000 orders
+SF10_CUSTOMERS = 1_500_000
+SF10_ORDERS = 15_000_000
+
+
+def check_slice9_kernels(dev):
+    """Phase 2, slice 9: K27's probe marks at orders_price_bands' shape
+    (150,000,000 candidate pairs of 15,000,000 orders by 10 bands at
+    capacity 2^28, a third ok, into the orders' 2^24 marks) and at q13's
+    (15,000,000 pairs in probe-row runs, as K3 gives them, into the 1.5M
+    customers' marks); its build marks at the bands shape (the same pairs
+    into the bands' capacity) and at a q13-shaped full join's (15,000,000
+    pairs into the orders' marks); its coverage at orders_yoy_full's
+    (about 900,000 probe ranges of one row into 2^20 build rows); K28 at
+    orders_union_rr's (4,500,000 live rows of a 4,718,592-row batch into
+    16 partitions); K29 at customer_segments' (1,500,000 int16 codes
+    through a 5-entry table). Exact against the plain versions. Returns
+    {record name: record}."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import encoding as enc
+    from spark_rapids_tpu_torch.columnar.batch import next_capacity
+    from spark_rapids_tpu_torch.ops import joinops as J
+    from spark_rapids_tpu_torch.ops import partition as P
+
+    src = "spark_rapids_tpu_torch/kernels/csrc/"
+    rng = np.random.default_rng(91)
+    out = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # bands: pair j is (order j // 10, band j % 10); K3 fills the slots
+    # past the total with (n - 1, 0), which ok marks dead
+    cap, total, marks = 1 << 28, SF10_ORDERS * 10, 1 << 24
+    pi = torch.arange(cap, dtype=torch.int32, device=dev) // 10
+    pi[total:] = SF10_ORDERS - 1
+    bi = torch.arange(cap, dtype=torch.int32, device=dev) % 10
+    bi[total:] = 0
+    ok = torch.rand(cap, device=dev) < 1 / 3
+    ok[total:] = False
+    n_ok = int(ok.sum().item())
+    for name, idx, m, fn, plain, counter, rep in (
+            ("probe_marks", pi, marks, J.probe_marks, J.probe_marks_plain,
+             "probe_marks", "spark_rapids_tpu/exec/joins.py:151"),
+            ("build_marks", bi, next_capacity(10), J.build_marks,
+             J.build_marks_plain,
+             "build_marks", "spark_rapids_tpu/exec/joins.py:585")):
+        got, want = fn(idx, ok, m), plain(idx, ok, m)
+        torch.cuda.synchronize()
+        exact(name, got, want)
+        idx64 = idx.to(torch.int64)
+        ok32 = ok.to(torch.int32)
+        out[name] = dict(
+            route="cuda", source=src + "join_marks.cu", replaces=rep,
+            max_abs_err=max_abs_err(got, want), counter=counter,
+            **timed(name, lambda idx=idx, m=m, fn=fn: fn(idx, ok, m),
+                    lambda idx=idx, m=m, plain=plain: plain(idx, ok, m),
+                    lambda idx64=idx64, m=m: torch.zeros(
+                        m, dtype=torch.int32, device=dev).scatter_reduce_(
+                            0, idx64, ok32, "amax"), 3),
+            # ok read for every slot, the index of each ok pair, the marks
+            # written
+            bound_ms=bound_ms(cap + 4 * n_ok + m), bound_by="bytes",
+            shape=f"{total} of {cap} pair slots, {n_ok} ok, into {m} marks",
+            library_call="scatter_reduce_(amax) on int32, int64 index "
+                         "made outside")
+        del got, want, idx64, ok32
+    del pi, bi, ok
+    torch.cuda.empty_cache()
+    # q13's pairs (runs of a probe row's matches) and a q13-shaped full
+    # join's build marks
+    counts = rng.poisson(10, SF10_CUSTOMERS).astype(np.int32)
+    runs = np.repeat(np.arange(SF10_CUSTOMERS, dtype=np.int32), counts)
+    q13cap = 1 << 24
+    qpi = np.full(q13cap, SF10_CUSTOMERS - 1, np.int32)
+    qpi[:len(runs)] = runs
+    qok = np.zeros(q13cap, bool)
+    qok[:len(runs)] = rng.random(len(runs)) < 0.98
+    qbi = rng.integers(0, SF10_ORDERS, q13cap).astype(np.int32)
+    qpi, qok, qbi = t(qpi), t(qok), t(qbi)
+    for what, fn, plain, idx, m in (
+            ("probe marks at q13", J.probe_marks, J.probe_marks_plain, qpi,
+             1 << 21),
+            ("build marks at a q13-shaped full join", J.build_marks,
+             J.build_marks_plain, qbi, 1 << 24)):
+        got, want = fn(idx, qok, m), plain(idx, qok, m)
+        torch.cuda.synchronize()
+        exact(what, got, want)
+        print(f"{what}: {len(runs)} of {q13cap} pairs into {m} marks: "
+              f"kernel_ms={device_ms(lambda: fn(idx, qok, m), what):.4f} "
+              f"plain_ms="
+              f"{device_ms(lambda: plain(idx, qok, m), what, 3):.4f}",
+              flush=True)
+    del qpi, qok, qbi, got, want
+    # yoy's coverage: ~900,000 probe ranges of one build row each (80 %
+    # matched) over the other year's sorted customers
+    nb = 900_000
+    ncap = 1 << 20
+    lo = np.sort(rng.integers(0, nb, ncap)).astype(np.int32)
+    cnt = (rng.random(ncap) < 0.8).astype(np.int32)
+    cnt[nb:] = 0
+    lo, cnt = t(lo), t(cnt)
+    got = J.build_coverage(lo, cnt, ncap)
+    want = J.build_coverage_plain(lo, cnt, ncap)
+    torch.cuda.synchronize()
+    exact("build_coverage", got, want)
+    n_pos = int((cnt > 0).sum().item())
+
+    def cov_library():
+        has = (cnt > 0).to(torch.int32)
+        d = torch.zeros(ncap + 1, dtype=torch.int32, device=dev)
+        d.scatter_add_(0, lo.to(torch.int64), has)
+        d.scatter_add_(0, (lo + cnt).to(torch.int64), -has)
+        return torch.cumsum(d[:-1], 0) > 0
+
+    out["build_coverage"] = dict(
+        route="cuda", source=src + "join_marks.cu",
+        replaces="spark_rapids_tpu/exec/joins.py:254",
+        max_abs_err=max_abs_err(got, want), counter="build_coverage",
+        **timed("build_coverage", lambda: J.build_coverage(lo, cnt, ncap),
+                lambda: J.build_coverage_plain(lo, cnt, ncap), cov_library),
+        # counts of every probe row, lo of the ranges, the marks written
+        bound_ms=bound_ms(4 * ncap + 4 * n_pos + ncap), bound_by="bytes",
+        shape=f"{n_pos} probe ranges of {ncap} rows into {ncap} build rows",
+        library_call="difference array (scatter_add_) and torch.cumsum")
+    del lo, cnt, got, want
+    # K28: union_rr's batch into 16 partitions
+    rcap, rrows, nparts = 4_718_592, 4_500_000, 16
+    got = P.round_robin_perm(rcap, rrows, nparts, 0, dev)
+    want = P.round_robin_perm_plain(rcap, torch.tensor(rrows, device=dev),
+                                    nparts, 0)
+    torch.cuda.synchronize()
+    exact("round_robin_partition perm", got[0], want[0])
+    exact("round_robin_partition counts", got[1], want[1])
+
+    def rr_library():
+        pid = (torch.arange(rcap, dtype=torch.int32, device=dev)
+               % nparts)
+        return P.partition_perm(pid, rrows, nparts)
+
+    out["round_robin_partition"] = dict(
+        route="cuda", source=src + "partition_by_ids.cu",
+        replaces="spark_rapids_tpu/ops/partition.py:54",
+        max_abs_err=max_abs_err(got[0], want[0]),
+        counter="round_robin_partition",
+        **timed("round_robin_partition",
+                lambda: P.round_robin_perm(rcap, rrows, nparts, 0, dev),
+                lambda: P.round_robin_perm_plain(
+                    rcap, torch.tensor(rrows, device=dev), nparts, 0),
+                rr_library),
+        # the permutation written (no pid read), the counts
+        bound_ms=bound_ms(4 * rcap + 4 * nparts), bound_by="bytes",
+        shape=f"{rrows} live rows of {rcap} into {nparts} partitions",
+        library_call="torch.arange % n, then K7")
+    del got, want
+    # K29: the customers' segment codes through the quota's 5-entry table
+    codes = t(rng.integers(0, 5, SF10_CUSTOMERS).astype(np.int16))
+    table = t(np.array([4, 3, 2, 1, 0], np.int32))
+    codes64 = codes.to(torch.int64)
+    got = enc.remap_codes(codes, table)
+    want = enc.remap_codes_plain(codes, table)
+    torch.cuda.synchronize()
+    exact("codes_remap", got, want)
+    out["codes_remap"] = dict(
+        route="cuda", source=src + "codes_remap.cu",
+        replaces="spark_rapids_tpu/columnar/encoding.py:524",
+        max_abs_err=max_abs_err(got, want), counter="codes_remap",
+        **timed("codes_remap", lambda: enc.remap_codes(codes, table),
+                lambda: enc.remap_codes_plain(codes, table),
+                lambda: table[codes64]),
+        # int16 codes read, int32 codes written, the table once
+        bound_ms=bound_ms(6 * SF10_CUSTOMERS + 20), bound_by="bytes",
+        shape=f"{SF10_CUSTOMERS} int16 codes through 5 entries",
+        library_call="table[codes] (int64 codes made outside)")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_slice9_edges(dev) -> int:
+    """Phase 2, slice 9 edge shapes against the plain versions: K27's marks
+    with no pair, every pair ok and none, indices at 0 and the last mark,
+    int64 indices, indices outside the marks (build marks clip), marks ORed
+    into earlier ones, dead slots past the total; its coverage with no
+    probe row, no range, ranges ending at or past the build's end, nested
+    and overlapping ranges, one build row, partial tiles; K28 at n = 1,
+    n above the rows, a start, no live row, a device row count, capacities
+    no multiple of 1,024; K29 at codes 0, K - 1, past K and negative, K = 1,
+    K = 12,288 and 12,289 (the shared-memory table's limit and one past),
+    int16 and int32 codes; and whole joins on the card against the CPU
+    (inner, left, full, semi, anti, with and without a condition, under
+    the shuffled hash and nested-loop joins) over null, NaN and -0.0 keys,
+    an empty probe and an empty build. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import encoding as enc
+    from spark_rapids_tpu_torch.ops import joinops as J
+    from spark_rapids_tpu_torch.ops import partition as P
+
+    rng = np.random.default_rng(92)
+    cases = 0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for n, m, dt, p_ok in ((0, 1, np.int32, 0.5), (1, 1, np.int32, 1.0),
+                           (5000, 1, np.int64, 0.5),
+                           (4097, 300, np.int32, 1.0),
+                           (4097, 300, np.int32, 0.0),
+                           (70001, 70001, np.int64, 0.3),
+                           (100_003, 17, np.int32, 0.5)):
+        idx = rng.integers(0, m, n).astype(dt)
+        if n:
+            idx[:2] = [0, m - 1][:min(n, 2)]
+        ok = rng.random(n) < p_ok
+        if n > 10:
+            ok[-7:] = False  # dead slots past the total
+        out_idx = rng.integers(-3, m + 3, n).astype(dt)
+        prev = rng.random(m) < 0.3
+        ti, tk, to = t(idx), t(ok), t(out_idx)
+        exact(f"probe_marks n={n} m={m}", J.probe_marks(ti, tk, m),
+              J.probe_marks_plain(ti, tk, m))
+        exact(f"build_marks n={n} m={m}", J.build_marks(to, tk, m),
+              J.build_marks_plain(to, tk, m))
+        exact(f"build_marks OR n={n} m={m}",
+              J.build_marks(to, tk, m, out=t(prev)),
+              J.build_marks_plain(to, tk, m, out=t(prev)))
+        cases += 3
+    for n_probe, n_build, maxc in ((0, 1, 1), (1, 1, 1), (9, 1, 3),
+                                   (5000, 4096, 0), (5000, 4097, 40),
+                                   (70001, 12289, 9000),
+                                   (300, 1 << 20, 1 << 19)):
+        lo = rng.integers(0, n_build, n_probe).astype(np.int32)
+        cnt = rng.integers(0, maxc + 1, n_probe).astype(np.int32)
+        if n_probe > 2:
+            lo[-1], cnt[-1] = n_build - 1, maxc + 1  # past the end
+        tl, tc = t(lo), t(cnt)
+        exact(f"build_coverage {n_probe} -> {n_build}",
+              J.build_coverage(tl, tc, n_build),
+              J.build_coverage_plain(tl, tc, n_build))
+        cases += 1
+    for cap, rows, nparts, start in ((1, 1, 1, 0), (1000, 999, 1, 0),
+                                     (1025, 1025, 2000, 3),
+                                     (5000, 0, 16, 0), (70001, 70000, 7, 9),
+                                     (4097, 4000, 8191, 1)):
+        for dev_rows in (False, True):
+            nr = torch.tensor(rows, device=dev) if dev_rows else rows
+            got = P.round_robin_perm(cap, nr, nparts, start, dev)
+            want = P.round_robin_perm_plain(
+                cap, torch.tensor(rows, device=dev), nparts, start)
+            exact(f"round_robin_partition {cap} n={nparts}", got[0], want[0])
+            exact(f"round_robin_partition counts {cap}", got[1], want[1])
+            cases += 1
+    for n, k, dt in ((1, 1, np.int16), (5000, 5, np.int16),
+                     (4097, 12288, np.int32), (4097, 12289, np.int32),
+                     (70001, 1 << 16, np.int32)):
+        codes = rng.integers(-2, k + 2, n).astype(dt)
+        codes[:1] = 0
+        if n > 2:
+            codes[1], codes[2] = k - 1, k
+        table = rng.integers(-1, 1000, k).astype(np.int32)
+        tc, tt = t(codes), t(table)
+        exact(f"codes_remap n={n} k={k}", enc.remap_codes(tc, tt),
+              enc.remap_codes_plain(tc, tt))
+        cases += 1
+    cases += _joins_on_card_vs_cpu(dev, rng)
+    return cases
+
+
+def _joins_on_card_vs_cpu(dev, rng) -> int:
+    """Small whole joins over null, NaN and -0.0 float keys and duplicate
+    int keys on the card against the same on the CPU (plain versions)."""
+    import numpy as np
+    import pyarrow as pa
+
+    from spark_rapids_tpu_torch.columnar.arrow_bridge import (
+        arrow_to_device,
+        device_to_arrow,
+    )
+    from spark_rapids_tpu_torch.exec import joins as PJ
+    from spark_rapids_tpu_torch.exec.base import PhysicalPlan
+    from spark_rapids_tpu_torch.expr import BoundReference
+    from spark_rapids_tpu_torch.expr.predicates import LessThan
+    from spark_rapids_tpu_torch.sqltypes import StructField, StructType
+    from spark_rapids_tpu_torch.sqltypes.datatypes import double, integer
+
+    class Src(PhysicalPlan):
+        def __init__(self, batches, schema):
+            super().__init__([], schema, None)
+            self.batches = batches
+
+        @property
+        def num_partitions(self):
+            return max(1, len(self.batches))
+
+        def execute_partition(self, pid, ctx):
+            if pid < len(self.batches):
+                yield self.batches[pid]
+
+    def table(n, seed):
+        r = np.random.default_rng(seed)
+        f = r.choice(np.array([0.0, -0.0, np.nan, 1.5, 2.5]), n)
+        return pa.table({
+            "f": pa.array(f, mask=r.random(n) < 0.15),
+            "v": pa.array(r.integers(0, 20, n).astype(np.int32))})
+
+    lf = [StructField("f", double, True), StructField("v", integer, True)]
+    rf = [StructField("rf", double, True), StructField("rv", integer, True)]
+    cases = 0
+    for nl, nr in ((300, 120), (0, 50), (80, 0)):
+        lt = table(nl, 1)
+        rt = table(nr, 2).rename_columns(["rf", "rv"])
+        for strategy in ("shuffled", "nested_loop"):
+            for jt in ("inner", "left", "full", "left_semi", "left_anti"):
+                for cond in (False, True):
+                    if strategy == "nested_loop" and not cond and nl * nr:
+                        continue  # a cross product: no keys to test
+                    res = {}
+                    for where in ("cpu", dev):
+                        def src(tb, fs):
+                            b = [arrow_to_device(tb, device=where)] \
+                                if tb.num_rows else []
+                            return Src(b, StructType(fs))
+                        schema = StructType(
+                            lf + ([] if jt in ("left_semi", "left_anti")
+                                  else rf))
+                        c = (LessThan(BoundReference(1, integer),
+                                      BoundReference(3, integer))
+                             if cond else None)
+                        if strategy == "nested_loop":
+                            node = PJ.TpuBroadcastNestedLoopJoinExec(
+                                src(lt, lf), src(rt, rf), jt, schema, None,
+                                condition=c)
+                        else:
+                            node = PJ.TpuShuffledHashJoinExec(
+                                src(lt, lf), src(rt, rf), jt,
+                                [BoundReference(0, double)],
+                                [BoundReference(0, double)], schema, None,
+                                condition=c)
+                        res[str(where)] = sorted(
+                            map(repr, node.collect().to_pylist()))
+                    if res["cpu"] != res[str(dev)]:
+                        fail(f"{strategy} {jt} join (condition {cond}) of "
+                             f"{nl} x {nr} rows differs on the card")
+                    cases += 1
+    return cases
+
+
 #: the slice-8 kernels each query must launch (phase 10): K4 and K25's
 #: selection on the price statistics, K26 and K25's interpolation on the
 #: daily distinct counts and medians, K14 on the variance windows
@@ -4375,6 +4766,268 @@ def run_slice8(dev, root, oracles, fused: bool) -> dict:
     return out
 
 
+#: the slice-9 kernels each query must launch (phase 11), by engine: K27's
+#: probe marks on q13's conditional left join and the bands' nested loop,
+#: its build marks on the bands' full join, its coverage on the
+#: year-over-year full join, K29 on the segment join's two dictionaries,
+#: K28 on the adaptive engine's round-robin exchange (the fused engine's
+#: single-chip exchange is identity)
+SLICE9_PATH_KERNELS = {
+    "q13_outer": ("probe_marks", "dfa_match", "expand_gather_maps",
+                  "probe_ranges"),
+    "q22_anti": ("probe_ranges", "compact_perm", "str_rewrite"),
+    "orders_yoy_full": ("build_coverage", "expand_gather_maps",
+                        "probe_ranges"),
+    "orders_price_bands": ("probe_marks", "build_marks",
+                           "expand_gather_maps"),
+    "customer_segments": ("codes_remap", "probe_ranges"),
+    "orders_union_rr": ("round_robin_partition", "partition_by_ids"),
+}
+SLICE9_FUSED_KERNELS = dict(SLICE9_PATH_KERNELS,
+                            orders_union_rr=("seg_sum_count",))
+#: the nested-loop join has no fused lowering: its query runs on the
+#: adaptive engine alone
+SLICE9_AQE_ONLY = ("orders_price_bands",)
+
+
+def slice9_oracles(paths) -> dict:
+    """Phase 11's answers from the written tables, in pyarrow (Table.join:
+    left outer, left anti, full outer) and numpy."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.q5 import PRICE_BANDS, SEGMENTS
+
+    cust = pq.read_table(paths["customer"][0])
+    orders = pa.concat_tables([pq.read_table(p)
+                               for p in paths["orders_cust"]])
+    out = {}
+    # q13: the condition touches orders alone, so it filters them first
+    kept = orders.filter(pc.invert(pc.match_substring_regex(
+        orders.column("o_comment"), "special.*requests"))).select(
+        ["o_orderkey", "o_custkey"])
+    c13 = (cust.select(["c_custkey"])
+           .join(kept, keys="c_custkey", right_keys="o_custkey",
+                 join_type="left outer")
+           .group_by("c_custkey").aggregate([("o_orderkey", "count")]))
+    dist = c13.group_by("o_orderkey_count").aggregate(
+        [("c_custkey", "count")])
+    out["q13_outer"] = sorted(
+        zip(dist.column("c_custkey_count").to_pylist(),
+            dist.column("o_orderkey_count").to_pylist()), reverse=True)
+    # q22: positive balances with no order, per country code
+    pos = cust.filter(pc.greater(cust.column("c_acctbal"), 0.0))
+    # (the distinct order keys: the same anti join, a smaller hash table)
+    anti = pos.join(pa.table({"o_custkey": pc.unique(
+        orders.column("o_custkey"))}), keys="c_custkey",
+        right_keys="o_custkey", join_type="left anti")
+    code = pc.utf8_slice_codeunits(anti.column("c_phone"), 0, 2)
+    g = pa.table({"code": code, "bal": anti.column("c_acctbal")}).group_by(
+        "code").aggregate([("bal", "count"), ("bal", "sum")])
+    out["q22_anti"] = {c: (n, s) for c, n, s in zip(
+        g.column("code").to_pylist(), g.column("bal_count").to_pylist(),
+        g.column("bal_sum").to_pylist())}
+    # year over year: per-customer revenue of 1995 and 1996, full outer
+    days = orders.column("o_orderdate").cast(pa.int32()).to_numpy()
+    years = days.astype("datetime64[D]").astype("datetime64[Y]").astype(
+        np.int64) + 1970
+    price = orders.column("o_totalprice").to_numpy()
+    ck = orders.column("o_custkey").to_numpy()
+
+    def rev(y, key, name):
+        sel = years == y
+        t = pa.table({key: ck[sel], name: price[sel]})
+        g = t.group_by(key).aggregate([(name, "sum")])
+        return pa.table({key: g.column(key), name: g.column(f"{name}_sum")})
+
+    both = rev(1995, "ck95", "rev95").join(
+        rev(1996, "ck96", "rev96"), keys="ck95", right_keys="ck96",
+        join_type="full outer", coalesce_keys=False)
+    n = both.num_rows
+    in95 = n - both.column("ck95").null_count
+    in96 = n - both.column("ck96").null_count
+    out["orders_yoy_full"] = dict(
+        customers=n, only95=n - in96, only96=n - in95,
+        rev95=float(np.sum(price[years == 1995])),
+        rev96=float(np.sum(price[years == 1996])))
+    out["orders_yoy_full"]["change"] = (out["orders_yoy_full"]["rev96"]
+                                        - out["orders_yoy_full"]["rev95"])
+    # price bands: [lo, hi) bands are disjoint; an order in none lands in
+    # the null band, a band with no order counts 0
+    los = np.array([lo for lo, _ in PRICE_BANDS])
+    his = np.array([hi for _, hi in PRICE_BANDS])
+    b = np.searchsorted(los, price, side="right") - 1
+    inb = (b >= 0) & (price < his[np.clip(b, 0, None)])
+    bands = {}
+    for k in range(len(PRICE_BANDS)):
+        sel = inb & (b == k)
+        bands[k] = (int(sel.sum()),
+                    float(price[sel].sum()) if sel.any() else None)
+    bands[None] = (int((~inb).sum()), float(price[~inb].sum()))
+    out["orders_price_bands"] = bands
+    # segments: per (segment, nation)
+    seg = cust.column("c_mktsegment").combine_chunks()
+    segname = np.array(seg.dictionary.to_pylist())[seg.indices.to_numpy()]
+    quota = {s: 1000.0 * (len(SEGMENTS) - i)
+             for i, s in enumerate(SEGMENTS)}
+    nation = cust.column("c_nationkey").to_numpy()
+    bal = cust.column("c_acctbal").to_numpy()
+    qv = np.array([quota[s] for s in SEGMENTS])[seg.indices.to_numpy()]
+    t = pa.table({"s": segname, "n": nation, "b": bal, "e": bal - qv})
+    g = t.group_by(["s", "n"]).aggregate(
+        [("b", "count"), ("b", "sum"), ("e", "sum")])
+    out["customer_segments"] = {
+        (s, k): (c, b1, e1) for s, k, c, b1, e1 in zip(
+            g.column("s").to_pylist(), g.column("n").to_pylist(),
+            g.column("b_count").to_pylist(), g.column("b_sum").to_pylist(),
+            g.column("e_sum").to_pylist())}
+    # union_rr: the 1995 and 1997 orders per priority
+    sel = (years == 1995) | (years == 1997)
+    t = pa.table({"p": orders.column("o_orderpriority").filter(
+        pa.array(sel)), "v": price[sel]})
+    g = t.group_by("p").aggregate([("v", "count"), ("v", "sum")])
+    out["orders_union_rr"] = {p: (c, s) for p, c, s in zip(
+        g.column("p").to_pylist(), g.column("v_count").to_pylist(),
+        g.column("v_sum").to_pylist())}
+    return out
+
+
+def _rel_close(what: str, got, want) -> None:
+    if want is None or got is None:
+        if got != want:
+            fail(f"{what}: {got} != {want}")
+        return
+    if not abs(got - want) <= REL_TOL * max(abs(want), 1.0):
+        fail(f"{what}: {got} vs {want}")
+
+
+def check_slice9(name: str, got, want) -> None:
+    """Counts exact, sums within REL_TOL relative."""
+    rows = got.to_pylist()
+    if name == "q13_outer":
+        mine = [(r["custdist"], r["c_count"]) for r in rows]
+        if mine != want:
+            fail(f"q13_outer: {mine[:5]} vs {want[:5]}")
+    elif name == "q22_anti":
+        if {r["cntrycode"] for r in rows} != set(want):
+            fail("q22_anti: country codes differ")
+        for r in rows:
+            n, s = want[r["cntrycode"]]
+            if r["numcust"] != n:
+                fail(f"q22_anti {r['cntrycode']}: {r['numcust']} != {n}")
+            _rel_close(f"q22_anti {r['cntrycode']} balance",
+                       r["totacctbal"], s)
+    elif name == "orders_yoy_full":
+        (r,) = rows
+        for k in ("customers", "only95", "only96"):
+            if r[k] != want[k]:
+                fail(f"orders_yoy_full: {k} {r[k]} != {want[k]}")
+        for k in ("rev95", "rev96"):
+            _rel_close(f"orders_yoy_full {k}", r[k], want[k])
+        if not abs(r["change"] - want["change"]) <= REL_TOL * want["rev96"]:
+            fail(f"orders_yoy_full: change {r['change']} vs "
+                 f"{want['change']}")
+    elif name == "orders_price_bands":
+        if {r["b_band"] for r in rows} != set(want):
+            fail("orders_price_bands: bands differ")
+        for r in rows:
+            n, s = want[r["b_band"]]
+            if r["n"] != n:
+                fail(f"orders_price_bands {r['b_band']}: {r['n']} != {n}")
+            _rel_close(f"orders_price_bands {r['b_band']}", r["revenue"], s)
+    elif name == "customer_segments":
+        if {(r["c_mktsegment"], r["c_nationkey"]) for r in rows} != set(want):
+            fail("customer_segments: groups differ")
+        for r in rows:
+            n, b, e = want[(r["c_mktsegment"], r["c_nationkey"])]
+            if r["n"] != n:
+                fail(f"customer_segments: {r} vs {n}")
+            _rel_close("customer_segments balance", r["acctbal"], b)
+            _rel_close("customer_segments excess", r["excess"], e)
+    else:
+        if {r["o_orderpriority"] for r in rows} != set(want):
+            fail("orders_union_rr: priorities differ")
+        for r in rows:
+            n, s = want[r["o_orderpriority"]]
+            if r["n"] != n:
+                fail(f"orders_union_rr: {r} vs {n}")
+            _rel_close("orders_union_rr revenue", r["revenue"], s)
+
+
+def run_slice9(dev, root, oracles, fused: bool) -> dict:
+    """Phase 11: the six join queries (q5.py) through the port's session
+    with the fused engine on or off over CUSTOMER, ORDERS, the bands and
+    the quotas cached on the card, every hash join shuffled
+    (spark.sql.autoBroadcastJoinThreshold=-1). Returns {query: record},
+    each with its peak device bytes."""
+    import torch
+
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+    from spark_rapids_tpu_torch.q5 import (
+        customer_segments_query,
+        orders_price_bands_query,
+        orders_union_rr_query,
+        orders_yoy_full_query,
+        q13_outer_query,
+        q22_anti_query,
+    )
+
+    engine = "fused" if fused else "aqe"
+    spark = (TpuSparkSession.builder
+             .config("spark.sql.shuffle.partitions", 8)
+             .config("spark.sql.autoBroadcastJoinThreshold", -1)
+             .config("spark.rapids.sql.reader.batchSizeRows", 1 << 20)
+             .config("spark.rapids.sql.batchSizeRows", 1 << 20)
+             .config("spark.rapids.shuffle.mode", "DEVICE")
+             .config("spark.rapids.sql.fusedExec.enabled", fused)
+             .getOrCreate())
+    t0 = time.monotonic()
+    tables = {}
+    for name in ("customer", "orders_cust", "bands", "quota"):
+        df = spark.read.parquet(os.path.join(root, name)).cache(
+            storage="device")
+        spark.cache_manager.lookup(df._plan).materialize()
+        tables[name] = df
+    torch.cuda.synchronize()
+    upload_s = time.monotonic() - t0
+    c, o = tables["customer"], tables["orders_cust"]
+    builds = {
+        "q13_outer": lambda: q13_outer_query(c, o),
+        "q22_anti": lambda: q22_anti_query(c, o),
+        "orders_yoy_full": lambda: orders_yoy_full_query(o),
+        "orders_price_bands": lambda: orders_price_bands_query(
+            o, tables["bands"]),
+        "customer_segments": lambda: customer_segments_query(
+            tables["quota"], c),
+        "orders_union_rr": lambda: orders_union_rr_query(o),
+    }
+    out = {}
+    for name, build in builds.items():
+        if fused and name in SLICE9_AQE_ONLY:
+            continue
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = timed_runs(lambda: build().collect_arrow(),
+                         lambda g: check_slice9(name, g, oracles[name]),
+                         LATER_HOT_RUNS)
+        ex = spark.last_execution
+        if ex["engine"] != engine:
+            fail(f"{name} ran on {ex['engine']}, not {engine}: {ex}")
+        if [e for e, _ in ex["fallbacks"]]:
+            fail(f"{name}: unexpected fallbacks {ex['fallbacks']}")
+        missing_launches(f"{engine} {name}", rec["launches"],
+                         (SLICE9_FUSED_KERNELS if fused
+                          else SLICE9_PATH_KERNELS)[name])
+        rec.update(engine=ex["engine"], aqe=ex["aqe"], fused=ex["fused"],
+                   upload_s=upload_s, peak_device_bytes=int(
+                       torch.cuda.max_memory_allocated(dev)))
+        out[name] = rec
+        torch.cuda.empty_cache()
+    spark.stop()
+    return out
+
+
 def _window_mode(df):
     def find(node):
         if type(node).__name__ == "TpuWindowExec":
@@ -4436,6 +5089,7 @@ def main() -> int:
     from spark_rapids_tpu_torch import resolve_device
     from spark_rapids_tpu_torch.kernels import build
     from spark_rapids_tpu_torch.q5 import (
+        write_customer_data,
         write_orders_data,
         write_orders_dated,
         write_q5_data,
@@ -4473,6 +5127,7 @@ def main() -> int:
     records.update(check_slice6_kernels(dev))
     records.update(check_slice7_kernels(dev))
     records.update(check_slice8_kernels(dev))
+    records.update(check_slice9_kernels(dev))
     for kname, r in records.items():
         lib = r["library_ms"]
         print(f"{kname}: {r['shape']}: kernel_ms={r['ms']:.4f} "
@@ -4490,7 +5145,8 @@ def main() -> int:
     cases = (check_edge_shapes(dev) + check_slice2_edges(dev)
              + check_slice3_edges(dev) + check_slice4_edges(dev)
              + check_slice5_edges(dev) + check_slice6_edges(dev)
-             + check_slice7_edges(dev) + check_slice8_edges(dev))
+             + check_slice7_edges(dev) + check_slice8_edges(dev)
+             + check_slice9_edges(dev))
     print(f"edge shapes: {cases} cases exact against the plain versions",
           flush=True)
 
@@ -4690,8 +5346,41 @@ def main() -> int:
         del oracles8
         stamp("phase 10 done")
 
+        # phase 11: slice 9's joins, union and repartition over CUSTOMER
+        # and ORDERS at SF10
+        t0 = time.monotonic()
+        paths9 = write_customer_data(tmp, SF10_CUSTOMERS, ORDERS_ROWS,
+                                     FILES, seed=0)
+        oracles9 = slice9_oracles(paths9)
+        print(f"customer: {SF10_CUSTOMERS} rows, orders with customers and "
+              f"comments: {ORDERS_ROWS} rows in {FILES} files, and the slice "
+              f"9 oracles in {time.monotonic() - t0:.1f} s", flush=True)
+        for engine, fused in (("aqe", False), ("fused", True)):
+            session = run_slice9(dev, tmp, oracles9, fused)
+            for qname, rec in session.items():
+                runs[f"{engine} {qname}"] = rec
+                prof = rec["profile"]
+                print(f"{engine} {qname}: engine={rec['engine']} "
+                      f"rows={rec['result_rows']} "
+                      f"aqe={json.dumps(rec['aqe'])} "
+                      f"fused={json.dumps(rec['fused'])} "
+                      f"upload_s={rec['upload_s']:.3f} "
+                      f"cold_s={rec['cold_s']:.4f} "
+                      f"hot_median_s={rec['hot_median_s']:.4f} "
+                      f"host_syncs={rec['host_syncs']} "
+                      f"device_busy_ms={prof['device_busy_ms']} "
+                      f"idle_share={prof['device_idle_share']} "
+                      f"peak_device_bytes={rec['peak_device_bytes']}",
+                      flush=True)
+                print(f"{engine} {qname} launches per query: "
+                      + json.dumps(rec["launches"]), flush=True)
+                print(f"{engine} {qname}: " + json.dumps(rec, default=str),
+                      flush=True)
+        del oracles9
+        stamp("phase 11 done")
+
     # each kernel's launches: the sum over every path's cold run (phases
-    # 3-10), each read right after it
+    # 3-11), each read right after it
     launches = {k: sum(r["launches"].get(rec.get("counter", k), 0)
                        for r in runs.values())
                 for k, rec in records.items()}

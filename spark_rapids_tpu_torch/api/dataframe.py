@@ -1,11 +1,13 @@
 """DataFrame — the user-facing lazy query surface, counterpart of
 `spark_rapids_tpu/api/dataframe.py` for the port's slice: `select`
 (window expressions extracted into Window nodes), `filter`/`where`,
-inner `join`, `groupBy(...).agg(...)`, `orderBy`/`sort`, `limit`,
-`distinct`, device caching, `collect_arrow`/`collect`, `count` and
-`explain`. Every resolved expression gets the session's time zone
-(`_stamp_session`), and a collect pins current_date and
-current_timestamp to one literal a query (`_pin_query_time`).
+`withColumn`, `withColumnRenamed`, `join` of every type on names or on
+a condition, `crossJoin`, `union`/`unionAll`, `repartition`,
+`groupBy(...).agg(...)`, `orderBy`/`sort`, `limit`, `distinct`, device
+caching, `collect_arrow`/`collect`, `count` and `explain`. Every
+resolved expression gets the session's time zone (`_stamp_session`),
+and a collect pins current_date and current_timestamp to one literal a
+query (`_pin_query_time`).
 
 A collect plans the query (cache substitution, the optimizer, the
 planner) and dispatches it to an engine, recording which one ran in
@@ -142,7 +144,10 @@ class DataFrame:
     def __getitem__(self, name: str) -> Column:
         i = _field_index(self.schema, name)
         f = self.schema.fields[i]
-        return Column(BoundReference(i, f.dataType, f.nullable), name)
+        ref = BoundReference(i, f.dataType, f.nullable)
+        # provenance for join-condition resolution (df1.a == df2.b)
+        ref._origin_plan = self._plan
+        return Column(ref, name)
 
     # --- transformations ---
 
@@ -207,6 +212,26 @@ class DataFrame:
                 out.append(e)
         return DataFrame(L.Project(out, plan), self.session)
 
+    def withColumn(self, name: str, c: Column) -> "DataFrame":
+        exprs = []
+        replaced = False
+        for j, f in enumerate(self.schema.fields):
+            if f.name == name:
+                exprs.append(Alias(self._col_expr(c), name))
+                replaced = True
+            else:
+                exprs.append(Alias(BoundReference(j, f.dataType, f.nullable),
+                                   f.name))
+        if not replaced:
+            exprs.append(Alias(self._col_expr(c), name))
+        return self._finish_project(exprs)
+
+    def withColumnRenamed(self, old: str, new: str) -> "DataFrame":
+        exprs = [Alias(BoundReference(j, f.dataType, f.nullable),
+                       new if f.name == old else f.name)
+                 for j, f in enumerate(self.schema.fields)]
+        return DataFrame(L.Project(exprs, self._plan), self.session)
+
     def filter(self, condition) -> "DataFrame":
         if isinstance(condition, str):
             raise NotImplementedError("SQL string filters: use Column")
@@ -215,30 +240,164 @@ class DataFrame:
 
     where = filter
 
-    def join(self, other: "DataFrame", on=None, how: str = "inner"
-             ) -> "DataFrame":
-        """Equi-join on column name(s) present on both sides. Other join
-        types, join conditions and implicit key casts are not ported yet
-        (ROADMAP A13)."""
-        if how != "inner":
-            raise NotImplementedError(
-                f"{how} joins are not ported yet (ROADMAP A13)")
-        if isinstance(on, str):
-            on = [on]
-        if not (isinstance(on, (list, tuple)) and on
-                and all(isinstance(c, str) for c in on)):
-            raise NotImplementedError(
-                "joins on expressions or without keys are not ported yet "
-                "(ROADMAP A13); pass the key column name(s)")
-        lk = [self[c].expr for c in on]
-        rk = [other[c].expr for c in on]
+    def crossJoin(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(
+            L.Join(self._plan, other._plan, "cross", [], []), self.session)
+
+    def _resolve_combined(self, other: "DataFrame", e) -> Expression:
+        """Resolve an expression against [left fields | right fields]:
+        an UnresolvedColumn binds left first; a BoundReference taken from
+        `other` (df2["x"]) shifts into the right half."""
+        n_l = len(self.schema.fields)
+
+        def go(node):
+            if isinstance(node, UnresolvedColumn):
+                try:
+                    i = _field_index(self.schema, node.name)
+                    f = self.schema.fields[i]
+                    return BoundReference(i, f.dataType, f.nullable)
+                except KeyError:
+                    i = _field_index(other.schema, node.name)
+                    f = other.schema.fields[i]
+                    return BoundReference(n_l + i, f.dataType, f.nullable)
+            if isinstance(node, BoundReference):
+                org = getattr(node, "_origin_plan", None)
+                if org is other._plan:
+                    return BoundReference(node.ordinal + n_l, node.dtype,
+                                          node.nullable)
+                if org is None or org is self._plan:
+                    return node
+                raise ValueError(
+                    "join condition references a column from a DataFrame "
+                    "that is neither side of this join; re-derive it from "
+                    "the joined inputs")
+            if isinstance(node, Expression):
+                return node.with_children([go(c) for c in node.children])
+            raise TypeError(f"cannot resolve {node!r}")
+
+        return _stamp_session(go(e), self.session)
+
+    @staticmethod
+    def _promote_keys(lk, rk):
+        """Implicit numeric promotion of mismatched key types (Spark's
+        ImplicitTypeCasts)."""
+        from spark_rapids_tpu_torch.expr.cast import Cast
+        from spark_rapids_tpu_torch.sqltypes import NumericType
+        from spark_rapids_tpu_torch.sqltypes.datatypes import (
+            numeric_promotion,
+        )
+
+        out_l, out_r = [], []
         for a, b in zip(lk, rk):
             if a.dtype != b.dtype:
-                raise NotImplementedError(
-                    f"join key types {a.dtype} and {b.dtype} differ: "
-                    "implicit key casts are not ported yet (ROADMAP A12)")
-        return DataFrame(L.Join(self._plan, other._plan, how, lk, rk),
+                if isinstance(a.dtype, NumericType) and isinstance(
+                        b.dtype, NumericType):
+                    common = numeric_promotion(a.dtype, b.dtype)
+                    a = a if a.dtype == common else Cast(a, common)
+                    b = b if b.dtype == common else Cast(b, common)
+                else:
+                    raise TypeError(
+                        f"join key type mismatch: {a.dtype} vs {b.dtype}")
+            out_l.append(a)
+            out_r.append(b)
+        return out_l, out_r
+
+    @staticmethod
+    def _split_conjuncts(e: Expression) -> List[Expression]:
+        from spark_rapids_tpu_torch.expr import And
+
+        if isinstance(e, And):
+            return (DataFrame._split_conjuncts(e.children[0])
+                    + DataFrame._split_conjuncts(e.children[1]))
+        return [e]
+
+    def _extract_equi_keys(self, cond: Expression):
+        """Spark's ExtractEquiJoinKeys: the EqualTo conjuncts whose sides
+        reference one input each become keys; the rest stays a
+        condition."""
+        from spark_rapids_tpu_torch.exec.joins import remap_refs
+        from spark_rapids_tpu_torch.expr import And, EqualTo
+
+        n_l = len(self.schema.fields)
+        lk, rk, rest = [], [], []
+        for c in self._split_conjuncts(cond):
+            if isinstance(c, EqualTo):
+                a, b = c.children
+                ra, rb = a.references(), b.references()
+                if ra and rb:
+                    if max(ra) < n_l <= min(rb):
+                        lk.append(a)
+                        rk.append(b)
+                        continue
+                    if max(rb) < n_l <= min(ra):
+                        lk.append(b)
+                        rk.append(a)
+                        continue
+            rest.append(c)
+        rk = [remap_refs(k, lambda o: o - n_l) for k in rk]
+        remainder = None
+        for c in rest:
+            remainder = c if remainder is None else And(remainder, c)
+        return lk, rk, remainder
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner"
+             ) -> "DataFrame":
+        """Join on column name(s) present on both sides or on a boolean
+        Column over both sides (its equalities become keys, the rest a
+        condition), of any type: inner, cross, left, right, full (outer),
+        left_semi (semi), left_anti (anti)."""
+        how = {"outer": "full", "full_outer": "full", "leftouter": "left",
+               "left_outer": "left", "rightouter": "right",
+               "right_outer": "right", "leftsemi": "left_semi",
+               "semi": "left_semi", "leftanti": "left_anti",
+               "anti": "left_anti"}.get(how, how)
+        if on is None:
+            if how not in ("inner", "cross"):
+                raise ValueError(
+                    f"join type {how!r} requires join keys or a condition")
+            return self.crossJoin(other)
+        if how == "cross":
+            # keys given: Spark treats cross-with-keys as an equi join
+            how = "inner"
+        if isinstance(on, str):
+            on = [on]
+        if isinstance(on, (Column, Expression)):
+            cond = self._resolve_combined(
+                other, on.expr if isinstance(on, Column) else on)
+            lk, rk, remainder = self._extract_equi_keys(cond)
+            lk, rk = self._promote_keys(lk, rk)
+            jt = "cross" if not lk and remainder is None else how
+            plan = L.Join(self._plan, other._plan, jt, lk, rk,
+                          condition=remainder)
+            return DataFrame(plan, self.session)
+        if isinstance(on, (list, tuple)) and on and isinstance(on[0], str):
+            lk = [self[c].expr for c in on]
+            rk = [other[c].expr for c in on]
+        else:
+            raise TypeError(
+                "join `on` must be column name(s) or a Column expression")
+        # name-keyed joins rewrite mismatched key columns to the common
+        # type in place (the joined output carries the promoted type, as
+        # Spark's ImplicitTypeCasts do on USING joins)
+        plk, prk = self._promote_keys(lk, rk)
+        df_l, df_r = self, other
+        if any(p is not o for p, o in zip(plk, lk)):
+            for i, (p, o) in enumerate(zip(plk, lk)):
+                if p is not o:
+                    df_l = df_l.withColumn(on[i], Column(p))
+            lk = [df_l[c].expr for c in on]
+        if any(p is not o for p, o in zip(prk, rk)):
+            for i, (p, o) in enumerate(zip(prk, rk)):
+                if p is not o:
+                    df_r = df_r.withColumn(on[i], Column(p))
+            rk = [df_r[c].expr for c in on]
+        return DataFrame(L.Join(df_l._plan, df_r._plan, how, lk, rk),
                          self.session)
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(L.Union([self._plan, other._plan]), self.session)
+
+    unionAll = union
 
     def orderBy(self, *cols, ascending=None) -> "DataFrame":
         from spark_rapids_tpu_torch.api.column import SortColumn
@@ -271,6 +430,12 @@ class DataFrame:
 
     def distinct(self) -> "DataFrame":
         return self.groupBy(*self.columns).agg()
+
+    def repartition(self, n: int, *cols) -> "DataFrame":
+        """An explicit exchange into n partitions: by a hash of `cols`, or
+        round-robin without them."""
+        keys = [self._col_expr(c) for c in cols] or None
+        return DataFrame(L.Repartition(self._plan, n, keys), self.session)
 
     def groupBy(self, *cols) -> "GroupedData":
         return GroupedData(self, list(cols))

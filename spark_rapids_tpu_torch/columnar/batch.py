@@ -324,10 +324,11 @@ def gather_leaves(srcs: Sequence[torch.Tensor],
     return outs
 
 
-def gather_columns(pairs: Sequence[Tuple[DeviceColumn, torch.Tensor]]
-                   ) -> List[DeviceColumn]:
+def gather_columns(pairs: Sequence[Tuple[DeviceColumn, torch.Tensor]],
+                   clamp: bool = False) -> List[DeviceColumn]:
     """Gather each column by its index vector: every leaf of every column
-    in one K8 launch on the card (index vectors of one length)."""
+    in one K8 launch on the card (index vectors of one length); `clamp`
+    clips the indices into each column's rows."""
     if not pairs:
         return []
     srcs, idxs, spans = [], [], []
@@ -336,7 +337,7 @@ def gather_columns(pairs: Sequence[Tuple[DeviceColumn, torch.Tensor]]
         spans.append(len(ls))
         srcs += ls
         idxs += [idx] * len(ls)
-    outs = gather_leaves(srcs, idxs)
+    outs = gather_leaves(srcs, idxs, clamp=clamp)
     cols, at = [], 0
     for (col, _), k in zip(pairs, spans):
         cols.append(col.with_leaves(outs[at:at + k]))

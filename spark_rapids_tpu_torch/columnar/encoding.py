@@ -15,6 +15,9 @@ byte matrix plus lengths) is one shared device allocation.
   `device_to_arrow` decodes on the host from the fetched codes.
 - `encoded_equality` lowers `<encoded column> = <string literal>` to one
   host probe of the dictionary plus a code compare.
+- `CodesOf` is the join's key over an encoded column: its codes, re-encoded
+  into another dictionary's code space through the host-built
+  `remap_table` when the dictionaries differ (kernel K29, `remap_codes`).
 """
 
 from __future__ import annotations
@@ -28,7 +31,11 @@ import numpy as np
 import pyarrow as pa
 import torch
 
+from spark_rapids_tpu_torch import kernels
+from spark_rapids_tpu_torch.expr.core import Expression
+from spark_rapids_tpu_torch.kernels import build as _build
 from spark_rapids_tpu_torch.sqltypes import StringType
+from spark_rapids_tpu_torch.sqltypes.datatypes import integer
 
 #: codes narrower than this dictionary size ship as int16
 _INT16_MAX_K = 1 << 15
@@ -63,12 +70,13 @@ class _HostDict:
     """Host view of one interned dictionary: the padded matrix and the
     value -> code index for predicate probes."""
 
-    __slots__ = ("matrix", "lengths", "index")
+    __slots__ = ("matrix", "lengths", "index", "values")
 
     def __init__(self, matrix: np.ndarray, lengths: np.ndarray,
                  values: pa.Array):
         self.matrix = matrix
         self.lengths = lengths
+        self.values = values
         self.index: Dict[str, int] = {
             v: i for i, v in enumerate(values.to_pylist())}
 
@@ -162,6 +170,81 @@ def device_dictionary(dict_id: str,
                           torch.from_numpy(hd.lengths).to(device), dict_id)
     with _lock:
         return _device_dicts.setdefault(key, dd)
+
+
+def dictionary_values(dict_id: str) -> Optional[pa.Array]:
+    """The interned dictionary's canonical values, or None when its host
+    copy is no longer retained."""
+    hd = _host_dict(dict_id)
+    return None if hd is None else hd.values
+
+
+def remap_table(src_id: str, dst_id: str) -> Optional[np.ndarray]:
+    """[K_src] int32 mapping a code of src to the code of the same value in
+    dst (-1 when dst lacks it): the re-encode of a join over dictionaries
+    that differ. None for equal ids or when either host dictionary was
+    evicted (the join then decodes its keys)."""
+    if src_id == dst_id:
+        return None
+    src = _host_dict(src_id)
+    dst = _host_dict(dst_id)
+    if src is None or dst is None:
+        return None
+    out = np.full(max(len(src.index), 1), -1, dtype=np.int32)
+    for v, c in src.index.items():
+        out[c] = dst.index.get(v, -1)
+    return out
+
+
+def remap_codes_plain(codes: torch.Tensor,
+                      table: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K29: the reference's
+    take(table, clip(codes, 0, K - 1))."""
+    k = int(table.shape[0])
+    idx = codes.to(torch.int64).clamp(0, k - 1)
+    return table.index_select(0, idx).to(torch.int32)
+
+
+def remap_codes(codes: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Kernel K29 (`columnar/encoding.py:524`): [n] int32
+    table[clip(codes, 0, K - 1)] for int16 or int32 codes and a [K] int32
+    table on the same device."""
+    if codes.device.type == "cpu":
+        return remap_codes_plain(codes, table)
+    dev = codes.device
+    if codes.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"codes: dtype {codes.dtype}")
+    kernels.require(codes, "codes", codes.dtype, dev)
+    kernels.require(table, "table", torch.int32, dev)
+    n = int(codes.shape[0])
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    _build.check(_build.lib().srtpu_codes_remap(
+        codes.data_ptr(), codes.element_size(), n, table.data_ptr(),
+        int(table.shape[0]), out.data_ptr(), kernels.sm_count(codes),
+        kernels.stream_ptr(codes)), "codes_remap")
+    kernels.launches["codes_remap"] += 1
+    return out
+
+
+#: remap tables on the device, by (src, dst, device)
+_device_remaps: Dict[Tuple[str, str, torch.device], torch.Tensor] = {}
+
+
+def _device_remap(src_id: str, dst_id: str,
+                  device: torch.device) -> Optional[torch.Tensor]:
+    key = (src_id, dst_id, torch.device(device))
+    with _lock:
+        t = _device_remaps.get(key)
+    if t is not None:
+        return t
+    table = remap_table(src_id, dst_id)
+    if table is None:
+        return None
+    t = torch.from_numpy(table).to(device)
+    with _lock:
+        if len(_device_remaps) >= _HOST_KEEP:
+            _device_remaps.clear()
+        return _device_remaps.setdefault(key, t)
 
 
 def probe_code(dict_id: str, value: Optional[str]) -> Optional[int]:
@@ -295,3 +378,48 @@ def encoded_equality(left, right, ctx):
         eq = col.data.to(torch.int32) == code
     return DeviceColumn(boolean, eq, col.validity)
 
+
+
+class CodesOf(Expression):
+    """Join-key lowering over an encoded column: the column's codes as
+    int32, re-encoded into `dict_id`'s code space. The same dictionary is
+    a free cast; another one gathers through its remap table (K29; values
+    absent from `dict_id` map to -1, which no canonical code equals). Only
+    valid over a BoundReference to an encoded column: the join's
+    `_encoded_key_rewrite` checks that before rewriting."""
+
+    def __init__(self, child, dict_id: str):
+        super().__init__([child])
+        self.dict_id = dict_id
+
+    @property
+    def dtype(self):
+        return integer
+
+    @property
+    def nullable(self):
+        return self.children[0].nullable
+
+    def key(self):
+        return ("codesof", self.children[0].key(), self.dict_id)
+
+    def eval(self, ctx):
+        from spark_rapids_tpu_torch.columnar.batch import DeviceColumn
+
+        col = raw_column(self.children[0], ctx)
+        dd = None if col is None else col.encoding
+        if dd is None:
+            raise TypeError(
+                "CodesOf over a non-encoded column: the encoded join "
+                "rewrite fires only when both key columns carry "
+                "dictionaries")
+        if dd.dict_id == self.dict_id:
+            codes = col.data.to(torch.int32)
+        else:
+            table = _device_remap(dd.dict_id, self.dict_id, col.device)
+            if table is None:
+                raise TypeError(
+                    f"no remap from dictionary {dd.dict_id} to "
+                    f"{self.dict_id} (host dictionary evicted)")
+            codes = remap_codes(col.data, table)
+        return DeviceColumn(integer, codes, col.validity)

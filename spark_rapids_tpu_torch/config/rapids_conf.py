@@ -1209,7 +1209,8 @@ PORT_READ_KEYS = frozenset(e.key for e in (
     FUSED_EXPANSION, FUSED_MAX_EXPANSION, FUSED_GROUP_CAP, FUSED_LOOKUP_JOIN,
     FUSED_AGG_PUSHDOWN, FUSED_SINGLE_SYNC_FETCH_BYTES, FUSED_SHAPE_BUCKETS,
     ANSI_ENABLED, WINDOW_STREAMING, WINDOW_U2U_FOLD, REGEXP_ENABLED,
-    REGEX_MAX_STATES, REGEX_COMPLEXITY_LIMIT, SESSION_TZ))
+    REGEX_MAX_STATES, REGEX_COMPLEXITY_LIMIT, SESSION_TZ, SKEW_JOIN_ENABLED,
+    SKEW_JOIN_FACTOR, SKEW_JOIN_THRESHOLD))
 
 
 def check_port_settings(conf: "RapidsConf", keys) -> List[str]:

@@ -46,7 +46,7 @@ from spark_rapids_tpu_torch.exec import joins as J
 from spark_rapids_tpu_torch.exec import operators as ops
 from spark_rapids_tpu_torch.expr import Alias, BoundReference, First
 from spark_rapids_tpu_torch.expr.core import Expression
-from spark_rapids_tpu_torch.sqltypes import StructType
+from spark_rapids_tpu_torch.sqltypes import StructField, StructType
 
 
 class MergeTail:
@@ -105,9 +105,7 @@ def rewrite_chain(nodes: list) -> Optional[list]:
         return None
     ji = join_idx[-1]
     lj = nodes[ji]
-    # (the reference also takes left joins and declines conditioned ones;
-    # the port's joins are inner and unconditioned, ROADMAP A13)
-    if lj.join_type != "inner":
+    if lj.condition is not None or lj.join_type not in ("inner", "left"):
         return None
     mids = nodes[ji + 1:-1]
     # (the reference also skips TpuCoalesceBatchesExec here; the port's
@@ -200,7 +198,10 @@ def rewrite_chain(nodes: list) -> Optional[list]:
     # ---- stage B: lookup join of the buffer rows, then merge ----
     afields = list(agg_a.schema.fields)
     lkeys_b = [_ref(i, afields[i]) for i in range(nk)]
-    join_schema = StructType(afields + bfields)
+    rb_fields = ([StructField(f.name, f.dataType, True) for f in bfields]
+                 if lj.join_type == "left"
+                 else bfields)  # left joins null-extend the build side
+    join_schema = StructType(afields + rb_fields)
     lj_b = J.TpuBroadcastHashJoinExec(
         agg_a, build, lj.join_type, lkeys_b, list(lj.right_keys),
         join_schema, conf_)

@@ -10,10 +10,12 @@ compile, so the port keeps what the engine does, not how it is compiled:
 - a filter is a PENDING MASK over the chain's rows: the partial
   aggregate consumes it as its live mask, so scan -> filter -> project
   -> partial aggregate moves no rows at all;
-- a broadcast equi-join with unique build keys is a row-preserving
-  LOOKUP (each probe row gathers its one build match); a probe row with
-  two matches loses that bet (`LookupUniquenessLost`) and the query runs
-  again with the join expanded as a blocking operator;
+- an unconditioned broadcast equi-join is a row-preserving LOOKUP: a
+  semi, anti or existence join always (its match lands in the pending
+  mask or the exists column), an inner or left join while its build keys
+  are unique (each probe row gathers its one build match); a probe row
+  with two matches loses that bet (`LookupUniquenessLost`) and the query
+  runs again with the join expanded as a blocking operator;
 - an aggregate above a lookup join is PUSHED DOWN through it
   (exec/agg_pushdown.py): the probe side pre-aggregates by the join keys,
   the join moves buffer rows, and more distinct keys than the group
@@ -31,11 +33,14 @@ Not ported: the XLA program machinery (cached_jit, compile caches,
 program keys, variant accounting), the HBM budget gates, the OOM/chaos
 ladder and the plain-parquet device scan (ROADMAP A10). An error on the
 card propagates. Lowerings exist for the operators the port's planner
-emits (scan, cached relation, filter, project, hash aggregate, hash and
-range exchange, broadcast join, sort, window, local limit); any other
-node raises `FusedCompileError` and the session falls back to the
-per-operator engines. A sort, a window or a limit is a blocking step
-over the concatenation of its input's parts: the sort and the window
+emits (scan, cached relation, filter, project, hash aggregate, hash,
+round-robin and range exchange, broadcast and shuffled hash joins,
+union, sort, window, local limit); any other node (the nested-loop join,
+as in the reference) raises `FusedCompileError` and the session falls
+back to the per-operator engines. A union concatenates its children's
+parts; a join that is no lookup is a blocking step over both sides'
+concatenations (`shard_equi_join`). A sort, a window or a limit is a
+blocking step over the concatenation of its input's parts: the sort and the window
 skip the exchange below them (every part is on the one chip already),
 a presorted window skips its chunked sort (it sorts itself), and the
 limit truncates logically.
@@ -251,7 +256,6 @@ _SOURCE_TYPES = (ops.TpuFileScanExec, ops.TpuCachedRelationExec)
 #: ports them
 _UNPORTED = {
     "TpuGenerateExec": "A12", "TpuExpandExec": "A12",
-    "TpuShuffledHashJoinExec": "A13",
 }
 
 
@@ -367,11 +371,14 @@ class FusedSingleChipExecutor:
             raise FusedCompileError(
                 f"{name} has no fused lowering yet (ROADMAP "
                 f"{_UNPORTED[name]})")
+        # the nested-loop join has no fused lowering, as in the reference:
+        # the session hands such a plan to the adaptive engine
         if not isinstance(node, (
                 ops.TpuProjectExec, ops.TpuFilterExec,
                 ops.TpuHashAggregateExec, ops.TpuShuffleExchangeExec,
-                J.TpuBroadcastHashJoinExec, ops.TpuSortExec,
-                ops.TpuWindowExec, ops.TpuLocalLimitExec)):
+                J.TpuShuffledHashJoinExec, J.TpuBroadcastHashJoinExec,
+                ops.UnionExec, ops.TpuSortExec, ops.TpuWindowExec,
+                ops.TpuLocalLimitExec)):
             raise FusedCompileError(f"{name} has no fused lowering")
         if (isinstance(node, ops.TpuHashAggregateExec)
                 and not _agg_jittable(node)):
@@ -440,12 +447,20 @@ class FusedSingleChipExecutor:
 
     def _is_lookup_join(self, node: PhysicalPlan,
                         use_lookup: bool) -> bool:
-        """Broadcast inner equi-joins lower as a row-preserving lookup
-        inside the per-partition chain while the unique-build-key bet
-        holds (see the module docstring). The port's joins are inner and
-        unconditioned (ROADMAP A13)."""
-        return (isinstance(node, J.TpuBroadcastHashJoinExec)
-                and self._lookup_conf and use_lookup)
+        """Unconditioned broadcast equi-joins that lower as a
+        row-preserving lookup inside the per-partition chain: each probe
+        row gathers its single build match, or its absence becomes a
+        pending-mask or null-validity fact. Semi, anti and existence joins
+        are row-preserving always; inner and left joins while the
+        unique-build-key bet holds (see the module docstring)."""
+        if not isinstance(node, J.TpuBroadcastHashJoinExec) \
+                or node.condition is not None:
+            return False
+        if not self._lookup_conf:
+            return False
+        if node.join_type in ("left_semi", "left_anti", "existence"):
+            return True
+        return node.join_type in ("inner", "left") and use_lookup
 
     # --- one run ---
 
@@ -477,11 +492,25 @@ class FusedSingleChipExecutor:
                     else mask & b.live_mask()
 
             def lookup_join(nd, b, mask, bt):
-                """Row-preserving inner join-as-gather: probe rows keep
-                their positions; no match lands in the pending mask."""
+                """Row-preserving join-as-gather: probe rows keep their
+                positions; a match or its absence lands in the pending
+                mask (inner, semi, anti), the exists column, or the build
+                columns' validity (left)."""
                 work_l, lk = nd._prepare_keys(b, nd.left_keys)
                 lo, counts = joinops.probe_ranges(bt, work_l, lk)
-                # a visible probe row with >1 matches loses the bet
+                jt = nd.join_type
+
+                def and_mask(m):
+                    return m if mask is None else mask & m
+
+                if jt == "left_semi":
+                    return b, and_mask(counts > 0)
+                if jt == "left_anti":
+                    return b, and_mask(counts == 0)
+                if jt == "existence":
+                    return nd._exists_batch(b, counts > 0), mask
+                # inner / left: a visible probe row with >1 matches loses
+                # the unique-build bet
                 flags.add("uniq", ((counts > 1) & visible(b, mask)).any())
                 matched = counts > 0
                 safe = lo.clamp(0, bt.batch.capacity - 1)
@@ -489,9 +518,12 @@ class FusedSingleChipExecutor:
                                         for c in bt.batch.columns])
                 rcols = [c.replace(validity=c.validity & matched)
                          for c in rcols]
+                # nd.schema carries the planner's nullability (a left
+                # join's build fields are nullable)
                 b = ColumnBatch(nd.schema, list(b.columns) + rcols,
                                 b.num_rows)
-                mask = matched if mask is None else mask & matched
+                if jt == "inner":
+                    mask = and_mask(matched)
                 return b, mask
 
             for nd in nodes:
@@ -524,6 +556,8 @@ class FusedSingleChipExecutor:
             if isinstance(node, ops.TpuShuffleExchangeExec):
                 # single chip: every partition is already co-resident
                 return emit_parts(node.children[0])
+            if isinstance(node, ops.UnionExec):
+                return [b for c in node.children for b in emit_parts(c)]
             if chainable(node):
                 nodes, cur = collect_chain(node)
                 if use_lookup and push_on:
@@ -589,7 +623,8 @@ class FusedSingleChipExecutor:
                 out, o = shrink_traced(node._merge_final(cb), group_cap)
                 flags.add("ovf", o)
                 return out
-            if isinstance(node, J.TpuBroadcastHashJoinExec):
+            if isinstance(node, (J.TpuShuffledHashJoinExec,
+                                 J.TpuBroadcastHashJoinExec)):
                 lb = concat_traced(concat_inputs(
                     emit_parts(node.children[0])))
                 rb = concat_traced(concat_inputs(

@@ -1,8 +1,8 @@
 """Physical operators — counterpart of `spark_rapids_tpu/exec/operators.py`
 for the port's slice: the cached-relation source, the parquet scan
 (PERFILE), filter, project, the hash aggregate in complete, partial and
-final modes, the hash and range shuffle exchanges with device-resident
-blocks, the out-of-core sort, the local limit and the window in the
+final modes, the hash, round-robin and range shuffle exchanges with
+device-resident blocks, the union, the out-of-core sort, the local limit and the window in the
 reference planner's four modes (whole partition, halo, running, u2u).
 
 The hash aggregate keeps the reference's two grouping paths:
@@ -17,8 +17,8 @@ The hash aggregate keeps the reference's two grouping paths:
 
 The exchange's map side partitions each batch on the device (murmur3
 partition ids, kernel K6, or for the range exchange a binary search of
-sampled bounds, K2; a stable counting sort by id, K7; one batch gather,
-K8) and keeps the sorted batch plus per-partition offsets in the shuffle
+sampled bounds, K2; a stable counting sort by id, K7, which computes a
+round-robin exchange's ids itself, K28; one batch gather, K8) and keeps the sorted batch plus per-partition offsets in the shuffle
 manager; the reduce side yields its row range of every block as a batch
 of its own (a view). The reference's reduce side concatenates those
 ranges first; here every consumer that needs one batch concatenates what
@@ -602,10 +602,12 @@ class TpuShuffleExchangeExec(PhysicalPlan):
         if conf is not None and conf.get(rc.SHUFFLE_MODE) == "ICI":
             raise NotImplementedError(
                 "the ICI (mesh) shuffle is not ported yet (ROADMAP A16)")
-        if not key_exprs and num_partitions > 1 and not self._ranged:
-            raise NotImplementedError(
-                "round-robin partitioning is not ported yet (ROADMAP B10b)")
         self.key_exprs = key_exprs
+        #: the conf's DEVICE mode, which the reference's adaptive skew
+        #: split and partition pruning skip (every mode keeps its blocks
+        #: on the device here)
+        self._device_mode = (conf is not None
+                             and conf.get(rc.SHUFFLE_MODE) == "DEVICE")
         self._nparts = max(1, num_partitions)
         self._shuffle_id = None
         self._map_done = False
@@ -616,7 +618,11 @@ class TpuShuffleExchangeExec(PhysicalPlan):
         return self._nparts
 
     def _partition_batch(self, batch: ColumnBatch):
-        """(batch sorted by reduce partition, counts per partition)."""
+        """(batch sorted by reduce partition, counts per partition): by a
+        hash of the keys, or round-robin without keys (K28)."""
+        if not self.key_exprs:
+            pb = partition.round_robin_partition(batch, self._nparts)
+            return pb.batch, pb.counts
         ctx = EvalContext(batch)
         key_cols = [e.eval(ctx) for e in self.key_exprs]
         fields = list(batch.schema.fields) + [
@@ -667,6 +673,14 @@ class TpuShuffleExchangeExec(PhysicalPlan):
         """Bytes per reduce partition of the materialised map output."""
         return get_shuffle_manager().partition_sizes(self._shuffle_id,
                                                      self._nparts)
+
+    def peek_partition(self, pid) -> List[ColumnBatch]:
+        """This partition's row range out of every block, without counting
+        as its read (the adaptive engine inspecting a build side)."""
+        mgr = get_shuffle_manager()
+        return [b.slice_rows(int(offs[pid]), int(offs[pid + 1]))
+                for b, offs in mgr.blocks(self._shuffle_id)
+                if int(offs[pid + 1]) > int(offs[pid])]
 
     def _fetch_device(self, pid) -> List[ColumnBatch]:
         """This partition's row range out of every block. The reference
@@ -770,6 +784,24 @@ class TpuRangeShuffleExchangeExec(TpuShuffleExchangeExec):
             mgr.remove_shuffle(self._shuffle_id)
             raise
         self._map_done = True
+
+
+# ------------------------------------------------------------------ union
+
+class UnionExec(PhysicalPlan):
+    """Partition-concatenating union (GpuUnionExec): the children's
+    partitions follow one another."""
+
+    @property
+    def num_partitions(self):
+        return sum(c.num_partitions for c in self.children)
+
+    def execute_partition(self, pid, ctx):
+        for c in self.children:
+            if pid < c.num_partitions:
+                yield from c.execute_partition(pid, ctx)
+                return
+            pid -= c.num_partitions
 
 
 # ------------------------------------------------------------------- sort

@@ -62,6 +62,15 @@ module that the JAX package keeps the function in:
   family's ranks within a group (with the set's duplicate test) and its
   [groups, max_elems] buffers (csrc/collect_scatter.cu)
 
+- K27 `ops.joinops.probe_marks`, `build_marks` and `build_coverage`:
+  the join's match marks of probe and build rows and the build rows the
+  probe ranges cover (csrc/join_marks.cu)
+- K28 `ops.partition.round_robin_perm`, behind `round_robin_partition`:
+  K7's stable partition with each row's partition computed inline
+  (csrc/partition_by_ids.cu)
+- K29 `columnar.encoding.remap_codes`, behind `CodesOf`: dictionary codes
+  re-encoded through a remap table (csrc/codes_remap.cu)
+
 K18-K22 and K24 share the row reader and writer of csrc/strings.cuh, K22
 and K24 the calendar of csrc/calendar.cuh.
 
@@ -116,6 +125,11 @@ launches: Dict[str, int] = {
     "rank_interp": 0,
     "collect_rank": 0,
     "collect_scatter": 0,
+    "probe_marks": 0,
+    "build_marks": 0,
+    "build_coverage": 0,
+    "round_robin_partition": 0,
+    "codes_remap": 0,
 }
 
 

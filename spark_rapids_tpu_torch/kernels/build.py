@@ -93,6 +93,10 @@ _SIGNATURES = {
                            _P],
     "srtpu_collect_scatter": [_P, _I, _P, _P, _P, _L, _P, _I, _I, _P, _P,
                               _I, _P],
+    "srtpu_join_marks": [_P, _I, _P, _L, _L, _I, _I, _P, _I, _P],
+    "srtpu_build_coverage": [_P, _P, _L, _I, _P, _P, _I, _P],
+    "srtpu_round_robin_partition": [_L, _P, _L, _I, _L, _P, _P, _P, _P],
+    "srtpu_codes_remap": [_P, _I, _L, _P, _I, _P, _I, _P],
 }
 
 _lock = threading.Lock()

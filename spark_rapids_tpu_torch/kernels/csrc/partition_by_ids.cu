@@ -23,6 +23,13 @@
 //      ranks in lane order, behind a per-bucket carry in shared memory, so
 //      every row lands at its stable position. Block 0 also writes counts.
 // Shared memory is B ints per block (B <= 8,192).
+//
+// K28 round_robin_partition is the mode with no pid tensor (pid null):
+// a live row i takes partition (i + start) % num_partitions, computed
+// inside the hist and scatter launches. It replaces
+// spark_rapids_tpu/ops/partition.py:54 round_robin_partition, which
+// builds pid = (arange(capacity) + start) % n first and then calls
+// partition_by_ids: one pass over a pid tensor less.
 
 #include <cstdio>
 
@@ -36,8 +43,9 @@ constexpr int kMaxBuckets = 8192;
 
 __device__ __forceinline__ int bucket_of(const int* __restrict__ pid,
                                          long long i, long long live_rows,
-                                         int nparts) {
+                                         int nparts, long long start) {
   if (i >= live_rows) return nparts;
+  if (pid == nullptr) return (int)((i + start) % nparts);
   const int p = pid[i];
   if (p < 0 || p >= nparts) {
     printf("partition_by_ids: row %lld has partition id %d outside "
@@ -50,7 +58,8 @@ __device__ __forceinline__ int bucket_of(const int* __restrict__ pid,
 __global__ void __launch_bounds__(kPartHistThreads)
 part_hist_kernel(const int* __restrict__ pid, long long n,
                  const int* __restrict__ nrows_dev, long long nrows_host,
-                 int nparts, int tiles, int* __restrict__ hist) {
+                 int nparts, long long start, int tiles,
+                 int* __restrict__ hist) {
   extern __shared__ int h[];
   const int nb = nparts + 1;
   for (int b = threadIdx.x; b < nb; b += blockDim.x) h[b] = 0;
@@ -59,7 +68,7 @@ part_hist_kernel(const int* __restrict__ pid, long long n,
   const long long base = (long long)blockIdx.x * kPartTile;
   for (int r = threadIdx.x; r < kPartTile; r += blockDim.x) {
     const long long i = base + r;
-    if (i < n) atomicAdd(&h[bucket_of(pid, i, live_rows, nparts)], 1);
+    if (i < n) atomicAdd(&h[bucket_of(pid, i, live_rows, nparts, start)], 1);
   }
   __syncthreads();
   for (int b = threadIdx.x; b < nb; b += blockDim.x)
@@ -69,7 +78,8 @@ part_hist_kernel(const int* __restrict__ pid, long long n,
 __global__ void __launch_bounds__(32)
 part_scatter_kernel(const int* __restrict__ pid, long long n,
                     const int* __restrict__ nrows_dev, long long nrows_host,
-                    int nparts, int tiles, const int* __restrict__ off,
+                    int nparts, long long start, int tiles,
+                    const int* __restrict__ off,
                     int* __restrict__ perm, int* __restrict__ counts) {
   extern __shared__ int carry[];
   const int nb = nparts + 1;
@@ -88,7 +98,8 @@ part_scatter_kernel(const int* __restrict__ pid, long long n,
     const long long i = base + r * 32 + lane;
     const bool in = i < n;
     // rows past n take a key of their own (-1 - lane): they match nothing
-    const int key = in ? bucket_of(pid, i, live_rows, nparts) : -1 - lane;
+    const int key =
+        in ? bucket_of(pid, i, live_rows, nparts, start) : -1 - lane;
     const unsigned same = __match_any_sync(kFull, key);
     int pos = 0;
     if (in) pos = carry[key] + __popc(same & lanes_below);
@@ -105,15 +116,13 @@ part_scatter_kernel(const int* __restrict__ pid, long long n,
 
 using namespace srtpu;
 
-// pid: [n] int32; perm: [n] int32 out; counts: [nparts] int32 out;
-// scratch: [2 * (nparts + 1) * ceil(n / 1024) + 1] int32. The live rows are
-// *nrows_dev when given, else nrows_host.
-extern "C" int srtpu_partition_by_ids(const void* pid, long long n,
-                                      const void* nrows_dev,
-                                      long long nrows_host, int nparts,
-                                      void* perm, void* counts,
-                                      void* scratch, void* stream) {
-  if (nparts < 1 || nparts + 1 > kMaxBuckets || n <= 0 || n > 0x7fffffffLL)
+namespace {
+
+int launch_partition(const void* pid, long long n, const void* nrows_dev,
+                     long long nrows_host, int nparts, long long start,
+                     void* perm, void* counts, void* scratch, void* stream) {
+  if (nparts < 1 || nparts + 1 > kMaxBuckets || n <= 0 || n > 0x7fffffffLL ||
+      start < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int tiles = (int)((n + kPartTile - 1) / kPartTile);
@@ -125,8 +134,8 @@ extern "C" int srtpu_partition_by_ids(const void* pid, long long n,
   int* total = off + cells;
   const size_t smem = (size_t)nb * sizeof(int);
   part_hist_kernel<<<tiles, kPartHistThreads, smem, s>>>(
-      (const int*)pid, n, (const int*)nrows_dev, nrows_host, nparts, tiles,
-      hist);
+      (const int*)pid, n, (const int*)nrows_dev, nrows_host, nparts, start,
+      tiles, hist);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scan_tiles_kernel<int><<<1, kScanThreads, 0, s>>>(hist, (int)cells, off,
@@ -134,7 +143,33 @@ extern "C" int srtpu_partition_by_ids(const void* pid, long long n,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   part_scatter_kernel<<<tiles, 32, smem, s>>>(
-      (const int*)pid, n, (const int*)nrows_dev, nrows_host, nparts, tiles,
-      off, (int*)perm, (int*)counts);
+      (const int*)pid, n, (const int*)nrows_dev, nrows_host, nparts, start,
+      tiles, off, (int*)perm, (int*)counts);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// pid: [n] int32; perm: [n] int32 out; counts: [nparts] int32 out;
+// scratch: [2 * (nparts + 1) * ceil(n / 1024) + 1] int32. The live rows are
+// *nrows_dev when given, else nrows_host.
+extern "C" int srtpu_partition_by_ids(const void* pid, long long n,
+                                      const void* nrows_dev,
+                                      long long nrows_host, int nparts,
+                                      void* perm, void* counts,
+                                      void* scratch, void* stream) {
+  if (pid == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_partition(pid, n, nrows_dev, nrows_host, nparts, 0, perm,
+                          counts, scratch, stream);
+}
+
+// K28: as srtpu_partition_by_ids over the n rows of a batch, each live row
+// i in partition (i + start) % nparts.
+extern "C" int srtpu_round_robin_partition(long long n, const void* nrows_dev,
+                                           long long nrows_host, int nparts,
+                                           long long start, void* perm,
+                                           void* counts, void* scratch,
+                                           void* stream) {
+  return launch_partition(nullptr, n, nrows_dev, nrows_host, nparts, start,
+                          perm, counts, scratch, stream);
 }

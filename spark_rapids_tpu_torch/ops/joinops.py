@@ -16,7 +16,7 @@ contract:
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -201,3 +201,113 @@ def expand_gather_maps(lo: torch.Tensor, counts: torch.Tensor,
         kernels.sm_count(lo), kernels.stream_ptr(lo)), "expand_gather_maps")
     kernels.launches["expand_gather_maps"] += 1
     return pi, bi, total
+
+
+def _mark_pairs_plain(idx: torch.Tensor, ok: torch.Tensor, n_marks: int,
+                      clip: bool) -> torch.Tensor:
+    """The reference's marks: zeros(n).at[idx].max(where(ok, 1, 0)) > 0."""
+    i = idx.to(torch.int64)
+    if clip:
+        i = i.clamp(0, n_marks - 1)
+    m = torch.zeros(n_marks, dtype=torch.int32, device=idx.device)
+    m.scatter_reduce_(0, i, ok.to(torch.int32), "amax")
+    return m > 0
+
+
+def _launch_marks(name: str, idx: torch.Tensor, ok: torch.Tensor,
+                  n_marks: int, clip: bool,
+                  out: Optional[torch.Tensor]) -> torch.Tensor:
+    dev = idx.device
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name}: index dtype {idx.dtype}")
+    kernels.require(idx, "idx", idx.dtype, dev)
+    kernels.require(ok, "ok", torch.bool, dev)
+    if ok.shape[0] != idx.shape[0] or n_marks < 1:
+        raise ValueError(f"{name}: {idx.shape[0]} indices, {ok.shape[0]} "
+                         f"flags, {n_marks} marks")
+    zero = out is None
+    if out is None:
+        out = torch.empty(n_marks, dtype=torch.bool, device=dev)
+    else:
+        kernels.require(out, "out", torch.bool, dev)
+        if out.shape[0] != n_marks:
+            raise ValueError(f"{name}: out has {out.shape[0]} marks")
+    _build.check(_build.lib().srtpu_join_marks(
+        idx.data_ptr(), idx.element_size(), ok.data_ptr(), idx.shape[0],
+        n_marks, int(clip), int(zero), out.data_ptr(),
+        kernels.sm_count(idx), kernels.stream_ptr(idx)), "join_marks")
+    kernels.launches[name] += 1
+    return out
+
+
+def probe_marks_plain(pi: torch.Tensor, ok: torch.Tensor,
+                      n_marks: int) -> torch.Tensor:
+    """Plain PyTorch version of K27's probe marks."""
+    return _mark_pairs_plain(pi, ok, n_marks, clip=False)
+
+
+def probe_marks(pi: torch.Tensor, ok: torch.Tensor,
+                n_marks: int) -> torch.Tensor:
+    """Kernel K27, probe marks (`exec/joins.py:151-152`,
+    `parallel/plan_compiler.py:215-216`): [n_marks] bool, True at every
+    probe row some ok pair (pi[j], ok[j]) names. pi is int32 or int64 in
+    [0, n_marks) (K3's maps are)."""
+    if pi.device.type == "cpu":
+        return probe_marks_plain(pi, ok, n_marks)
+    return _launch_marks("probe_marks", pi, ok, n_marks, False, None)
+
+
+def build_marks_plain(bi: torch.Tensor, ok: torch.Tensor, n_marks: int,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K27's build marks."""
+    m = _mark_pairs_plain(bi, ok, n_marks, clip=True)
+    return m if out is None else out | m
+
+
+def build_marks(bi: torch.Tensor, ok: torch.Tensor, n_marks: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel K27, build marks (`exec/joins.py:178-180` and `:585-587`,
+    `parallel/plan_compiler.py:236-238`): as probe_marks over
+    clip(bi, 0, n_marks - 1). With `out`, the marks are ORed into it (the
+    nested-loop join's marks across probe chunks, `:588`); the result is
+    then `out` itself on the card and a new tensor on the CPU."""
+    if bi.device.type == "cpu":
+        return build_marks_plain(bi, ok, n_marks, out)
+    return _launch_marks("build_marks", bi, ok, n_marks, True, out)
+
+
+def build_coverage_plain(lo: torch.Tensor, counts: torch.Tensor,
+                         n_build: int) -> torch.Tensor:
+    """Plain PyTorch version of K27's coverage: the reference's difference
+    array and cumsum."""
+    has = (counts > 0).to(torch.int32)
+    delta = torch.zeros(n_build + 1, dtype=torch.int32, device=lo.device)
+    hi = lo.to(torch.int64) + counts.to(torch.int64)
+    delta.scatter_add_(0, lo.to(torch.int64).clamp(0, n_build), has)
+    delta.scatter_add_(0, hi.clamp(0, n_build), -has)
+    return torch.cumsum(delta[:-1], 0) > 0
+
+
+def build_coverage(lo: torch.Tensor, counts: torch.Tensor,
+                   n_build: int) -> torch.Tensor:
+    """Kernel K27, coverage (`exec/joins.py:254-262`
+    `_matched_build_mask`): [n_build] bool, True at every build row some
+    probe range [lo, lo + counts) with counts > 0 holds."""
+    if lo.device.type == "cpu":
+        return build_coverage_plain(lo, counts, n_build)
+    dev = lo.device
+    kernels.require(lo, "lo", torch.int32, dev)
+    kernels.require(counts, "counts", torch.int32, dev)
+    if counts.shape[0] != lo.shape[0] or n_build < 1:
+        raise ValueError(f"build_coverage: lo {lo.shape[0]}, counts "
+                         f"{counts.shape[0]}, {n_build} build rows")
+    covered = torch.empty(n_build, dtype=torch.bool, device=dev)
+    tiles = -(-n_build // kernels.TILE_ROWS)
+    scratch = torch.empty(n_build + 2 * tiles, dtype=torch.int32,
+                          device=dev)
+    _build.check(_build.lib().srtpu_build_coverage(
+        lo.data_ptr(), counts.data_ptr(), lo.shape[0], n_build,
+        covered.data_ptr(), scratch.data_ptr(), kernels.sm_count(lo),
+        kernels.stream_ptr(lo)), "build_coverage")
+    kernels.launches["build_coverage"] += 1
+    return covered

@@ -8,7 +8,9 @@ range, dead rows last, with the live rows counted per partition (kernel
 K7, kernels/csrc/partition_by_ids.cu). The map side of the exchange keeps
 the sorted batch plus the offsets the counts give; `split_to_slices`
 cuts a batch into one batch per partition the same way. Round-robin
-partitioning is not ported yet (ROADMAP B10b).
+partitioning (`round_robin_partition`) computes each live row's
+partition, (row + start) % n, inside the same counting sort (kernel K28,
+a mode of K7) and reads no id tensor.
 """
 
 from __future__ import annotations
@@ -89,6 +91,59 @@ def partition_perm(pid: torch.Tensor, num_rows: Union[int, torch.Tensor],
 def partition_by_ids(batch: ColumnBatch, pid: torch.Tensor,
                      num_partitions: int) -> PartitionedBatch:
     perm, counts = partition_perm(pid, batch.num_rows, num_partitions)
+    return PartitionedBatch(batch.gather(perm, batch.num_rows), counts)
+
+
+def round_robin_perm_plain(cap: int, num_rows, num_partitions: int,
+                           start: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K28: the reference's pid = (arange(cap) +
+    start) % n, then K7's plain version."""
+    device = (num_rows.device if isinstance(num_rows, torch.Tensor)
+              else torch.device("cpu"))
+    pid = ((torch.arange(cap, dtype=torch.int64, device=device) + start)
+           % num_partitions).to(torch.int32)
+    return partition_perm_plain(pid, num_rows, num_partitions)
+
+
+def round_robin_perm(cap: int, num_rows: Union[int, torch.Tensor],
+                     num_partitions: int, start: int = 0,
+                     device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K28: K7's (perm, counts) for pid = (row + start) %
+    num_partitions, computed inside the kernel. `device` is the batch's
+    (num_rows may be a host int)."""
+    device = torch.device(device) if device is not None else (
+        num_rows.device if isinstance(num_rows, torch.Tensor)
+        else torch.device("cpu"))
+    if device.type == "cpu":
+        return round_robin_perm_plain(cap, num_rows, num_partitions, start)
+    perm = torch.empty(cap, dtype=torch.int32, device=device)
+    dev = perm.device
+    nrows_dev, nrows_host = None, 0
+    if isinstance(num_rows, torch.Tensor):
+        nrows_dev = num_rows.to(device=dev, dtype=torch.int32)
+        kernels.require(nrows_dev, "num_rows", torch.int32, dev, ndim=0)
+    else:
+        nrows_host = int(num_rows)
+    counts = torch.empty(num_partitions, dtype=torch.int32, device=dev)
+    tiles = -(-cap // 1024)
+    scratch = torch.empty(2 * (num_partitions + 1) * tiles + 1,
+                          dtype=torch.int32, device=dev)
+    _build.check(_build.lib().srtpu_round_robin_partition(
+        cap, None if nrows_dev is None else nrows_dev.data_ptr(), nrows_host,
+        num_partitions, int(start), perm.data_ptr(), counts.data_ptr(),
+        scratch.data_ptr(), kernels.stream_ptr(perm)),
+        "round_robin_partition")
+    kernels.launches["round_robin_partition"] += 1
+    return perm, counts
+
+
+def round_robin_partition(batch: ColumnBatch, num_partitions: int,
+                          start: int = 0) -> PartitionedBatch:
+    """The reference's round_robin_partition (GpuRoundRobinPartitioning):
+    live row i goes to partition (i + start) % num_partitions."""
+    perm, counts = round_robin_perm(batch.capacity, batch.num_rows,
+                                    num_partitions, start, batch.device)
     return PartitionedBatch(batch.gather(perm, batch.num_rows), counts)
 
 

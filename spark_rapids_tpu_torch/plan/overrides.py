@@ -4,8 +4,12 @@
 It tags every logical node with the reasons it cannot run on the device
 (`PlanMeta`, the RapidsMeta role) and converts the tree to physical
 operators, inserting what execution needs: the partial -> hash exchange
--> final split around a multi-partition aggregate, the broadcast choice
-for an equi-join whose build side is estimated small, the sample-based
+-> final split around a multi-partition aggregate, the join strategy
+(a broadcast hash join when the build side is estimated under
+spark.sql.autoBroadcastJoinThreshold and the type allows it, else a
+shuffled hash join over key exchanges; a broadcast nested-loop join
+without keys or for cross; a right join as a swapped left join plus a
+reordering project), the union, the repartition exchange, the sample-based
 range exchange below a global sort over many partitions, the
 TakeOrderedAndProject fusion of a limit over a global sort, and the hash
 exchange on the partition keys below a window with the choice of its
@@ -14,7 +18,7 @@ evaluation mode.
 The reference converts an untaggable node to its CPU operator; the port
 has no CPU engine (`exec/cpu_eval.py` is not ported), so such a node,
 and every node type outside the slice (scan, cached relation, filter,
-project, inner equi-join, aggregate, sort, window, limit), raises
+project, join, union, repartition, aggregate, sort, window, limit), raises
 NotImplementedError naming the ROADMAP item that ports it. Nothing ever
 runs on the CPU in place of the device.
 """
@@ -28,9 +32,14 @@ import torch
 from spark_rapids_tpu_torch.config import rapids_conf as rc
 from spark_rapids_tpu_torch.exec import operators as ops
 from spark_rapids_tpu_torch.exec.base import PhysicalPlan
-from spark_rapids_tpu_torch.exec.joins import TpuBroadcastHashJoinExec
+from spark_rapids_tpu_torch.exec.joins import (
+    TpuBroadcastHashJoinExec,
+    TpuBroadcastNestedLoopJoinExec,
+    TpuShuffledHashJoinExec,
+    swap_condition,
+)
 from spark_rapids_tpu_torch.expr import aggregates as AGG
-from spark_rapids_tpu_torch.expr import BoundReference, Max, Min
+from spark_rapids_tpu_torch.expr import Alias, BoundReference, Max, Min
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.typesig import (
     PORTED_EXPRESSIONS,
@@ -59,7 +68,6 @@ _NOT_PORTED = {
     "LocalRelation": "A9 (createDataFrame)",
     "Range": "A9 (spark.range)",
     "Generate": "A12", "Expand": "A12", "Sample": "A12",
-    "Union": "A13", "Repartition": "A13",
     "MapInPandas": "A15", "GroupedMapInPandas": "A15",
     "CoGroupedMapInPandas": "A15",
 }
@@ -133,11 +141,9 @@ class TpuOverrides:
                 if r:
                     meta.cannot_run(r)
             if node.condition is not None:
-                meta.cannot_run("join conditions beyond equi-keys are not "
-                                "ported yet (ROADMAP A13)")
-            if node.join_type != "inner":
-                meta.cannot_run(f"{node.join_type} joins are not ported "
-                                "yet (ROADMAP A13)")
+                self._exprs(meta, [node.condition])
+        elif isinstance(node, L.Repartition):
+            self._exprs(meta, node.keys or [])
         elif isinstance(node, L.Sort):
             for o in node.orders:
                 self._exprs(meta, [o.expr])
@@ -330,6 +336,13 @@ class TpuOverrides:
             return self._convert_window(node, children[0])
         if isinstance(node, L.Limit):
             return self._convert_limit(node, children[0])
+        if isinstance(node, L.Union):
+            return ops.UnionExec(children, node.schema, conf)
+        if isinstance(node, L.Repartition):
+            # no coalesce wrap: the exchange's reduce side already slices
+            # its blocks at batchSizeRows
+            return ops.TpuShuffleExchangeExec(children[0], node.keys,
+                                              node.num_partitions, conf)
         raise NotImplementedError(f"logical node {type(node).__name__}")
 
     def _convert_aggregate(self, node: L.Aggregate,
@@ -354,20 +367,89 @@ class TpuOverrides:
                       children: List[PhysicalPlan]) -> PhysicalPlan:
         conf = self.conf
         left, right = children
-        if not node.left_keys:
-            raise NotImplementedError(
-                "joins without equi-keys are not ported yet (ROADMAP A13)")
-        threshold = conf.get(rc.BROADCAST_THRESHOLD)
-        est = L.estimate_size_bytes(node.children[1])
-        if threshold >= 0 and est is not None and est <= threshold:
-            return TpuBroadcastHashJoinExec(
-                left, right, node.join_type, node.left_keys,
-                node.right_keys, node.schema, conf)
-        raise NotImplementedError(
-            "the shuffled hash join (a build side over "
-            "spark.sql.autoBroadcastJoinThreshold) is not ported yet "
-            "(ROADMAP A13)")
+        shuffle_parts = conf.get(rc.SHUFFLE_PARTITIONS)
+        join_type = node.join_type
+        left_keys, right_keys = node.left_keys, node.right_keys
+        condition = node.condition
+        n_l = len(node.children[0].schema.fields)
+        n_r = len(node.children[1].schema.fields)
+        build_logical = node.children[1]
+        swapped = join_type == "right"
+        if swapped:
+            # right outer = swapped left outer + a reordering project
+            left, right = right, left
+            left_keys, right_keys = right_keys, left_keys
+            join_type = "left"
+            build_logical = node.children[0]
+            if condition is not None:
+                condition = swap_condition(condition, n_l, n_r)
+        exec_schema = (self._swapped_schema(left, right) if swapped
+                       else node.schema)
+        if not left_keys or join_type == "cross":
+            joined = self._nested_loop_join(left, right, join_type,
+                                            condition, exec_schema)
+        else:
+            joined = self._hash_join(left, right, join_type, left_keys,
+                                     right_keys, condition, exec_schema,
+                                     build_logical, shuffle_parts)
+        if not swapped:
+            return joined
+        # the swapped layout is [orig-right fields | orig-left fields];
+        # reorder back to node.schema = [left | right]
+        sw = joined.schema
+        reorder = [Alias(BoundReference(n_r + i, sw.fields[n_r + i].dataType,
+                                        True), sw.fields[n_r + i].name)
+                   for i in range(n_l)]
+        reorder += [Alias(BoundReference(i, sw.fields[i].dataType, True),
+                          sw.fields[i].name)
+                    for i in range(n_r)]
+        return ops.TpuProjectExec(reorder, joined, node.schema, conf)
 
+    @staticmethod
+    def _swapped_schema(left, right) -> StructType:
+        from spark_rapids_tpu_torch.sqltypes import StructField
+
+        return StructType(
+            [StructField(f.name, f.dataType, True)
+             for f in left.schema.fields]
+            + [StructField(f.name, f.dataType, f.nullable)
+               for f in right.schema.fields])
+
+    def _hash_join(self, left, right, join_type, left_keys, right_keys,
+                   condition, exec_schema, build_logical, shuffle_parts):
+        conf = self.conf
+        threshold = conf.get(rc.BROADCAST_THRESHOLD)
+        est = L.estimate_size_bytes(build_logical)
+        broadcastable = (threshold >= 0 and est is not None
+                         and est <= threshold
+                         and join_type in ("inner", "left", "left_semi",
+                                           "left_anti", "existence"))
+        if broadcastable:
+            return TpuBroadcastHashJoinExec(
+                left, right, join_type, left_keys, right_keys, exec_schema,
+                conf, condition=condition)
+        if not (left.num_partitions == 1 and right.num_partitions == 1):
+            left = ops.TpuShuffleExchangeExec(left, left_keys,
+                                              shuffle_parts, conf)
+            right = ops.TpuShuffleExchangeExec(right, right_keys,
+                                               shuffle_parts, conf)
+        return TpuShuffledHashJoinExec(
+            left, right, join_type, left_keys, right_keys, exec_schema,
+            conf, condition=condition)
+
+    def _nested_loop_join(self, left, right, join_type, condition,
+                          exec_schema):
+        if join_type == "full":
+            # build-match tracking must be partition-local
+            left = self._single(left)
+        return TpuBroadcastNestedLoopJoinExec(
+            left, right, join_type, exec_schema, self.conf,
+            condition=condition)
+
+    def _single(self, plan: PhysicalPlan) -> PhysicalPlan:
+        if plan.num_partitions == 1:
+            return plan
+        return ops.TpuShuffleExchangeExec(plan, None, 1, self.conf)
 
     def _take_ordered(self, n: int, orders,
                       child: PhysicalPlan) -> PhysicalPlan:

@@ -41,7 +41,14 @@ session zone over the dated ORDERS that `write_orders_dated` writes
 typed and as .tbl text; `orders_price_stats_query`,
 `orders_daily_distinct_query` and `orders_price_window_query` run the
 statistical, distinct and percentile aggregates and the variance window
-frames over its typed table. Through the
+frames over its typed table. `q13_outer_query` (TPC-H q13: a
+conditional left outer join), `q22_anti_query` (q22's NOT EXISTS: a left
+anti join), `orders_yoy_full_query` (a full outer join of two years),
+`orders_price_bands_query` (a condition-only full outer nested-loop
+join), `customer_segments_query` (a join on dictionary-encoded keys of
+two dictionaries) and `orders_union_rr_query` (a union and a round-robin
+repartition) run over the CUSTOMER, ORDERS, band and quota tables that
+`write_customer_data` writes. Through the
 port's session with bench.py's conf they run on the fused engine
 (exec/fused.py), which evaluates every window over the whole partition;
 with
@@ -480,6 +487,120 @@ def orders_price_window_query(orders, F=None, Window=None):
         F.var_pop("o_totalprice").over(prio).alias("prio_var"))
 
 
+def q13_outer_query(customer, orders, F=None):
+    """TPC-H q13 as the spec writes it: every customer left-joined to its
+    orders whose comment does not match 'special.*requests' (a join
+    condition beside the key), the orders counted per customer, then the
+    customers counted per order count, by custdist and c_count
+    descending."""
+    F = _functions(F)
+    c_orders = (customer.select("c_custkey")
+                .join(orders.select("o_orderkey", "o_custkey", "o_comment"),
+                      on=(F.col("c_custkey") == F.col("o_custkey"))
+                      & ~F.rlike("o_comment", "special.*requests"),
+                      how="left")
+                .groupBy("c_custkey")
+                .agg(F.count("o_orderkey").alias("c_count")))
+    return (c_orders.groupBy("c_count")
+            .agg(F.count("*").alias("custdist"))
+            .orderBy(F.col("custdist").desc(), F.col("c_count").desc()))
+
+
+def q22_anti_query(customer, orders, F=None):
+    """The NOT EXISTS core of TPC-H q22: the customers with a positive
+    balance that placed no order (a left anti join on the key), counted
+    and their balances summed per country code, the first two characters
+    of c_phone. q22's scalar subquery and IN list are left out."""
+    F = _functions(F)
+    return (customer
+            .filter(F.col("c_acctbal") > 0.0)
+            .select(F.substring("c_phone", 1, 2).alias("cntrycode"),
+                    "c_acctbal", "c_custkey")
+            .join(orders.select("o_custkey"),
+                  on=F.col("c_custkey") == F.col("o_custkey"),
+                  how="left_anti")
+            .groupBy("cntrycode")
+            .agg(F.count("*").alias("numcust"),
+                 F.sum("c_acctbal").alias("totacctbal")))
+
+
+def orders_yoy_full_query(orders, F=None):
+    """A year-over-year report: each customer's revenue in 1995 full-outer
+    joined to the same in 1996 on the customer key. One row: the
+    customers of either year, those of each year, both revenues and the
+    change (the customers of one year only are the total less the other
+    year's)."""
+    F = _functions(F)
+
+    def revenue(y, key, rev):
+        return (orders.filter(F.year("o_orderdate") == y)
+                .groupBy("o_custkey")
+                .agg(F.sum("o_totalprice").alias(rev))
+                .withColumnRenamed("o_custkey", key))
+
+    both = revenue(1995, "ck95", "rev95").join(
+        revenue(1996, "ck96", "rev96"),
+        on=F.col("ck95") == F.col("ck96"), how="full")
+    return (both.agg(F.count("*").alias("customers"),
+                     F.count("ck95").alias("in95"),
+                     F.count("ck96").alias("in96"),
+                     F.sum("rev95").alias("rev95"),
+                     F.sum("rev96").alias("rev96"))
+            .select("customers",
+                    (F.col("customers") - F.col("in96")).alias("only95"),
+                    (F.col("customers") - F.col("in95")).alias("only96"),
+                    "rev95", "rev96",
+                    (F.col("rev96") - F.col("rev95")).alias("change")))
+
+
+def orders_price_bands_query(orders, bands, F=None):
+    """Orders against a price-band table by a range condition alone (no
+    key: a nested-loop join), full outer: orders in no band and bands with
+    no order are kept. Per band the orders and their revenue."""
+    F = _functions(F)
+    price = F.col("o_totalprice")
+    return (orders.select("o_totalprice")
+            .join(bands, on=(price >= F.col("b_lo")) & (price < F.col("b_hi")),
+                  how="full")
+            .groupBy("b_band")
+            .agg(F.count("o_totalprice").alias("n"),
+                 F.sum("o_totalprice").alias("revenue")))
+
+
+def customer_segments_query(quota, customer, F=None):
+    """The segment quota table joined to every customer on the market
+    segment: both columns are dictionary-encoded, with dictionaries in
+    different orders, so the join compares codes re-encoded into one code
+    space. Per segment and nation the customers, their balance and its
+    excess over the segment's quota."""
+    F = _functions(F)
+    return (quota
+            .join(customer,
+                  on=F.col("q_mktsegment") == F.col("c_mktsegment"),
+                  how="inner")
+            .select("c_mktsegment", "c_nationkey", "c_acctbal",
+                    (F.col("c_acctbal") - F.col("q_quota")).alias("excess"))
+            .groupBy("c_mktsegment", "c_nationkey")
+            .agg(F.count("*").alias("n"),
+                 F.sum("c_acctbal").alias("acctbal"),
+                 F.sum("excess").alias("excess")))
+
+
+def orders_union_rr_query(orders, F=None, partitions: int = 16):
+    """Two loads appended and spread evenly before a report: the 1995 and
+    1997 orders, union-ed, repartitioned round-robin into `partitions`,
+    then counted and summed per priority."""
+    F = _functions(F)
+    year = F.year("o_orderdate")
+    cols = ("o_orderpriority", "o_totalprice")
+    return (orders.filter(year == 1995).select(*cols)
+            .union(orders.filter(year == 1997).select(*cols))
+            .repartition(partitions)
+            .groupBy("o_orderpriority")
+            .agg(F.count("*").alias("n"),
+                 F.sum("o_totalprice").alias("revenue")))
+
+
 #: TPC-H's o_orderpriority values (spec 4.2.2.13: PRIORITIES)
 ORDER_PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
                     "5-LOW")
@@ -535,6 +656,21 @@ def text_pool(rng, sentences: int) -> bytes:
     return " ".join(" ".join(ws) + t for *ws, t in zip(*cols, term)).encode()
 
 
+def _comments(rng, pool: np.ndarray, n: int) -> pa.Array:
+    """n comments as dbgen's TEXT(19, 78) draws them: a random 19 to 78
+    byte window of the text pool, built as an Arrow StringArray from
+    offset and byte buffers."""
+    lengths = rng.integers(19, 79, n)
+    starts = rng.integers(0, len(pool) - 78, n)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    src = (np.arange(offsets[-1], dtype=np.int64)
+           - np.repeat(offsets[:-1] - starts, lengths))
+    return pa.LargeStringArray.from_buffers(
+        n, pa.py_buffer(offsets.tobytes()),
+        pa.py_buffer(pool[src].tobytes())).cast(pa.string())
+
+
 def write_orders_data(root: str, rows: int, files: int = 8, seed: int = 0
                       ) -> List[str]:
     """Write an ORDERS-shaped table under root/orders in `files` parquet
@@ -552,15 +688,7 @@ def write_orders_data(root: str, rows: int, files: int = 8, seed: int = 0
     paths = []
     for i in range(files):
         n = min(per, rows - i * per)
-        lengths = rng.integers(19, 79, n)
-        starts = rng.integers(0, len(pool) - 78, n)
-        offsets = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(lengths, out=offsets[1:])
-        src = (np.arange(offsets[-1], dtype=np.int64)
-               - np.repeat(offsets[:-1] - starts, lengths))
-        comment = pa.LargeStringArray.from_buffers(
-            n, pa.py_buffer(offsets.tobytes()),
-            pa.py_buffer(pool[src].tobytes())).cast(pa.string())
+        comment = _comments(rng, pool, n)
         t = pa.table({
             "o_orderkey": pa.array(np.arange(i * per, i * per + n) * 4 + 1,
                                    type=pa.int64()),
@@ -656,6 +784,91 @@ def write_orders_dated(root: str, rows: int, files: int = 8, seed: int = 0
                            use_dictionary=False)
             paths.append(path)
     return typed, text
+
+
+#: TPC-H's market segments (spec 4.2.2.13: SEGMENTS)
+SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD")
+#: the price bands of orders_price_bands_query: [lo, hi) in o_totalprice,
+#: covering part of the price range only; the last lies above every price
+PRICE_BANDS = tuple((k * 40_000.0, k * 40_000.0 + 25_000.0)
+                    for k in range(9)) + ((600_000.0, 700_000.0),)
+
+
+def write_customer_data(root: str, customers: int, orders: int,
+                        files: int = 8, seed: int = 0) -> dict:
+    """Write the tables of the join queries under root, PLAIN parquet:
+
+    - customer/ (one file): CUSTOMER as dbgen makes it (TPC-H spec 4.2.3):
+      c_custkey 1..customers, c_nationkey 0-24, c_acctbal in cents from
+      -999.99 to 9,999.99, c_mktsegment one of SEGMENTS, dictionary-encoded
+      in SEGMENTS' order, and c_phone, whose first two digits are
+      c_nationkey + 10 (then 3, 3 and 4 random digits);
+    - orders_cust/ (`files` files): ORDERS with o_orderkey,
+      o_orderpriority, o_orderdate, o_totalprice and o_custkey drawn as
+      `orders_dated_draws` draws them (a third of the customers place no
+      order) and o_comment as `write_orders_data` draws it, from a
+      generator of its own;
+    - bands/: PRICE_BANDS as b_band (int32), b_lo and b_hi (float64);
+    - quota/: one row per segment, q_mktsegment dictionary-encoded in
+      SEGMENTS' reverse order, and q_quota (float64).
+
+    Returns {table: [paths]}."""
+    import pyarrow.compute as pc
+
+    rng = np.random.default_rng([seed, 5])
+    out = {}
+    for sub in ("customer", "orders_cust", "bands", "quota"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    nation = rng.integers(0, 25, customers)
+    digits = [pc.cast(pa.array(rng.integers(lo, hi, customers)), pa.string())
+              for lo, hi in ((100, 1000), (100, 1000), (1000, 10000))]
+    phone = pc.binary_join_element_wise(
+        pc.cast(pa.array(nation + 10), pa.string()), *digits, "-")
+    seg = pa.DictionaryArray.from_arrays(
+        pa.array(rng.integers(0, len(SEGMENTS), customers).astype(np.int32)),
+        pa.array(SEGMENTS))
+    t = pa.table({
+        "c_custkey": pa.array(np.arange(1, customers + 1, dtype=np.int64)),
+        "c_nationkey": pa.array(nation.astype(np.int64)),
+        "c_acctbal": pa.array(rng.integers(-99_999, 1_000_000, customers)
+                              / 100.0),
+        "c_mktsegment": seg,
+        "c_phone": phone})
+    path = os.path.join(root, "customer", "customer-0.parquet")
+    pq.write_table(t, path, compression="NONE",
+                   use_dictionary=["c_mktsegment"])
+    out["customer"] = [path]
+    crng = np.random.default_rng([seed, 4])
+    pool = np.frombuffer(text_pool(crng, 100_000), dtype=np.uint8)
+    prio = pa.array(ORDER_PRIORITIES)
+    out["orders_cust"] = []
+    for i, d in enumerate(orders_dated_draws(orders, files, seed)):
+        n = len(d["o_orderkey"])
+        t = pa.table({
+            "o_orderkey": pa.array(d["o_orderkey"]),
+            "o_custkey": pa.array(d["o_custkey"]),
+            "o_orderpriority": prio.take(pa.array(d["priority"])),
+            "o_orderdate": pa.array(d["o_orderdate"], type=pa.date32()),
+            "o_totalprice": pa.array(d["cents"] / 100.0),
+            "o_comment": _comments(crng, pool, n)})
+        path = os.path.join(root, "orders_cust", f"orders_cust-{i}.parquet")
+        pq.write_table(t, path, compression="NONE", use_dictionary=False)
+        out["orders_cust"].append(path)
+    bands = pa.table({
+        "b_band": pa.array(np.arange(len(PRICE_BANDS), dtype=np.int32)),
+        "b_lo": pa.array([lo for lo, _ in PRICE_BANDS]),
+        "b_hi": pa.array([hi for _, hi in PRICE_BANDS])})
+    rev = SEGMENTS[::-1]
+    quota = pa.table({
+        "q_mktsegment": pa.DictionaryArray.from_arrays(
+            pa.array(np.arange(len(rev), dtype=np.int32)), pa.array(rev)),
+        "q_quota": pa.array([1000.0 * (k + 1) for k in range(len(rev))])})
+    for name, table, enc in (("bands", bands, False),
+                             ("quota", quota, ["q_mktsegment"])):
+        path = os.path.join(root, name, f"{name}-0.parquet")
+        pq.write_table(table, path, compression="NONE", use_dictionary=enc)
+        out[name] = [path]
+    return out
 
 
 def q5_plan(fact_entry, dim_entry,

@@ -783,6 +783,9 @@ _WRAPPERS = [
     (port_segmented, "_seg_sum_count_launch"),
     (port_aggregates, "rank_select"), (port_aggregates, "rank_interp"),
     (port_aggregates, "collect_rank"), (port_aggregates, "collect_scatter"),
+    (port_joinops, "probe_marks"), (port_joinops, "build_marks"),
+    (port_joinops, "_launch_marks"), (port_joinops, "build_coverage"),
+    (port_partition, "round_robin_perm"), (port_encoding, "remap_codes"),
 ]
 
 
@@ -901,6 +904,29 @@ def _slice8_plain_cases():
     }
 
 
+def _slice9_plain_cases():
+    """K27-K29's plain versions."""
+    rng = np.random.default_rng(79)
+    n, m = 700, 90
+    idx = t(rng.integers(0, m, n).astype(np.int32))
+    ok = t(rng.random(n) < 0.3)
+    lo = t(rng.integers(0, m, n).astype(np.int32))
+    cnt = t(rng.integers(0, 3, n).astype(np.int32))
+    codes = t(rng.integers(-2, 9, n).astype(np.int16))
+    table = t(rng.integers(-1, 5, 7).astype(np.int32))
+    J = port_joinops
+    return {
+        "probe_marks_plain": lambda: J.probe_marks_plain(idx, ok, m),
+        "build_marks_plain": lambda: J.build_marks_plain(
+            idx.to(torch.int64) - 3, ok, m, out=ok[:m].clone()),
+        "build_coverage_plain": lambda: J.build_coverage_plain(lo, cnt, m),
+        "round_robin_perm_plain":
+            lambda: port_partition.round_robin_perm_plain(n, n - 9, 16, 3),
+        "remap_codes_plain":
+            lambda: port_encoding.remap_codes_plain(codes, table),
+    }
+
+
 _STRING_PLAIN = sorted(_string_plain_cases(port_strings.DeviceColumn(
     None, torch.zeros((1, 8), dtype=torch.uint8), torch.ones(1, dtype=bool),
     torch.zeros(1, dtype=torch.int32))))
@@ -998,6 +1024,7 @@ def _plain_case(name, pb):
     cases.update(_string_plain_cases(s_col))
     cases.update(_slice7_plain_cases())
     cases.update(_slice8_plain_cases())
+    cases.update(_slice9_plain_cases())
     return cases[name]()
 
 
@@ -1022,7 +1049,7 @@ def _plain_window(n, perm, live):
     "window_prefix_plain", "window_eval_plain", "inverse_permutation_plain",
     "range_bounds_plain", "frame_minmax_plain", "frame_pick_plain",
     *_STRING_PLAIN, *sorted(_slice7_plain_cases()),
-    *sorted(_slice8_plain_cases())])
+    *sorted(_slice8_plain_cases()), *sorted(_slice9_plain_cases())])
 def test_plain_versions_reach_no_kernel_wrapper(name, monkeypatch):
     """With every kernel wrapper, wherever it is bound, replaced by one
     that raises, each plain version still runs."""
