@@ -67,7 +67,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    clipped and ORed marks, ranges past the build's end, n = 1 and n
    above the rows, codes at 0, K - 1 and past K, the shared-memory
    table's limit, and whole joins on the card against the CPU over null,
-   NaN and -0.0 keys and empty sides);
+   NaN and -0.0 keys and empty sides); K30 (xxhash64) and K24's hex mode
+   at the slice-10 path shapes (15,000,000 rows of orders_hash_sample's
+   MinHash key: o_custkey, o_orderpriority's 16-byte and o_comment's
+   128-byte rows; o_orderkey alone; the hex of 15,000,000 int64 values)
+   and at edge shapes (`check_slice10_edges`: every key kind with int32
+   and int64 limits, -0.0, NaNs and +-inf, strings of 0-130 bytes at
+   aligned and unaligned widths, nulls first, in the middle and last,
+   chains past the 8 columns of one launch; hex at 0, +-1, the powers of
+   16 and the int64 ends);
 3. slice 1's hand-built q5 plan at the bench's full size (36M fact rows
    in 8 parquet files, a 2,000-row dimension with a dictionary-encoded
    `region`) over device-cached relations: upload, one cold run and 5
@@ -153,11 +161,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    left anti, full outer) and numpy: counts exact, sums within 1e-9
    relative. K27's probe marks must run on q13 and the bands, its build
    marks on the bands, its coverage on the full join, K29 on the segment
-   join, K28 on the adaptive engine's round-robin exchange.
+   join, K28 on the adaptive engine's round-robin exchange;
+12. slice 10's expressions (q5.py: q22_full_query,
+   orders_priority_split_query, orders_hash_sample_query,
+   customer_value_bands_query) over the same CUSTOMER and ORDERS on the
+   adaptive and the fused engine (q22's crossJoin, a nested-loop join,
+   falls back to the adaptive engine in both packages): TPC-H q22 as
+   written (IN, the scalar subquery, the anti join), q12's CASE WHEN split
+   by year, a pmod(xxhash64) 5 % sample grouped by pmod(hash) with a
+   MinHash min(xxhash64) shown as hex, and value bands by
+   floor(log10(abs)) with isNull, IN over the encoded segment, %,
+   coalesce, greatest, round and ceil; against pyarrow and numpy (Spark's
+   XXH64 and Murmur3 in numpy uint64/uint32 arithmetic over the column
+   values). K30, K6 and the hex mode must run on the hash sample; each
+   query's K30, K6 and hex launches, largest device items, host syncs,
+   idle share and peak memory are printed.
 
-For each query run (phases 3-11) the kernels' launch counts are reset
+For each query run (phases 3-12) the kernels' launch counts are reset
 just before the cold run and read just after it; every kernel of that
-path must have run. Phases 3-5 time 3 hot runs a query, phases 6-11 2,
+path must have run. Phases 3-5 time 3 hot runs a query, phase 7 1 (cut
+from 2 when phase 12 was added), phases 6 and 8-12 2,
 and each kernel's device time in phase 2 is the mean of 10 calls.
 One more hot run counts the host syncs (torch.cuda's
 sync debug mode) and one, under torch.profiler, gives the device's busy
@@ -169,6 +192,7 @@ around this file; the port never falls back to the CPU.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -182,8 +206,11 @@ FILES = 8
 STORES = 2000
 REGIONS = 12
 HOT_RUNS = 3
-#: hot runs of each query in phases 6-9 (phases 3-5 keep HOT_RUNS)
+#: hot runs of each query in phases 6 and 8-12 (phases 3-5 keep HOT_RUNS)
 LATER_HOT_RUNS = 2
+#: hot runs of each query in phase 7 (its 36M-row checks are the run's
+#: largest; cut from 2 before phase 12 was added)
+SLICE5_HOT_RUNS = 1
 TIMING_ITERS = 10
 DUP_PER_STORE = 2       # rows per store in the duplicate-key dimension
 REL_TOL = 1e-9          # sums and averages against the oracles
@@ -3340,7 +3367,7 @@ def run_slice5(dev, root, oracles, fused: bool) -> dict:
         checker_bytes = torch.cuda.memory_allocated(dev) - base
         torch.cuda.reset_peak_memory_stats(dev)
         rec = timed_runs(lambda: build_df(fact).collect_arrow(), check,
-                         LATER_HOT_RUNS)
+                         SLICE5_HOT_RUNS)
         peak = int(torch.cuda.max_memory_allocated(dev)) - checker_bytes
         del want, check
         ex = spark.last_execution
@@ -4956,25 +4983,15 @@ def check_slice9(name: str, got, want) -> None:
             _rel_close("orders_union_rr revenue", r["revenue"], s)
 
 
-def run_slice9(dev, root, oracles, fused: bool) -> dict:
-    """Phase 11: the six join queries (q5.py) through the port's session
-    with the fused engine on or off over CUSTOMER, ORDERS, the bands and
-    the quotas cached on the card, every hash join shuffled
-    (spark.sql.autoBroadcastJoinThreshold=-1). Returns {query: record},
-    each with its peak device bytes."""
+def customer_session(dev, root, fused: bool):
+    """The session of phases 11 and 12, the fused engine on or off, every
+    hash join shuffled (spark.sql.autoBroadcastJoinThreshold=-1), with
+    CUSTOMER, ORDERS, the bands and the quotas cached on the card: (the
+    session, {table: DataFrame}, the upload's seconds)."""
     import torch
 
     from spark_rapids_tpu_torch.api.session import TpuSparkSession
-    from spark_rapids_tpu_torch.q5 import (
-        customer_segments_query,
-        orders_price_bands_query,
-        orders_union_rr_query,
-        orders_yoy_full_query,
-        q13_outer_query,
-        q22_anti_query,
-    )
 
-    engine = "fused" if fused else "aqe"
     spark = (TpuSparkSession.builder
              .config("spark.sql.shuffle.partitions", 8)
              .config("spark.sql.autoBroadcastJoinThreshold", -1)
@@ -4991,7 +5008,25 @@ def run_slice9(dev, root, oracles, fused: bool) -> dict:
         spark.cache_manager.lookup(df._plan).materialize()
         tables[name] = df
     torch.cuda.synchronize()
-    upload_s = time.monotonic() - t0
+    return spark, tables, time.monotonic() - t0
+
+
+def run_slice9(dev, session, oracles, fused: bool) -> dict:
+    """Phase 11: the six join queries (q5.py) in `customer_session`'s
+    session. Returns {query: record}, each with its peak device bytes."""
+    import torch
+
+    from spark_rapids_tpu_torch.q5 import (
+        customer_segments_query,
+        orders_price_bands_query,
+        orders_union_rr_query,
+        orders_yoy_full_query,
+        q13_outer_query,
+        q22_anti_query,
+    )
+
+    engine = "fused" if fused else "aqe"
+    spark, tables, upload_s = session
     c, o = tables["customer"], tables["orders_cust"]
     builds = {
         "q13_outer": lambda: q13_outer_query(c, o),
@@ -5024,7 +5059,560 @@ def run_slice9(dev, root, oracles, fused: bool) -> dict:
                        torch.cuda.max_memory_allocated(dev)))
         out[name] = rec
         torch.cuda.empty_cache()
-    spark.stop()
+    return out
+
+
+# ---------------------------------------------------------------- slice 10
+
+def _byte_rows(dev, strings, width: int):
+    """Byte strings as a zero-padded [n, width] uint8 matrix and lengths
+    on the card."""
+    import numpy as np
+    import torch
+
+    mat = np.zeros((len(strings), width), np.uint8)
+    for k, s in enumerate(strings):
+        mat[k, :len(s)] = np.frombuffer(s, np.uint8)
+    lens = np.array([len(s) for s in strings], np.int32)
+    return torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev)
+
+
+def check_slice10_kernels(dev):
+    """Phase 2, slice 10: K30 at orders_hash_sample's shapes, 15,000,000
+    rows each: the MinHash key (o_custkey int64, o_orderpriority's [n, 16]
+    rows, o_comment's [n, 128] rows of 19-78 bytes, each with validity, as
+    the path hands them over) and the sample's o_orderkey alone; K24's hex
+    mode over 15,000,000 int64 values. Exact against the plain versions
+    (in 2^20-row pieces). Returns {record name: record}."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.expr import mathexpr as M
+    from spark_rapids_tpu_torch.ops import hashing as H
+    from spark_rapids_tpu_torch.q5 import ORDER_PRIORITIES
+    from spark_rapids_tpu_torch.sqltypes.datatypes import long
+
+    src = "spark_rapids_tpu_torch/kernels/csrc/"
+    rng = np.random.default_rng(101)
+    n = SF10_ORDERS
+    out = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    custkey = t(rng.integers(1, SF10_CUSTOMERS + 1, n))
+    pdata, plens = _byte_rows(dev, [p.encode() for p in ORDER_PRIORITIES],
+                              16)
+    pick = t(rng.integers(0, len(ORDER_PRIORITIES), n))
+    prio, plen = pdata[pick], plens[pick]
+    comments, clen = _comment_rows(dev, n, 102)
+    cols = [_col(long, custkey, valid), _strcol(prio, plen, valid),
+            _strcol(comments, clen, valid)]
+
+    def plain(cs):
+        return _chunked(lambda lo, hi: H.xxhash64_columns_plain(
+            [c.slice_rows(lo, hi) for c in cs]), n)
+
+    got, want = H.xxhash64_columns(cols), plain(cols)
+    torch.cuda.synchronize()
+    exact("xxhash64", got, want)
+    text_bytes = int(plen.sum().item()) + int(clen.sum().item())
+    out["xxhash64"] = dict(
+        route="cuda", source=src + "xxhash64.cu",
+        replaces="spark_rapids_tpu/ops/hashing.py:308",
+        max_abs_err=max_abs_err(got, want), counter="xxhash64",
+        **timed("xxhash64", lambda: H.xxhash64_columns(cols),
+                lambda: plain(cols), None, PLAIN_ITERS),
+        # the key, each string row's own bytes and length, three validity
+        # bytes read; the hash written
+        bound_ms=bound_ms(8 * n + text_bytes + 8 * n + 3 * n + 8 * n),
+        bound_by="bytes",
+        shape=f"{n} rows of (int64, [n, 16] string, [n, 128] string of "
+              f"19-78 bytes), {text_bytes} text bytes")
+    del got, want, prio, plen, pick
+    key = [_col(long, t(rng.integers(1, 4 * n, n)), valid)]
+    got, want = H.xxhash64_columns(key), plain(key)
+    torch.cuda.synchronize()
+    exact("xxhash64 of o_orderkey", got, want)
+    print(f"xxhash64 at the sample's o_orderkey, {n} int64 rows: "
+          f"kernel_ms={device_ms(lambda: H.xxhash64_columns(key), 'k30'):.4f}"
+          f" plain_ms={device_ms(lambda: plain(key), 'k30', 3):.4f} "
+          f"bound_ms={bound_ms(8 * n + n + 8 * n):.6f}", flush=True)
+    del got, want, key, comments, clen, cols
+    v = t(rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, n,
+                       dtype=np.int64))
+    v[:4] = torch.tensor([0, -1, -2**63, 2**63 - 1], device=dev)
+
+    def hex_plain():
+        return _chunked(lambda lo, hi: M.hex_plain(v[lo:hi]), n)
+
+    got, want = M.hex_text(v), hex_plain()
+    torch.cuda.synchronize()
+    err = _exact_all("hex", got, want)
+    out["str_format_hex"] = dict(
+        route="cuda", source=src + "str_format.cu",
+        replaces="spark_rapids_tpu/expr/mathexpr.py:457",
+        max_abs_err=err, counter="str_format_hex",
+        **timed("str_format_hex", lambda: M.hex_text(v), hex_plain, None,
+                PLAIN_ITERS),
+        # int64 in; 16 bytes and an int32 length out
+        bound_ms=bound_ms(8 * n + 16 * n + 4 * n), bound_by="bytes",
+        shape=f"{n} int64 values into [n, 16] uint8 and lengths")
+    del got, want, v
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_slice10_edges(dev) -> int:
+    """Phase 2, slice 10 edge shapes against the plain versions: K30 over
+    every key kind (int32, int64, float, double, boolean, date, timestamp,
+    string) with int32 and int64 limits, -0.0, NaNs of several payloads and
+    +-inf; strings of every length 0-130 at widths 136 (8-byte aligned
+    rows) and 131 (rows at every alignment); nulls first, in the middle and
+    last, and whole null columns, in chains of 1 to 11 columns (past
+    kernels.MAX_HASH_COLS, which takes a second, seeded launch); a
+    non-default seed; n = 1 to 70,001. K24's hex mode at 0, +-1, every
+    power of 16 and its neighbours, INT64_MIN and INT64_MAX, n = 1 to
+    70,001. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.expr import mathexpr as M
+    from spark_rapids_tpu_torch.ops import hashing as H
+    from spark_rapids_tpu_torch.sqltypes.datatypes import (
+        boolean, date, double, float_t, integer, long, string, timestamp)
+
+    rng = np.random.default_rng(103)
+    cases = 0
+    i32, i64 = np.iinfo(np.int32), np.iinfo(np.int64)
+    nans = np.array([0x7FF8000000000000, 0x7FF0000000000001,
+                     0xFFF8000000000000, 0x7FFFFFFFFFFFFFFF],
+                    np.uint64).view(np.float64)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def columns(n):
+        valid = rng.random(n) < 0.8
+        valid[0] = False                      # null first
+        valid[n // 2] = False                 # ... in the middle
+        valid[-1] = False                     # ... and last
+        v = t(valid)
+        ints = rng.integers(i32.min, i32.max, n, dtype=np.int64)
+        if n > 5:
+            ints[1:5] = [i32.min, i32.max, 0, -1]
+        longs = rng.integers(i64.min, i64.max, n, dtype=np.int64)
+        if n > 5:
+            longs[1:5] = [i64.min, i64.max, 0, -1]
+        dbl = rng.normal(0, 1e6, n)
+        if n > 9:
+            dbl[1:9] = [-0.0, 0.0, np.inf, -np.inf, *nans]
+        with np.errstate(invalid="ignore"):
+            f32 = dbl.astype(np.float32)
+        lens = np.arange(n) % 131
+        strs = [bytes(rng.integers(0, 256, k).astype(np.uint8))
+                for k in lens]
+        s136, l136 = _byte_rows(dev, strs, 136)
+        s131, l131 = _byte_rows(dev, strs, 131)
+        return [
+            _col(integer, t(ints.astype(np.int32)), v),
+            _col(long, t(longs), v),
+            _col(float_t, t(f32), v),
+            _col(double, t(dbl), v),
+            _col(boolean, t(rng.random(n) < 0.5), v),
+            _col(date, t(ints.astype(np.int32) // 4096), v),
+            _col(timestamp, t(longs // 7), v),
+            _strcol(s136, l136, v),
+            _strcol(s131, l131, v),
+            _col(long, t(longs), torch.zeros(n, dtype=torch.bool,
+                                             device=dev)),   # all null
+            _strcol(s136, l136, torch.ones(n, dtype=torch.bool,
+                                           device=dev)),
+        ]
+
+    for n in (1, 7, 262, 4097, 70001):
+        cols = columns(n)
+        for k, c in enumerate(cols):
+            exact(f"xxhash64 kind {k} n={n}", H.xxhash64_columns([c]),
+                  H.xxhash64_columns_plain([c]))
+            cases += 1
+        for width in (2, 8, 9, 11):
+            chain = [cols[j] for j in rng.permutation(len(cols))[:width]]
+            exact(f"xxhash64 chain of {width} n={n}",
+                  H.xxhash64_columns(chain),
+                  H.xxhash64_columns_plain(chain))
+            cases += 1
+        exact(f"xxhash64 seed n={n}", H.xxhash64_columns(cols[7:9], 7),
+              H.xxhash64_columns_plain(cols[7:9], 7))
+        cases += 1
+    edges = [0, 1, -1, i64.min, i64.max]
+    for p in range(1, 16):
+        edges += [16 ** p - 1, 16 ** p, 16 ** p + 1, -16 ** p]
+    for n in (1, len(edges), 4097, 70001):
+        v = rng.integers(i64.min, i64.max, n, dtype=np.int64)
+        v[:min(n, len(edges))] = edges[:n]
+        tv = t(v)
+        _exact_all(f"hex n={n}", M.hex_text(tv), M.hex_plain(tv))
+        cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+#: the kernels each slice-10 query must launch on either engine: K30, K6
+#: (hash()) and K24's hex mode on the hash sample; K20 (substring) on q22
+SLICE10_PATH_KERNELS = {
+    "q22_full": ("str_rewrite", "probe_ranges"),
+    "orders_priority_split": ("seg_sum_count",),
+    "orders_hash_sample": ("xxhash64", "murmur3", "str_format_hex"),
+    "customer_value_bands": ("probe_ranges", "seg_sum_count"),
+}
+#: q22's scalar subquery is a crossJoin, a nested-loop join: the fused
+#: engine hands q22 to the adaptive one, as the reference's does
+SLICE10_FUSED_FALLBACK = ("q22_full",)
+
+_XP1 = 0x9E3779B185EBCA87
+_XP2 = 0xC2B2AE3D27D4EB4F
+_XP3 = 0x165667B19E3779F9
+_XP4 = 0x85EBCA77C2B2AE63
+_XP5 = 0x27D4EB2F165667C5
+
+
+def _np_rotl(x, r: int):
+    import numpy as np
+
+    return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+
+def _np_fmix(h):
+    import numpy as np
+
+    h = h ^ (h >> np.uint64(33))
+    h = h * np.uint64(_XP2)
+    h = h ^ (h >> np.uint64(29))
+    h = h * np.uint64(_XP3)
+    return h ^ (h >> np.uint64(32))
+
+
+def _np_xxh_long(v, seed):
+    """Spark's XXH64.hashLong in numpy uint64 (which wraps as Java's long
+    does)."""
+    import numpy as np
+
+    u = np.asarray(v).astype(np.int64).view(np.uint64)
+    h = seed + np.uint64(_XP5) + np.uint64(8)
+    h = h ^ (_np_rotl(u * np.uint64(_XP2), 31) * np.uint64(_XP1))
+    return _np_fmix(_np_rotl(h, 27) * np.uint64(_XP1) + np.uint64(_XP4))
+
+
+def _np_xxh_bytes(mat, lens, seed):
+    """Spark's XXH64.hashUnsafeBytes in numpy over rows of a zero-padded
+    [n, w] uint8 matrix (w a multiple of 32), the row's own length each:
+    stripes, words, a 4-byte word, then single bytes, selected by mask."""
+    import numpy as np
+
+    u = np.uint64
+    n, w = mat.shape
+    words = np.ascontiguousarray(mat).view("<u8")
+    lens = lens.astype(np.int64)
+    stripes = lens // 32
+    acc = [seed + u(_XP1) + u(_XP2), seed + u(_XP2), seed + u(0),
+           seed - u(_XP1)]
+    for s in range(w // 32):
+        on = s < stripes
+        for lane in range(4):
+            nxt = _np_rotl(acc[lane] + words[:, 4 * s + lane] * u(_XP2),
+                           31) * u(_XP1)
+            acc[lane] = np.where(on, nxt, acc[lane])
+    big = (_np_rotl(acc[0], 1) + _np_rotl(acc[1], 7) + _np_rotl(acc[2], 12)
+           + _np_rotl(acc[3], 18))
+    for a in acc:
+        big = (big ^ (_np_rotl(a * u(_XP2), 31) * u(_XP1))) * u(_XP1) \
+            + u(_XP4)
+    h = np.where(lens >= 32, big, seed + u(_XP5)) + lens.astype(u)
+    off = stripes * 32
+    rows = np.arange(n)
+    for _ in range(3):
+        on = off + 8 <= lens
+        wv = words[rows, np.minimum(off // 8, w // 8 - 1)]
+        k = _np_rotl(wv * u(_XP2), 31) * u(_XP1)
+        h = np.where(on, _np_rotl(h ^ k, 27) * u(_XP1) + u(_XP4), h)
+        off = off + np.where(on, 8, 0)
+    on = off + 4 <= lens
+    b = [mat[rows, np.minimum(off + j, w - 1)].astype(u) for j in range(4)]
+    k4 = b[0] | (b[1] << u(8)) | (b[2] << u(16)) | (b[3] << u(24))
+    h = np.where(on, _np_rotl(h ^ (k4 * u(_XP1)), 23) * u(_XP2) + u(_XP3), h)
+    off = off + np.where(on, 4, 0)
+    for _ in range(3):
+        on = off < lens
+        byte = mat[rows, np.minimum(off, w - 1)].astype(u)
+        h = np.where(on, _np_rotl(h ^ (byte * u(_XP5)), 11) * u(_XP1), h)
+        off = off + np.where(on, 1, 0)
+    return _np_fmix(h)
+
+
+def _np_murmur3_long(v, seed: int = 42):
+    """Spark's Murmur3_x86_32.hashLong in numpy uint32: the low word, then
+    the high word; the int32 result."""
+    import numpy as np
+
+    u = np.uint32
+    v = np.asarray(v).astype(np.int64).view(np.uint64)
+
+    def rotl(x, r):
+        return (x << u(r)) | (x >> u(32 - r))
+
+    def mix(h, k):
+        k = rotl(k * u(0xCC9E2D51), 15) * u(0x1B873593)
+        return rotl(h ^ k, 13) * u(5) + u(0xE6546B64)
+
+    h = np.full(len(v), seed, u)
+    h = mix(h, (v & np.uint64(0xFFFFFFFF)).astype(u))
+    h = mix(h, (v >> np.uint64(32)).astype(u))
+    h = h ^ u(8)
+    h = (h ^ (h >> u(16))) * u(0x85EBCA6B)
+    h = (h ^ (h >> u(13))) * u(0xC2B2AE35)
+    return (h ^ (h >> u(16))).view(np.int32)
+
+
+def _np_string_matrix(arr, width: int):
+    """A pyarrow string array as a zero-padded [n, width] uint8 matrix and
+    byte lengths."""
+    import numpy as np
+
+    arr = arr.combine_chunks() if hasattr(arr, "combine_chunks") else arr
+    offs = np.frombuffer(arr.buffers()[1], np.int32)[
+        arr.offset:arr.offset + len(arr) + 1]
+    raw = np.frombuffer(arr.buffers()[2], np.uint8)
+    lens = np.diff(offs)
+    mat = np.zeros((len(arr), width), np.uint8)
+    col = np.arange(width)
+    take = col[None, :] < lens[:, None]
+    idx = np.minimum(offs[:-1, None] + col[None, :], len(raw) - 1)
+    mat[take] = raw[idx[take]]
+    return mat, lens
+
+
+def slice10_oracles(paths) -> dict:
+    """Phase 12's answers from the written tables in numpy and pyarrow:
+    q22's codes, subquery and anti join; q12's split by year; the hash
+    sample with numpy's XXH64 and Murmur3 over the column values (uint64
+    and uint32 arithmetic, Spark's algorithms); the value bands with
+    numpy's log10 and a pyarrow left join."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.q5 import Q22_CODES
+
+    cust = pq.read_table(paths["customer"][0])
+    orders = pa.concat_tables([pq.read_table(p)
+                               for p in paths["orders_cust"]])
+    out = {}
+    # q22: candidates by code, the average positive balance, no order
+    code = pc.utf8_slice_codeunits(cust.column("c_phone"), 0, 2)
+    cand = pa.table({"code": code, "bal": cust.column("c_acctbal"),
+                     "key": cust.column("c_custkey")}).filter(
+        pc.is_in(code, pa.array(Q22_CODES)))
+    bal = cand.column("bal").to_numpy()
+    avg = float(np.mean(bal[bal > 0.0]))
+    rich = cand.filter(pc.greater(cand.column("bal"), avg))
+    anti = rich.join(pa.table({"key": pc.unique(orders.column(
+        "o_custkey"))}), keys="key", join_type="left anti")
+    g = anti.group_by("code").aggregate([("bal", "count"), ("bal", "sum")])
+    out["q22_full"] = sorted(zip(g.column("code").to_pylist(),
+                                 g.column("bal_count").to_pylist(),
+                                 g.column("bal_sum").to_pylist()))
+    # q12's split: per order year
+    days = orders.column("o_orderdate").cast(pa.int32()).to_numpy()
+    years = (days.astype("datetime64[D]").astype("datetime64[Y]")
+             .astype(np.int64) + 1970)
+    prio = orders.column("o_orderpriority")
+    high = pc.is_in(prio, pa.array(["1-URGENT", "2-HIGH"])).to_numpy(
+        zero_copy_only=False)
+    split = {}
+    for y in np.unique(years):
+        sel = years == y
+        split[int(y)] = (int(high[sel].sum()), int((~high[sel]).sum()),
+                         int(sel.sum()))
+    out["orders_priority_split"] = split
+    # the hash sample
+    seed = np.uint64(42)
+    okey = orders.column("o_orderkey").to_numpy()
+    sample = np.mod(_np_xxh_long(okey, seed).view(np.int64), 100) < 5
+    idx = np.nonzero(sample)[0]
+    ck = orders.column("o_custkey").to_numpy()[idx]
+    price = orders.column("o_totalprice").to_numpy()[idx]
+    bucket = np.mod(_np_murmur3_long(ck).astype(np.int64), 64)
+    h = _np_xxh_long(ck, seed)
+    for name, width in (("o_orderpriority", 32), ("o_comment", 128)):
+        mat, lens = _np_string_matrix(
+            orders.column(name).take(pa.array(idx)).combine_chunks(), width)
+        h = _np_xxh_bytes(mat, lens, h)
+    mh = h.view(np.int64)
+    sample_out = {}
+    for b in np.unique(bucket):
+        sel = bucket == b
+        sample_out[int(b)] = (int(sel.sum()), float(price[sel].sum()),
+                              format(int(mh[sel].min()) & (2**64 - 1), "X"))
+    out["orders_hash_sample"] = sample_out
+    # value bands: customers left-joined to their 1996 revenue
+    y96 = years == 1996
+    rev = pa.table({"k": orders.column("o_custkey").to_numpy()[y96],
+                    "p": orders.column("o_totalprice").to_numpy()[y96]}
+                   ).group_by("k").aggregate([("p", "sum")])
+    j = pa.table({"k": cust.column("c_custkey"),
+                  "bal": cust.column("c_acctbal"),
+                  "seg": cust.column("c_mktsegment").cast(pa.string())}
+                 ).join(rev, keys="k", join_type="left outer")
+    cbal = j.column("bal").to_numpy()
+    crev = j.column("p_sum").to_numpy(zero_copy_only=False)
+    none = np.isnan(crev)
+    keys = j.column("k").to_numpy()
+    seg = j.column("seg").to_numpy(zero_copy_only=False)
+    band = np.floor(np.log10(np.abs(cbal) + 1.0)).astype(np.int64)
+    rev0 = np.where(none, 0.0, crev)
+    top = np.where(none, cbal, np.maximum(crev, cbal))
+    bands = {}
+    for b in np.unique(band):
+        sel = band == b
+        s = float(rev0[sel].sum())
+        bands[int(b)] = dict(
+            customers=int(sel.sum()), without_orders=int(none[sel].sum()),
+            industrial=int(np.isin(seg[sel], ["BUILDING",
+                                              "MACHINERY"]).sum()),
+            even_keys=int((keys[sel] % 2 == 0).sum()), revenue=s,
+            avg_rev=s / int(sel.sum()), max_top=float(top[sel].max()))
+    out["customer_value_bands"] = bands
+    return out
+
+
+def _round_half_up(x: float, places: int) -> float:
+    """round(x, places) as the port and the reference compute it (HALF_UP
+    judged on the binary double)."""
+    import math
+
+    f = 10.0 ** places
+    s = x * f
+    t = math.trunc(s)
+    r = t + math.copysign(1.0, s) if abs(s - t) >= 0.5 else t
+    return r / f
+
+
+def _near_boundary(x: float, grid: float) -> bool:
+    """x within 1e-9 relative of a multiple of grid, or of a half-way
+    point between two: there a device sum's last bits may round or ceil
+    the other way."""
+    k = x / grid
+    return min(abs(k - round(k)), abs(k - round(k - 0.5) - 0.5)) \
+        <= 1e-9 * max(abs(k), 1.0)
+
+
+def check_slice10(name: str, got, want) -> None:
+    """Counts, codes, buckets and hashes exact; sums within REL_TOL
+    relative; round and ceil of the average exact unless the oracle's
+    average lies within 1e-9 of a rounding boundary."""
+    rows = got.to_pylist()
+    if name == "q22_full":
+        mine = [r["cntrycode"] for r in rows]
+        if mine != [c for c, _, _ in want]:
+            fail(f"q22_full: codes {mine} vs {[c for c, _, _ in want]}")
+        for r, (c, n, s) in zip(rows, want):
+            if r["numcust"] != n:
+                fail(f"q22_full {c}: {r['numcust']} != {n}")
+            _rel_close(f"q22_full {c} balance", r["totacctbal"], s)
+    elif name == "orders_priority_split":
+        if [r["o_year"] for r in rows] != sorted(want):
+            fail(f"orders_priority_split: years {[r['o_year'] for r in rows]}")
+        for r in rows:
+            w = want[r["o_year"]]
+            g = (r["high_line_count"], r["low_line_count"], r["n"])
+            if g != w:
+                fail(f"orders_priority_split {r['o_year']}: {g} != {w}")
+    elif name == "orders_hash_sample":
+        if [r["bucket"] for r in rows] != sorted(want):
+            fail("orders_hash_sample: buckets differ")
+        for r in rows:
+            n, s, hx = want[r["bucket"]]
+            if r["n"] != n or r["minhash_hex"] != hx:
+                fail(f"orders_hash_sample {r['bucket']}: "
+                     f"{(r['n'], r['minhash_hex'])} != {(n, hx)}")
+            _rel_close(f"orders_hash_sample {r['bucket']} revenue",
+                       r["revenue"], s)
+    else:
+        if [r["band"] for r in rows] != sorted(want):
+            fail(f"customer_value_bands: bands {[r['band'] for r in rows]}")
+        for r in rows:
+            w = want[r["band"]]
+            for k in ("customers", "without_orders", "industrial",
+                      "even_keys"):
+                if r[k] != w[k]:
+                    fail(f"customer_value_bands {r['band']} {k}: "
+                         f"{r[k]} != {w[k]}")
+            _rel_close(f"customer_value_bands {r['band']} revenue",
+                       r["revenue"], w["revenue"])
+            _rel_close(f"customer_value_bands {r['band']} max_top",
+                       r["max_top"], w["max_top"])
+            avg = w["avg_rev"]
+            if not _near_boundary(avg, 0.01) and \
+                    r["avg_revenue"] != _round_half_up(avg, 2):
+                fail(f"customer_value_bands {r['band']} avg_revenue "
+                     f"{r['avg_revenue']} vs {avg}")
+            if not _near_boundary(avg, 1.0) and \
+                    r["avg_revenue_ceil"] != math.ceil(avg):
+                fail(f"customer_value_bands {r['band']} avg_revenue_ceil "
+                     f"{r['avg_revenue_ceil']} vs {avg}")
+
+
+def run_slice10(dev, session, oracles, fused: bool) -> dict:
+    """Phase 12: the four expression queries (q5.py) in
+    `customer_session`'s session, over phase 11's cached CUSTOMER and
+    ORDERS. Returns {query: record}, each with its peak device bytes, its
+    largest device items and its K30, K6 and hex launches."""
+    import torch
+
+    from spark_rapids_tpu_torch.q5 import (
+        customer_value_bands_query,
+        orders_hash_sample_query,
+        orders_priority_split_query,
+        q22_full_query,
+    )
+
+    engine = "fused" if fused else "aqe"
+    spark, tables, upload_s = session
+    c, o = tables["customer"], tables["orders_cust"]
+    builds = {
+        "q22_full": lambda: q22_full_query(c, o),
+        "orders_priority_split": lambda: orders_priority_split_query(o),
+        "orders_hash_sample": lambda: orders_hash_sample_query(o),
+        "customer_value_bands": lambda: customer_value_bands_query(c, o),
+    }
+    out = {}
+    for name, build in builds.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = timed_runs(lambda: build().collect_arrow(),
+                         lambda g: check_slice10(name, g, oracles[name]),
+                         LATER_HOT_RUNS)
+        ex = spark.last_execution
+        want_engine = ("aqe" if fused and name in SLICE10_FUSED_FALLBACK
+                       else engine)
+        if ex["engine"] != want_engine:
+            fail(f"{name} ran on {ex['engine']}, not {want_engine}: {ex}")
+        fell = [e for e, _ in ex["fallbacks"]]
+        if fell != (["fused"] if want_engine != engine else []):
+            fail(f"{name}: unexpected fallbacks {ex['fallbacks']}")
+        missing_launches(f"{engine} {name}", rec["launches"],
+                         SLICE10_PATH_KERNELS[name])
+        rec.update(engine=ex["engine"], aqe=ex["aqe"], fused=ex["fused"],
+                   upload_s=upload_s, peak_device_bytes=int(
+                       torch.cuda.max_memory_allocated(dev)),
+                   slice10_launches={k: rec["launches"].get(k, 0) for k in
+                                     ("xxhash64", "murmur3",
+                                      "str_format_hex")})
+        out[name] = rec
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5128,6 +5716,7 @@ def main() -> int:
     records.update(check_slice7_kernels(dev))
     records.update(check_slice8_kernels(dev))
     records.update(check_slice9_kernels(dev))
+    records.update(check_slice10_kernels(dev))
     for kname, r in records.items():
         lib = r["library_ms"]
         print(f"{kname}: {r['shape']}: kernel_ms={r['ms']:.4f} "
@@ -5146,7 +5735,7 @@ def main() -> int:
              + check_slice3_edges(dev) + check_slice4_edges(dev)
              + check_slice5_edges(dev) + check_slice6_edges(dev)
              + check_slice7_edges(dev) + check_slice8_edges(dev)
-             + check_slice9_edges(dev))
+             + check_slice9_edges(dev) + check_slice10_edges(dev))
     print(f"edge shapes: {cases} cases exact against the plain versions",
           flush=True)
 
@@ -5346,8 +5935,9 @@ def main() -> int:
         del oracles8
         stamp("phase 10 done")
 
-        # phase 11: slice 9's joins, union and repartition over CUSTOMER
-        # and ORDERS at SF10
+        # phases 11 and 12: slice 9's joins, union and repartition, and
+        # slice 10's predicates, conditionals, math and hashes, over
+        # CUSTOMER and ORDERS at SF10, uploaded once an engine for both
         t0 = time.monotonic()
         paths9 = write_customer_data(tmp, SF10_CUSTOMERS, ORDERS_ROWS,
                                      FILES, seed=0)
@@ -5355,32 +5945,46 @@ def main() -> int:
         print(f"customer: {SF10_CUSTOMERS} rows, orders with customers and "
               f"comments: {ORDERS_ROWS} rows in {FILES} files, and the slice "
               f"9 oracles in {time.monotonic() - t0:.1f} s", flush=True)
+        t0 = time.monotonic()
+        oracles10 = slice10_oracles(paths9)
+        print(f"slice 10 oracles in {time.monotonic() - t0:.1f} s",
+              flush=True)
         for engine, fused in (("aqe", False), ("fused", True)):
-            session = run_slice9(dev, tmp, oracles9, fused)
-            for qname, rec in session.items():
-                runs[f"{engine} {qname}"] = rec
-                prof = rec["profile"]
-                print(f"{engine} {qname}: engine={rec['engine']} "
-                      f"rows={rec['result_rows']} "
-                      f"aqe={json.dumps(rec['aqe'])} "
-                      f"fused={json.dumps(rec['fused'])} "
-                      f"upload_s={rec['upload_s']:.3f} "
-                      f"cold_s={rec['cold_s']:.4f} "
-                      f"hot_median_s={rec['hot_median_s']:.4f} "
-                      f"host_syncs={rec['host_syncs']} "
-                      f"device_busy_ms={prof['device_busy_ms']} "
-                      f"idle_share={prof['device_idle_share']} "
-                      f"peak_device_bytes={rec['peak_device_bytes']}",
-                      flush=True)
-                print(f"{engine} {qname} launches per query: "
-                      + json.dumps(rec["launches"]), flush=True)
-                print(f"{engine} {qname}: " + json.dumps(rec, default=str),
-                      flush=True)
-        del oracles9
-        stamp("phase 11 done")
+            session = customer_session(dev, tmp, fused)
+            for phase, fn, oracles in ((11, run_slice9, oracles9),
+                                       (12, run_slice10, oracles10)):
+                done = fn(dev, session, oracles, fused)
+                for qname, rec in done.items():
+                    runs[f"{engine} {qname}"] = rec
+                    prof = rec["profile"]
+                    print(f"{engine} {qname}: engine={rec['engine']} "
+                          f"rows={rec['result_rows']} "
+                          f"aqe={json.dumps(rec['aqe'])} "
+                          f"fused={json.dumps(rec['fused'])} "
+                          f"upload_s={rec['upload_s']:.3f} "
+                          f"cold_s={rec['cold_s']:.4f} "
+                          f"hot_median_s={rec['hot_median_s']:.4f} "
+                          f"host_syncs={rec['host_syncs']} "
+                          f"device_busy_ms={prof['device_busy_ms']} "
+                          f"idle_share={prof['device_idle_share']} "
+                          f"peak_device_bytes={rec['peak_device_bytes']}"
+                          + (f" k30_k6_hex_launches="
+                             f"{json.dumps(rec['slice10_launches'])}"
+                             if phase == 12 else ""), flush=True)
+                    if phase == 12:
+                        print(f"{engine} {qname} largest device items: "
+                              + json.dumps(prof["top"][:5]), flush=True)
+                    print(f"{engine} {qname} launches per query: "
+                          + json.dumps(rec["launches"]), flush=True)
+                    print(f"{engine} {qname}: "
+                          + json.dumps(rec, default=str), flush=True)
+                stamp(f"phase {phase} ({engine}) done")
+            session[0].stop()
+            del session
+        del oracles9, oracles10
 
     # each kernel's launches: the sum over every path's cold run (phases
-    # 3-11), each read right after it
+    # 3-12), each read right after it
     launches = {k: sum(r["launches"].get(rec.get("counter", k), 0)
                        for r in runs.values())
                 for k, rec in records.items()}

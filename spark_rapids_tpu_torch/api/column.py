@@ -1,9 +1,11 @@
 """Column — user-facing expression wrapper with Spark's operator surface;
 counterpart of `spark_rapids_tpu/api/column.py` for the operators whose
-expressions the port has: arithmetic (+ - * /), comparisons, boolean
-& | ~, `alias`, `cast`, the string predicates `startswith`, `endswith`,
-`contains` and `rlike`, the sort directions (`asc`, `desc` and their
-nulls variants, consumed by orderBy and window specs) and `over`."""
+expressions the port has: arithmetic (+ - * / % and unary -),
+comparisons with `eqNullSafe`, boolean & | ~, `alias`, `cast`, the null
+and NaN tests `isNull`, `isNotNull` and `isNaN`, `isin`, the string
+predicates `startswith`, `endswith`, `contains` and `rlike`, the sort
+directions (`asc`, `desc` and their nulls variants, consumed by orderBy
+and window specs) and `over`."""
 
 from __future__ import annotations
 
@@ -17,18 +19,25 @@ from spark_rapids_tpu_torch.expr import (
     Contains,
     Divide,
     EndsWith,
+    EqualNullSafe,
     EqualTo,
     GreaterThan,
     GreaterThanOrEqual,
+    In,
+    IsNaN,
+    IsNotNull,
+    IsNull,
     LessThan,
     LessThanOrEqual,
     Literal,
     Multiply,
     Not,
     Or,
+    Remainder,
     RLike,
     StartsWith,
     Subtract,
+    UnaryMinus,
 )
 from spark_rapids_tpu_torch.expr.core import Expression
 
@@ -93,6 +102,12 @@ class Column:
     def __rtruediv__(self, o):
         return Column(Divide(_expr(o), self.expr))
 
+    def __mod__(self, o):
+        return Column(Remainder(self.expr, _expr(o)))
+
+    def __neg__(self):
+        return Column(UnaryMinus(self.expr))
+
     # comparisons
     def __eq__(self, o):  # noqa: E711
         return Column(EqualTo(self.expr, _expr(o)))
@@ -112,6 +127,9 @@ class Column:
     def __ge__(self, o):
         return Column(GreaterThanOrEqual(self.expr, _expr(o)))
 
+    def eqNullSafe(self, o):
+        return Column(EqualNullSafe(self.expr, _expr(o)))
+
     # boolean
     def __and__(self, o):
         return Column(And(self.expr, _expr(o)))
@@ -121,6 +139,21 @@ class Column:
 
     def __invert__(self):
         return Column(Not(self.expr))
+
+    # predicates
+    def isNull(self):
+        return Column(IsNull(self.expr))
+
+    def isNotNull(self):
+        return Column(IsNotNull(self.expr))
+
+    def isNaN(self):
+        return Column(IsNaN(self.expr))
+
+    def isin(self, *values):
+        vals = values[0] if len(values) == 1 and isinstance(
+            values[0], (list, tuple)) else values
+        return Column(In(self.expr, list(vals)))
 
     # strings
 

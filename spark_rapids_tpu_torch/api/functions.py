@@ -20,7 +20,15 @@ the date and time functions (`year` through `quarter`, `last_day`,
 `next_day`, `trunc`, `date_trunc`, `unix_timestamp`, `from_unixtime`,
 `timestamp_seconds`, `make_date`, `from_utc_timestamp`,
 `to_utc_timestamp`, `date_format`, `to_date`, `to_timestamp`,
-`current_date`, `current_timestamp`)."""
+`current_date`, `current_timestamp`), the conditionals (`when` ...
+`otherwise`, `coalesce`, `nvl`, `nvl2`, `nanvl`, `greatest`, `least`), the
+math functions (`abs`, `round`, `bround`, `ceil`, `floor`, `pow`, `log`,
+`log10`, `log2`, `log1p`, `atan2`, `hypot`, the unary double functions
+`sqrt` through `radians`, `pmod`), the bitwise ones (`bitwise_not`,
+`shiftleft`, `shiftright`, `shiftrightunsigned`) and the hashes and hex
+(`hash`, `xxhash64`, `hex`). `pmod` is PySpark's; the reference's module
+has none (its Pmod expression is reached through the Column API
+there)."""
 
 from __future__ import annotations
 
@@ -29,22 +37,32 @@ from typing import Any
 from spark_rapids_tpu_torch.api.column import Column, SortColumn, _expr
 from spark_rapids_tpu_torch.expr import aggregates as AGG
 from spark_rapids_tpu_torch.expr import datetimes as DT
+from spark_rapids_tpu_torch.expr import mathexpr as M
 from spark_rapids_tpu_torch.expr import (
+    Abs,
     Ascii,
     Average,
+    CaseWhen,
     Cast,
     Chr,
+    Coalesce,
     Concat,
     ConcatWs,
     Count,
     First,
+    Greatest,
     InitCap,
     Last,
+    Least,
     Length,
     Literal,
     Lower,
     Max,
     Min,
+    Murmur3Hash,
+    NaNvl,
+    Nvl2,
+    Pmod,
     RegexpExtract,
     RegexpReplace,
     RLike,
@@ -63,6 +81,7 @@ from spark_rapids_tpu_torch.expr import (
     SubstringIndex,
     Sum,
     Upper,
+    XxHash64,
 )
 from spark_rapids_tpu_torch.sqltypes.datatypes import date as date_t
 from spark_rapids_tpu_torch.sqltypes.datatypes import timestamp as timestamp_t
@@ -484,3 +503,142 @@ def current_date() -> Column:
 
 def current_timestamp() -> Column:
     return Column(DT.CurrentTimestamp())
+
+
+# ------------------------------------------ conditionals, math and hashes
+
+def when(condition: Column, value) -> "WhenBuilder":
+    return WhenBuilder([(expr_of(condition), expr_of(lit_or(value)))])
+
+
+class WhenBuilder(Column):
+    """CASE WHEN being built: `.when(...)` adds a branch, `.otherwise(v)`
+    closes it with an else; used as it stands, rows no branch takes are
+    null."""
+
+    def __init__(self, branches):
+        self._branches = branches
+        super().__init__(CaseWhen(branches))
+
+    def when(self, condition: Column, value) -> "WhenBuilder":
+        return WhenBuilder(self._branches
+                           + [(expr_of(condition), expr_of(lit_or(value)))])
+
+    def otherwise(self, value) -> Column:
+        return Column(CaseWhen(self._branches, expr_of(lit_or(value))))
+
+
+def abs(c) -> Column:  # noqa: A001
+    return Column(Abs(expr_of(c)))
+
+
+def coalesce(*cs) -> Column:
+    return Column(Coalesce(*[expr_of(c) for c in cs]))
+
+
+def nvl(a, b) -> Column:
+    return Column(Coalesce(expr_of(a), expr_of(lit_or(b))))
+
+
+def nvl2(a, b, c) -> Column:
+    return Column(Nvl2(expr_of(a), expr_of(lit_or(b)), expr_of(lit_or(c))))
+
+
+def nanvl(a, b) -> Column:
+    return Column(NaNvl(expr_of(a), expr_of(lit_or(b))))
+
+
+def greatest(*cs) -> Column:
+    return Column(Greatest(*[expr_of(c) for c in cs]))
+
+
+def least(*cs) -> Column:
+    return Column(Least(*[expr_of(c) for c in cs]))
+
+
+sqrt = _u(M.Sqrt)
+exp = _u(M.Exp)
+expm1 = _u(M.Expm1)
+cbrt = _u(M.Cbrt)
+rint = _u(M.Rint)
+signum = _u(M.Signum)
+sin = _u(M.Sin)
+cos = _u(M.Cos)
+tan = _u(M.Tan)
+cot = _u(M.Cot)
+asin = _u(M.Asin)
+acos = _u(M.Acos)
+atan = _u(M.Atan)
+sinh = _u(M.Sinh)
+cosh = _u(M.Cosh)
+tanh = _u(M.Tanh)
+asinh = _u(M.Asinh)
+acosh = _u(M.Acosh)
+atanh = _u(M.Atanh)
+degrees = _u(M.ToDegrees)
+radians = _u(M.ToRadians)
+log10 = _u(M.Log10)
+log2 = _u(M.Log2)
+log1p = _u(M.Log1p)
+bitwise_not = _u(M.BitwiseNot)
+bitwiseNOT = bitwise_not
+hex = _u(M.Hex)  # noqa: A001
+
+
+def log(arg1, arg2=None) -> Column:
+    """log(col) is the natural log; log(base, col) the log to a base."""
+    if arg2 is None:
+        return Column(M.Log(expr_of(arg1)))
+    return Column(M.Logarithm(expr_of(lit_or(arg1)), expr_of(arg2)))
+
+
+def pow(base, exponent) -> Column:  # noqa: A001
+    return Column(M.Pow(expr_of(lit_or(base)), expr_of(lit_or(exponent))))
+
+
+def atan2(y, x) -> Column:
+    return Column(M.Atan2(expr_of(lit_or(y)), expr_of(lit_or(x))))
+
+
+def hypot(a, b) -> Column:
+    return Column(M.Hypot(expr_of(lit_or(a)), expr_of(lit_or(b))))
+
+
+def round(c, scale: int = 0) -> Column:  # noqa: A001
+    return Column(M.Round(expr_of(c), scale))
+
+
+def bround(c, scale: int = 0) -> Column:
+    return Column(M.BRound(expr_of(c), scale))
+
+
+def ceil(c) -> Column:
+    return Column(M.Ceil(expr_of(c)))
+
+
+def floor(c) -> Column:
+    return Column(M.Floor(expr_of(c)))
+
+
+def pmod(dividend, divisor) -> Column:
+    return Column(Pmod(expr_of(dividend), expr_of(divisor)))
+
+
+def shiftleft(c, n: int) -> Column:
+    return Column(M.ShiftLeft(expr_of(c), expr_of(lit(n))))
+
+
+def shiftright(c, n: int) -> Column:
+    return Column(M.ShiftRight(expr_of(c), expr_of(lit(n))))
+
+
+def shiftrightunsigned(c, n: int) -> Column:
+    return Column(M.ShiftRightUnsigned(expr_of(c), expr_of(lit(n))))
+
+
+def hash(*cs) -> Column:  # noqa: A001
+    return Column(Murmur3Hash(*[expr_of(c) for c in cs]))
+
+
+def xxhash64(*cs) -> Column:
+    return Column(XxHash64(*[expr_of(c) for c in cs]))

@@ -488,3 +488,23 @@ def batch_from_host_leaves(schema: StructType, leaves: List[Dict],
             vrange=None if vr is None else (int(vr[0]), int(vr[1])),
             encoding=enc))
     return ColumnBatch(schema, cols, int(num_rows))
+
+
+def row_select(pred: torch.Tensor, x: torch.Tensor,
+               y: torch.Tensor) -> torch.Tensor:
+    """Row-wise where: a [cap] predicate broadcast across every trailing
+    axis of x and y (string bytes, array elements)."""
+    return torch.where(pred.reshape((-1,) + (1,) * (x.dim() - 1)), x, y)
+
+
+def pad_trailing(x: Optional[torch.Tensor],
+                 trailing: Sequence[int]) -> Optional[torch.Tensor]:
+    """Zero-pad x's trailing axes up to `trailing` (x itself when they
+    are equal): the alignment of variable-width leaves (string bytes,
+    array elements) before a row-wise select."""
+    if x is None or tuple(x.shape[1:]) == tuple(trailing):
+        return x
+    out = torch.zeros((x.shape[0],) + tuple(trailing), dtype=x.dtype,
+                      device=x.device)
+    out[(slice(None),) + tuple(slice(0, s) for s in x.shape[1:])] = x
+    return out

@@ -205,7 +205,11 @@ def _cast_to_string(c: DeviceColumn, tz: str = "UTC") -> DeviceColumn:
 def _format(mode: int, values: torch.Tensor, mb: int,
             codes: Optional[torch.Tensor] = None, days_input: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One K24 launch: ([n, mb] uint8 text, int32 lengths)."""
+    """One K24 launch: ([n, mb] uint8 text, int32 lengths). The hex mode
+    (Hex, expr/mathexpr.py) counts its launches apart."""
+    if mode == kernels.FORMAT_HEX and (days_input or mb < 16):
+        raise ValueError(f"hex text takes int64 values and width >= 16, "
+                         f"not width {mb}")
     dev = values.device
     values = values.contiguous()
     want = torch.int32 if days_input else torch.int64
@@ -220,7 +224,8 @@ def _format(mode: int, values: torch.Tensor, mb: int,
             0 if codes is None else int(codes.shape[0]), out.data_ptr(), mb,
             lengths.data_ptr(), kernels.sm_count(values),
             kernels.stream_ptr(values)), "str_format")
-        kernels.launches["str_format"] += 1
+        kernels.launches["str_format_hex" if mode == kernels.FORMAT_HEX
+                         else "str_format"] += 1
     return out, lengths
 
 

@@ -1,9 +1,11 @@
 """Comparison predicates with Spark null semantics — counterpart of
-`spark_rapids_tpu/expr/predicates.py` (EqualTo, LessThan, GreaterThan,
-LessThanOrEqual, GreaterThanOrEqual, And, Or, Not). Comparisons propagate
-null; And and Or are Kleene. String comparison is lexicographic over
+`spark_rapids_tpu/expr/predicates.py`: EqualTo, EqualNullSafe, LessThan,
+GreaterThan, LessThanOrEqual, GreaterThanOrEqual, And, Or, Not, IsNull,
+IsNotNull, IsNaN and In. Comparisons propagate null; EqualNullSafe (`<=>`)
+and the null tests never return null; And and Or are Kleene. String comparison is lexicographic over
 UTF-8 bytes via the packed orderable keys; `<encoded column> = <string
-literal>` compares dictionary codes (columnar/encoding.py).
+literal>` compares dictionary codes (columnar/encoding.py), and so does
+In over such a column, one code a literal.
 """
 
 from __future__ import annotations
@@ -129,6 +131,25 @@ class EqualTo(BinaryComparison):
         return DeviceColumn(boolean, eq, binary_validity(lc, rc))
 
 
+class EqualNullSafe(BinaryComparison):
+    """<=>: null <=> null is true; never null."""
+
+    @property
+    def nullable(self):
+        return False
+
+    def eval(self, ctx):
+        lc, rc = self._operands(ctx)
+        if isinstance(lc.dtype, (FloatType, DoubleType)):
+            both_nan = torch.isnan(lc.data) & torch.isnan(rc.data)
+            veq = (lc.data == rc.data) | both_nan
+        else:
+            veq = _tuple_eq(_comparable(lc), _comparable(rc))
+        both_null = ~lc.validity & ~rc.validity
+        res = both_null | (lc.validity & rc.validity & veq)
+        return DeviceColumn(boolean, res, torch.ones_like(res))
+
+
 class LessThan(BinaryComparison):
     def eval(self, ctx):
         lc, rc = self._operands(ctx)
@@ -210,3 +231,122 @@ class Not(Expression):
     def eval(self, ctx):
         c = self.children[0].eval(ctx)
         return DeviceColumn(boolean, ~c.data, c.validity)
+
+
+def _is_reference(e: Expression) -> bool:
+    from spark_rapids_tpu_torch.expr.core import Alias, BoundReference
+
+    return isinstance(e.children[0] if isinstance(e, Alias) else e,
+                      BoundReference)
+
+
+class _Evaluated(Expression):
+    """A child already evaluated in this context."""
+
+    def __init__(self, col: DeviceColumn):
+        super().__init__()
+        self.col = col
+
+    @property
+    def dtype(self):
+        return self.col.dtype
+
+    def eval(self, ctx):
+        return self.col
+
+
+def _validity_of(child: Expression, ctx: EvalContext) -> DeviceColumn:
+    """The column whose validity a null test reads: the raw batch column
+    behind a bare reference (an encoded column stays encoded), else the
+    child's value."""
+    from spark_rapids_tpu_torch.columnar import encoding as _enc
+
+    c = _enc.raw_column(child, ctx)
+    return c if c is not None else child.eval(ctx)
+
+
+class IsNull(Expression):
+    def __init__(self, child):
+        super().__init__([child])
+
+    @property
+    def dtype(self):
+        return boolean
+
+    @property
+    def nullable(self):
+        return False
+
+    def eval(self, ctx):
+        v = _validity_of(self.children[0], ctx).validity
+        return DeviceColumn(boolean, ~v, torch.ones_like(v))
+
+
+class IsNotNull(Expression):
+    def __init__(self, child):
+        super().__init__([child])
+
+    @property
+    def dtype(self):
+        return boolean
+
+    @property
+    def nullable(self):
+        return False
+
+    def eval(self, ctx):
+        v = _validity_of(self.children[0], ctx).validity
+        return DeviceColumn(boolean, v.clone(), torch.ones_like(v))
+
+
+class IsNaN(Expression):
+    def __init__(self, child):
+        super().__init__([child])
+
+    @property
+    def dtype(self):
+        return boolean
+
+    @property
+    def nullable(self):
+        return False
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        return DeviceColumn(boolean, torch.isnan(c.data) & c.validity,
+                            torch.ones_like(c.validity))
+
+
+class In(Expression):
+    """IN over a literal list: an OR of EqualTo over the values (each
+    compares codes when the child is an encoded column); a null in the
+    list makes a miss null, a null child is null."""
+
+    def __init__(self, child: Expression, values):
+        super().__init__([child])
+        self.values = list(values)
+
+    @property
+    def dtype(self):
+        return boolean
+
+    def key(self):
+        return ("in", self.children[0].key(), tuple(map(repr, self.values)))
+
+    def eval(self, ctx):
+        from spark_rapids_tpu_torch.expr.core import Literal
+
+        child = self.children[0]
+        c = _validity_of(child, ctx)
+        if not _is_reference(child):
+            child = _Evaluated(c)  # evaluated once, not once a value
+        hit = torch.zeros_like(c.validity)
+        any_null = False
+        for v in self.values:
+            if v is None:
+                any_null = True
+                continue
+            eq = EqualTo(child, Literal(v, child.dtype)).eval(ctx)
+            hit = hit | (eq.data & eq.validity)
+        valid = c.validity & (hit | (not any_null))
+        return DeviceColumn(boolean, hit, valid)

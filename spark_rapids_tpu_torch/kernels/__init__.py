@@ -53,7 +53,9 @@ module that the JAX package keeps the function in:
   through the zone's transition table (csrc/tz_rebase.cu)
 - K24 `expr.cast._int_to_string`, `_date_to_string`,
   `_timestamp_to_string` and `expr.datetimes._pattern_to_string`
-  (DateFormat): integral, date and timestamp text (csrc/str_format.cu)
+  (DateFormat): integral, date and timestamp text, and in its hex mode
+  `expr.mathexpr.hex_text` (Hex) (csrc/str_format.cu; the hex mode's
+  launches count apart, as "str_format_hex")
 
 - K25 `expr.aggregates.rank_select` and `rank_interp`: the percentile
   aggregates' rank selection over rows sorted by (group, value)
@@ -70,6 +72,10 @@ module that the JAX package keeps the function in:
   (csrc/partition_by_ids.cu)
 - K29 `columnar.encoding.remap_codes`, behind `CodesOf`: dictionary codes
   re-encoded through a remap table (csrc/codes_remap.cu)
+
+- K30 `ops.hashing.xxhash64_columns`, behind XxHash64: Spark's xxhash64
+  chained over key columns (csrc/xxhash64.cu, with the HashCol layout of
+  csrc/murmur3.cuh shared with K5 and K6)
 
 K18-K22 and K24 share the row reader and writer of csrc/strings.cuh, K22
 and K24 the calendar of csrc/calendar.cuh.
@@ -130,11 +136,14 @@ launches: Dict[str, int] = {
     "build_coverage": 0,
     "round_robin_partition": 0,
     "codes_remap": 0,
+    "xxhash64": 0,
+    "str_format_hex": 0,
 }
 
 
 class HashCol(ctypes.Structure):
-    """One key column as K5 and K6 hash it (HashCol in csrc/murmur3.cuh)."""
+    """One key column as K5, K6 and K30 hash it (HashCol in
+    csrc/murmur3.cuh)."""
 
     _fields_ = [("data", ctypes.c_void_p), ("validity", ctypes.c_void_p),
                 ("lengths", ctypes.c_void_p), ("kind", ctypes.c_int),
@@ -143,7 +152,7 @@ class HashCol(ctypes.Structure):
 
 #: HashCol.kind values (HashKind in csrc/murmur3.cuh)
 HASH_I32, HASH_I64, HASH_F32, HASH_F64, HASH_STR = range(5)
-#: key columns one K5/K6 launch chains over (kMaxHashCols)
+#: key columns one K5/K6/K30 launch chains over (kMaxHashCols)
 MAX_HASH_COLS = 8
 
 
@@ -278,7 +287,8 @@ MAX_RANK_TARGETS = 128
 #: K22's modes (ParseMode in csrc/str_parse.cu)
 PARSE_LONG, PARSE_DOUBLE, PARSE_BOOL, PARSE_DATE, PARSE_TIMESTAMP = range(5)
 #: K24's modes (FormatMode in csrc/str_format.cu)
-FORMAT_INT, FORMAT_DATE, FORMAT_TIMESTAMP, FORMAT_PATTERN = range(4)
+FORMAT_INT, FORMAT_DATE, FORMAT_TIMESTAMP, FORMAT_PATTERN, FORMAT_HEX = \
+    range(5)
 
 
 def struct_array(cls, items) -> ctypes.c_void_p:

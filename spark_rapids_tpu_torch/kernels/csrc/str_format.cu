@@ -1,12 +1,14 @@
 // K24 str_format: the text of an integral, date or timestamp column into
-// a zero-padded byte matrix plus lengths.
+// a zero-padded byte matrix plus lengths, and Hex's text of a long.
 //
 // Replaces spark_rapids_tpu/expr/cast.py _int_to_string (:284),
 // _date_to_string (:323) and _timestamp_to_string (:349), and the
 // emission of spark_rapids_tpu/expr/datetimes.py DateFormat.eval
 // (:633-671, which FromUnixtime :674 reuses): XLA compiles each as one
 // pass per output byte column (a digit's // and % of a field, or a
-// gather from a 20-digit matrix). Modes:
+// gather from a 20-digit matrix), and spark_rapids_tpu/expr/mathexpr.py
+// Hex.eval (:457: 16 shifted nibble columns, an argmax for the first
+// nonzero one and a gather). Modes:
 //   kFmtInt        int64 -> decimal text, INT64_MIN included; width 32;
 //   kFmtDate       int32 days -> 'YYYY-MM-DD'; width 16, length 10;
 //   kFmtTimestamp  int64 local microseconds -> 'YYYY-MM-DD HH:MM:SS' and,
@@ -17,7 +19,10 @@
 //                  byte itself (>= 0), or -(1 + field * 8 + place) for the
 //                  digit of 10^place of field year, month, day, hour,
 //                  minute, second or millisecond (0-6); the width is the
-//                  caller's (max(8, the next power of two of the length)).
+//                  caller's (max(8, the next power of two of the length));
+//   kFmtHex        int64 -> its two's complement bits as uppercase hex
+//                  digits from the first nonzero nibble ("0" for 0, 16
+//                  digits for a negative); width 16.
 // The calendar fields come from calendar.cuh, flooring as the reference
 // does; each digit is floor(x / 10^p) mod 10, flooring too, so a year
 // outside 0-9,999 prints as the reference's digit() prints it (4 digits
@@ -26,7 +31,8 @@
 // Bound on the H100: bytes. Each value is read once and each row's
 // bytes and length written once: 'yyyy-MM' over 15M dates (int32 in, 8
 // bytes and a length out) is 240 MB, 0.07 ms at 3.35 TB/s; cast(date as
-// string) 360 MB, 0.11 ms.
+// string) 360 MB, 0.11 ms; hex of 15M longs (8 bytes in, 16 bytes and a
+// length out) 420 MB, 0.13 ms.
 //
 // Design: one thread a row; the fields are computed in registers and the
 // row written 8 bytes a store (RowWriter), its tail zeroed.
@@ -37,7 +43,7 @@
 namespace srtpu {
 
 enum FormatMode { kFmtInt = 0, kFmtDate = 1, kFmtTimestamp = 2,
-                  kFmtPattern = 3 };
+                  kFmtPattern = 3, kFmtHex = 4 };
 
 constexpr i64 kDayUs = 86400000000LL;
 
@@ -92,6 +98,13 @@ str_format_kernel(int mode, const void* __restrict__ in, int days_input,
       } while (u != 0);
       if (neg) w.put('-');
       while (nd > 0) w.put((uint32_t)buf[--nd]);
+    } else if (mode == kFmtHex) {
+      const unsigned long long u = (unsigned long long)v;
+      const int nd = u == 0 ? 1 : (67 - __clzll((long long)u)) >> 2;
+      for (int p = nd - 1; p >= 0; --p) {
+        const uint32_t d = (uint32_t)(u >> (4 * p)) & 0xFu;
+        w.put(d < 10 ? '0' + d : 'A' + (d - 10));
+      }
     } else if (mode == kFmtDate) {
       put_date(w, v);
     } else if (mode == kFmtTimestamp) {
@@ -146,9 +159,11 @@ extern "C" int srtpu_str_format(int mode, const void* in, int days_input,
                                 long long n, const void* codes, int ncodes,
                                 void* out, int mb, void* lengths,
                                 int sm_count, void* stream) {
-  if (n < 1 || mb < 1 || mode < kFmtInt || mode > kFmtPattern ||
+  if (n < 1 || mb < 1 || mode < kFmtInt || mode > kFmtHex ||
       (mode == kFmtDate && !days_input) ||
-      ((mode == kFmtInt || mode == kFmtTimestamp) && days_input) ||
+      ((mode == kFmtInt || mode == kFmtTimestamp || mode == kFmtHex) &&
+       days_input) ||
+      (mode == kFmtHex && mb < 16) ||
       (mode == kFmtPattern && (codes == nullptr || ncodes < 1 ||
                                ncodes > mb)))
     return (int)cudaErrorInvalidValue;

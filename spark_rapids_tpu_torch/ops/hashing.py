@@ -1,5 +1,6 @@
-"""Spark-exact Murmur3_x86_32 — counterpart of the murmur3 half of
-`spark_rapids_tpu/ops/hashing.py` (`hash_int` to `pmod`, :63-163).
+"""Spark-exact Murmur3_x86_32 and XxHash64 — counterpart of
+`spark_rapids_tpu/ops/hashing.py` (`hash_int` to `pmod`, :63-163, and
+`xxh64_int` to `xxhash64_columns`, :185-315).
 
 Spark's `org.apache.spark.unsafe.hash.Murmur3_x86_32`, with its
 one-byte-at-a-time tail in `hashUnsafeBytes`, chained over key columns as
@@ -11,8 +12,14 @@ Kernel K6 (kernels/csrc/murmur3_partition.cu) computes every function
 here for CUDA tensors, and `murmur3_pmod` (the exchange's partition ids)
 in one launch. For CPU tensors each runs its plain PyTorch version: the
 uint32 arithmetic is carried in int64 and masked to 32 bits, so no
-signed overflow happens anywhere. xxhash64 (:185-315) is not ported yet
-(ROADMAP B9b).
+signed overflow happens anywhere.
+
+Kernel K30 (kernels/csrc/xxhash64.cu) computes `xxhash64_columns`, Spark's
+XxHash64 (seed 42, an int64 a row) chained over key columns the same way.
+Its plain PyTorch version carries the uint64 arithmetic in int64, whose
+multiplies and adds wrap mod 2^64 as uint64's do; the right shifts are
+masked to act as logical ones, and the primes above 2^63 are written as
+their signed values.
 """
 
 from __future__ import annotations
@@ -231,6 +238,8 @@ def key_col_descs(cols: Sequence[DeviceColumn]) -> List:
     descs, keep = [], []
     for c in cols:
         kind, data, lengths = _hash_input(c)
+        data = data.contiguous()
+        lengths = None if lengths is None else lengths.contiguous()
         keep += [data, lengths]
         descs.append(hash_col_desc(kind, data, c.validity, lengths))
     return descs, keep
@@ -320,3 +329,176 @@ def pmod(x: torch.Tensor, n: int) -> torch.Tensor:
         return pmod_plain(x, n)
     return _launch_k6([], int(x.shape[0]), 0,
                       x.to(torch.int32).contiguous(), n, x.device)
+
+
+# --------------------------------------------- xxhash64: plain versions
+
+def _i64(u: int) -> int:
+    """A uint64 constant as the int64 with the same bits."""
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+_XP1 = _i64(0x9E3779B185EBCA87)
+_XP2 = _i64(0xC2B2AE3D27D4EB4F)
+_XP3 = 0x165667B19E3779F9
+_XP4 = _i64(0x85EBCA77C2B2AE63)
+_XP5 = 0x27D4EB2F165667C5
+_XP12 = _i64((0x9E3779B185EBCA87 + 0xC2B2AE3D27D4EB4F) % (1 << 64))
+
+XXHASH_DEFAULT_SEED = 42
+
+
+def _seed64(seed: int) -> int:
+    """A seed as the int64 with its uint64 bits."""
+    return _i64(int(seed) % (1 << 64))
+
+
+def _lsr64(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Logical right shift of int64 bits by 0 < r < 64."""
+    return (x >> r) & ((1 << (64 - r)) - 1)
+
+
+def _rotl64(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x << r) | _lsr64(x, 64 - r)
+
+
+def _xxh_fmix(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ _lsr64(h, 33)
+    h = h * _XP2
+    h = h ^ _lsr64(h, 29)
+    h = h * _XP3
+    return h ^ _lsr64(h, 32)
+
+
+def _xxh_round(acc, w: torch.Tensor) -> torch.Tensor:
+    return _rotl64(acc + w * _XP2, 31) * _XP1
+
+
+def xxh64_int_plain(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """XXH64.hashInt: v int32 (its bits as uint32), seed int64 a row."""
+    h = seed + (_XP5 + 4)
+    h = h ^ ((v.to(torch.int64) & _M32) * _XP1)
+    h = _rotl64(h, 23) * _XP2 + _XP3
+    return _xxh_fmix(h)
+
+
+def xxh64_long_plain(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """XXH64.hashLong: v int64, seed int64 a row."""
+    h = seed + (_XP5 + 8)
+    h = h ^ (_rotl64(v.to(torch.int64) * _XP2, 31) * _XP1)
+    h = _rotl64(h, 27) * _XP1 + _XP4
+    return _xxh_fmix(h)
+
+
+def _le_words(data: torch.Tensor, width: int) -> torch.Tensor:
+    """[n, width / 8] little-endian int64 words of a byte matrix padded
+    to `width` bytes (a view of the bytes, not one int64 a byte)."""
+    n, mb = data.shape
+    if mb != width:
+        data = torch.nn.functional.pad(data, (0, width - mb))
+    return data.contiguous().view(torch.int64)
+
+
+def xxh64_bytes_plain(data: torch.Tensor, lengths: torch.Tensor,
+                      seed: torch.Tensor) -> torch.Tensor:
+    """XXH64.hashUnsafeBytes over a zero-padded [n, mb] byte matrix: the
+    reference's masked passes over every possible 32-byte stripe, 8-byte
+    word, 4-byte word and tail byte."""
+    n, mb = data.shape
+    pad_mb = max(32, (mb + 31) // 32 * 32)
+    words = _le_words(data, pad_mb)
+    bytes_ = torch.nn.functional.pad(data, (0, pad_mb - mb)).to(torch.int64)
+    nw = pad_mb // 8
+    lens = lengths.to(torch.int64)
+    nblocks = lens // 32
+    vs = [seed + _XP12, seed + _XP2, seed, seed - _XP1]
+    for bi in range(pad_mb // 32):
+        active = bi < nblocks
+        for lane in range(4):
+            upd = _xxh_round(vs[lane], words[:, bi * 4 + lane])
+            vs[lane] = torch.where(active, upd, vs[lane])
+    hash_ge = (_rotl64(vs[0], 1) + _rotl64(vs[1], 7) + _rotl64(vs[2], 12)
+               + _rotl64(vs[3], 18))
+    for v in vs:
+        hash_ge = (hash_ge ^ _xxh_round(0, v)) * _XP1 + _XP4
+    h = torch.where(lens >= 32, hash_ge, seed + _XP5) + lens
+    base_w = nblocks * 4
+    n8 = (lens - nblocks * 32) // 8
+    for wi in range(3):
+        w = torch.gather(words, 1, (base_w + wi).clamp(0, nw - 1)[:, None])
+        upd = _rotl64(h ^ _xxh_round(0, w[:, 0]), 27) * _XP1 + _XP4
+        h = torch.where(wi < n8, upd, h)
+    off = nblocks * 32 + n8 * 8
+    has4 = lens - off >= 4
+    idx = (off[:, None] + torch.arange(4, device=data.device)[None, :]
+           ).clamp(0, pad_mb - 1)
+    b4 = torch.gather(bytes_, 1, idx)
+    u32 = b4[:, 0] | (b4[:, 1] << 8) | (b4[:, 2] << 16) | (b4[:, 3] << 24)
+    upd = _rotl64(h ^ (u32 * _XP1), 23) * _XP2 + _XP3
+    h = torch.where(has4, upd, h)
+    off = off + has4.to(torch.int64) * 4
+    for ti in range(3):
+        byte = torch.gather(bytes_, 1,
+                            (off + ti).clamp(0, pad_mb - 1)[:, None])[:, 0]
+        upd = _rotl64(h ^ (byte * _XP5), 11) * _XP1
+        h = torch.where(off + ti < lens, upd, h)
+    return _xxh_fmix(h)
+
+
+def _xxh_kind(kind: int, data, lengths, h):
+    if kind == kernels.HASH_STR:
+        return xxh64_bytes_plain(data, lengths, h)
+    if kind in (kernels.HASH_F32, kernels.HASH_F64):
+        data = _float_bits(data, kind)
+    if kind in (kernels.HASH_I32, kernels.HASH_F32):
+        return xxh64_int_plain(data, h)
+    return xxh64_long_plain(data, h)
+
+
+def xxh64_column_plain(col: DeviceColumn, seed: torch.Tensor
+                       ) -> torch.Tensor:
+    """One column's xxhash64 update of the running hash (validity
+    ignored), dispatched on its type as K30 does."""
+    kind, data, lengths = _hash_input(col, plain=True)
+    return _xxh_kind(kind, data, lengths, seed)
+
+
+def xxhash64_columns_plain(cols: Sequence[DeviceColumn],
+                           seed: Seed = XXHASH_DEFAULT_SEED
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of K30: XxHash64(cols, seed), seeds chained,
+    nulls skipped; int64."""
+    cap = cols[0].capacity
+    if isinstance(seed, torch.Tensor):
+        h = seed.to(torch.int64)
+    else:
+        h = torch.full((cap,), _seed64(seed), dtype=torch.int64,
+                       device=cols[0].device)
+    for c in cols:
+        h = torch.where(c.validity, xxh64_column_plain(c, h), h)
+    return h
+
+
+# ----------------------------------------------------------- kernel K30
+
+def xxhash64_columns(cols: Sequence[DeviceColumn],
+                     seed: int = XXHASH_DEFAULT_SEED) -> torch.Tensor:
+    """Spark XxHash64(cols, seed): seeds chained left to right, a null
+    leaves the running hash; int64. One K30 launch a kernels.MAX_HASH_COLS
+    columns on the card, each later one seeded by the one before."""
+    if cols[0].device.type == "cpu":
+        return xxhash64_columns_plain(cols, seed)
+    n = cols[0].capacity
+    dev = cols[0].device
+    out = None
+    for at in range(0, len(cols), kernels.MAX_HASH_COLS):
+        descs, _keep = key_col_descs(cols[at:at + kernels.MAX_HASH_COLS])
+        nxt = torch.empty(n, dtype=torch.int64, device=dev)
+        ptr, _arr = kernels.struct_array(kernels.HashCol, descs)
+        _build.check(_build.lib().srtpu_xxhash64(
+            ptr, len(descs), n, _seed64(seed),
+            None if out is None else out.data_ptr(), nxt.data_ptr(),
+            kernels.sm_count(nxt), kernels.stream_ptr(nxt)), "xxhash64")
+        kernels.launches["xxhash64"] += 1
+        out = nxt
+    return out

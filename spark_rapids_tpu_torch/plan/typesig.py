@@ -1,8 +1,8 @@
 """Device-support checks — the part of `spark_rapids_tpu/plan/typesig.py`
 and `plan/expr_sigs.py` that `TpuOverrides.tag` consults for the port's
 slice: which types and expression classes the port runs on the device,
-the child types of the string, regex, cast and datetime expressions (the
-reference's ExprSig rows), the regex checks (an untranspilable pattern,
+the child types of the string, regex, datetime, predicate, arithmetic,
+conditional, math and hash expressions (the reference's ExprSig rows), the regex checks (an untranspilable pattern,
 spark.rapids.sql.regexp.enabled=false), the expressions the reference
 runs on its CPU engine only, and the device checks of Cast and
 DateFormat (`device_supported`), whose refusals the reference would also
@@ -18,7 +18,12 @@ from __future__ import annotations
 from typing import List, Optional
 
 from spark_rapids_tpu_torch.config import rapids_conf as rc
+from spark_rapids_tpu_torch.expr import arith as A
+from spark_rapids_tpu_torch.expr import conditional as C
 from spark_rapids_tpu_torch.expr import datetimes as D
+from spark_rapids_tpu_torch.expr import hashexpr as H
+from spark_rapids_tpu_torch.expr import mathexpr as M
+from spark_rapids_tpu_torch.expr import predicates as P
 from spark_rapids_tpu_torch.expr import strings as S
 from spark_rapids_tpu_torch.expr import aggregates as AGG
 from spark_rapids_tpu_torch.expr import (
@@ -75,7 +80,11 @@ PORTED_EXPRESSIONS = (BoundReference, Literal, Alias, Add, Subtract,
                       Sum, Count, Average, Min, Max, First, Last, RLike,
                       *S.STRING_EXPRESSIONS, Cast, *D.DATETIME_EXPRESSIONS,
                       AGG._Moments, AGG._Bivariate, AGG._BoolReduce,
-                      AGG.CollectList, AGG.CountDistinct, AGG.Percentile)
+                      AGG.CollectList, AGG.CountDistinct, AGG.Percentile,
+                      P.EqualNullSafe, P.IsNull, P.IsNotNull, P.IsNaN, P.In,
+                      A.IntegralDivide, A.Remainder, A.Pmod, A.UnaryMinus,
+                      A.Abs, *C.CONDITIONAL_EXPRESSIONS,
+                      *M.MATH_EXPRESSIONS, *H.HASH_EXPRESSIONS)
 
 #: expressions the reference evaluates on its CPU engine only (no device
 #: implementation); the port has no CPU engine yet
@@ -84,6 +93,12 @@ _REGEX_EXPRESSIONS = (RLike, RegexpExtract, RegexpReplace)
 
 _DATETIME = (DateType, TimestampType)
 _NUMERIC = (IntegralType, FloatType, DoubleType)
+_FP = (FloatType, DoubleType)
+#: the reference's ORDERABLE (and COMMON, the hashes' inputs), ALL (the
+#: conditionals' values) and ALL_NESTED (the null tests' input)
+_ORDERABLE = DEVICE_TYPES
+_ALL = DEVICE_TYPES + (ArrayType, MapType)
+_ALL_NESTED = _ALL + (StructType,)
 
 #: the types each child of a string, regex or datetime expression may
 #: have: one tuple for every child, or a list of one tuple a parameter
@@ -116,6 +131,40 @@ _CHILD_TYPES.update({cls: _DATETIME for cls in (
     D.WeekOfYear, D.Quarter)})
 _CHILD_TYPES.update({cls: (TimestampType,)
                      for cls in (D.Hour, D.Minute, D.Second)})
+_CHILD_TYPES.update({
+    P.EqualNullSafe: _ORDERABLE,
+    P.IsNull: _ALL_NESTED,
+    P.IsNotNull: _ALL_NESTED,
+    P.IsNaN: _FP,
+    P.In: _ORDERABLE,
+    A.IntegralDivide: _NUMERIC,
+    A.Remainder: _NUMERIC,
+    A.Pmod: _NUMERIC,
+    A.UnaryMinus: _NUMERIC,
+    A.Abs: _NUMERIC,
+    M.Pow: _NUMERIC,
+    M.Atan2: _NUMERIC,
+    M.Hypot: _NUMERIC,
+    M.Logarithm: _NUMERIC,
+    M.Round: _NUMERIC,
+    M.BRound: _NUMERIC,
+    M.Ceil: _NUMERIC,
+    M.Floor: _NUMERIC,
+    M.Hex: (IntegralType,),
+    C.If: [(BooleanType,), _ALL, _ALL],
+    C.CaseWhen: _ALL,
+    C.Coalesce: _ALL,
+    C.Greatest: _ORDERABLE,
+    C.Least: _ORDERABLE,
+    C.Nvl2: _ALL,
+    C.NaNvl: _FP,
+    H.Murmur3Hash: _ORDERABLE,
+    H.XxHash64: _ORDERABLE,
+})
+_CHILD_TYPES.update({cls: _NUMERIC
+                     for cls in M.UNARY_MATH + M.NULL_DOMAIN_LOGS})
+_CHILD_TYPES.update({cls: (IntegralType,)
+                     for cls in M.BITWISE + M.SHIFTS})
 
 _NO_CPU = "; the port has no CPU engine yet (ROADMAP A9)"
 

@@ -601,6 +601,109 @@ def orders_union_rr_query(orders, F=None, partitions: int = 16):
                  F.sum("o_totalprice").alias("revenue")))
 
 
+#: TPC-H q22's country codes (spec 2.4.22.3, the default substitution)
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+
+
+def q22_full_query(customer, orders, F=None):
+    """TPC-H q22 as written: the customers whose country code (the first
+    two characters of c_phone) is in the IN list, whose balance is above
+    the average positive balance of those codes (the scalar subquery, a
+    crossJoin to its one-row aggregate, as a DataFrame user writes it) and
+    who placed no order (a left anti join); counted and their balances
+    summed per code, in code order."""
+    F = _functions(F)
+    cand = (customer
+            .select(F.substring("c_phone", 1, 2).alias("cntrycode"),
+                    "c_acctbal", "c_custkey")
+            .filter(F.col("cntrycode").isin(*Q22_CODES)))
+    avg_bal = (cand.filter(F.col("c_acctbal") > 0.0)
+               .agg(F.avg("c_acctbal").alias("avg_bal")))
+    return (cand.crossJoin(avg_bal)
+            .filter(F.col("c_acctbal") > F.col("avg_bal"))
+            .join(orders.select("o_custkey"),
+                  on=F.col("c_custkey") == F.col("o_custkey"),
+                  how="left_anti")
+            .groupBy("cntrycode")
+            .agg(F.count("*").alias("numcust"),
+                 F.sum("c_acctbal").alias("totacctbal"))
+            .orderBy("cntrycode"))
+
+
+def orders_priority_split_query(orders, F=None):
+    """TPC-H q12's CASE WHEN split over ORDERS by order year: the orders
+    of priority 1-URGENT or 2-HIGH, the others, and all of them."""
+    F = _functions(F)
+    high = F.col("o_orderpriority").isin("1-URGENT", "2-HIGH")
+    return (orders
+            .select(F.year("o_orderdate").alias("o_year"), "o_orderpriority")
+            .groupBy("o_year")
+            .agg(F.sum(F.when(high, 1).otherwise(0)).alias("high_line_count"),
+                 F.sum(F.when(~high, 1).otherwise(0)).alias("low_line_count"),
+                 F.count("*").alias("n"))
+            .orderBy("o_year"))
+
+
+def orders_hash_sample_query(orders, F=None):
+    """A deterministic 5 % sample of ORDERS, pmod(xxhash64(o_orderkey),
+    100) < 5, grouped into Spark's bucketing hash, pmod(hash(o_custkey),
+    64): per bucket the orders, their revenue and the bottom-1 MinHash of
+    (o_custkey, o_orderpriority, o_comment) as hex text. `F` must have
+    `pmod` (PySpark's; the port's functions module has it)."""
+    F = _functions(F)
+    return (orders
+            .filter(F.pmod(F.xxhash64("o_orderkey"), 100) < 5)
+            .select(F.pmod(F.hash("o_custkey"), 64).alias("bucket"),
+                    "o_totalprice",
+                    F.xxhash64("o_custkey", "o_orderpriority",
+                               "o_comment").alias("mh"))
+            .groupBy("bucket")
+            .agg(F.count("*").alias("n"),
+                 F.sum("o_totalprice").alias("revenue"),
+                 F.min("mh").alias("minhash"))
+            .select("bucket", "n", "revenue",
+                    F.hex("minhash").alias("minhash_hex"))
+            .orderBy("bucket"))
+
+
+def customer_value_bands_query(customer, orders, F=None):
+    """Every customer left-joined to their 1996 revenue, banded by the
+    order of magnitude of the balance, floor(log10(|c_acctbal| + 1)): per
+    band the customers, those without a 1996 order (isNull), those in the
+    BUILDING or MACHINERY segment (IN over the dictionary-encoded
+    c_mktsegment) and those with an even key (%), the revenue with no
+    order as 0.0 (coalesce), the largest of revenue and balance
+    (greatest), and the average revenue rounded to cents and its ceiling."""
+    F = _functions(F)
+    rev = (orders.filter(F.year("o_orderdate") == 1996)
+           .groupBy("o_custkey")
+           .agg(F.sum("o_totalprice").alias("revenue")))
+    joined = customer.join(rev, on=F.col("c_custkey") == F.col("o_custkey"),
+                           how="left")
+    banded = joined.select(
+        F.floor(F.log10(F.abs(F.col("c_acctbal")) + 1.0)).alias("band"),
+        F.when(F.col("revenue").isNull(), 1).otherwise(0).alias("no_orders"),
+        F.when(F.col("c_mktsegment").isin("BUILDING", "MACHINERY"), 1)
+        .otherwise(0).alias("industrial"),
+        F.when(F.col("c_custkey") % 2 == 0, 1).otherwise(0).alias("even"),
+        F.coalesce(F.col("revenue"), F.lit(0.0)).alias("rev0"),
+        F.greatest(F.col("revenue"), F.col("c_acctbal")).alias("top"))
+    return (banded.groupBy("band")
+            .agg(F.count("*").alias("customers"),
+                 F.sum("no_orders").alias("without_orders"),
+                 F.sum("industrial").alias("industrial"),
+                 F.sum("even").alias("even_keys"),
+                 F.sum("rev0").alias("revenue"),
+                 F.avg("rev0").alias("avg_rev"),
+                 F.max("top").alias("max_top"))
+            .select("band", "customers", "without_orders", "industrial",
+                    "even_keys", "revenue",
+                    F.round("avg_rev", 2).alias("avg_revenue"),
+                    F.ceil("avg_rev").alias("avg_revenue_ceil"),
+                    "max_top")
+            .orderBy("band"))
+
+
 #: TPC-H's o_orderpriority values (spec 4.2.2.13: PRIORITIES)
 ORDER_PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
                     "5-LOW")

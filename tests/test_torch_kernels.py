@@ -745,6 +745,7 @@ from spark_rapids_tpu_torch.ops import tzdb as port_tzdb  # noqa: E402
 from spark_rapids_tpu_torch.expr import cast as port_cast  # noqa: E402
 from spark_rapids_tpu_torch.expr import datetimes as port_datetimes  # noqa: E402,E501
 from spark_rapids_tpu_torch.expr import aggregates as port_aggregates  # noqa: E402,E501
+from spark_rapids_tpu_torch.expr import mathexpr as port_math  # noqa: E402
 
 # every kernel wrapper: on a CUDA tensor each one launches its kernel, so
 # a plain version (the kernel's check on the card) must reach none of them
@@ -786,6 +787,7 @@ _WRAPPERS = [
     (port_joinops, "probe_marks"), (port_joinops, "build_marks"),
     (port_joinops, "_launch_marks"), (port_joinops, "build_coverage"),
     (port_partition, "round_robin_perm"), (port_encoding, "remap_codes"),
+    (port_hashing, "xxhash64_columns"), (port_math, "hex_text"),
 ]
 
 
@@ -927,6 +929,16 @@ def _slice9_plain_cases():
     }
 
 
+def _slice10_plain_cases(s_col=None, d_col=None, l_col=None):
+    """K30's and K24's hex mode's plain versions over a string, an encoded
+    and a long key."""
+    return {
+        "xxhash64_columns_plain": lambda: port_hashing.xxhash64_columns_plain(
+            [s_col, d_col, l_col]),
+        "hex_plain": lambda: port_math.hex_plain(l_col.data.to(torch.int64)),
+    }
+
+
 _STRING_PLAIN = sorted(_string_plain_cases(port_strings.DeviceColumn(
     None, torch.zeros((1, 8), dtype=torch.uint8), torch.ones(1, dtype=bool),
     torch.zeros(1, dtype=torch.int32))))
@@ -1025,6 +1037,7 @@ def _plain_case(name, pb):
     cases.update(_slice7_plain_cases())
     cases.update(_slice8_plain_cases())
     cases.update(_slice9_plain_cases())
+    cases.update(_slice10_plain_cases(s_col, d_col, l_col))
     return cases[name]()
 
 
@@ -1049,7 +1062,8 @@ def _plain_window(n, perm, live):
     "window_prefix_plain", "window_eval_plain", "inverse_permutation_plain",
     "range_bounds_plain", "frame_minmax_plain", "frame_pick_plain",
     *_STRING_PLAIN, *sorted(_slice7_plain_cases()),
-    *sorted(_slice8_plain_cases()), *sorted(_slice9_plain_cases())])
+    *sorted(_slice8_plain_cases()), *sorted(_slice9_plain_cases()),
+    *sorted(_slice10_plain_cases())])
 def test_plain_versions_reach_no_kernel_wrapper(name, monkeypatch):
     """With every kernel wrapper, wherever it is bound, replaced by one
     that raises, each plain version still runs."""
