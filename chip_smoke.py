@@ -75,7 +75,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    and int64 limits, -0.0, NaNs and +-inf, strings of 0-130 bytes at
    aligned and unaligned widths, nulls first, in the middle and last,
    chains past the 8 columns of one launch; hex at 0, +-1, the powers of
-   16 and the int64 ends);
+   16 and the int64 ends); K31 (decimal128), K32 (seg_sum128) and the
+   decimal modes of K22 and K24 at the slice-11 path shapes (q1's
+   59,986,052 price and discount pairs multiplied into decimal(32,4)
+   limbs and 1 - discount subtracted, the products summed in 6 sorted
+   groups and in 1,024 bins; 15,000,000 balances widened to decimal(38,6)
+   and compared, decimal(25,2) sums averaged over counts, to double and to
+   long; ORDERS' 15,000,000 price texts parsed to decimal(15,2) and
+   15,000,000 narrow and wide decimals printed) and at edge shapes
+   (`check_slice11_edges`: values near +-10^38, +-2^63, +-2^64 and the
+   128-bit ends, HALF_UP ties of both signs, shifts -38 to 38, counts of
+   1, 3 and past 2^32, sums wrapping mod 2^128 into segments in and past
+   shared memory, texts with signs, exponents and 19+ digits, -0.05, and
+   K9's pack and sort of decimal(38,2) keys), and MonthsBetween on the
+   card over dates and timestamps, with and without roundOff, bit for
+   bit against a numpy float64 oracle with true division;
 3. slice 1's hand-built q5 plan at the bench's full size (36M fact rows
    in 8 parquet files, a 2,000-row dimension with a dictionary-encoded
    `region`) over device-cached relations: upload, one cold run and 5
@@ -175,12 +189,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    XXH64 and Murmur3 in numpy uint64/uint32 arithmetic over the column
    values). K30, K6 and the hex mode must run on the hash sample; each
    query's K30, K6 and hex launches, largest device items, host syncs,
-   idle share and peak memory are printed.
+   idle share and peak memory are printed;
+13. slice 11's decimal queries (q5.py: lineitem_q1_query,
+   orders_tbl_decimal_query, q22_decimal_query) in the same session, over
+   LINEITEM at SF10 (59,986,052 rows in 8 files, drawn as dbgen draws
+   them, its money columns decimal(15,2)), phase 9's ORDERS text and
+   CUSTOMER with a decimal(15,2) c_acctbal, on the adaptive and the fused
+   engine (q22's crossJoin falls back to the adaptive one): TPC-H q1
+   without sum_charge, a .tbl load typed to decimal(15,2) with its sums
+   as text in descending revenue, and TPC-H q22 over the decimal balance,
+   each equal to an exact integer oracle (every decimal as its unscaled
+   integer, no float). K31 and K32 must run on every query, K22's and
+   K24's decimal modes on the load; each query's launches of K31, K32
+   and the two modes, largest device items, host syncs, idle share and
+   peak memory are printed.
 
-For each query run (phases 3-12) the kernels' launch counts are reset
+For each query run (phases 3-13) the kernels' launch counts are reset
 just before the cold run and read just after it; every kernel of that
 path must have run. Phases 3-5 time 3 hot runs a query, phase 7 1 (cut
-from 2 when phase 12 was added), phases 6 and 8-12 2,
+from 2 when phase 12 was added), phase 10 1 (cut from 2 when phase 13
+was added), phases 6, 8, 9 and 11-13 2,
 and each kernel's device time in phase 2 is the mean of 10 calls.
 One more hot run counts the host syncs (torch.cuda's
 sync debug mode) and one, under torch.profiler, gives the device's busy
@@ -211,6 +239,11 @@ LATER_HOT_RUNS = 2
 #: hot runs of each query in phase 7 (its 36M-row checks are the run's
 #: largest; cut from 2 before phase 12 was added)
 SLICE5_HOT_RUNS = 1
+#: hot runs of each query in phase 10 (its 15M-row window checks are the
+#: next largest; cut from 2 before phase 13 was added)
+SLICE8_HOT_RUNS = 1
+#: hot runs of each query in phase 13
+SLICE11_HOT_RUNS = 2
 TIMING_ITERS = 10
 DUP_PER_STORE = 2       # rows per store in the duplicate-key dimension
 REL_TOL = 1e-9          # sums and averages against the oracles
@@ -313,16 +346,28 @@ def device_ms(fn, what: str, iters: int = TIMING_ITERS) -> float:
 
 
 def timed(name: str, kernel, plain, library,
-          other_iters: int = TIMING_ITERS) -> dict:
+          other_iters: int = TIMING_ITERS, floor_ms: float = 0.0) -> dict:
     """Device times of a kernel's wrapper, its plain version and the
     library call (None where no one PyTorch call computes the function;
     those two over other_iters calls), and the CUDA-event time of the
-    wrapper."""
-    return dict(ms=device_ms(kernel, name),
+    wrapper. With `floor_ms` (the byte bound of a kernel whose data far
+    exceed the 50 MB L2), a device time under it is a trace that lost
+    kernel records: the kernel is traced again, twice at most, and else
+    timed by CUDA events (named in PROFILER_MISSES)."""
+    ms = device_ms(kernel, name)
+    for _ in range(2):
+        if ms >= floor_ms:
+            break
+        ms = device_ms(kernel, name)
+    event_ms = time_ms(kernel)
+    if ms < floor_ms:
+        PROFILER_MISSES.append(f"{name} (device trace under its bound)")
+        ms = event_ms
+    return dict(ms=ms,
                 plain_ms=device_ms(plain, f"{name} plain", other_iters),
                 library_ms=None if library is None
                 else device_ms(library, f"{name} library", other_iters),
-                event_ms=time_ms(kernel))
+                event_ms=event_ms)
 
 
 def bound_ms(nbytes: int) -> float:
@@ -2319,6 +2364,21 @@ def _text_rows(dev, arr, width: int):
         idx = torch.clamp(off[lo:hi, None] + ar, max=max(len(buf) - 1, 0))
         data[lo:hi] = torch.where(ar < lens[lo:hi, None], buf[idx], 0)
     return data, lens
+
+
+def _price_text(dev, n: int, seed: int):
+    """o_totalprice as write_orders_dated draws and prints it ('%d.%02d'
+    of its cents), on the card: [n, 16] text and lengths."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from spark_rapids_tpu_torch.q5 import orders_dated_draws
+
+    cents = orders_dated_draws(n, files=1, seed=seed)[0]["cents"]
+    return _text_rows(dev, pc.binary_join_element_wise(
+        pc.cast(pa.array(cents // 100), pa.string()),
+        pc.utf8_lpad(pc.cast(pa.array(cents % 100), pa.string()), 2, "0"),
+        "."), 16)
 
 
 def _orders_text(dev, n: int, seed: int):
@@ -4774,7 +4834,7 @@ def run_slice8(dev, root, oracles, fused: bool) -> dict:
     for name, build in builds.items():
         torch.cuda.reset_peak_memory_stats(dev)
         rec = timed_runs(lambda: build(df).collect_arrow(), checks[name],
-                         LATER_HOT_RUNS)
+                         SLICE8_HOT_RUNS)
         ex = spark.last_execution
         want_engine = SLICE8_FUSED_ENGINE[name] if fused else "aqe"
         if ex["engine"] != want_engine:
@@ -4984,10 +5044,11 @@ def check_slice9(name: str, got, want) -> None:
 
 
 def customer_session(dev, root, fused: bool):
-    """The session of phases 11 and 12, the fused engine on or off, every
+    """The session of phases 11 to 13, the fused engine on or off, every
     hash join shuffled (spark.sql.autoBroadcastJoinThreshold=-1), with
-    CUSTOMER, ORDERS, the bands and the quotas cached on the card: (the
-    session, {table: DataFrame}, the upload's seconds)."""
+    CUSTOMER, ORDERS, the bands and the quotas, LINEITEM, the decimal
+    CUSTOMER and phase 9's ORDERS text cached on the card: (the session,
+    {table: DataFrame}, the upload's seconds)."""
     import torch
 
     from spark_rapids_tpu_torch.api.session import TpuSparkSession
@@ -5002,9 +5063,12 @@ def customer_session(dev, root, fused: bool):
              .getOrCreate())
     t0 = time.monotonic()
     tables = {}
-    for name in ("customer", "orders_cust", "bands", "quota"):
-        df = spark.read.parquet(os.path.join(root, name)).cache(
-            storage="device")
+    for name in ("customer", "orders_cust", "bands", "quota", "lineitem",
+                 "customer_dec", "orders_tbl"):
+        df = spark.read.parquet(os.path.join(root, name))
+        if name in SLICE11_COLUMNS:  # the columns phase 13 reads
+            df = df.select(*SLICE11_COLUMNS[name])
+        df = df.cache(storage="device")
         spark.cache_manager.lookup(df._plan).materialize()
         tables[name] = df
     torch.cuda.synchronize()
@@ -5616,6 +5680,647 @@ def run_slice10(dev, session, oracles, fused: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- slice 11
+
+def _limbs_of(vals, dev):
+    """Python ints -> [n, 2] int64 limbs (hi, lo) on the card."""
+    import numpy as np
+    import torch
+
+    hi = np.array([(v >> 64) for v in vals], dtype=np.int64)
+    lo = np.array([((v & ((1 << 64) - 1)) ^ (1 << 63)) - (1 << 63)
+                   for v in vals], dtype=np.int64)
+    return torch.from_numpy(np.stack([hi, lo], axis=1)).to(dev)
+
+
+def check_slice11_kernels(dev):
+    """Phase 2, slice 11: K31 (decimal128), K32 (seg_sum128) and the
+    decimal modes of K22 and K24 at the decimal queries' shapes, each
+    against its plain version: K31's multiply over q1's 59,986,052
+    l_extendedprice and 1 - l_discount cents (two int64 in, decimal(32,4)
+    limbs out), its subtract (the 1 - l_discount itself, decimal(1,0) and
+    decimal(15,2) into decimal(16,2) limbs), its rescale (decimal(15,2)
+    widened to decimal(38,6), q22's comparison), its compare, its average
+    (15,000,000 decimal(25,2) sums over counts of 1 to 10,000 into
+    decimal(19,6)), to double and to long; K32 over the 59,986,052
+    products in 6 groups (sorted ids) and in 1,024 bins (the binned
+    partial); K22's decimal mode over ORDERS' 15,000,000 price texts into
+    decimal(15,2); K24's wide mode over 15,000,000 decimal(25,2) sums and
+    its narrow mode over 15,000,000 decimal(15,2) prices. The plain
+    versions run in 2^20-row pieces, those with the 128-step division in
+    one or two. Returns {record name: record}."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import DeviceColumn
+    from spark_rapids_tpu_torch.expr import cast as C
+    from spark_rapids_tpu_torch.ops import decimal128 as D
+    from spark_rapids_tpu_torch.ops import stringcast as SC
+    from spark_rapids_tpu_torch.q5 import SF10_LINEITEM
+    from spark_rapids_tpu_torch.sqltypes import DecimalType
+
+    src = "spark_rapids_tpu_torch/kernels/csrc/"
+    ref = "spark_rapids_tpu/ops/decimal128.py:"
+    rng = np.random.default_rng(111)
+    n, m = SF10_LINEITEM, SF10_ORDERS
+    out = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def record(name, source, replaces, counter, kernel, plain, library,
+               plain_iters, nbytes, shape, as_bits=False):
+        """Check kernel() against plain() exactly, time both and keep the
+        record (its device time held to its byte bound: every input here
+        exceeds the L2); returns the kernel's output."""
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if as_bits:
+            got, want = got.view(torch.int64), want.view(torch.int64)
+        err = _exact_all(name, got, want)
+        bound = bound_ms(nbytes)
+        out[name] = dict(
+            route="cuda", source=src + source, replaces=replaces,
+            max_abs_err=err, counter=counter,
+            **timed(name, kernel, plain, library, plain_iters, bound),
+            bound_ms=bound, bound_by="bytes", shape=shape)
+        return got
+
+    qty = rng.integers(1, 51, n)
+    key = rng.integers(1, 2_000_001, n)
+    price = t(qty * (90_000 + (key // 10) % 20_001 + 100 * (key % 1_000)))
+    disc = t(rng.integers(0, 11, n))
+    one_minus = 100 - disc
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    ones = torch.ones(n, dtype=torch.int64, device=dev)
+    del qty, key
+    # two int64 and a validity in; [n, 2] limbs and a validity out
+    products = record(
+        "decimal128_mul", "decimal128.cu", ref + "74", "decimal128",
+        lambda: D.multiply(price, one_minus, valid, 32),
+        lambda: _chunked(lambda lo, hi: D.multiply_plain(
+            price[lo:hi], one_minus[lo:hi], valid[lo:hi], 32), n),
+        None, PLAIN_ITERS, n * (8 + 8 + 1 + 16 + 1),
+        f"{n} int64 pairs -> decimal(32,4) limbs")[0]
+    record("decimal128_sub", "decimal128.cu", ref + "54", "decimal128",
+           lambda: D.add(ones, 2, disc, 0, valid, 16, subtract=True),
+           lambda: _chunked(lambda lo, hi: D.add_plain(
+               ones[lo:hi], 2, disc[lo:hi], 0, valid[lo:hi], 16, True), n),
+           None, PLAIN_ITERS, n * (8 + 8 + 1 + 16 + 1),
+           f"{n} rows: 1 - decimal(15,2) -> decimal(16,2) limbs")
+    del disc, ones, one_minus, price
+    bal = t(rng.integers(-99_999, 1_000_000, m))
+    wide_bal = record(
+        "decimal128_rescale", "decimal128.cu", ref + "161", "decimal128",
+        lambda: D.rescale_data(bal, 4, None),
+        lambda: _chunked(lambda lo, hi: D.rescale_plain(
+            bal[lo:hi], 4, None, 0, True), m),
+        None, PLAIN_ITERS, m * (8 + 16 + 1),
+        f"{m} decimal(15,2) -> decimal(38,6) limbs")[0]
+    avg = D.rescale_data(t(rng.integers(-10 ** 14, 10 ** 14, m)), 0,
+                         None)[0]
+    record("decimal128_cmp", "decimal128.cu", ref + "238", "decimal128",
+           lambda: D.compare(wide_bal, avg),
+           lambda: _chunked(lambda lo, hi: D.compare_plain(
+               wide_bal[lo:hi], avg[lo:hi]), m),
+           None, PLAIN_ITERS, m * (16 + 16 + 1),
+           f"{m} pairs of decimal(38,6) limbs -> int8")
+    del wide_bal, avg, bal
+    sums = D.rescale_data(t(rng.integers(-10 ** 15, 10 ** 17, m)), 0,
+                          None)[0]
+    counts = t(rng.integers(1, 10_001, m))
+    record("decimal128_avg", "decimal128.cu", ref + "146", "decimal128",
+           lambda: D.average(sums, counts, 4, 19, True),
+           lambda: D.average_plain(sums, counts, 4, 19, True),
+           None, 1, m * (16 + 8 + 16 + 1),
+           f"{m} decimal(25,2) sums / counts -> decimal(19,6)")
+    del counts
+    record("decimal128_f64", "decimal128.cu", ref + "207", "decimal128",
+           lambda: D.to_double(sums, 2),
+           lambda: _chunked(lambda lo, hi: D.to_double_plain(
+               sums[lo:hi], 2), m),
+           None, PLAIN_ITERS, m * (16 + 8),
+           f"{m} decimal(25,2) limbs -> float64", as_bits=True)
+    lo_limb = sums[:, 1].contiguous()
+    record("decimal128_i64", "decimal128.cu",
+           "spark_rapids_tpu/expr/cast.py:245", "decimal128",
+           lambda: D.to_long(sums, 2), lambda: D.to_long_plain(sums, 2),
+           lambda: torch.div(lo_limb, 100, rounding_mode="trunc"), 1,
+           m * (16 + 8),
+           f"{m} decimal(25,2) limbs -> int64 (values within int64)")
+    del lo_limb
+    # K32 over q1's products: sorted ids in 6 groups, and 1,024 bins
+    for label, gid, nseg in (
+            ("sorted", t(np.repeat(np.arange(6, dtype=np.int32),
+                                   -(-n // 6))[:n]), 6),
+            ("binned", t(rng.integers(0, 6, n).astype(np.int32) * 97 + 5),
+             1024)):
+        def k32(gid=gid, nseg=nseg):
+            return D.seg_sum128(products, valid, gid, nseg)[0]
+
+        def k32_plain(gid=gid, nseg=nseg):
+            return D.join(*D.seg_sum128_plain(*D.split(products), valid,
+                                              gid, nseg))
+
+        # valid for every row; gid and the limbs for the valid rows; the
+        # sums and counts written
+        record("seg_sum128" if label == "sorted" else "seg_sum128_binned",
+               "seg_sum128.cu", ref + "213", "seg_sum128", k32, k32_plain,
+               None, 1, n * (1 + 4 + 16) + nseg * 24,
+               f"{n} decimal(32,4) products into {nseg} segments "
+               f"({label} ids)")
+        del gid
+    del products, valid
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # K22's decimal mode over ORDERS' price text, K24's decimal modes
+    pdata, plens = _price_text(dev, m, 112)
+    pcol = _strcol(pdata, plens, torch.ones(m, dtype=torch.bool,
+                                            device=dev))
+    dec152 = DecimalType(15, 2)
+
+    def parse():
+        r = SC.parse_decimal(pcol, dec152)
+        return r.data, r.validity
+
+    def parse_plain():
+        def piece(lo, hi):
+            r = SC.parse_decimal_plain(pcol.slice_rows(lo, hi), dec152)
+            return r.data, r.validity
+        return _chunked(piece, m)
+
+    # each row's bytes (width 16), length and validity read; an int64 and
+    # a validity written
+    prices = record("str_parse_decimal", "str_parse.cu",
+                    "spark_rapids_tpu/ops/stringcast.py:204",
+                    "str_parse_decimal", parse, parse_plain, None, 1,
+                    m * (16 + 4 + 1 + 8 + 1),
+                    f"{m} price texts [n, 16] -> decimal(15,2)")[0]
+    del pdata, plens, pcol
+    pv = torch.ones(m, dtype=torch.bool, device=dev)
+
+    def fmt(col):
+        r = C._decimal_to_string(col)
+        return r.data, r.lengths
+
+    # an int64 in; 48 bytes and an int32 length out
+    record("str_format_decimal", "str_format.cu",
+           "spark_rapids_tpu/expr/cast.py:407", "str_format_decimal",
+           lambda: fmt(DeviceColumn(dec152, prices, pv)),
+           lambda: _chunked(lambda lo, hi: C._decimal_to_string_plain(
+               prices[lo:hi], 2), m),
+           None, 1, m * (8 + 48 + 4), f"{m} decimal(15,2) -> [n, 48] text")
+    # [n, 2] limbs in; 48 bytes and an int32 length out
+    record("str_format_decimal128", "str_format.cu", ref + "257",
+           "str_format_decimal",
+           lambda: fmt(DeviceColumn(DecimalType(25, 2), sums, pv)),
+           lambda: _chunked(lambda lo, hi: D.decimal_string(
+               *D.split(sums[lo:hi]), 2), m, 1 << 23),
+           None, 1, m * (16 + 48 + 4),
+           f"{m} decimal(25,2) limbs -> [n, 48] text")
+    del sums, prices, pv
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _months_between_oracle(end_us, start_us, round_off: bool):
+    """Spark's months_between over UTC microseconds in numpy float64, every
+    division a true IEEE division (the calendar from numpy's datetime64)."""
+    import numpy as np
+
+    def fields(us):
+        days = us // US_PER_DAY
+        tod = (us - days * US_PER_DAY).astype(np.float64) / 1e6
+        d64 = days.astype("M8[D]")
+        month = d64.astype("M8[M]")
+        y = month.astype("M8[Y]").astype(np.int64) + 1970
+        m = (month.astype(np.int64) % 12) + 1
+        d = (d64 - month).astype(np.int64) + 1
+        mlen = ((month + 1).astype("M8[D]") - month.astype("M8[D]")
+                ).astype(np.int64)
+        return y, m, d, tod, d == mlen
+
+    y1, m1, d1, t1, last1 = fields(end_us)
+    y2, m2, d2, t2, last2 = fields(start_us)
+    months = ((y1 - y2) * 12 + (m1 - m2)).astype(np.float64)
+    integral = (d1 == d2) | (last1 & last2)
+    sec1 = d1.astype(np.float64) * 86400.0 + t1
+    sec2 = d2.astype(np.float64) * 86400.0 + t2
+    out = np.where(integral, months, months + (sec1 - sec2) / 2678400.0)
+    if round_off:
+        out = np.round(out * 1e8) / 1e8
+    return out
+
+
+def check_months_between(dev) -> int:
+    """MonthsBetween on the card, over dates and timestamps (UTC), with and
+    without roundOff, bit for bit against the numpy float64 oracle (true
+    division): 1,000,000 random pairs over 1900-2100 and the month ends,
+    same days and the days around them. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.expr.core import BoundReference, EvalContext
+    from spark_rapids_tpu_torch.expr.datetimes import MonthsBetween
+    from spark_rapids_tpu_torch.sqltypes import StructField, StructType
+    from spark_rapids_tpu_torch.sqltypes.datatypes import date, timestamp
+
+    rng = np.random.default_rng(114)
+    n = 1_000_000
+    lo_day, hi_day = -25567, 47482  # 1900-01-01 .. 2099-12-31
+    cases = 0
+    for dt in (date, timestamp):
+        d1 = rng.integers(lo_day, hi_day, n)
+        d2 = rng.integers(lo_day, hi_day, n)
+        # month ends, same days of month, neighbours
+        ends = (np.arange(lo_day, hi_day).astype("M8[D]").astype("M8[M]")
+                + 1).astype("M8[D]").astype(np.int64) - 1
+        k = n // 4
+        d1[:k] = rng.choice(ends, k)
+        d2[:k] = rng.choice(ends, k) + rng.integers(-1, 2, k)
+        d2[k:2 * k] = d1[k:2 * k] + 31 * rng.integers(-400, 400, k)
+        if dt is date:
+            e_us, s_us = d1 * US_PER_DAY, d2 * US_PER_DAY
+            data = (torch.from_numpy(d1.astype(np.int32)).to(dev),
+                    torch.from_numpy(d2.astype(np.int32)).to(dev))
+        else:
+            e_us = d1 * US_PER_DAY + rng.integers(0, US_PER_DAY, n)
+            s_us = d2 * US_PER_DAY + rng.integers(0, US_PER_DAY, n)
+            data = (torch.from_numpy(e_us).to(dev),
+                    torch.from_numpy(s_us).to(dev))
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        schema = StructType([StructField("e", dt, True),
+                             StructField("s", dt, True)])
+        batch = ColumnBatch(schema, [_col(dt, data[0], valid),
+                                     _col(dt, data[1], valid)], n)
+        for round_off in (True, False):
+            expr = MonthsBetween(BoundReference(0, dt), BoundReference(1, dt),
+                                 round_off)
+            got = expr.eval(EvalContext(batch)).data.cpu().numpy()
+            want = _months_between_oracle(e_us, s_us, round_off)
+            bad = np.flatnonzero(got.view(np.int64) != want.view(np.int64))
+            if len(bad):
+                i = bad[0]
+                fail(f"months_between({dt}, roundOff={round_off}) differs "
+                     f"from the IEEE oracle on {len(bad)} of {n} rows, e.g. "
+                     f"{got[i]!r} for {want[i]!r}")
+            cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def check_slice11_edges(dev) -> int:
+    """Phase 2, slice 11 edge shapes against the plain versions: K31 in
+    every mode over values near +-10^38, +-2^63, +-2^64 and the 128-bit
+    ends, 0, HALF_UP ties of both signs, narrow and wide operands, shifts
+    -38 to 38, precisions 1 to 38, counts of 1 and 3 and up to 2^40 (past
+    the two-step 32-bit division), nulls; K32 over sums that cross 2^64
+    and wrap mod 2^128, nulls, ids outside the segments, empty segments,
+    sorted and random ids, segments in and past shared memory, n = 1 to
+    70,001; K22's decimal mode over hand-picked texts (signs, exponents,
+    ties, 19+ digits, junk) at scales 0, 2 and 18; K24's decimal modes at
+    -0.05, 0, the int64 and 10^38 ends, scales 0 to 18; K9's pack and sort
+    of decimal(38, s) keys with nulls in both directions; and
+    MonthsBetween against its IEEE oracle. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import DeviceColumn
+    from spark_rapids_tpu_torch.expr import cast as C
+    from spark_rapids_tpu_torch.ops import common as CM
+    from spark_rapids_tpu_torch.ops import decimal128 as D
+    from spark_rapids_tpu_torch.ops import stringcast as SC
+    from spark_rapids_tpu_torch.sqltypes import DecimalType
+
+    rng = np.random.default_rng(113)
+    cases = 0
+    edge = [0, 1, -1, 5, -5, 15, -15, 25, -25, 2 ** 63 - 1, -2 ** 63,
+            2 ** 63, -2 ** 63 - 1, 2 ** 64 - 1, 2 ** 64, -2 ** 64,
+            10 ** 18 - 1, 10 ** 18, -10 ** 18, 10 ** 38 - 1, -10 ** 38 + 1,
+            10 ** 38, -10 ** 38, 2 ** 127 - 1, -2 ** 127, 5 * 10 ** 37,
+            -5 * 10 ** 37, 123456789012345678901234567890,
+            -500000000000000000005]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def wide_vals(n):
+        vals = [int(x) for x in rng.integers(-2 ** 62, 2 ** 62, n)]
+        big = rng.random(n) < 0.5
+        for i in np.flatnonzero(big):
+            vals[i] = vals[i] * int(rng.integers(1, 2 ** 62)) \
+                * int(rng.integers(1, 2 ** 10))
+        vals = [((v + 2 ** 127) % 2 ** 128) - 2 ** 127 for v in vals]
+        vals[:min(n, len(edge))] = [((v + 2 ** 127) % 2 ** 128) - 2 ** 127
+                                    for v in edge[:n]]
+        return _limbs_of(vals, dev)
+
+    def same(name, got, want):
+        _exact_all(name, got, want)
+
+    for n in (1, 37, 70001):
+        a, b = wide_vals(n), wide_vals(n)
+        na = t(rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64))
+        nb = t(rng.integers(-10 ** 18, 10 ** 18, n))
+        vm = t(rng.random(n) < 0.9)
+        for x, y in ((a, b), (na, b), (a, nb), (na, nb)):
+            for sa, sb in ((0, 0), (2, 0), (19, 5)):
+                for p in (1, 38):
+                    for sub in (False, True):
+                        same(f"d128 add n={n}",
+                             D.add(x, sa, y, sb, vm, p, sub),
+                             D.add_plain(x, sa, y, sb, vm, p, sub))
+                        cases += 1
+        same(f"d128 mul n={n}", D.multiply(na, nb, vm, 38),
+             D.multiply_plain(na, nb, vm, 38))
+        same(f"d128 mul p=19 n={n}", D.multiply(na, na, None, 19),
+             D.multiply_plain(na, na, None, 19))
+        cases += 2
+        for x in (a, na):
+            for delta in (-38, -20, -19, -18, -17, -1, 0, 4, 19, 38):
+                for p, wide in ((0, True), (19, True), (18, False)):
+                    same(f"d128 rescale {delta} p={p} n={n}",
+                         D.rescale_data(x, delta, vm, p, wide),
+                         D.rescale_plain(x, delta, vm, p, wide))
+                    cases += 1
+        for cnt in (t(np.ones(n, np.int64)), t(np.full(n, 3, np.int64)),
+                    t(rng.integers(-2, 2 ** 40, n))):
+            for up in (0, 4, 20):
+                for p, wide in ((19, True), (18, False)):
+                    same(f"d128 avg up={up} n={n}",
+                         D.average(a, cnt, up, p, wide),
+                         D.average_plain(a, cnt, up, p, wide))
+                    cases += 1
+        same(f"d128 neg n={n}", D.negate(a), D.negate_plain(a))
+        same(f"d128 abs n={n}", D.absolute(a), D.absolute_plain(a))
+        same(f"d128 cmp n={n}", D.compare(a, b), D.compare_plain(a, b))
+        same(f"d128 cmp self n={n}", D.compare(a, a), D.compare_plain(a, a))
+        cases += 4
+        for sc in (0, 1, 2, 6, 18, 19, 22, 36, 38):
+            g, w = D.to_double(a, sc), D.to_double_plain(a, sc)
+            same(f"d128 f64 s={sc} n={n}", g.view(torch.int64),
+                 w.view(torch.int64))
+            cases += 1
+            if sc <= D.MAX_TO_LONG_SCALE:
+                same(f"d128 i64 s={sc} n={n}", D.to_long(a, sc),
+                     D.to_long_plain(a, sc))
+                cases += 1
+        # K32: wrapping sums, nulls, ids outside the segments
+        for nseg in (1, 7, 1024, 9000):
+            for sorted_ids in (True, False):
+                gid = rng.integers(-1, nseg + 1, n).astype(np.int32)
+                if sorted_ids:
+                    gid.sort()
+                tg = t(gid)
+                for data in (a, na):
+                    g = D.seg_sum128(data, vm, tg, nseg)
+                    hi, lo = D.widen(data)
+                    w = (D.join(*D.seg_sum128_plain(hi, lo, vm, tg, nseg)),
+                         port_count(vm, tg, nseg))
+                    same(f"seg_sum128 nseg={nseg} n={n}", g, w)
+                    cases += 1
+        # K24's decimal modes
+        for sc in (0, 1, 2, 9, 18):
+            wcol = DeviceColumn(DecimalType(38, sc), a, vm)
+            r = C._decimal_to_string(wcol)
+            same(f"d128 text s={sc} n={n}", (r.data, r.lengths),
+                 D.decimal_string(*D.split(a), sc))
+            cases += 1
+        nvals = nb.clone()
+        nvals[:min(n, 4)] = torch.tensor([-5, 0, 5, -105][:min(n, 4)],
+                                         device=dev)
+        for sc in (1, 2, 9, 18):
+            r = C._decimal_to_string(DeviceColumn(DecimalType(18, sc), nvals,
+                                                  vm))
+            same(f"decimal text s={sc} n={n}", (r.data, r.lengths),
+                 C._decimal_to_string_plain(nvals, sc))
+            cases += 1
+        # K9 over decimal(38, s) keys
+        live = t(rng.random(n) < 0.95)
+        for asc in (True, False):
+            spec = [CM.KeySpec(DeviceColumn(DecimalType(38, 2), a, vm), asc,
+                               not asc)]
+            g, _ = CM.pack_keys(spec, live)
+            w, _ = CM.pack_keys_plain(spec, live)
+            same(f"pack d128 asc={asc} n={n}", g, w)
+            same(f"sort d128 asc={asc} n={n}", CM.sort_words(g),
+                 CM.sort_permutation_plain(list(w.unbind(0)), n))
+            cases += 2
+    # K22's decimal mode
+    texts = ["0", "1", "-1", "+1.5", "-1.5", "2.5", "-2.5", "0.005",
+             "-0.005", "0.0049", "1e3", "1E-2", "-1.25e1", " 12.345 ",
+             "12.344999", "99999999999999999999", "123456789012345678.9",
+             "1234567890123456789012", "9.9999999999999999999", ".5", "5.",
+             "1.2.3", "abc", "", " ", "--1", "1e", "1e+", "1e400", "1e-400",
+             "0.000000000000000000000001", "-0", "00012.50", "7E18",
+             "9223372036854775807", "-9223372036854775808"]
+    import pyarrow as pa
+    for width in (8, 32):
+        sel = [x for x in texts if len(x) <= width]
+        reps = sel * 50
+        data, lens = _text_rows(dev, pa.array(reps), width)
+        valid = t(np.arange(len(reps)) % 7 != 3)
+        col = _strcol(data, lens, valid)
+        for sc, p in ((0, 18), (2, 15), (2, 4), (18, 18), (6, 18)):
+            dt = DecimalType(p, sc)
+            g = SC.parse_decimal(col, dt)
+            w = SC.parse_decimal_plain(col, dt)
+            same(f"parse decimal({p},{sc}) width={width}",
+                 (g.data, g.validity), (w.data, w.validity))
+            cases += 1
+    torch.cuda.synchronize()
+    return cases + check_months_between(dev)
+
+
+def port_count(valid, gid, nseg):
+    """The plain count of K32: the valid rows with 0 <= gid < nseg."""
+    from spark_rapids_tpu_torch.ops import segmented
+
+    return segmented.seg_sum_count_plain([], valid, gid, nseg).count
+
+
+#: the kernels each slice-11 query must launch on either engine: K31 and
+#: K32 on every query, K22's and K24's decimal modes on the ingest, and
+#: its descending sort by the wide revenue (K9)
+SLICE11_PATH_KERNELS = {
+    "lineitem_q1": ("decimal128", "seg_sum128"),
+    "orders_tbl_decimal": ("str_parse_decimal", "str_format_decimal",
+                           "decimal128", "seg_sum128", "pack_keys",
+                           "sort_words"),
+    "q22_decimal": ("decimal128", "seg_sum128", "gather_leaves"),
+}
+#: q22's crossJoin is a nested-loop join: the fused engine hands it to the
+#: adaptive one, as the reference's does
+SLICE11_FUSED_FALLBACK = ("q22_decimal",)
+#: the columns of phase 13's tables its queries read (q1 without
+#: sum_charge reads no l_tax), the only ones cached on the card
+SLICE11_COLUMNS = {
+    "lineitem": ("l_quantity", "l_extendedprice", "l_discount",
+                 "l_returnflag", "l_linestatus", "l_shipdate"),
+    "orders_tbl": ("o_totalprice", "o_orderdate"),
+}
+SLICE11_COUNTERS = ("decimal128", "seg_sum128", "str_parse_decimal",
+                    "str_format_decimal")
+
+
+def _half_up(num: int, den: int) -> int:
+    """num / den rounded HALF_UP (away from zero on ties), exact."""
+    q, r = divmod(abs(num), den)
+    q += 2 * r >= den
+    return q if num >= 0 else -q
+
+
+def _dec_text(v: int, scale: int) -> str:
+    sign = "-" if v < 0 else ""
+    whole, frac = divmod(abs(v), 10 ** scale)
+    return f"{sign}{whole}.{frac:0{scale}d}" if scale else f"{sign}{whole}"
+
+
+def slice11_oracles() -> dict:
+    """The three decimal queries' answers in exact Python integers (each
+    decimal as its unscaled value), from the writers' seeded draws: no
+    float anywhere."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.q5 import (
+        Q1_SHIP_CUTOFF,
+        Q22_CODES,
+        SF10_LINEITEM,
+        customer_draws,
+        lineitem_draws,
+        orders_dated_draws,
+    )
+
+    cutoff = int(np.datetime64(Q1_SHIP_CUTOFF, "D").astype(np.int64))
+    acc = {}
+    for d in lineitem_draws(SF10_LINEITEM, FILES, seed=0):
+        keep = d["shipdate"] <= cutoff
+        g = d["flag"] * 2 + d["status"]
+        disc_price = d["price_c"] * (100 - d["disc_c"])
+        for k in np.unique(g[keep]):
+            m = keep & (g == k)
+            a = acc.setdefault(int(k), [0] * 5)
+            for j, col in enumerate((d["qty_c"], d["price_c"], disc_price,
+                                     d["disc_c"])):
+                a[j] += int(col[m].sum())
+            a[4] += int(m.sum())
+    q1 = []
+    for k in sorted(acc):
+        qty, price, dprice, disc, n = acc[k]
+        q1.append(dict(l_returnflag="ANR"[k // 2], l_linestatus="FO"[k % 2],
+                       sum_qty=qty, sum_base_price=price,
+                       sum_disc_price=dprice,
+                       avg_qty=_half_up(qty * 10 ** 4, n),
+                       avg_price=_half_up(price * 10 ** 4, n),
+                       avg_disc=_half_up(disc * 10 ** 4, n),
+                       count_order=n))
+    years = {}
+    o_custkeys = []
+    for d in orders_dated_draws(ORDERS_ROWS, FILES, seed=0):
+        o_custkeys.append(d["o_custkey"])
+        cents = d["cents"]
+        keep = cents > 10_000_000
+        yr = (d["o_orderdate"].astype("M8[D]").astype("M8[Y]")
+              .astype(np.int64) + 1970)
+        for y in np.unique(yr[keep]):
+            c = cents[keep & (yr == y)]
+            a = years.setdefault(int(y), [0, 0, None, None])
+            a[0] += int(c.sum())
+            a[1] += len(c)
+            a[2] = int(c.min()) if a[2] is None else min(a[2], int(c.min()))
+            a[3] = int(c.max()) if a[3] is None else max(a[3], int(c.max()))
+    tbl = [dict(o_year=y, revenue=s, avg_price=_half_up(s * 10 ** 4, n),
+                min_price=lo, max_price=hi, n=n,
+                revenue_text=_dec_text(s, 2), min_text=_dec_text(lo, 2),
+                max_text=_dec_text(hi, 2))
+           for y, (s, n, lo, hi) in years.items()]
+    tbl.sort(key=lambda r: -r["revenue"])
+    c = customer_draws(SF10_CUSTOMERS, seed=0)
+    code = c["nation"] + 10
+    cand = np.isin(code, [int(x) for x in Q22_CODES])
+    cents = c["cents"]
+    pos = cand & (cents > 0)
+    avg6 = _half_up(int(cents[pos].sum()) * 10 ** 4, int(pos.sum()))
+    ordered = np.zeros(SF10_CUSTOMERS + 1, dtype=bool)
+    ordered[np.concatenate(o_custkeys)] = True
+    keep = cand & (cents * 10_000 > avg6) & ~ordered[1:]
+    q22 = [dict(cntrycode=str(k), numcust=int((keep & (code == k)).sum()),
+                totacctbal=int(cents[keep & (code == k)].sum()))
+           for k in sorted(np.unique(code[keep]))]
+    return {"lineitem_q1": q1, "orders_tbl_decimal": tbl,
+            "q22_decimal": q22}
+
+
+def check_slice11(name: str, got, want) -> None:
+    """The query's rows, in order, equal to the oracle's exactly: every
+    decimal as its unscaled integer, texts and counts as they are."""
+    import decimal
+
+    rows = got.to_pylist()
+    ctx = decimal.Context(prec=50)
+    if len(rows) != len(want):
+        fail(f"{name}: {len(rows)} rows, the oracle {len(want)}")
+    types = {f.name: f.type for f in got.schema}
+    for r, w in zip(rows, want):
+        for k, v in w.items():
+            g = r[k]
+            if isinstance(g, decimal.Decimal):
+                g = int(g.scaleb(types[k].scale, ctx))
+            if g != v:
+                fail(f"{name}: {k} = {r[k]!r}, the oracle {v!r} (row {r})")
+
+
+def run_slice11(dev, session, oracles, fused: bool) -> dict:
+    """Phase 13: the three decimal queries (q5.py) in `customer_session`'s
+    session, over LINEITEM, customer_dec, phase 9's ORDERS text and phase
+    11's ORDERS, cached on the card. Returns {query: record}, each with
+    its peak device bytes, its largest device items and the launches of
+    K31, K32 and the decimal modes of K22 and K24."""
+    import torch
+
+    from spark_rapids_tpu_torch.q5 import (
+        lineitem_q1_query,
+        orders_tbl_decimal_query,
+        q22_decimal_query,
+    )
+
+    engine = "fused" if fused else "aqe"
+    spark, tables, upload_s = session
+    builds = {
+        "lineitem_q1": lambda: lineitem_q1_query(tables["lineitem"]),
+        "orders_tbl_decimal": lambda: orders_tbl_decimal_query(
+            tables["orders_tbl"]),
+        "q22_decimal": lambda: q22_decimal_query(tables["customer_dec"],
+                                                 tables["orders_cust"]),
+    }
+    out = {}
+    for name, build in builds.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = timed_runs(lambda: build().collect_arrow(),
+                         lambda g: check_slice11(name, g, oracles[name]),
+                         SLICE11_HOT_RUNS)
+        ex = spark.last_execution
+        want_engine = ("aqe" if fused and name in SLICE11_FUSED_FALLBACK
+                       else engine)
+        if ex["engine"] != want_engine:
+            fail(f"{name} ran on {ex['engine']}, not {want_engine}: {ex}")
+        fell = [e for e, _ in ex["fallbacks"]]
+        if fell != (["fused"] if want_engine != engine else []):
+            fail(f"{name}: unexpected fallbacks {ex['fallbacks']}")
+        missing_launches(f"{engine} {name}", rec["launches"],
+                         SLICE11_PATH_KERNELS[name])
+        rec.update(engine=ex["engine"], aqe=ex["aqe"], fused=ex["fused"],
+                   upload_s=upload_s, peak_device_bytes=int(
+                       torch.cuda.max_memory_allocated(dev)),
+                   slice11_launches={k: rec["launches"].get(k, 0)
+                                     for k in SLICE11_COUNTERS})
+        out[name] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
 def _window_mode(df):
     def find(node):
         if type(node).__name__ == "TpuWindowExec":
@@ -5677,7 +6382,9 @@ def main() -> int:
     from spark_rapids_tpu_torch import resolve_device
     from spark_rapids_tpu_torch.kernels import build
     from spark_rapids_tpu_torch.q5 import (
+        SF10_LINEITEM,
         write_customer_data,
+        write_decimal_data,
         write_orders_data,
         write_orders_dated,
         write_q5_data,
@@ -5707,16 +6414,15 @@ def main() -> int:
     PROFILER_MISSES.clear()
 
     # phase 2: each kernel against its plain version
-    records = check_kernels(dev)
-    records.update(check_slice2_kernels(dev))
-    records.update(check_slice3_kernels(dev))
-    records.update(check_slice4_kernels(dev))
-    records.update(check_slice5_kernels(dev))
-    records.update(check_slice6_kernels(dev))
-    records.update(check_slice7_kernels(dev))
-    records.update(check_slice8_kernels(dev))
-    records.update(check_slice9_kernels(dev))
-    records.update(check_slice10_kernels(dev))
+    records = {}
+    for k, check in enumerate((
+            check_kernels, check_slice2_kernels, check_slice3_kernels,
+            check_slice4_kernels, check_slice5_kernels,
+            check_slice6_kernels, check_slice7_kernels,
+            check_slice8_kernels, check_slice9_kernels,
+            check_slice10_kernels, check_slice11_kernels)):
+        records.update(check(dev))
+        stamp(f"phase 2: slice {k + 1}'s kernels checked")
     for kname, r in records.items():
         lib = r["library_ms"]
         print(f"{kname}: {r['shape']}: kernel_ms={r['ms']:.4f} "
@@ -5731,11 +6437,14 @@ def main() -> int:
         print(f"sort_words at {r['shape']}: kernel_ms={r['ms']:.4f} "
               f"library_ms={r['library_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.6f}", flush=True)
-    cases = (check_edge_shapes(dev) + check_slice2_edges(dev)
-             + check_slice3_edges(dev) + check_slice4_edges(dev)
-             + check_slice5_edges(dev) + check_slice6_edges(dev)
-             + check_slice7_edges(dev) + check_slice8_edges(dev)
-             + check_slice9_edges(dev) + check_slice10_edges(dev))
+    cases = 0
+    for k, check in enumerate((
+            check_edge_shapes, check_slice2_edges, check_slice3_edges,
+            check_slice4_edges, check_slice5_edges, check_slice6_edges,
+            check_slice7_edges, check_slice8_edges, check_slice9_edges,
+            check_slice10_edges, check_slice11_edges)):
+        cases += check(dev)
+        stamp(f"phase 2: slice {k + 1}'s edge shapes checked")
     print(f"edge shapes: {cases} cases exact against the plain versions",
           flush=True)
 
@@ -5949,10 +6658,17 @@ def main() -> int:
         oracles10 = slice10_oracles(paths9)
         print(f"slice 10 oracles in {time.monotonic() - t0:.1f} s",
               flush=True)
+        t0 = time.monotonic()
+        write_decimal_data(tmp, SF10_LINEITEM, SF10_CUSTOMERS, FILES, seed=0)
+        oracles11 = slice11_oracles()
+        print(f"lineitem: {SF10_LINEITEM} rows in {FILES} files, "
+              f"customer_dec: {SF10_CUSTOMERS} rows, and the slice 11 "
+              f"oracles in {time.monotonic() - t0:.1f} s", flush=True)
         for engine, fused in (("aqe", False), ("fused", True)):
             session = customer_session(dev, tmp, fused)
             for phase, fn, oracles in ((11, run_slice9, oracles9),
-                                       (12, run_slice10, oracles10)):
+                                       (12, run_slice10, oracles10),
+                                       (13, run_slice11, oracles11)):
                 done = fn(dev, session, oracles, fused)
                 for qname, rec in done.items():
                     runs[f"{engine} {qname}"] = rec
@@ -5970,8 +6686,11 @@ def main() -> int:
                           f"peak_device_bytes={rec['peak_device_bytes']}"
                           + (f" k30_k6_hex_launches="
                              f"{json.dumps(rec['slice10_launches'])}"
-                             if phase == 12 else ""), flush=True)
-                    if phase == 12:
+                             if phase == 12 else "")
+                          + (f" k31_k32_k22_k24_decimal_launches="
+                             f"{json.dumps(rec['slice11_launches'])}"
+                             if phase == 13 else ""), flush=True)
+                    if phase >= 12:
                         print(f"{engine} {qname} largest device items: "
                               + json.dumps(prof["top"][:5]), flush=True)
                     print(f"{engine} {qname} launches per query: "
@@ -5981,10 +6700,10 @@ def main() -> int:
                 stamp(f"phase {phase} ({engine}) done")
             session[0].stop()
             del session
-        del oracles9, oracles10
+        del oracles9, oracles10, oracles11
 
     # each kernel's launches: the sum over every path's cold run (phases
-    # 3-12), each read right after it
+    # 3-13), each read right after it
     launches = {k: sum(r["launches"].get(rec.get("counter", k), 0)
                        for r in runs.values())
                 for k, rec in records.items()}

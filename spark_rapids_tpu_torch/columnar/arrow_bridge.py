@@ -1,16 +1,18 @@
 """Host (Arrow) <-> device (ColumnBatch) transitions in the port.
 
 Counterpart of `spark_rapids_tpu/columnar/arrow_bridge.py` for primitive,
-string and dictionary-string columns:
+decimal, string and dictionary-string columns:
 
 - `arrow_to_device` builds each column's leaves in numpy (the string byte
   matrix vectorised, no per-row Python), writes every leaf of the batch
   into ONE pinned host staging buffer and uploads it with ONE
   `non_blocking` copy; the columns are views into that one device buffer.
   Dictionary-encoded string columns upload as codes plus an interned
-  dictionary (columnar/encoding.py).
+  dictionary (columnar/encoding.py); a decimal column's values are read
+  from Arrow's 16-byte words (an int64, or [n, 2] limbs past 18 digits).
 - `device_to_arrow` fetches the live rows and rebuilds Arrow arrays,
-  decoding encoded columns on the host from codes plus dictionary;
+  decoding encoded columns on the host from codes plus dictionary and
+  decimal columns from their words in one vectorised step;
   `device_to_arrow_fused` fetches a small batch, its row count and the
   fused engine's flags in ONE device-to-host copy.
 """
@@ -29,9 +31,15 @@ from spark_rapids_tpu_torch.columnar.batch import (
     DeviceColumn,
     next_capacity,
 )
-from spark_rapids_tpu_torch.sqltypes import StringType, StructField, StructType
+from spark_rapids_tpu_torch.sqltypes import (
+    DecimalType,
+    StringType,
+    StructField,
+    StructType,
+)
 from spark_rapids_tpu_torch.sqltypes.datatypes import (
     from_arrow_type,
+    is_wide,
     to_arrow_type,
     torch_dtype,
 )
@@ -95,6 +103,53 @@ def _matrix_to_string(data: np.ndarray, lengths: np.ndarray,
     return arr
 
 
+def _decimal_np(arr: pa.Array, dtype) -> Tuple[np.ndarray, np.ndarray]:
+    """An Arrow decimal array -> (values, validity) from the decimal128
+    buffer's 16-byte little-endian two's-complement words, read directly:
+    a decimal(<= 18)'s value is the low word, a wider one's the [n, 2]
+    (hi, lo) limb matrix. Nulls are zero-filled."""
+    validity = np.asarray(arr.is_valid())
+    # every decimal128 holds 16-byte words whatever its precision; only
+    # another width (decimal256) is cast
+    arr128 = arr if pa.types.is_decimal128(arr.type) else arr.cast(
+        pa.decimal128(38, arr.type.scale))
+    buf = arr128.buffers()[1]
+    off, n = arr128.offset, len(arr128)
+    if buf is None:
+        words = np.zeros(2 * n, dtype=np.int64)
+    else:
+        words = np.frombuffer(buf, dtype=np.int64,
+                              count=(off + n) * 2)[off * 2:]
+    lo = words[0::2].copy()
+    lo[~validity] = 0
+    if not is_wide(dtype):
+        return lo, validity
+    hi = words[1::2].copy()
+    hi[~validity] = 0
+    return np.stack([hi, lo], axis=1), validity
+
+
+def _decimal_array(data: np.ndarray, validity: np.ndarray, dtype
+                   ) -> pa.Array:
+    """A decimal column's fetched values ([n] int64 or [n, 2] limbs) ->
+    an Arrow decimal128 array, built from one 16-byte word pair a row in
+    one vectorised step (the reference builds a Python Decimal a row)."""
+    n = len(validity)
+    words = np.empty((n, 2), dtype=np.int64)
+    if data.ndim == 2:
+        words[:, 0], words[:, 1] = data[:, 1], data[:, 0]
+    else:
+        words[:, 0] = data
+        words[:, 1] = data >> 63
+    bitmap = None
+    if not validity.all():
+        words[~validity] = 0
+        bitmap = pa.py_buffer(np.packbits(validity, bitorder="little"))
+    return pa.Array.from_buffers(
+        pa.decimal128(dtype.precision, dtype.scale), n,
+        [bitmap, pa.py_buffer(words)])
+
+
 def _primitive_np(arr: pa.Array, np_dtype) -> Tuple[np.ndarray, np.ndarray]:
     """Arrow primitive array -> (values with nulls zero-filled, validity)."""
     validity = np.asarray(arr.is_valid())
@@ -146,6 +201,9 @@ def column_from_arrow(arr: pa.Array, field: StructField,
     if field.dataType.np_dtype is None:
         raise TypeError(f"column {field.name}: type {field.dataType} is not "
                         "ported to the torch package yet")
+    if isinstance(field.dataType, DecimalType):
+        vals, validity = _decimal_np(arr, field.dataType)
+        return _HostColumn(field.dataType, vals, validity)
     vals, validity = _primitive_np(arr, field.dataType.np_dtype)
     return _HostColumn(field.dataType, vals, validity)
 
@@ -224,6 +282,8 @@ def _host_array(field: StructField, col: DeviceColumn,
                                  validity)
     if isinstance(field.dataType, StringType):
         return _matrix_to_string(data, leaves[2], validity)
+    if isinstance(field.dataType, DecimalType):
+        return _decimal_array(data, validity, field.dataType)
     mask = None if validity.all() else ~validity
     return pa.array(data.astype(field.dataType.np_dtype, copy=False),
                     type=to_arrow_type(field.dataType), mask=mask)

@@ -12,7 +12,10 @@ every kernel can be diffed array for array against the JAX package:
 - columns are validity-masked flat tensors; strings are a zero-padded
   [cap, max_bytes] uint8 matrix plus int32 `lengths`; dictionary-encoded
   strings are int16/int32 codes plus a shared `DeviceDictionary`
-  (columnar/encoding.py), with `vrange` = (0, K-1) on the codes;
+  (columnar/encoding.py), with `vrange` = (0, K-1) on the codes; a
+  decimal(<= 18) is its scaled int64 and a wider one a [cap, 2] int64 limb
+  matrix (hi, lo), which travels through every gather, exchange, slice and
+  concatenation as one 16-byte leaf;
 - array columns exist only as aggregate buffers (collect_list/set,
   count(DISTINCT), sum(DISTINCT) and percentile): data [cap, max_elems]
   of the element type, `lengths` the element count and `elem_validity`
@@ -46,7 +49,7 @@ from spark_rapids_tpu_torch.sqltypes import (
     StringType,
     StructType,
 )
-from spark_rapids_tpu_torch.sqltypes.datatypes import torch_dtype
+from spark_rapids_tpu_torch.sqltypes.datatypes import is_wide, torch_dtype
 
 MIN_CAPACITY = 1024
 
@@ -81,7 +84,8 @@ class DeviceColumn:
 
     data:     [cap] of the dtype's torch type; [cap, max_bytes] uint8 for
               strings; [cap] int16/int32 codes for encoded strings;
-              [cap, max_elems] of the element type for arrays
+              [cap, max_elems] of the element type for arrays; [cap, 2]
+              int64 (hi, lo) limbs for decimals past 18 digits
     validity: [cap] bool, True = valid (non-null row)
     lengths:  [cap] int32 byte counts (plain strings), element counts
               (arrays)
@@ -354,8 +358,9 @@ def _empty_column(dtype: DataType, capacity: int, string_bytes: int,
             torch.zeros((capacity, string_bytes), dtype=torch.uint8,
                         device=device),
             valid, torch.zeros(capacity, dtype=torch.int32, device=device))
+    shape = (capacity, 2) if is_wide(dtype) else (capacity,)
     return DeviceColumn(
-        dtype, torch.zeros(capacity, dtype=torch_dtype(dtype), device=device),
+        dtype, torch.zeros(shape, dtype=torch_dtype(dtype), device=device),
         valid)
 
 

@@ -62,6 +62,7 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.arrow_bridge import (
     _HostColumn,
+    _decimal_np,
     _primitive_np,
     _upload,
     column_from_arrow,
@@ -81,8 +82,8 @@ from spark_rapids_tpu_torch.exec import operators as ops
 from spark_rapids_tpu_torch.exec.base import PhysicalPlan, conf_device
 from spark_rapids_tpu_torch.expr.core import EvalContext
 from spark_rapids_tpu_torch.ops import filterops, joinops
-from spark_rapids_tpu_torch.sqltypes import StringType
-from spark_rapids_tpu_torch.sqltypes.datatypes import torch_dtype
+from spark_rapids_tpu_torch.sqltypes import DecimalType, StringType
+from spark_rapids_tpu_torch.sqltypes.datatypes import is_wide, torch_dtype
 
 # capacity granularity for scan uploads
 _UPLOAD_ALIGN = 1 << 16
@@ -197,8 +198,12 @@ def upload_narrowed(table: pa.Table, bucket: bool = True,
         np_dt = getattr(dt, "np_dtype", None)
         if (np_dt is not None
                 and np.issubdtype(np.dtype(np_dt), np.integer)
-                and not isinstance(dt, StringType)):
-            vals, validity = _primitive_np(arr, np_dt)
+                and not isinstance(dt, StringType) and not is_wide(dt)):
+            # a decimal(<= 18) narrows as its unscaled int64 does; a
+            # wider one's [n, 2] limbs upload as they are
+            vals, validity = (_decimal_np(arr, dt)
+                              if isinstance(dt, DecimalType)
+                              else _primitive_np(arr, np_dt))
             vals, vrange = _narrow(np.ascontiguousarray(vals))
             host_cols.append(_HostColumn(dt, vals, validity, vrange=vrange))
             continue

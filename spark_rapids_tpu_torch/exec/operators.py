@@ -84,7 +84,7 @@ from spark_rapids_tpu_torch.sqltypes import (
     StructField,
     StructType,
 )
-from spark_rapids_tpu_torch.sqltypes.datatypes import long, torch_dtype
+from spark_rapids_tpu_torch.sqltypes.datatypes import is_wide, long, torch_dtype
 
 
 def _conf_get(conf, entry, default):
@@ -417,9 +417,9 @@ class TpuHashAggregateExec(PhysicalPlan):
         vector under its own validity mask (its count is the rows the sum
         took), and the occupancy count over `live` is count(*). Returns
         (occupancy counts, buffer columns), or None when the shape does
-        not qualify (another function, count(expr), sums of mixed types or
-        more than eight columns): the per-function update loop then
-        runs."""
+        not qualify (another function, count(expr), a decimal(> 18) sum
+        buffer, sums of mixed types or more than eight columns): the
+        per-function update loop then runs."""
         slots = []     # per aggregate: index of its value vector, or None
         vec_of = {}    # work column index -> value vector index
         values, masks, out_types = [], [], []
@@ -427,6 +427,8 @@ class TpuHashAggregateExec(PhysicalPlan):
         for a, grp in zip(self.aggs, input_groups):
             fn = a.children[0]
             if isinstance(fn, (Sum, Average)):
+                if is_wide(fn.buffer_types()[0]):
+                    return None  # K32 sums the limbs, in the update loop
                 if ci not in vec_of:
                     col = work.columns[ci]
                     out_t = fn.buffer_types()[0]
@@ -868,14 +870,6 @@ class TpuLocalLimitExec(PhysicalPlan):
 
 # ----------------------------------------------------------------- window
 
-def _is_wide_decimal(dt) -> bool:
-    """A decimal wider than 18 digits (the reference's two-limb
-    DECIMAL128 carry shapes)."""
-    from spark_rapids_tpu_torch.sqltypes import DecimalType
-
-    return isinstance(dt, DecimalType) and dt.precision > 18
-
-
 def window_streaming_mode(window_exprs: List[Alias]) -> Optional[str]:
     """The reference's streaming strategy for specs the bounded-halo path
     can't chunk (GpuRunningWindowExec.scala,
@@ -923,8 +917,8 @@ def window_streaming_mode(window_exprs: List[Alias]) -> Optional[str]:
         if (isinstance(fn, (Sum, Min, Max, Count))
                 and frame is not None and frame.frame_type == "rows"
                 and frame.lower is None and frame.upper == 0
-                and not _is_wide_decimal(fn.dtype)
-                and all(fixed_width(c) and not _is_wide_decimal(c.dtype)
+                and not is_wide(fn.dtype)
+                and all(fixed_width(c) and not is_wide(c.dtype)
                         for c in fn.children)):
             kinds.add("running")
             continue

@@ -1,11 +1,19 @@
 """Declarative aggregate functions with update / merge / evaluate phases —
-counterpart of `spark_rapids_tpu/expr/aggregates.py` over long, double
-and the other non-decimal inputs: Sum, Count, Average, Min, Max, First,
-Last and AnyValue; the moment family (variance, stddev, skewness,
+counterpart of `spark_rapids_tpu/expr/aggregates.py`: Sum, Count,
+Average, Min, Max, First, Last and AnyValue over every ported type,
+decimals included; the moment family (variance, stddev, skewness,
 kurtosis) and the bivariate one (covariance, corr) over power and cross
 sums; bool_and and bool_or; collect_list and collect_set buffers,
-count(DISTINCT), sum(DISTINCT), percentile and percentile_approx
-(decimal buffers and the 128-bit sums are not ported yet).
+count(DISTINCT), sum(DISTINCT), percentile and percentile_approx.
+
+Decimals as the reference types them: sum(decimal(p, s)) is decimal(p +
+10, s) and avg(decimal(p, s)) decimal(p + 4, s + 4), capped at 38 digits.
+A narrow sum buffer (<= 18 digits) sums int64 in K4; a wide one ([n, 2]
+limbs) sums in kernel K32 (ops/decimal128.py `seg_sum128`, with its
+count), and a wide average's evaluate rescales and divides by the count
+with HALF_UP in kernel K31 (`average`), then tests the precision. Min
+and Max of a wide decimal are two K12 passes, over the high limb and then
+over the low limb (sign bit flipped) of the rows tied on it.
 
 - update: raw input values -> per-group partial buffers (segmented
   reductions: sums and counts in kernel K4, minima, maxima, bool_and/or
@@ -47,6 +55,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
 )
 from spark_rapids_tpu_torch.expr.core import Expression
 from spark_rapids_tpu_torch.kernels import build as _build
+from spark_rapids_tpu_torch.ops import decimal128 as d128
 from spark_rapids_tpu_torch.ops import segmented
 from spark_rapids_tpu_torch.ops.common import KeySpec, pack_keys, sort_words
 from spark_rapids_tpu_torch.sqltypes import (
@@ -61,6 +70,7 @@ from spark_rapids_tpu_torch.sqltypes.datatypes import (
     double,
     float_t,
     integer,
+    is_wide,
     long,
     torch_dtype,
 )
@@ -106,7 +116,10 @@ def _sum_result_type(t: DataType) -> DataType:
     if isinstance(t, (FloatType, DoubleType)):
         return double
     if isinstance(t, DecimalType):
-        raise NotImplementedError("decimal sums are not ported yet")
+        # Spark: sum(decimal(p, s)) -> decimal(p + 10, s); past 18 digits
+        # the buffer is [n, 2] limbs
+        p = min(DecimalType.MAX_PRECISION, t.precision + 10)
+        return DecimalType(p, t.scale)
     return long
 
 
@@ -130,15 +143,21 @@ class Sum(AggregateFunction):
     def update(self, values, live, gid, cap):
         out_t = self.dtype
         valid = values.validity & live
-        data = values.data.to(torch_dtype(out_t))
-        s, cnt = segmented.seg_sum_count(data, valid, gid, cap)
+        if is_wide(out_t):
+            s, cnt = d128.seg_sum128(values.data, valid, gid, cap)
+        else:
+            data = values.data.to(torch_dtype(out_t))
+            s, cnt = segmented.seg_sum_count(data, valid, gid, cap)
         return [DeviceColumn(out_t, s, cnt > 0),
                 DeviceColumn(long, cnt, _ones(cnt))]
 
     def merge(self, buffers, live, gid, cap):
         cnt = segmented.seg_sum(buffers[1].data, live, gid, cap)
         buf = buffers[0]
-        s = segmented.seg_sum(buf.data, buf.validity & live, gid, cap)
+        if buf.data.dim() == 2:
+            s, _ = d128.seg_sum128(buf.data, buf.validity & live, gid, cap)
+        else:
+            s = segmented.seg_sum(buf.data, buf.validity & live, gid, cap)
         return [DeviceColumn(buf.dtype, s, cnt > 0),
                 DeviceColumn(long, cnt, _ones(cnt))]
 
@@ -187,8 +206,11 @@ class Average(AggregateFunction):
 
     @property
     def dtype(self):
-        if isinstance(self.children[0].dtype, DecimalType):
-            raise NotImplementedError("decimal averages are not ported yet")
+        # Spark: avg(decimal(p, s)) -> decimal(p + 4, s + 4); else double
+        t = self.children[0].dtype
+        if isinstance(t, DecimalType):
+            m = DecimalType.MAX_PRECISION
+            return DecimalType(min(m, t.precision + 4), min(m, t.scale + 4))
         return double
 
     def buffer_types(self):
@@ -202,9 +224,22 @@ class Average(AggregateFunction):
 
     def evaluate(self, buffers):
         s, cnt = buffers
+        out_t = self.dtype
         safe = cnt.data.clamp(min=1)
+        if isinstance(out_t, DecimalType):
+            up = out_t.scale - self.children[0].dtype.scale
+            if s.data.dim() == 2:
+                # K31: rescale, divide by the count HALF_UP, the precision
+                data, valid = d128.average(s.data, cnt.data, up,
+                                           out_t.precision, is_wide(out_t))
+                return DeviceColumn(out_t, data, valid)
+            num = s.data.to(torch.int64) * (10 ** up)
+            q = torch.abs(num) // safe
+            rem = torch.abs(num) - q * safe
+            q = q + (2 * rem >= safe).to(torch.int64)
+            return DeviceColumn(out_t, torch.sign(num) * q, cnt.data > 0)
         data = s.data.to(torch.float64) / safe.to(torch.float64)
-        return DeviceColumn(self.dtype, data, cnt.data > 0)
+        return DeviceColumn(out_t, data, cnt.data > 0)
 
 
 class _MinMax(AggregateFunction):
@@ -224,15 +259,27 @@ class _MinMax(AggregateFunction):
     def _seg(self, data, valid, gid, cap):
         raise NotImplementedError
 
+    def _seg_any(self, data, valid, gid, cap):
+        if data.dim() != 2:
+            return self._seg(data, valid, gid, cap)
+        # decimal(> 18): the extremum of the high limbs, then of the low
+        # limbs (unsigned order) of the rows tied on it: two K12 passes
+        hi, lo = d128.split(data)
+        h = self._seg(hi.contiguous(), valid, gid, cap)
+        idx = gid.to(torch.int64).clamp(0, cap - 1)
+        tie = valid & (hi == h.index_select(0, idx))
+        lo_o = self._seg((lo ^ d128._SIGN64).contiguous(), tie, gid, cap)
+        return d128.join(h, lo_o ^ d128._SIGN64)
+
     def update(self, values, live, gid, cap):
         valid = values.validity & live
-        r = self._seg(values.data, valid, gid, cap)
+        r = self._seg_any(values.data, valid, gid, cap)
         cnt = segmented.seg_count(valid, gid, cap)
         return [DeviceColumn(self.dtype, r, cnt > 0)]
 
     def merge(self, buffers, live, gid, cap):
         valid = buffers[0].validity & live
-        r = self._seg(buffers[0].data, valid, gid, cap)
+        r = self._seg_any(buffers[0].data, valid, gid, cap)
         cnt = segmented.seg_count(valid, gid, cap)
         return [DeviceColumn(buffers[0].dtype, r, cnt > 0)]
 

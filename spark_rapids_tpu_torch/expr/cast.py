@@ -12,15 +12,26 @@ raises, and an invalid input gives null.
 - string -> boolean/integral/float/double/date/timestamp: ops/stringcast.py
   (kernel K22); a parsed timestamp is a wall clock in the session zone,
   rebased to UTC (K23).
-- integral/boolean/date/timestamp -> string: integral, date and timestamp
-  text is written by kernel K24 (csrc/str_format.cu) through
-  `_int_to_string`, `_date_to_string` and `_timestamp_to_string`, whose
-  plain versions are the reference's digit-by-digit bodies; a timestamp
-  is rebased into the session zone first (K23). Widths are the
-  reference's: 32, 16 and 32 bytes.
-
-Casts to and from decimal wait for decimal columns (ROADMAP A3): the
-planner refuses the type, and `eval` raises naming A3.
+- integral/boolean/date/timestamp/decimal -> string: integral, date,
+  timestamp and decimal text is written by kernel K24
+  (csrc/str_format.cu) through `_int_to_string`, `_date_to_string`,
+  `_timestamp_to_string` and `_decimal_to_string`, whose plain versions
+  are the reference's digit-by-digit bodies; a timestamp is rebased into
+  the session zone first (K23). Widths are the reference's: 32, 16, 32
+  and 48 bytes (a decimal of scale 0 and <= 18 digits prints as its
+  integral, width 32).
+- decimal casts (the reference's `_cast_decimal`, `_cast_decimal_wide`):
+  integral <-> decimal, decimal <-> decimal with HALF_UP when the scale
+  drops, float -> decimal(<= 18) with HALF_UP, decimal -> float and
+  integral (the fraction truncated); a target over its precision is null.
+  Between narrow types (<= 18 digits) each is elementwise int64 torch, as
+  in the reference; a wide side goes through kernel K31
+  (ops/decimal128.py: `rescale_data`, `to_double`, `to_long`). string ->
+  decimal(<= 18) is K22's decimal mode. Float or string -> decimal(> 18)
+  and decimal(> 18, scale > 18) -> string run on the reference's CPU
+  engine (`device_supported`); the planner refuses them here (ROADMAP A9).
+  A decimal's division by a power of ten divides by a tensor, so it is
+  IEEE-exact on the card.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from spark_rapids_tpu_torch.columnar.batch import DeviceColumn
 from spark_rapids_tpu_torch.expr.core import Expression
 from spark_rapids_tpu_torch.expr.datetimes import civil_from_days
 from spark_rapids_tpu_torch.kernels import build as _build
+from spark_rapids_tpu_torch.ops import decimal128 as d128
 from spark_rapids_tpu_torch.ops import tzdb
 from spark_rapids_tpu_torch.sqltypes import (
     BooleanType,
@@ -47,12 +59,13 @@ from spark_rapids_tpu_torch.sqltypes import (
     StringType,
     TimestampType,
 )
+from spark_rapids_tpu_torch.sqltypes.datatypes import is_wide
 from spark_rapids_tpu_torch.sqltypes.datatypes import string as string_t
 from spark_rapids_tpu_torch.sqltypes.datatypes import torch_dtype
 
 _US_PER_DAY = 86_400_000_000
-_DECIMAL = ("decimal casts wait for decimal columns, which are not ported "
-            "yet (ROADMAP A3)")
+_CPU_ONLY = ("cast {} -> {} runs on the reference's CPU engine; the port "
+             "has no CPU engine yet (ROADMAP A9)")
 
 
 class Cast(Expression):
@@ -76,10 +89,10 @@ class Cast(Expression):
         """The reference's check: wide decimals from float or string, and
         wide decimals of scale > 18 to string, have no device lowering."""
         frm = self.children[0].dtype
-        if _is_wide(self.to) and isinstance(
+        if is_wide(self.to) and isinstance(
                 frm, (FloatType, DoubleType, StringType)):
             return False
-        if (isinstance(self.to, StringType) and _is_wide(frm)
+        if (isinstance(self.to, StringType) and is_wide(frm)
                 and frm.scale > 18):
             return False
         return True
@@ -103,16 +116,21 @@ class Cast(Expression):
         frm, to = c.dtype, self.to
         if frm == to:
             return c
-        if isinstance(frm, DecimalType) or isinstance(to, DecimalType):
-            raise NotImplementedError(_DECIMAL)
+        if not self.device_supported():
+            raise NotImplementedError(_CPU_ONLY.format(frm, to))
         if isinstance(frm, StringType):
             return _cast_from_string(c, to, self.tz)
         if isinstance(to, StringType):
             return _cast_to_string(c, self.tz)
         if isinstance(frm, BooleanType):
-            return DeviceColumn(to, c.data.to(torch_dtype(to)), c.validity)
+            # 0 or 1 unscaled into a decimal, as the reference casts it
+            data = c.data.to(torch_dtype(to))
+            if is_wide(to):
+                data = d128.join(*d128.from_i64(data))
+            return DeviceColumn(to, data, c.validity)
         if isinstance(to, BooleanType):
-            return DeviceColumn(to, c.data != 0, c.validity)
+            nz = (c.data != 0).any(dim=1) if c.data.dim() == 2 else c.data != 0
+            return DeviceColumn(to, nz, c.validity)
         if isinstance(frm, DateType) and isinstance(to, TimestampType):
             # local midnight in the session zone -> UTC instant
             local = c.data.to(torch.int64) * _US_PER_DAY
@@ -125,6 +143,8 @@ class Cast(Expression):
                 us = tzdb.utc_to_local(us, self.tz)
             d = torch.div(us, _US_PER_DAY, rounding_mode="floor")
             return DeviceColumn(to, d.to(torch.int32), c.validity)
+        if isinstance(frm, DecimalType) or isinstance(to, DecimalType):
+            return _cast_decimal(c, frm, to)
         if isinstance(frm, (FloatType, DoubleType)) and isinstance(
                 to, IntegralType):
             # Java (int)/(long) of a float: truncate toward zero, saturate,
@@ -150,8 +170,66 @@ def _float_to_int(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
                        torch.where(hi, 0.0, t).to(torch.int64))
 
 
-def _is_wide(dt: DataType) -> bool:
-    return isinstance(dt, DecimalType) and dt.precision > 18
+def _pow10(k: int, device) -> torch.Tensor:
+    """10.0 ** k as a float64 tensor: a division by it is IEEE-exact on
+    the card, where one by a Python float becomes a multiply by its
+    reciprocal."""
+    return torch.tensor(10.0 ** k, dtype=torch.float64, device=device)
+
+
+def _cast_decimal(c: DeviceColumn, frm: DataType, to: DataType
+                  ) -> DeviceColumn:
+    """The reference's `_cast_decimal`: narrow types elementwise in int64
+    torch, a wide side through K31."""
+    fs = frm.scale if isinstance(frm, DecimalType) else 0
+    if c.data.dim() == 2 or is_wide(to):
+        return _cast_decimal_wide(c, frm, to, fs)
+    if isinstance(to, DecimalType):
+        ts = to.scale
+        limit = 10 ** min(18, to.precision)
+        if isinstance(frm, (FloatType, DoubleType)):
+            # HALF_UP (Spark's BigDecimal), not round-half-even
+            x = c.data.to(torch.float64) * (10.0 ** ts)
+            scaled = torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+            valid = c.validity & (torch.abs(scaled) < float(limit))
+            data = torch.where(valid, scaled, 0.0).to(torch.int64)
+            return DeviceColumn(to, data, valid)
+        src = c.data.to(torch.int64)
+        if ts >= fs:
+            data = src * (10 ** (ts - fs))
+        else:
+            f = 10 ** (fs - ts)
+            q = torch.abs(src) // f
+            rem = torch.abs(src) - q * f
+            q = q + (2 * rem >= f).to(torch.int64)  # HALF_UP
+            data = torch.sign(src) * q
+        return DeviceColumn(to, data, c.validity & (torch.abs(data) < limit))
+    # decimal -> numeric
+    if isinstance(to, (FloatType, DoubleType)):
+        data = c.data.to(torch.float64) / _pow10(fs, c.data.device)
+        return DeviceColumn(to, data.to(torch_dtype(to)), c.validity)
+    src = c.data.to(torch.int64)
+    q = torch.sign(src) * (torch.abs(src) // (10 ** fs))
+    return DeviceColumn(to, q.to(torch_dtype(to)), c.validity)
+
+
+def _cast_decimal_wide(c: DeviceColumn, frm: DataType, to: DataType,
+                       fs: int) -> DeviceColumn:
+    """The reference's `_cast_decimal_wide` over K31: a rescale with the
+    precision (and for a narrow target the int64) test, or a wide decimal
+    to double or to an integral."""
+    if isinstance(to, DecimalType):
+        if isinstance(frm, (FloatType, DoubleType)):
+            raise NotImplementedError(_CPU_ONLY.format(frm, to))
+        data, valid = d128.rescale_data(c.data, to.scale - fs, c.validity,
+                                        to.precision, is_wide(to))
+        return DeviceColumn(to, data, valid)
+    if isinstance(to, (FloatType, DoubleType)):
+        data = d128.to_double(c.data, fs)
+        return DeviceColumn(to, data.to(torch_dtype(to)), c.validity)
+    # integral: the fraction truncated (Spark's cast), wrapped like Java
+    return DeviceColumn(to, d128.to_long(c.data, fs).to(torch_dtype(to)),
+                        c.validity)
 
 
 def _int_width(dt: DataType) -> int:
@@ -170,6 +248,8 @@ def _cast_from_string(c: DeviceColumn, to: DataType,
         return SC.parse_long(c, to)
     if isinstance(to, (FloatType, DoubleType)):
         return SC.parse_double(c, to)
+    if isinstance(to, DecimalType):
+        return SC.parse_decimal(c, to)
     if isinstance(to, DateType):
         return SC.parse_date(c, to)
     if isinstance(to, TimestampType):
@@ -197,36 +277,50 @@ def _cast_to_string(c: DeviceColumn, tz: str = "UTC") -> DeviceColumn:
         return _date_to_string(c)
     if isinstance(c.dtype, IntegralType):
         return _int_to_string(c.data.to(torch.int64), c.validity)
+    if isinstance(c.dtype, DecimalType):
+        return _decimal_to_string(c)
     raise TypeError(f"cast {c.dtype} -> string not supported on device")
 
 
 # ------------------------------------------------------ K24 str_format
 
 def _format(mode: int, values: torch.Tensor, mb: int,
-            codes: Optional[torch.Tensor] = None, days_input: bool = False
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            codes: Optional[torch.Tensor] = None, days_input: bool = False,
+            scale: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """One K24 launch: ([n, mb] uint8 text, int32 lengths). The hex mode
-    (Hex, expr/mathexpr.py) counts its launches apart."""
+    (Hex, expr/mathexpr.py) and the decimal modes count their launches
+    apart; the decimal modes take their scale as `scale` ([n, 2] limbs in
+    the wide one)."""
     if mode == kernels.FORMAT_HEX and (days_input or mb < 16):
         raise ValueError(f"hex text takes int64 values and width >= 16, "
                          f"not width {mb}")
     dev = values.device
     values = values.contiguous()
     want = torch.int32 if days_input else torch.int64
-    kernels.require(values, "values", want, dev)
+    kernels.require(values, "values", want, dev,
+                    ndim=2 if mode == kernels.FORMAT_DECIMAL128 else 1)
+    if mode in (kernels.FORMAT_DECIMAL, kernels.FORMAT_DECIMAL128):
+        ncodes = scale
+    else:
+        ncodes = 0 if codes is None else int(codes.shape[0])
     n = int(values.shape[0])
     out = torch.empty((n, mb), dtype=torch.uint8, device=dev)
     lengths = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
         _build.check(_build.lib().srtpu_str_format(
             mode, values.data_ptr(), int(days_input), n,
-            None if codes is None else codes.data_ptr(),
-            0 if codes is None else int(codes.shape[0]), out.data_ptr(), mb,
+            None if codes is None else codes.data_ptr(), ncodes,
+            out.data_ptr(), mb,
             lengths.data_ptr(), kernels.sm_count(values),
             kernels.stream_ptr(values)), "str_format")
-        kernels.launches["str_format_hex" if mode == kernels.FORMAT_HEX
-                         else "str_format"] += 1
+        kernels.launches[_FORMAT_COUNTER.get(mode, "str_format")] += 1
     return out, lengths
+
+
+#: K24's modes whose launches count apart
+_FORMAT_COUNTER = {kernels.FORMAT_HEX: "str_format_hex",
+                   kernels.FORMAT_DECIMAL: "str_format_decimal",
+                   kernels.FORMAT_DECIMAL128: "str_format_decimal"}
 
 
 _MAX_DIGITS = 20
@@ -345,4 +439,54 @@ def _timestamp_to_string(c: DeviceColumn, tz: str = "UTC") -> DeviceColumn:
         data, lengths = _timestamp_to_string_plain(us)
     else:
         data, lengths = _format(kernels.FORMAT_TIMESTAMP, us, 32)
+    return DeviceColumn(string_t, data, c.validity, lengths)
+
+
+def _decimal_to_string_plain(v: torch.Tensor, s: int) -> Tuple[
+        torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K24's decimal mode (scale s > 0): the
+    reference's whole part as integral text, a '-' before a whole part of
+    0 under a negative value, '.', then s fraction digits; width 48."""
+    f = 10 ** s
+    mag = torch.abs(v)
+    whole = torch.sign(v) * (mag // f)
+    frac = mag % f
+    wdata, wlen = _int_to_string_plain(whole)
+    neg_zero = (whole == 0) & (v < 0)
+    mb = 48
+    wlen = wlen + neg_zero.to(torch.int32)
+    pos = torch.arange(mb, dtype=torch.int32, device=v.device)[None, :]
+    wsrc = torch.clamp(pos - neg_zero[:, None].to(torch.int32), 0,
+                       int(wdata.shape[1]) - 1)
+    padded = torch.nn.functional.pad(wdata, (0, mb - int(wdata.shape[1])))
+    body = torch.gather(padded, 1, wsrc.to(torch.int64)).to(torch.int64)
+    body = torch.where(neg_zero[:, None] & (pos == 0), ord("-"), body)
+    out = torch.where(pos < wlen[:, None], body, 0)
+    out = torch.where(pos == wlen[:, None], ord("."), out)
+    fpos = pos - wlen[:, None] - 1
+    fdig = (frac[:, None] // torch.pow(10, torch.clamp(
+        s - 1 - fpos, 0, 18).to(torch.int64))) % 10 + ord("0")
+    in_frac = (fpos >= 0) & (fpos < s)
+    out = torch.where(in_frac, fdig, out).to(torch.uint8)
+    return out, (wlen + 1 + s).to(torch.int32)
+
+
+def _decimal_to_string(c: DeviceColumn) -> DeviceColumn:
+    """Kernel K24 (decimal modes): a decimal's text, width 48 (a scale-0
+    decimal of <= 18 digits prints as its integral, width 32)."""
+    s = c.dtype.scale
+    if c.data.dim() == 2:
+        if c.data.device.type == "cpu":
+            data, lengths = d128.decimal_string(*d128.split(c.data), s)
+        else:
+            data, lengths = _format(kernels.FORMAT_DECIMAL128, c.data, 48,
+                                    scale=s)
+        return DeviceColumn(string_t, data, c.validity, lengths)
+    if s == 0:
+        return _int_to_string(c.data.to(torch.int64), c.validity)
+    v = c.data.to(torch.int64)
+    if v.device.type == "cpu":
+        data, lengths = _decimal_to_string_plain(v, s)
+    else:
+        data, lengths = _format(kernels.FORMAT_DECIMAL, v, 48, scale=s)
     return DeviceColumn(string_t, data, c.validity, lengths)

@@ -10,13 +10,19 @@ built from; `references()` and `transform()` serve the optimizer.
 from __future__ import annotations
 
 import copy
+import decimal
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnBatch, DeviceColumn
-from spark_rapids_tpu_torch.sqltypes import DataType, LongType, StringType
-from spark_rapids_tpu_torch.sqltypes.datatypes import torch_dtype
+from spark_rapids_tpu_torch.sqltypes import (
+    DataType,
+    DecimalType,
+    LongType,
+    StringType,
+)
+from spark_rapids_tpu_torch.sqltypes.datatypes import is_wide, torch_dtype
 
 
 class EvalContext:
@@ -117,7 +123,10 @@ class BoundReference(Expression):
 
 class Literal(Expression):
     """A constant, broadcast to the batch capacity. Python floats are
-    double (float64) and ints int or long, as in the reference."""
+    double (float64), ints int or long and a `decimal.Decimal` the
+    decimal(max(digits, scale), scale) of its digits, as in the reference;
+    a decimal value is stored unscaled at its type's scale ([cap, 2] limbs
+    past 18 digits)."""
 
     def __init__(self, value: Any, dtype: Optional[DataType] = None):
         super().__init__()
@@ -149,12 +158,29 @@ class Literal(Expression):
                                dtype=torch.bool, device=device)
             return DeviceColumn(dt, data, valid, lengths)
         tdt = torch_dtype(dt)
+        wide = is_wide(dt)
         if self.value is None:
             return DeviceColumn(
-                dt, torch.zeros(cap, dtype=tdt, device=device),
+                dt, torch.zeros((cap, 2) if wide else cap, dtype=tdt,
+                                device=device),
                 torch.zeros(cap, dtype=torch.bool, device=device))
+        v = self.value
+        if isinstance(dt, DecimalType):
+            # the unscaled value at the type's scale, rounded as
+            # Decimal's to_integral_value rounds (HALF_EVEN)
+            with decimal.localcontext() as dctx:
+                dctx.prec = 50
+                v = int(decimal.Decimal(str(v)).scaleb(dt.scale)
+                        .to_integral_value())
+            if wide:
+                lo = v & ((1 << 64) - 1)
+                row = torch.tensor([v >> 64, lo - (1 << 64) if lo >> 63
+                                    else lo], dtype=torch.int64)
+                return DeviceColumn(
+                    dt, row.to(device)[None, :].expand(cap, 2),
+                    torch.ones(cap, dtype=torch.bool, device=device))
         return DeviceColumn(
-            dt, torch.full((cap,), self.value, dtype=tdt, device=device),
+            dt, torch.full((cap,), v, dtype=tdt, device=device),
             torch.ones(cap, dtype=torch.bool, device=device))
 
     def key(self):
@@ -179,6 +205,10 @@ def _infer_literal_type(v: Any) -> DataType:
         return double
     if isinstance(v, str):
         return string
+    if isinstance(v, decimal.Decimal):
+        _, digits, exp = v.as_tuple()
+        scale = max(0, -exp)
+        return DecimalType(max(len(digits), scale), scale)
     raise TypeError(f"literal type of {v!r} is not ported yet")
 
 

@@ -310,6 +310,13 @@ class AddMonths(Expression):
                             binary_validity(c, n))
 
 
+def _div(x: torch.Tensor, f: float) -> torch.Tensor:
+    """x / f, IEEE-rounded: on the card torch divides by a Python scalar as
+    a multiply by its reciprocal (1 ulp off on some values), so f goes in
+    as a tensor on x's device."""
+    return x / torch.full_like(x, f)
+
+
 class MonthsBetween(TzAware, Expression):
     """months_between(end, start[, roundOff]): Spark's 31-day-month
     fractional rule: integral when both are the same day of month or both
@@ -334,7 +341,7 @@ class MonthsBetween(TzAware, Expression):
         else:
             us = col.data.to(torch.int64) * _US_PER_DAY
         days = torch.div(us, _US_PER_DAY, rounding_mode="floor")
-        tod = (us - days * _US_PER_DAY).to(torch.float64) / _US_PER_SEC
+        tod = _div((us - days * _US_PER_DAY).to(torch.float64), _US_PER_SEC)
         y, m, d = civil_from_days(days)
         return y, m, d, tod
 
@@ -349,11 +356,11 @@ class MonthsBetween(TzAware, Expression):
         integral = (d1 == d2) | (last1 & last2)
         sec1 = d1.to(torch.float64) * 86400.0 + t1
         sec2 = d2.to(torch.float64) * 86400.0 + t2
-        frac = (sec1 - sec2) / (31.0 * 86400.0)
+        frac = _div(sec1 - sec2, 31.0 * 86400.0)
         out = torch.where(integral, months, months + frac)
         if self.round_off:
             # half to even, as jnp.round
-            out = torch.round(out * 1e8) / 1e8
+            out = _div(torch.round(out * 1e8), 1e8)
         return DeviceColumn(double, out, binary_validity(e, s))
 
 

@@ -6,6 +6,14 @@ and the null tests never return null; And and Or are Kleene. String comparison i
 UTF-8 bytes via the packed orderable keys; `<encoded column> = <string
 literal>` compares dictionary codes (columnar/encoding.py), and so does
 In over such a column, one code a literal.
+
+Decimals compare as the reference aligns them: against a float or double
+both sides as doubles; otherwise at the common scale s, as int64 when
+every digit fits 18 (decimal(18, s)), else both widened to decimal(38, s)
+[n, 2] limbs (an integral counts as decimal(19, 0)), which kernel K31
+rescales and orders (ops/decimal128.py: `rescale_data`, `compare`). A
+wide decimal becomes a double through K31 too, and every division by a
+power of ten divides by a tensor, so it stays IEEE-exact on the card.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from spark_rapids_tpu_torch.expr.core import (
     Expression,
     binary_validity,
 )
+from spark_rapids_tpu_torch.ops import decimal128 as d128
 from spark_rapids_tpu_torch.ops.common import (
     _float_orderable,
     _string_orderable,
@@ -41,7 +50,19 @@ def _comparable(col: DeviceColumn) -> List[torch.Tensor]:
         return _string_orderable(col)
     if isinstance(col.dtype, (FloatType, DoubleType)):
         return [_float_orderable(col.data)]
+    if col.data.dim() == 2:  # decimal(> 18) limbs
+        return d128.orderable_limbs(col.data)
     return [col.data.to(torch.int64)]
+
+
+def _wide_pair(lc: DeviceColumn, rc: DeviceColumn) -> bool:
+    return (lc.data.dim() == 2 and isinstance(lc.dtype, DecimalType)
+            and rc.data.dim() == 2)
+
+
+def _cmp(lc: DeviceColumn, rc: DeviceColumn) -> torch.Tensor:
+    """K31's -1 / 0 / 1 order of two decimal(> 18) limb columns."""
+    return d128.compare(lc.data, rc.data)
 
 
 def _tuple_lt(a: List[torch.Tensor], b: List[torch.Tensor]) -> torch.Tensor:
@@ -69,19 +90,59 @@ def _pad_string(col: DeviceColumn, mb: int) -> DeviceColumn:
 
 
 def _as_double(col: DeviceColumn) -> DeviceColumn:
+    """A numeric column as double; a decimal's unscaled value divided by
+    10.0 ** scale (a tensor divisor: IEEE division on the card too)."""
+    if isinstance(col.dtype, DecimalType):
+        s = col.dtype.scale
+        if col.data.dim() == 2:
+            return DeviceColumn(double, d128.to_double(col.data, s),
+                                col.validity)
+        p = torch.tensor(10.0 ** s, dtype=torch.float64,
+                         device=col.data.device)
+        return DeviceColumn(double, col.data.to(torch.float64) / p,
+                            col.validity)
     return DeviceColumn(double, col.data.to(torch.float64), col.validity)
+
+
+def _coerce_decimal(lc: DeviceColumn, rc: DeviceColumn):
+    """The reference's decimal alignment (`expr/predicates.py:84-135`)."""
+    lt, rt = lc.dtype, rc.dtype
+    ld, rd = isinstance(lt, DecimalType), isinstance(rt, DecimalType)
+    if isinstance(lt, (FloatType, DoubleType)) or isinstance(
+            rt, (FloatType, DoubleType)):
+        return _as_double(lc), _as_double(rc)  # decimal vs float
+    ls = lt.scale if ld else 0
+    rs = rt.scale if rd else 0
+    s = max(ls, rs)
+    lp = lt.precision if ld else 19
+    rp = rt.precision if rd else 19
+    need = max(lp - ls, rp - rs) + s  # digits at the common scale
+    if lc.data.dim() == 2 or rc.data.dim() == 2 or need > 18:
+        # a wide side, or too many digits: both as decimal(38, s) limbs
+        out_t = DecimalType(DecimalType.MAX_PRECISION, s)
+
+        def widen(col, delta):
+            data, _ = d128.rescale_data(col.data, delta, None)
+            return DeviceColumn(out_t, data, col.validity)
+
+        return widen(lc, s - ls), widen(rc, s - rs)
+    out_t = DecimalType(DecimalType.MAX_LONG_DIGITS, s)
+    return (DeviceColumn(out_t, lc.data.to(torch.int64) * (10 ** (s - ls)),
+                         lc.validity, lc.lengths),
+            DeviceColumn(out_t, rc.data.to(torch.int64) * (10 ** (s - rs)),
+                         rc.validity, rc.lengths))
 
 
 def _coerce_numeric(lc: DeviceColumn, rc: DeviceColumn):
     """Promote mismatched numeric operands (Spark's ImplicitTypeCasts):
     int vs float and float vs double compare as doubles; two integral
-    widths compare exactly as int64 keys. Decimal comparisons are not
-    ported yet."""
+    widths compare exactly as int64 keys; decimals align as
+    `_coerce_decimal` says."""
     lt, rt = lc.dtype, rc.dtype
     if not (isinstance(lt, NumericType) and isinstance(rt, NumericType)):
         return lc, rc
     if isinstance(lt, DecimalType) or isinstance(rt, DecimalType):
-        raise NotImplementedError("decimal comparison is not ported yet")
+        return _coerce_decimal(lc, rc)
     l_float = isinstance(lt, (FloatType, DoubleType))
     r_float = isinstance(rt, (FloatType, DoubleType))
     if l_float or r_float:
@@ -126,6 +187,8 @@ class EqualTo(BinaryComparison):
         if isinstance(lc.dtype, (FloatType, DoubleType)):
             both_nan = torch.isnan(lc.data) & torch.isnan(rc.data)
             eq = (lc.data == rc.data) | both_nan
+        elif _wide_pair(lc, rc):
+            eq = _cmp(lc, rc) == 0
         else:
             eq = _tuple_eq(_comparable(lc), _comparable(rc))
         return DeviceColumn(boolean, eq, binary_validity(lc, rc))
@@ -143,6 +206,8 @@ class EqualNullSafe(BinaryComparison):
         if isinstance(lc.dtype, (FloatType, DoubleType)):
             both_nan = torch.isnan(lc.data) & torch.isnan(rc.data)
             veq = (lc.data == rc.data) | both_nan
+        elif _wide_pair(lc, rc):
+            veq = _cmp(lc, rc) == 0
         else:
             veq = _tuple_eq(_comparable(lc), _comparable(rc))
         both_null = ~lc.validity & ~rc.validity
@@ -159,6 +224,8 @@ class LessThan(BinaryComparison):
             lnan, rnan = torch.isnan(lc.data), torch.isnan(rc.data)
             r = torch.where(lnan, False, r)
             r = torch.where(rnan & ~lnan, True, r)
+        elif _wide_pair(lc, rc):
+            r = _cmp(lc, rc) < 0
         else:
             r = _tuple_lt(_comparable(lc), _comparable(rc))
         return DeviceColumn(boolean, r, binary_validity(lc, rc))

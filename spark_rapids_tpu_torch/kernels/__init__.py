@@ -47,15 +47,17 @@ module that the JAX package keeps the function in:
   Replace's emission (csrc/str_assemble.cu)
 
 - K22 `ops.stringcast.parse_long`, `parse_double`, `parse_bool`,
-  `parse_date` and `parse_timestamp`: Spark's string parse, one mode a
-  target type (csrc/str_parse.cu)
+  `parse_date`, `parse_timestamp` and `parse_decimal`: Spark's string
+  parse, one mode a target type (csrc/str_parse.cu)
 - K23 `ops.tzdb.utc_to_local` and `local_to_utc`: the time-zone rebase
   through the zone's transition table (csrc/tz_rebase.cu)
 - K24 `expr.cast._int_to_string`, `_date_to_string`,
   `_timestamp_to_string` and `expr.datetimes._pattern_to_string`
-  (DateFormat): integral, date and timestamp text, and in its hex mode
-  `expr.mathexpr.hex_text` (Hex) (csrc/str_format.cu; the hex mode's
-  launches count apart, as "str_format_hex")
+  (DateFormat): integral, date and timestamp text, in its hex mode
+  `expr.mathexpr.hex_text` (Hex), and in its decimal modes
+  `expr.cast._decimal_to_string` (csrc/str_format.cu; the hex mode's
+  launches count apart, as "str_format_hex", and the decimal modes' as
+  "str_format_decimal")
 
 - K25 `expr.aggregates.rank_select` and `rank_interp`: the percentile
   aggregates' rank selection over rows sorted by (group, value)
@@ -77,8 +79,15 @@ module that the JAX package keeps the function in:
   chained over key columns (csrc/xxhash64.cu, with the HashCol layout of
   csrc/murmur3.cuh shared with K5 and K6)
 
+- K31 `ops.decimal128.add`, `multiply`, `rescale`, `average`, `negate`,
+  `absolute`, `compare`, `to_double` and `to_long`: 128-bit decimal
+  arithmetic, one mode a function (csrc/decimal128.cu)
+- K32 `ops.decimal128.seg_sum128`: the segmented 128-bit sum with its
+  counts (csrc/seg_sum128.cu)
+
 K18-K22 and K24 share the row reader and writer of csrc/strings.cuh, K22
-and K24 the calendar of csrc/calendar.cuh.
+and K24 the calendar of csrc/calendar.cuh, K24, K31 and K32 the 128-bit
+arithmetic of csrc/decimal128.cuh.
 
 A wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel (adding one to its count in `launches`) or
@@ -138,6 +147,10 @@ launches: Dict[str, int] = {
     "codes_remap": 0,
     "xxhash64": 0,
     "str_format_hex": 0,
+    "decimal128": 0,
+    "seg_sum128": 0,
+    "str_parse_decimal": 0,
+    "str_format_decimal": 0,
 }
 
 
@@ -183,7 +196,7 @@ class PackCol(ctypes.Structure):
 
 #: PackCol.kind values (PackKind in csrc/sort_keys.cu)
 (PACK_I8, PACK_I16, PACK_I32, PACK_I64, PACK_F32, PACK_F64, PACK_STR,
- PACK_BOOL) = range(8)
+ PACK_BOOL, PACK_D128) = range(9)
 #: key columns one K9 pack launch takes (kMaxPackCols)
 MAX_PACK_COLS = 16
 
@@ -285,10 +298,14 @@ ELEM_KINDS = {torch.int8: 0, torch.uint8: 0, torch.bool: 0, torch.int16: 1,
 MAX_RANK_TARGETS = 128
 
 #: K22's modes (ParseMode in csrc/str_parse.cu)
-PARSE_LONG, PARSE_DOUBLE, PARSE_BOOL, PARSE_DATE, PARSE_TIMESTAMP = range(5)
+(PARSE_LONG, PARSE_DOUBLE, PARSE_BOOL, PARSE_DATE, PARSE_TIMESTAMP,
+ PARSE_DECIMAL) = range(6)
 #: K24's modes (FormatMode in csrc/str_format.cu)
-FORMAT_INT, FORMAT_DATE, FORMAT_TIMESTAMP, FORMAT_PATTERN, FORMAT_HEX = \
-    range(5)
+(FORMAT_INT, FORMAT_DATE, FORMAT_TIMESTAMP, FORMAT_PATTERN, FORMAT_HEX,
+ FORMAT_DECIMAL, FORMAT_DECIMAL128) = range(7)
+#: K31's modes (D128Mode in csrc/decimal128.cu)
+(D128_ADD, D128_SUB, D128_MUL, D128_RESCALE, D128_AVG, D128_NEG, D128_ABS,
+ D128_CMP, D128_TO_F64, D128_TO_I64) = range(10)
 
 
 def struct_array(cls, items) -> ctypes.c_void_p:

@@ -98,6 +98,9 @@ _SIGNATURES = {
     "srtpu_round_robin_partition": [_L, _P, _L, _I, _L, _P, _P, _P, _P],
     "srtpu_codes_remap": [_P, _I, _L, _P, _I, _P, _I, _P],
     "srtpu_xxhash64": [_P, _I, _L, _L, _P, _P, _I, _P],
+    "srtpu_decimal128": [_I, _P, _I, _I, _P, _I, _I, _P, _P, _L, _I, _I, _P,
+                         _P, _I, _P],
+    "srtpu_seg_sum128": [_P, _I, _P, _P, _L, _I, _P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()

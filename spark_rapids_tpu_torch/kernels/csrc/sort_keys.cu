@@ -12,7 +12,10 @@
 // sign-extended integers and codes, 0/1 booleans, the total-order bits of
 // float64/float32 (NaN canonical, -0.0 folded into 0.0 when asked),
 // strings as big-endian 4-byte words of the zero-padded bytes with the
-// length last; null or dead rows' values are 0; descending is bitwise NOT
+// length last, a decimal(> 18)'s [n, 2] limbs as two words, the high limb
+// and the low one with its sign bit flipped (spark_rapids_tpu/ops/
+// common.py:140 over decimal128.py:238 orderable_limbs); null or dead
+// rows' values are 0; descending is bitwise NOT
 // of the values. A join side may instead lead with one rank word "some key
 // is null or the row is dead" and write the all-keys-valid mask.
 //
@@ -49,7 +52,7 @@ namespace srtpu {
 constexpr int kMaxPackCols = 16;
 
 enum PackKind { PK_I8 = 0, PK_I16, PK_I32, PK_I64, PK_F32, PK_F64, PK_STR,
-                PK_BOOL };
+                PK_BOOL, PK_D128 };
 
 struct PackCol {  // PackCol in kernels/__init__.py
   const void* data;
@@ -122,6 +125,15 @@ pack_kernel(PackArgs a, const uint8_t* __restrict__ live, i64 n,
             out += n;
           }
           *out = (use ? (i64)col.lengths[i] : 0) ^ flip;
+          break;
+        }
+        case PK_D128: {
+          const i64* limbs = (const i64*)col.data + 2 * i;
+          *out = (use ? limbs[0] : 0) ^ flip;
+          out += n;
+          *out = (use ? (i64)((unsigned long long)limbs[1] ^
+                              0x8000000000000000ull)
+                      : 0) ^ flip;
           break;
         }
         case PK_F64: {

@@ -1,8 +1,9 @@
 // K22 str_parse: Spark's non-ANSI string -> boolean / integral / double /
-// date / timestamp parse of each row of a string column.
+// decimal / date / timestamp parse of each row of a string column.
 //
 // Replaces spark_rapids_tpu/ops/stringcast.py: parse_long (:71),
-// parse_double (:180, over _parse_mantissa :106), parse_bool (:236),
+// parse_double (:180, over _parse_mantissa :106), parse_decimal (:204),
+// parse_bool (:236),
 // parse_date (:313) and parse_timestamp (:319), with their helpers
 // _token_bounds (:34), _parse_uint_field (:249), _find_char (:266) and
 // _parse_date_fields (:278). XLA compiles those as whole-matrix passes:
@@ -20,7 +21,13 @@
 //                    first ' ' or 'T', year <= 9999, the day of month
 //                    round-tripped through the calendar;
 //   kParseTimestamp  out int64 wall-clock microseconds: the date, then
-//                    h[h]:m[m][:s[s][.f{1,6}]] after the ' ' or 'T'.
+//                    h[h]:m[m][:s[s][.f{1,6}]] after the ' ' or 'T';
+//   kParseDecimal    out int64, a decimal(p <= 18, s) (s = lo, p = hi): the
+//                    double mode's mantissa (18 significant digits) shifted
+//                    by 10^(exp + extra - frac + s) in exact int64, up
+//                    (overflow -> null) or down with HALF_UP (below 1 ulp
+//                    of 10^-18: 0), null where |value| >= 10^p; every
+//                    product and quotient wraps and floors as jnp's do.
 // Every mode first trims the bytes <= 0x20 at both ends (Spark's
 // trimAll). out_valid = validity & the parse succeeded; out is 0 where it
 // did not.
@@ -43,7 +50,7 @@
 namespace srtpu {
 
 enum ParseMode { kParseLong = 0, kParseDouble = 1, kParseBool = 2,
-                 kParseDate = 3, kParseTimestamp = 4 };
+                 kParseDate = 3, kParseTimestamp = 4, kParseDecimal = 5 };
 
 constexpr i64 kI64Min = -9223372036854775807LL - 1;
 constexpr i64 kUsPerDay = 86400000000LL;
@@ -134,28 +141,42 @@ __device__ __forceinline__ bool parse_long(RowReader& row, const Token& t,
   return out >= lo && out <= hi;
 }
 
-__device__ __forceinline__ bool parse_double(RowReader& row, const Token& t,
-                                             int mb, double& out) {
+// the shared float/decimal scan of the reference's _parse_mantissa
+struct Mantissa {
+  i64 mant;       // the negative magnitude, at most 18 significant digits
+  int extra_int;  // integer digits past the cap
+  int frac;       // fraction digits within the cap
+  i64 exp;        // the exponent's value, magnitude capped at 100,000
+  bool neg, syntax_ok;
+  int start;      // the first byte after the sign
+};
+
+__device__ __forceinline__ Mantissa scan_mantissa(RowReader& row,
+                                                  const Token& t, int mb) {
   const uint32_t c0 = char_at(row, t.first, mb);
-  const bool has_sign = c0 == '+' || c0 == '-', neg = c0 == '-';
-  const int start = t.first + (has_sign ? 1 : 0);
-  i64 mant = 0;  // the negative magnitude, at most 18 significant digits
-  int mant_digits = 0, extra_int = 0, frac = 0;
+  const bool has_sign = c0 == '+' || c0 == '-';
+  Mantissa m;
+  m.neg = c0 == '-';
+  m.start = t.first + (has_sign ? 1 : 0);
+  m.mant = 0;
+  m.extra_int = 0;
+  m.frac = 0;
+  int mant_digits = 0;
   i64 exp_val = 0;
   bool exp_neg = false, seen_digit = false, seen_dot = false, in_exp = false,
        exp_digit = false, err = false;
-  uint32_t prev = start > 0 ? char_at(row, start - 1, mb) : 0u;
-  for (int i = start; i <= t.last; ++i) {
+  uint32_t prev = m.start > 0 ? char_at(row, m.start - 1, mb) : 0u;
+  for (int i = m.start; i <= t.last; ++i) {
     const uint32_t c = row[i];
     const bool is_d = c >= '0' && c <= '9', is_dot = c == '.',
                is_e = c == 'e' || c == 'E', is_sg = c == '+' || c == '-';
     const i64 d = (i64)c - '0';
     const bool dig_m = is_d && !in_exp;
-    const bool grow = dig_m && (mant_digits < 18 || mant == 0);
-    if (grow) mant = mant * 10 - d;
-    if (grow && (mant != 0 || d > 0 || seen_dot)) ++mant_digits;
-    if (dig_m && !grow && !seen_dot) ++extra_int;
-    if (grow && seen_dot) ++frac;
+    const bool grow = dig_m && (mant_digits < 18 || m.mant == 0);
+    if (grow) m.mant = m.mant * 10 - d;
+    if (grow && (m.mant != 0 || d > 0 || seen_dot)) ++mant_digits;
+    if (dig_m && !grow && !seen_dot) ++m.extra_int;
+    if (grow && seen_dot) ++m.frac;
     seen_digit |= dig_m;
     err |= is_dot && (seen_dot || in_exp);
     seen_dot |= is_dot && !in_exp;
@@ -173,19 +194,58 @@ __device__ __forceinline__ bool parse_double(RowReader& row, const Token& t,
     prev = c;
   }
   err |= in_exp && !exp_digit;
-  const bool syntax_ok = t.nonempty && !err && seen_digit;
-  const bool is_inf = matches(row, start, t.last, mb, "infinity", 8) ||
-                      matches(row, start, t.last, mb, "inf", 3);
-  const bool is_nan = matches(row, start, t.last, mb, "nan", 3);
-  const i64 e = (exp_neg ? -exp_val : exp_val) + extra_int - frac;
-  const double mag = (double)(-mant), ef = (double)e;
+  m.syntax_ok = t.nonempty && !err && seen_digit;
+  m.exp = exp_neg ? -exp_val : exp_val;
+  return m;
+}
+
+__device__ __forceinline__ bool parse_double(RowReader& row, const Token& t,
+                                             int mb, double& out) {
+  const Mantissa m = scan_mantissa(row, t, mb);
+  const bool is_inf = matches(row, m.start, t.last, mb, "infinity", 8) ||
+                      matches(row, m.start, t.last, mb, "inf", 3);
+  const bool is_nan = matches(row, m.start, t.last, mb, "nan", 3);
+  const i64 e = m.exp + m.extra_int - m.frac;
+  const double mag = (double)(-m.mant), ef = (double)e;
   const double half = fmin(fmax(ef, -300.0), 300.0);
   double v = mag * pow(10.0, half) * pow(10.0, ef - half);
-  if (neg) v = -v;
-  if (is_inf && t.nonempty) v = neg ? -CUDART_INF : CUDART_INF;
+  if (m.neg) v = -v;
+  if (is_inf && t.nonempty) v = m.neg ? -CUDART_INF : CUDART_INF;
   if (is_nan && t.nonempty) v = __longlong_as_double(0x7ff8000000000000LL);
   out = v;
-  return syntax_ok || ((is_inf || is_nan) && t.nonempty);
+  return m.syntax_ok || ((is_inf || is_nan) && t.nonempty);
+}
+
+__device__ __forceinline__ i64 pow10_64(i64 k) {
+  i64 p = 1;
+  for (i64 i = 0; i < k; ++i) p *= 10;
+  return p;
+}
+
+// the reference's parse_decimal over the mantissa, in its int64 steps
+__device__ __forceinline__ bool parse_decimal(RowReader& row, const Token& t,
+                                              int mb, int scale,
+                                              int precision, i64& out) {
+  const Mantissa m = scan_mantissa(row, t, mb);
+  const i64 mag = -m.mant;
+  const i64 shift = m.exp + m.extra_int - m.frac + scale;
+  const i64 limit = pow10_64(precision < 18 ? precision : 18);
+  const i64 up = shift < 0 ? 0 : (shift > 18 ? 18 : shift);
+  const i64 pow_up = pow10_64(up);
+  const i64 grew = wrap_mul(mag, pow_up);
+  bool ovf_up = shift > 18 && mag > 0;
+  ovf_up |= mag != 0 && floordiv(grew, pow_up) != mag;
+  const i64 down = -shift < 0 ? 0 : (-shift > 18 ? 18 : -shift);
+  const i64 pow_dn = pow10_64(down);
+  i64 q = floordiv(grew, pow_dn);
+  const i64 rem = wrap_add(grew, -wrap_mul(q, pow_dn));
+  q += wrap_mul(2, rem) >= pow_dn ? 1 : 0;
+  if (-shift > 18) q = 0;
+  const i64 scaled = shift >= 0 ? grew : q;
+  const i64 value = m.neg ? wrap_mul(scaled, -1) : scaled;
+  const i64 mag_out = scaled < 0 ? wrap_mul(scaled, -1) : scaled;
+  out = value;
+  return m.syntax_ok && !ovf_up && mag_out < limit;
 }
 
 __device__ __forceinline__ bool parse_bool(RowReader& row, const Token& t,
@@ -285,6 +345,10 @@ str_parse_kernel(int mode, const uint8_t* __restrict__ data, i64 stride,
       bool v = false;
       ok = ok && parse_bool(row, t, mb, v);
       static_cast<uint8_t*>(out)[r] = ok && v;
+    } else if (mode == kParseDecimal) {
+      i64 v = 0;
+      ok = ok && parse_decimal(row, t, mb, (int)lo, (int)hi, v);
+      static_cast<i64*>(out)[r] = ok ? v : 0;
     } else if (mode == kParseDate) {
       int days = 0, date_end;
       ok = ok && parse_date(row, t, days, date_end);
@@ -304,15 +368,16 @@ using namespace srtpu;
 
 // data: n rows of mb bytes, row r at data + r * stride (stride 0: one row
 // for all); lengths: [n] int32; validity: [n] bool; [lo, hi]: the
-// integral mode's target range; out: [n] of the mode's type; out_valid:
-// [n] bool.
+// integral mode's target range, or the decimal mode's (scale, precision);
+// out: [n] of the mode's type; out_valid: [n] bool.
 extern "C" int srtpu_str_parse(int mode, const void* data, long long stride,
                                const void* lengths, const void* validity,
                                long long n, int mb, long long lo,
                                long long hi, void* out, void* out_valid,
                                int sm_count, void* stream) {
   if (n < 1 || mb < 1 || stride < 0 || mode < kParseLong ||
-      mode > kParseTimestamp || lo > hi)
+      mode > kParseDecimal || lo > hi ||
+      (mode == kParseDecimal && (lo < 0 || hi > 18)))
     return (int)cudaErrorInvalidValue;
   str_parse_kernel<<<str_blocks(n, sm_count), kStrThreads, 0,
                      (cudaStream_t)stream>>>(

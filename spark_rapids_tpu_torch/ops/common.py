@@ -12,6 +12,9 @@ ORDER BY / GROUP BY / join-key ordering:
   for doubles are a TPU limit and are not copied;
 - strings: zero-padded bytes packed big-endian 4 per int64 word, with the
   length as the final tie-break;
+- decimal128 ([n, 2] limbs): two words, the high limb and the low limb
+  with its sign bit flipped (the reference's `orderable_limbs`), whose
+  lexicographic signed order is the 128-bit order;
 - a leading "null rank" key orders NULLS FIRST/LAST and forces dead rows
   (index >= num_rows) after every live row.
 
@@ -109,6 +112,8 @@ def orderable_keys_plain(col: DeviceColumn, ascending: bool, nulls_first: bool,
         vals = _string_orderable(col)
     elif isinstance(dt, (FloatType, DoubleType)):
         vals = [_float_orderable(col.data)]
+    elif col.data.dim() == 2:  # decimal(> 18) limbs
+        vals = [col.data[:, 0], col.data[:, 1] ^ _I64_MIN]
     else:
         vals = [col.data.to(torch.int64)]
     # null/dead rows: zero the value keys so order within them is stable
@@ -204,7 +209,7 @@ def _pack_ready(spec: KeySpec, plain: bool = False) -> KeySpec:
 def _value_words(col: DeviceColumn) -> int:
     if col.encoding is None and isinstance(col.dtype, StringType):
         return (col.max_bytes + 3) // 4 + 1
-    return 1
+    return 2 if col.data.dim() == 2 else 1  # decimal(> 18): two limbs
 
 
 def pack_ready(specs: Sequence[KeySpec]) -> List[KeySpec]:
@@ -279,6 +284,9 @@ def pack_keys(specs: Sequence[KeySpec], live: torch.Tensor,
             kernels.require(data, "string data", torch.uint8, dev, ndim=2)
             kernels.require(c.lengths, "lengths", torch.int32, dev)
             kind, row_bytes = kernels.PACK_STR, int(data.shape[1])
+        elif data.dim() == 2 and data.dtype == torch.int64 \
+                and data.shape[1] == 2:
+            kind, row_bytes = kernels.PACK_D128, 0
         else:
             kind = _PACK_KIND.get(data.dtype)
             if kind is None or data.dim() != 1:

@@ -10,13 +10,15 @@ invalid input gives null):
   "infinity"/"inf"/"nan"; the value is mag * 10^half * 10^(e - half)
   with half = clip(e, -300, 300), in that order, as the reference
   computes it (not correctly rounded);
+- decimal(p <= 18, s): the same mantissa (18 significant digits) shifted
+  to the scale in exact int64: up (an overflow is null) or down with
+  HALF_UP, null where |value| >= 10^p (a wider target runs on the
+  reference's CPU engine: the planner refuses it);
 - boolean: true/t/yes/y/1 and false/f/no/n/0, case-insensitive;
 - date: y{1,7}[-m[-d]] with anything after ' ' or 'T' ignored; years
   past 9,999 are null and the day of month must round-trip;
 - timestamp: date [ |T] h[h]:m[m][:s[s][.f{1,6}]], a wall clock the
   caller rebases from the session zone (expr/cast.py).
-
-string -> decimal waits for decimal columns (ROADMAP A3, with B15).
 
 Each `parse_*` is a wrapper over kernel K22 (csrc/str_parse.cu: one
 thread a row, the reference's per-byte state machine in registers); a
@@ -24,7 +26,8 @@ row stride of 0 (a string literal broadcast to the batch) is read as the
 view it is. Its plain version, `parse_*_plain`, is the reference's body
 in PyTorch over the whole matrix (`_token_bounds`, `_parse_mantissa`,
 `_parse_uint_field`, `_find_char`, `_parse_date_fields`), which tensors
-on the CPU take. Both write 0 under a null result.
+on the CPU take. Both write 0 under a null result. The decimal mode's
+launches count apart ("str_parse_decimal").
 """
 
 from __future__ import annotations
@@ -123,7 +126,7 @@ def parse_long_plain(col: DeviceColumn, to_dtype) -> DeviceColumn:
 
 
 def _parse_mantissa(col: DeviceColumn):
-    """Shared float scanner. Returns (mant: int64 negative-accumulated
+    """Shared float and decimal scanner. Returns (mant: int64 negative-accumulated
     magnitude capped at 18 significant digits, extra_int: digits beyond
     the cap before the dot, frac: fraction digits within the cap, exp,
     neg, syntax_ok, nonempty, first, last)."""
@@ -221,6 +224,33 @@ def parse_double_plain(col: DeviceColumn, to_dtype) -> DeviceColumn:
     valid = col.validity & (ok | ((is_inf | is_nan) & nonempty))
     value = torch.where(valid, value, 0.0)
     return DeviceColumn(to_dtype, value.to(torch_dtype(to_dtype)), valid)
+
+
+def parse_decimal_plain(col: DeviceColumn, to_dtype) -> DeviceColumn:
+    """Plain PyTorch version of K22's decimal mode: the reference's exact
+    int64 steps, every product wrapping and every // flooring."""
+    (mant, extra_int, frac, exp, neg, ok, _ne, _f, _l) = \
+        _parse_mantissa(col)
+    s = to_dtype.scale
+    mag = -mant  # the positive magnitude, <= 18 digits
+    # target = mag * 10^(exp + extra_int - frac + s)
+    shift = exp + extra_int.to(torch.int64) - frac.to(torch.int64) + s
+    limit = 10 ** min(18, to_dtype.precision)
+    up = torch.clamp(shift, 0, 18)
+    pow_up = torch.pow(10, up)
+    grew = mag * pow_up
+    ovf_up = (shift > 18) & (mag > 0)
+    ovf_up = ovf_up | ((mag != 0) & (grew // torch.clamp(pow_up, min=1)
+                                     != mag))
+    pow_dn = torch.pow(10, torch.clamp(-shift, 0, 18))
+    q = grew // torch.clamp(pow_dn, min=1)
+    rem = grew - q * pow_dn
+    q = q + (2 * rem >= pow_dn).to(torch.int64)
+    q = torch.where(-shift > 18, 0, q)  # below 1 ulp of the scale
+    scaled = torch.where(shift >= 0, grew, q)
+    value = torch.where(neg, -scaled, scaled)
+    valid = col.validity & ok & ~ovf_up & (torch.abs(scaled) < limit)
+    return DeviceColumn(to_dtype, torch.where(valid, value, 0), valid)
 
 
 _TRUE = (b"true", b"t", b"yes", b"y", b"1")
@@ -359,13 +389,15 @@ _OUT_DTYPES = {kernels.PARSE_LONG: torch.int64,
                kernels.PARSE_DOUBLE: torch.float64,
                kernels.PARSE_BOOL: torch.bool,
                kernels.PARSE_DATE: torch.int32,
-               kernels.PARSE_TIMESTAMP: torch.int64}
+               kernels.PARSE_TIMESTAMP: torch.int64,
+               kernels.PARSE_DECIMAL: torch.int64}
 
 
 def _parse(mode: int, col: DeviceColumn, lo: int = 0, hi: int = 0):
     """One K22 launch: (values, validity). `lo`/`hi` bound the integral
-    mode's target width. A string literal's matrix is a view with row
-    stride 0: the kernel reads its one row for every row."""
+    mode's target width, or give the decimal mode's scale and precision.
+    A string literal's matrix is a view with row stride 0: the kernel
+    reads its one row for every row."""
     data = col.data
     dev = data.device
     if data.stride(1) != 1:
@@ -385,7 +417,8 @@ def _parse(mode: int, col: DeviceColumn, lo: int = 0, hi: int = 0):
             validity.data_ptr(), n, mb, int(lo), int(hi), out.data_ptr(),
             out_valid.data_ptr(), kernels.sm_count(lengths),
             kernels.stream_ptr(lengths)), "str_parse")
-        kernels.launches["str_parse"] += 1
+        kernels.launches["str_parse_decimal" if mode == kernels.PARSE_DECIMAL
+                         else "str_parse"] += 1
     return out, out_valid
 
 
@@ -404,6 +437,18 @@ def parse_double(col: DeviceColumn, to_dtype) -> DeviceColumn:
         return parse_double_plain(col, to_dtype)
     out, valid = _parse(kernels.PARSE_DOUBLE, col)
     return DeviceColumn(to_dtype, out.to(torch_dtype(to_dtype)), valid)
+
+
+def parse_decimal(col: DeviceColumn, to_dtype) -> DeviceColumn:
+    """Kernel K22 (decimal): string -> decimal(p <= 18, s) as int64."""
+    if col.data.device.type == "cpu":
+        return parse_decimal_plain(col, to_dtype)
+    if to_dtype.precision > 18:
+        raise ValueError(f"K22 parses decimals of at most 18 digits, not "
+                         f"{to_dtype}")
+    out, valid = _parse(kernels.PARSE_DECIMAL, col, to_dtype.scale,
+                        to_dtype.precision)
+    return DeviceColumn(to_dtype, out, valid)
 
 
 def parse_bool(col: DeviceColumn, to_dtype) -> DeviceColumn:

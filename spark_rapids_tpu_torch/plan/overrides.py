@@ -45,6 +45,7 @@ from spark_rapids_tpu_torch.plan.typesig import (
     PORTED_EXPRESSIONS,
     expr_unsupported_reasons,
     key_type_supported,
+    sort_key_type_supported,
     type_supported,
 )
 from spark_rapids_tpu_torch.sqltypes import (
@@ -147,7 +148,7 @@ class TpuOverrides:
         elif isinstance(node, L.Sort):
             for o in node.orders:
                 self._exprs(meta, [o.expr])
-                r = key_type_supported(o.expr.dtype)
+                r = sort_key_type_supported(o.expr.dtype)
                 if r:
                     meta.cannot_run(r)
         elif isinstance(node, L.Window):
@@ -175,21 +176,34 @@ class TpuOverrides:
     def _tag_aggregates(self, node: L.Aggregate, meta: PlanMeta) -> None:
         """The reference's aggregate checks: the moment, bivariate and
         percentile families need numeric input; collect and distinct over
-        string, array or decimal input run on the reference's CPU engine
-        (ROADMAP A9 here). And min/max of a type K12 does not reduce."""
+        string, array or decimal(> 18) input run on the reference's CPU
+        engine (ROADMAP A9 here). And min/max of a type K12 does not
+        reduce; decimals outside sum, avg, min, max, count, first, last
+        and any_value are not ported (A3)."""
         from spark_rapids_tpu_torch.sqltypes import DecimalType
-        from spark_rapids_tpu_torch.sqltypes.datatypes import torch_dtype
+        from spark_rapids_tpu_torch.sqltypes.datatypes import (
+            is_wide,
+            torch_dtype,
+        )
 
         for a in node.aggregates:
             fn = a.children[0]
             if (isinstance(fn, (AGG.CollectList, AGG.CountDistinct))
                     and fn.input is not None
-                    and isinstance(fn.input.dtype, (StringType, ArrayType,
-                                                    DecimalType))):
+                    and (isinstance(fn.input.dtype, (StringType, ArrayType))
+                         or is_wide(fn.input.dtype))):
                 meta.cannot_run(
                     f"{fn.name} over {fn.input.dtype} input runs on the "
                     "reference's CPU engine; the port has no CPU engine "
                     "yet (ROADMAP A9)")
+            elif (not isinstance(fn, (AGG.Sum, AGG.Average, Min, Max,
+                                      AGG.Count, AGG.First))
+                  and any(isinstance(e.dtype, DecimalType)
+                          for e in fn.children)):
+                meta.cannot_run(
+                    f"{fn.name} over decimal input is not ported yet "
+                    "(ROADMAP A3: decimals outside the arithmetic, "
+                    "comparisons, casts and aggregates)")
             if isinstance(fn, (AGG._Moments, AGG._Bivariate,
                                AGG.Percentile)):
                 for e in fn.children:
@@ -244,6 +258,7 @@ class TpuOverrides:
                         f"{type(fn).__name__} requires ORDER BY")
                 if isinstance(fn, we.Lead):
                     self._exprs(meta, fn.children)
+                    self._window_decimal(fn, meta)
             elif isinstance(fn, AGG.CollectList):
                 meta.cannot_run(
                     f"window {type(fn).__name__} is not ported yet (ROADMAP "
@@ -259,6 +274,7 @@ class TpuOverrides:
             else:
                 if fn.input is not None:
                     self._exprs(meta, [fn.input])
+                    self._window_decimal(fn, meta)
                     if isinstance(fn.input.dtype, (ArrayType, MapType)):
                         meta.cannot_run(
                             f"window {type(fn).__name__} over "
@@ -283,6 +299,23 @@ class TpuOverrides:
                         "ORDER BY key on device; the reference's CPU "
                         "window is not ported yet (ROADMAP A9, "
                         "exec/cpu_eval.py)")
+
+    @staticmethod
+    def _window_decimal(fn, meta: PlanMeta) -> None:
+        """A decimal(> 18) window aggregate runs on the reference's CPU
+        engine (A9); the port's windows take no decimal input yet (A3)."""
+        from spark_rapids_tpu_torch.sqltypes import DecimalType
+        from spark_rapids_tpu_torch.sqltypes.datatypes import is_wide
+
+        dts = [c.dtype for c in fn.children]
+        if any(is_wide(dt) for dt in dts):
+            meta.cannot_run(
+                "decimal(>18) window aggregation runs on the reference's "
+                "CPU engine; the port has no CPU engine yet (ROADMAP A9)")
+        elif any(isinstance(dt, DecimalType) for dt in dts):
+            meta.cannot_run(
+                f"window {type(fn).__name__} over decimal input is not "
+                "ported yet (ROADMAP A3: decimal windows)")
 
     # ----- conversion -----
 

@@ -10,7 +10,14 @@ send to its CPU engine.
 
 The port has no CPU engine to fall back to, so a reason returned here
 makes the planner raise NotImplementedError naming the ROADMAP item that
-ports the missing piece.
+ports the missing piece. Decimals run where the reference runs them on
+its device and the port has them (arithmetic, comparisons, IN, casts,
+the null tests, murmur3/xxhash64 of a decimal(<= 18), the aggregates);
+what the reference sends to its CPU engine (a decimal(> 18) grouping or
+join key, division or Multiply operand, hash input, float or string to
+decimal(> 18), decimal(> 18, scale > 18) to string) names A9, and the
+rest of the library over decimals (math, `div`, `%`, pmod, the
+conditionals, greatest and least) names A3.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from spark_rapids_tpu_torch.sqltypes import (
     BooleanType,
     DataType,
     DateType,
+    DecimalType,
     DoubleType,
     FloatType,
     IntegralType,
@@ -69,9 +77,12 @@ from spark_rapids_tpu_torch.sqltypes import (
     StructType,
     TimestampType,
 )
+from spark_rapids_tpu_torch.sqltypes.datatypes import is_wide
 
-DEVICE_TYPES = (BooleanType, IntegralType, FloatType, DoubleType,
-                StringType, DateType, TimestampType)
+#: the scalar types every ported expression takes
+_SCALAR = (BooleanType, IntegralType, FloatType, DoubleType, StringType,
+           DateType, TimestampType)
+DEVICE_TYPES = _SCALAR + (DecimalType,)
 
 #: expression classes the port evaluates on the device
 PORTED_EXPRESSIONS = (BoundReference, Literal, Alias, Add, Subtract,
@@ -95,10 +106,14 @@ _DATETIME = (DateType, TimestampType)
 _NUMERIC = (IntegralType, FloatType, DoubleType)
 _FP = (FloatType, DoubleType)
 #: the reference's ORDERABLE (and COMMON, the hashes' inputs), ALL (the
-#: conditionals' values) and ALL_NESTED (the null tests' input)
-_ORDERABLE = DEVICE_TYPES
-_ALL = DEVICE_TYPES + (ArrayType, MapType)
-_ALL_NESTED = _ALL + (StructType,)
+#: conditionals' values) and ALL_NESTED (the null tests' input), without
+#: the decimals the port does not take there yet (A3)
+_ORDERABLE = _SCALAR
+_ALL = _SCALAR + (ArrayType, MapType)
+_ALL_NESTED = DEVICE_TYPES + (ArrayType, MapType, StructType)
+#: the same with decimals, where the port takes them
+_ORDERABLE_DEC = DEVICE_TYPES
+_NUMERIC_DEC = _NUMERIC + (DecimalType,)
 
 #: the types each child of a string, regex or datetime expression may
 #: have: one tuple for every child, or a list of one tuple a parameter
@@ -132,16 +147,16 @@ _CHILD_TYPES.update({cls: _DATETIME for cls in (
 _CHILD_TYPES.update({cls: (TimestampType,)
                      for cls in (D.Hour, D.Minute, D.Second)})
 _CHILD_TYPES.update({
-    P.EqualNullSafe: _ORDERABLE,
+    P.EqualNullSafe: _ORDERABLE_DEC,
     P.IsNull: _ALL_NESTED,
     P.IsNotNull: _ALL_NESTED,
     P.IsNaN: _FP,
-    P.In: _ORDERABLE,
+    P.In: _ORDERABLE_DEC,
     A.IntegralDivide: _NUMERIC,
     A.Remainder: _NUMERIC,
     A.Pmod: _NUMERIC,
-    A.UnaryMinus: _NUMERIC,
-    A.Abs: _NUMERIC,
+    A.UnaryMinus: _NUMERIC_DEC,
+    A.Abs: _NUMERIC_DEC,
     M.Pow: _NUMERIC,
     M.Atan2: _NUMERIC,
     M.Hypot: _NUMERIC,
@@ -158,8 +173,8 @@ _CHILD_TYPES.update({
     C.Least: _ORDERABLE,
     C.Nvl2: _ALL,
     C.NaNvl: _FP,
-    H.Murmur3Hash: _ORDERABLE,
-    H.XxHash64: _ORDERABLE,
+    H.Murmur3Hash: _ORDERABLE_DEC,
+    H.XxHash64: _ORDERABLE_DEC,
 })
 _CHILD_TYPES.update({cls: _NUMERIC
                      for cls in M.UNARY_MATH + M.NULL_DOMAIN_LOGS})
@@ -167,6 +182,8 @@ _CHILD_TYPES.update({cls: (IntegralType,)
                      for cls in M.BITWISE + M.SHIFTS})
 
 _NO_CPU = "; the port has no CPU engine yet (ROADMAP A9)"
+_DEC_A3 = (" (ROADMAP A3: decimals outside the arithmetic, comparisons, "
+           "casts and aggregates)")
 
 
 def _child_type_reasons(e: Expression) -> List[str]:
@@ -174,9 +191,30 @@ def _child_type_reasons(e: Expression) -> List[str]:
     if sig is None:
         return []
     return [f"{type(e).__name__} parameter {i}: {c.dtype} input has no "
-            "device lowering" for i, c in enumerate(e.children)
+            "device lowering" + (_DEC_A3 if isinstance(c.dtype, DecimalType)
+                                 else "")
+            for i, c in enumerate(e.children)
             if not isinstance(c.dtype, (NullType,) + (
                 sig[i] if isinstance(sig, list) else sig))]
+
+
+def _wide_decimal_reasons(e: Expression) -> List[str]:
+    """What the reference runs on its CPU engine for decimal(> 18)
+    operands (plan/typesig.py `_divide_check`, `_multiply_check`, and the
+    128-bit hash it lacks); each names A9."""
+    if not any(is_wide(c.dtype) for c in e.children):
+        return []
+    if isinstance(e, Divide):
+        return ["decimal(>18) division runs on the reference's CPU engine "
+                "(128/128 device division not lowered)" + _NO_CPU]
+    if isinstance(e, Multiply):
+        return ["decimal(>18) operand multiplication runs on the "
+                "reference's CPU engine (only 64x64 -> 128 is lowered)"
+                + _NO_CPU]
+    if isinstance(e, H.HASH_EXPRESSIONS):
+        return [f"{type(e).__name__} of a decimal(>18) has no device hash "
+                "of 128-bit values in the reference" + _NO_CPU]
+    return []
 
 
 def _device_check_reasons(e: Expression) -> List[str]:
@@ -211,15 +249,25 @@ def _regex_reasons(e: Expression, conf) -> List[str]:
 def type_supported(dt: DataType) -> Optional[str]:
     if isinstance(dt, NullType) or isinstance(dt, DEVICE_TYPES):
         return None
-    return (f"type {dt} is not ported yet (ROADMAP A3: decimal, array, "
-            "map and struct columns)")
+    return (f"type {dt} is not ported yet (ROADMAP A3: array, map and "
+            "struct columns)")
 
 
-def key_type_supported(dt: DataType) -> Optional[str]:
-    """Grouping and join keys additionally need orderable device keys."""
+def sort_key_type_supported(dt: DataType) -> Optional[str]:
+    """Sort keys need orderable device keys (a decimal(> 18) orders by its
+    two limbs in K9)."""
     if isinstance(dt, (ArrayType, StructType, MapType)):
         return f"{dt}-typed keys have no orderable device keys"
     return type_supported(dt)
+
+
+def key_type_supported(dt: DataType) -> Optional[str]:
+    """Grouping and join keys additionally need a device hash: the
+    reference runs a decimal(> 18) key on its CPU engine."""
+    if is_wide(dt):
+        return ("decimal(>18) grouping/join keys run on the reference's "
+                "CPU engine (no device hash for 128-bit keys)" + _NO_CPU)
+    return sort_key_type_supported(dt)
 
 
 def expr_unsupported_reasons(expr: Expression, conf=None) -> List[str]:
@@ -239,6 +287,7 @@ def expr_unsupported_reasons(expr: Expression, conf=None) -> List[str]:
                            "(ROADMAP A12)")
             return
         reasons.extend(_child_type_reasons(e))
+        reasons.extend(_wide_decimal_reasons(e))
         try:
             r = type_supported(e.dtype)
         except NotImplementedError as err:

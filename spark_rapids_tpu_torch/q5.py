@@ -48,7 +48,12 @@ anti join), `orders_yoy_full_query` (a full outer join of two years),
 join), `customer_segments_query` (a join on dictionary-encoded keys of
 two dictionaries) and `orders_union_rr_query` (a union and a round-robin
 repartition) run over the CUSTOMER, ORDERS, band and quota tables that
-`write_customer_data` writes. Through the
+`write_customer_data` writes. `lineitem_q1_query` (TPC-H q1 over
+decimal(15,2) money columns), `orders_tbl_decimal_query` (a .tbl load
+typed to decimal, its sums printed as text) and `q22_decimal_query`
+(TPC-H q22 over a decimal balance) run over the LINEITEM and decimal
+CUSTOMER that `write_decimal_data` writes and the ORDERS text and table
+above. Through the
 port's session with bench.py's conf they run on the fused engine
 (exec/fused.py), which evaluates every window over the whole partition;
 with
@@ -605,19 +610,20 @@ def orders_union_rr_query(orders, F=None, partitions: int = 16):
 Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
 
 
-def q22_full_query(customer, orders, F=None):
+def q22_full_query(customer, orders, F=None, zero=0.0):
     """TPC-H q22 as written: the customers whose country code (the first
     two characters of c_phone) is in the IN list, whose balance is above
     the average positive balance of those codes (the scalar subquery, a
     crossJoin to its one-row aggregate, as a DataFrame user writes it) and
     who placed no order (a left anti join); counted and their balances
-    summed per code, in code order."""
+    summed per code, in code order. `zero` is the literal the positive
+    balances are compared with."""
     F = _functions(F)
     cand = (customer
             .select(F.substring("c_phone", 1, 2).alias("cntrycode"),
                     "c_acctbal", "c_custkey")
             .filter(F.col("cntrycode").isin(*Q22_CODES)))
-    avg_bal = (cand.filter(F.col("c_acctbal") > 0.0)
+    avg_bal = (cand.filter(F.col("c_acctbal") > F.lit(zero))
                .agg(F.avg("c_acctbal").alias("avg_bal")))
     return (cand.crossJoin(avg_bal)
             .filter(F.col("c_acctbal") > F.col("avg_bal"))
@@ -705,6 +711,77 @@ def customer_value_bands_query(customer, orders, F=None):
 
 
 #: TPC-H's o_orderpriority values (spec 4.2.2.13: PRIORITIES)
+def lineitem_q1_query(lineitem, F=None, charge: bool = False):
+    """TPC-H q1, the pricing summary report, over decimal(15,2) LINEITEM
+    columns: the lines shipped by 1998-09-02 grouped by return flag and
+    line status, with the sums of quantity, price and discounted price
+    (decimal(32,4) products, summed as decimal(38,4)), the averages of
+    quantity, price and discount and the count, in key order. The 1 of
+    1 - l_discount is a decimal literal, since an integral counts as
+    decimal(19, 0). With `charge`, sum_charge too (price * (1 - discount)
+    * (1 + tax), a decimal(32,4) operand of Multiply: the reference runs it
+    on its CPU engine)."""
+    from decimal import Decimal
+
+    F = _functions(F)
+    one = F.lit(Decimal("1"))
+    price = F.col("l_extendedprice")
+    disc_price = price * (one - F.col("l_discount"))
+    aggs = [F.sum("l_quantity").alias("sum_qty"),
+            F.sum("l_extendedprice").alias("sum_base_price"),
+            F.sum(disc_price).alias("sum_disc_price")]
+    if charge:
+        aggs.append(F.sum(disc_price * (one + F.col("l_tax")))
+                    .alias("sum_charge"))
+    aggs += [F.avg("l_quantity").alias("avg_qty"),
+             F.avg("l_extendedprice").alias("avg_price"),
+             F.avg("l_discount").alias("avg_disc"),
+             F.count("*").alias("count_order")]
+    return (lineitem
+            .filter(F.col("l_shipdate") <= F.to_date(F.lit(Q1_SHIP_CUTOFF)))
+            .groupBy("l_returnflag", "l_linestatus")
+            .agg(*aggs)
+            .orderBy("l_returnflag", "l_linestatus"))
+
+
+def orders_tbl_decimal_query(orders_tbl, F=None):
+    """A .tbl load typed as TPC-H types it: o_totalprice cast from text to
+    decimal(15,2) and the order date parsed; the orders above 100,000.00
+    per order year with their revenue (a decimal(25,2) sum), average
+    (decimal(19,6)), smallest and largest price and count, the revenue
+    and the extremes also as text, in descending revenue."""
+    from decimal import Decimal
+
+    F = _functions(F)
+    return (orders_tbl
+            .select(F.col("o_totalprice").cast("decimal(15,2)")
+                    .alias("price"),
+                    F.year(F.to_date("o_orderdate")).alias("o_year"))
+            .filter(F.col("price") > F.lit(Decimal("100000.00")))
+            .groupBy("o_year")
+            .agg(F.sum("price").alias("revenue"),
+                 F.avg("price").alias("avg_price"),
+                 F.min("price").alias("min_price"),
+                 F.max("price").alias("max_price"),
+                 F.count("*").alias("n"))
+            .select("o_year", "revenue", "avg_price", "min_price",
+                    "max_price", "n",
+                    F.col("revenue").cast("string").alias("revenue_text"),
+                    F.col("min_price").cast("string").alias("min_text"),
+                    F.col("max_price").cast("string").alias("max_text"))
+            .orderBy(F.col("revenue").desc()))
+
+
+def q22_decimal_query(customer_dec, orders, F=None):
+    """TPC-H q22 as written over a decimal(15,2) c_acctbal: the positive
+    balances are those above Decimal("0.00"), their average is a
+    decimal(19,6), and each balance is compared with it as decimal(38,6)
+    limbs; the balances are summed per country code as decimal(25,2)."""
+    from decimal import Decimal
+
+    return q22_full_query(customer_dec, orders, F=F, zero=Decimal("0.00"))
+
+
 ORDER_PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
                     "5-LOW")
 #: words of dbgen's text grammar (TPC-H spec 4.2.2.14)
@@ -851,8 +928,9 @@ def write_orders_dated(root: str, rows: int, files: int = 8, seed: int = 0
     draws (`orders_dated_draws`), in `files` PLAIN parquet files each:
     root/orders_dated, typed (o_orderkey int64, o_orderpriority,
     o_orderdate date32 uniform over dbgen's order dates, o_totalprice
-    float64 in whole cents: TPC-H declares it decimal(15,2), and decimal
-    columns are not ported yet), and root/orders_tbl, the same rows as
+    float64 in whole cents, as the earlier slices' queries read it; TPC-H
+    declares it decimal(15,2), as `orders_tbl_decimal_query` types the
+    text), and root/orders_tbl, the same rows as
     dbgen's .tbl text prints them, every column a string (the key in
     decimal, the price as %.2f, the date as yyyy-MM-dd): what a CSV or
     .tbl load lands before typing. The typed table also holds o_custkey
@@ -897,6 +975,25 @@ PRICE_BANDS = tuple((k * 40_000.0, k * 40_000.0 + 25_000.0)
                     for k in range(9)) + ((600_000.0, 700_000.0),)
 
 
+def customer_draws(customers: int, seed: int = 0) -> dict:
+    """The seeded draws of CUSTOMER (`write_customer_data`, and
+    `write_decimal_data`'s customer_dec from the same balances): nation
+    (0-24), phone (a pyarrow string array), segment (index into SEGMENTS)
+    and cents (c_acctbal in cents, -99,999 to 999,999), in that order from
+    one generator."""
+    import pyarrow.compute as pc
+
+    rng = np.random.default_rng([seed, 5])
+    nation = rng.integers(0, 25, customers)
+    digits = [pc.cast(pa.array(rng.integers(lo, hi, customers)), pa.string())
+              for lo, hi in ((100, 1000), (100, 1000), (1000, 10000))]
+    phone = pc.binary_join_element_wise(
+        pc.cast(pa.array(nation + 10), pa.string()), *digits, "-")
+    segment = rng.integers(0, len(SEGMENTS), customers)
+    cents = rng.integers(-99_999, 1_000_000, customers)
+    return dict(nation=nation, phone=phone, segment=segment, cents=cents)
+
+
 def write_customer_data(root: str, customers: int, orders: int,
                         files: int = 8, seed: int = 0) -> dict:
     """Write the tables of the join queries under root, PLAIN parquet:
@@ -918,25 +1015,17 @@ def write_customer_data(root: str, customers: int, orders: int,
     Returns {table: [paths]}."""
     import pyarrow.compute as pc
 
-    rng = np.random.default_rng([seed, 5])
     out = {}
     for sub in ("customer", "orders_cust", "bands", "quota"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
-    nation = rng.integers(0, 25, customers)
-    digits = [pc.cast(pa.array(rng.integers(lo, hi, customers)), pa.string())
-              for lo, hi in ((100, 1000), (100, 1000), (1000, 10000))]
-    phone = pc.binary_join_element_wise(
-        pc.cast(pa.array(nation + 10), pa.string()), *digits, "-")
-    seg = pa.DictionaryArray.from_arrays(
-        pa.array(rng.integers(0, len(SEGMENTS), customers).astype(np.int32)),
-        pa.array(SEGMENTS))
+    d = customer_draws(customers, seed)
     t = pa.table({
         "c_custkey": pa.array(np.arange(1, customers + 1, dtype=np.int64)),
-        "c_nationkey": pa.array(nation.astype(np.int64)),
-        "c_acctbal": pa.array(rng.integers(-99_999, 1_000_000, customers)
-                              / 100.0),
-        "c_mktsegment": seg,
-        "c_phone": phone})
+        "c_nationkey": pa.array(d["nation"].astype(np.int64)),
+        "c_acctbal": pa.array(d["cents"] / 100.0),
+        "c_mktsegment": pa.DictionaryArray.from_arrays(
+            pa.array(d["segment"].astype(np.int32)), pa.array(SEGMENTS)),
+        "c_phone": d["phone"]})
     path = os.path.join(root, "customer", "customer-0.parquet")
     pq.write_table(t, path, compression="NONE",
                    use_dictionary=["c_mktsegment"])
@@ -972,6 +1061,123 @@ def write_customer_data(root: str, customers: int, orders: int,
         pq.write_table(table, path, compression="NONE", use_dictionary=enc)
         out[name] = [path]
     return out
+
+
+#: TPC-H q1's ship-date cutoff: 1998-12-01 less the default DELTA of 90
+#: days (spec 2.4.1.3)
+Q1_SHIP_CUTOFF = "1998-09-02"
+#: dbgen's CURRENTDATE (1995-06-17, spec 4.2.3) as days since 1970-01-01:
+#: the return flag and line status are drawn against it
+LINEITEM_CURRENT_DATE = 9298
+#: LINEITEM's return flags and line statuses, dictionary-encoded in this
+#: order
+RETURN_FLAGS = ("A", "N", "R")
+LINE_STATUSES = ("F", "O")
+#: LINEITEM rows at SF10 (dbgen's count)
+SF10_LINEITEM = 59_986_052
+
+
+def lineitem_draws(rows: int, files: int = 8, seed: int = 0):
+    """The seeded draws of `write_decimal_data`'s LINEITEM, one dict of
+    numpy arrays a file, drawn as dbgen draws them (TPC-H spec 4.2.3):
+    quantity 1-50; the part key uniform over [1, SF * 200,000] (SF =
+    rows / 6,000,000, at least 1) and the extended price quantity times
+    its retail price, (90,000 + (key / 10) mod 20,001 + 100 * (key mod
+    1,000)) cents; discount 0-10 and tax 0-8 cents on the unit; the ship
+    date an order date (uniform over dbgen's, ORDER_DATE_LO-HI) plus 1-121
+    days and the receipt date 1-30 days after it; the return flag R or A
+    at random where the receipt date is on or before CURRENTDATE, else N;
+    the line status O where the ship date is after it, else F. Each value
+    in hundredths (qty_c, price_c, disc_c, tax_c: int64), flag and status
+    as indices into RETURN_FLAGS and LINE_STATUSES, shipdate int32
+    days."""
+    rng = np.random.default_rng([seed, 7])
+    parts = max(rows // 30, 200_000)
+    per = -(-rows // files)
+    out = []
+    for i in range(files):
+        n = min(per, rows - i * per)
+        qty = rng.integers(1, 51, n)
+        key = rng.integers(1, parts + 1, n)
+        retail = 90_000 + (key // 10) % 20_001 + 100 * (key % 1_000)
+        ship = (rng.integers(ORDER_DATE_LO, ORDER_DATE_HI + 1, n)
+                + rng.integers(1, 122, n))
+        receipt = ship + rng.integers(1, 31, n)
+        returned = receipt <= LINEITEM_CURRENT_DATE
+        flag = np.where(returned, np.where(rng.random(n) < 0.5, 0, 2), 1)
+        out.append(dict(
+            qty_c=qty * 100, price_c=qty * retail,
+            disc_c=rng.integers(0, 11, n), tax_c=rng.integers(0, 9, n),
+            flag=flag.astype(np.int32),
+            status=(ship > LINEITEM_CURRENT_DATE).astype(np.int32),
+            shipdate=ship.astype(np.int32)))
+    return out
+
+
+def decimal_array(cents: np.ndarray, precision: int, scale: int
+                  ) -> pa.Array:
+    """An int64 vector of unscaled values as an Arrow decimal128 array."""
+    from spark_rapids_tpu_torch.columnar.arrow_bridge import _decimal_array
+    from spark_rapids_tpu_torch.sqltypes import DecimalType
+
+    return _decimal_array(np.asarray(cents, dtype=np.int64),
+                          np.ones(len(cents), dtype=bool),
+                          DecimalType(precision, scale))
+
+
+def write_decimal_data(root: str, lineitem: int, customers: int,
+                       files: int = 8, seed: int = 0) -> dict:
+    """Write the decimal queries' tables under root, PLAIN parquet:
+
+    - lineitem/ (`files` files): LINEITEM as `lineitem_draws` draws it,
+      l_quantity, l_extendedprice, l_discount and l_tax decimal(15,2) as
+      TPC-H declares them, l_returnflag and l_linestatus
+      dictionary-encoded, l_shipdate a date;
+    - customer_dec/ (one file): `write_customer_data`'s CUSTOMER with
+      c_acctbal as decimal(15,2) from the same cents.
+
+    A decimal(<= 18) is stored as a parquet INT64 (INT32 up to 9 digits),
+    as Spark's writer stores it, where this pyarrow can (its
+    `store_decimal_as_integer`). Returns {table: [paths]}."""
+    out = {"lineitem": []}
+    for sub in ("lineitem", "customer_dec"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    flags, statuses = pa.array(RETURN_FLAGS), pa.array(LINE_STATUSES)
+    for i, d in enumerate(lineitem_draws(lineitem, files, seed)):
+        t = pa.table({
+            "l_quantity": decimal_array(d["qty_c"], 15, 2),
+            "l_extendedprice": decimal_array(d["price_c"], 15, 2),
+            "l_discount": decimal_array(d["disc_c"], 15, 2),
+            "l_tax": decimal_array(d["tax_c"], 15, 2),
+            "l_returnflag": pa.DictionaryArray.from_arrays(
+                pa.array(d["flag"]), flags),
+            "l_linestatus": pa.DictionaryArray.from_arrays(
+                pa.array(d["status"]), statuses),
+            "l_shipdate": pa.array(d["shipdate"], type=pa.date32())})
+        path = os.path.join(root, "lineitem", f"lineitem-{i}.parquet")
+        _write_decimal_table(t, path, ["l_returnflag", "l_linestatus"])
+        out["lineitem"].append(path)
+    d = customer_draws(customers, seed)
+    t = pa.table({
+        "c_custkey": pa.array(np.arange(1, customers + 1, dtype=np.int64)),
+        "c_nationkey": pa.array(d["nation"].astype(np.int64)),
+        "c_acctbal": decimal_array(d["cents"], 15, 2),
+        "c_phone": d["phone"]})
+    path = os.path.join(root, "customer_dec", "customer_dec-0.parquet")
+    _write_decimal_table(t, path, False)
+    out["customer_dec"] = [path]
+    return out
+
+
+def _write_decimal_table(table: pa.Table, path: str, use_dictionary
+                         ) -> None:
+    try:
+        pq.write_table(table, path, compression="NONE",
+                       use_dictionary=use_dictionary,
+                       store_decimal_as_integer=True)
+    except TypeError:  # a pyarrow without the option: FIXED_LEN_BYTE_ARRAY
+        pq.write_table(table, path, compression="NONE",
+                       use_dictionary=use_dictionary)
 
 
 def q5_plan(fact_entry, dim_entry,

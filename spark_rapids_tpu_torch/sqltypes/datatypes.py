@@ -10,7 +10,9 @@ Device layouts match the reference column for column:
 - StringType -> a padded byte matrix [rows, max_bytes] uint8 plus an int32
   length vector, or int16/int32 dictionary codes plus a shared dictionary
   (columnar/encoding.py).
-- DecimalType(p<=18) -> scaled int64.
+- DecimalType(p<=18) -> scaled int64; DecimalType(19<=p<=38) -> a
+  [cap, 2] int64 limb matrix, column 0 the signed high limb and column 1
+  the low 64 bits (`is_wide`, ops/decimal128.py).
 
 All types are singletons except DecimalType/StructType, matching Spark.
 """
@@ -130,11 +132,11 @@ class TimestampType(DataType):
 
 
 class DecimalType(FractionalType):
-    """Fixed-point decimal; device representation is scaled int64.
-
-    The reference supports precision<=38 via cuDF DECIMAL128 and JNI
-    `DecimalUtils` (`SURVEY.md` section 2.12); v1 here covers precision<=18
-    (DECIMAL64). 128-bit (two-limb int64) is a planned extension.
+    """Fixed-point decimal of precision 1-38: a scaled int64 up to 18
+    digits (DECIMAL64), beyond that a [cap, 2] int64 limb matrix
+    (DECIMAL128: the signed high limb, then the low 64 bits), as the
+    reference carries them (`spark_rapids_tpu/ops/decimal128.py:1-11`).
+    `np_dtype` is the limbs' type.
     """
 
     MAX_PRECISION = 38
@@ -165,6 +167,13 @@ class DecimalType(FractionalType):
 
     def __hash__(self):
         return hash(("decimal", self.precision, self.scale))
+
+
+def is_wide(dt) -> bool:
+    """A decimal wider than 18 digits: its device data is [cap, 2]
+    int64 limbs."""
+    return isinstance(dt, DecimalType) and \
+        dt.precision > DecimalType.MAX_LONG_DIGITS
 
 
 class ArrayType(DataType):

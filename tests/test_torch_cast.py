@@ -284,16 +284,25 @@ def test_every_supported_pair_is_covered():
 
 
 def test_decimal_cast_names_a3():
-    """Casts to and from decimal wait for decimal columns: the planner
-    refuses them and eval raises, each naming A3."""
+    """Decimal casts run since decimal columns are ported (A3's decimals):
+    the planner takes string -> decimal(12,2) and a long becomes its
+    unscaled value at scale 2; what the reference runs on its CPU engine
+    (string -> decimal(25,2)) is refused naming A9, and eval raises the
+    same. Every decimal cast pair is held against the reference in
+    test_torch_decimal.py."""
     from spark_rapids_tpu_torch.plan.typesig import expr_unsupported_reasons
 
     e = PortCast(PortRef(0, PT.string), PT.DecimalType(12, 2))
-    reasons = expr_unsupported_reasons(e)
-    assert reasons and all("A3" in r for r in reasons), reasons
+    assert expr_unsupported_reasons(e) == []
+    wide = PortCast(PortRef(0, PT.string), PT.DecimalType(25, 2))
+    reasons = expr_unsupported_reasons(wide)
+    assert reasons and all("A9" in r for r in reasons), reasons
     _, pb = _both(pa.table({"x": pa.array(range(8), pa.int64())}))
-    with pytest.raises(NotImplementedError, match="A3"):
-        PortCast(PortRef(0, PT.long), PT.DecimalType(12, 2)).eval(
+    out = PortCast(PortRef(0, PT.long), PT.DecimalType(12, 2)).eval(
+        PortContext(pb))
+    assert out.data[:8].tolist() == [100 * k for k in range(8)]
+    with pytest.raises(NotImplementedError, match="A9"):
+        PortCast(PortRef(0, PT.string), PT.DecimalType(25, 2)).eval(
             PortContext(pb))
 
 

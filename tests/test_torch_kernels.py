@@ -746,6 +746,7 @@ from spark_rapids_tpu_torch.expr import cast as port_cast  # noqa: E402
 from spark_rapids_tpu_torch.expr import datetimes as port_datetimes  # noqa: E402,E501
 from spark_rapids_tpu_torch.expr import aggregates as port_aggregates  # noqa: E402,E501
 from spark_rapids_tpu_torch.expr import mathexpr as port_math  # noqa: E402
+from spark_rapids_tpu_torch.ops import decimal128 as port_d128  # noqa: E402,E501
 
 # every kernel wrapper: on a CUDA tensor each one launches its kernel, so
 # a plain version (the kernel's check on the card) must reach none of them
@@ -788,6 +789,11 @@ _WRAPPERS = [
     (port_joinops, "_launch_marks"), (port_joinops, "build_coverage"),
     (port_partition, "round_robin_perm"), (port_encoding, "remap_codes"),
     (port_hashing, "xxhash64_columns"), (port_math, "hex_text"),
+    (port_d128, "add"), (port_d128, "multiply"), (port_d128, "rescale_data"),
+    (port_d128, "average"), (port_d128, "negate"), (port_d128, "absolute"),
+    (port_d128, "compare"), (port_d128, "to_double"), (port_d128, "to_long"),
+    (port_d128, "seg_sum128"), (port_d128, "_launch"),
+    (port_stringcast, "parse_decimal"), (port_cast, "_decimal_to_string"),
 ]
 
 
@@ -939,6 +945,56 @@ def _slice10_plain_cases(s_col=None, d_col=None, l_col=None):
     }
 
 
+def _slice11_plain_cases(s_col=None, d_col=None, l_col=None):
+    """K31's, K32's and the decimal modes' of K22, K24 and K9 plain
+    versions over a long key as decimal data, narrow and as limbs."""
+    from spark_rapids_tpu_torch.sqltypes import DecimalType
+
+    def wide():
+        return port_d128.join(*port_d128.from_i64(l_col.data))
+
+    def dec_col():
+        return port_strings.DeviceColumn(DecimalType(38, 2), wide(),
+                                         l_col.validity)
+
+    def text():
+        digits = (l_col.data.abs() % 1000).to(torch.uint8) % 10 + ord("0")
+        data = digits[:, None].repeat(1, 8)
+        return port_strings.DeviceColumn(
+            None, data, l_col.validity,
+            torch.full((data.shape[0],), 5, dtype=torch.int32))
+
+    n = lambda: l_col.data.shape[0]  # noqa: E731
+    return {
+        "d128_add_plain": lambda: port_d128.add_plain(
+            l_col.data, 2, wide(), 0, l_col.validity, 38, True),
+        "d128_multiply_plain": lambda: port_d128.multiply_plain(
+            l_col.data, l_col.data, None, 38),
+        "d128_rescale_plain": lambda: port_d128.rescale_plain(
+            wide(), -3, None, 18, False),
+        "d128_average_plain": lambda: port_d128.average_plain(
+            wide(), l_col.data.abs() % 7, 4, 19, True),
+        "d128_negate_plain": lambda: port_d128.negate_plain(wide()),
+        "d128_absolute_plain": lambda: port_d128.absolute_plain(wide()),
+        "d128_compare_plain": lambda: port_d128.compare_plain(
+            wide(), port_d128.negate_plain(wide())),
+        "d128_to_double_plain": lambda: port_d128.to_double_plain(wide(), 2),
+        "d128_to_long_plain": lambda: port_d128.to_long_plain(wide(), 20),
+        "seg_sum128_plain": lambda: port_d128.seg_sum128_plain(
+            *port_d128.from_i64(l_col.data), l_col.validity,
+            (torch.arange(n()) % 5).to(torch.int32), 5),
+        "decimal_string": lambda: port_d128.decimal_string(
+            *port_d128.from_i64(l_col.data), 3),
+        "decimal_to_string_plain": lambda: port_cast._decimal_to_string_plain(
+            l_col.data, 4),
+        "parse_decimal_plain": lambda: port_stringcast.parse_decimal_plain(
+            text(), DecimalType(15, 2)),
+        "pack_keys_plain_d128": lambda: port_common.pack_keys_plain(
+            [port_common.KeySpec(dec_col(), False, False)],
+            torch.ones(n(), dtype=torch.bool)),
+    }
+
+
 _STRING_PLAIN = sorted(_string_plain_cases(port_strings.DeviceColumn(
     None, torch.zeros((1, 8), dtype=torch.uint8), torch.ones(1, dtype=bool),
     torch.zeros(1, dtype=torch.int32))))
@@ -1038,6 +1094,7 @@ def _plain_case(name, pb):
     cases.update(_slice8_plain_cases())
     cases.update(_slice9_plain_cases())
     cases.update(_slice10_plain_cases(s_col, d_col, l_col))
+    cases.update(_slice11_plain_cases(s_col, d_col, l_col))
     return cases[name]()
 
 
@@ -1063,7 +1120,7 @@ def _plain_window(n, perm, live):
     "range_bounds_plain", "frame_minmax_plain", "frame_pick_plain",
     *_STRING_PLAIN, *sorted(_slice7_plain_cases()),
     *sorted(_slice8_plain_cases()), *sorted(_slice9_plain_cases()),
-    *sorted(_slice10_plain_cases())])
+    *sorted(_slice10_plain_cases()), *sorted(_slice11_plain_cases())])
 def test_plain_versions_reach_no_kernel_wrapper(name, monkeypatch):
     """With every kernel wrapper, wherever it is bound, replaced by one
     that raises, each plain version still runs."""
