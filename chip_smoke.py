@@ -6,7 +6,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit; build the port's CUDA kernels from
    spark_rapids_tpu_torch/kernels/csrc with nvcc (sm_90a, one process
-   per source, all started together);
+   per source, all started together). Phases 3-14's seeded data and
+   oracles are made meanwhile, in three worker processes (HOST_JOBS),
+   while phases 1 and 2 run;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the q5 path gives it (bench.py's full size: 8 parts of 4.5M
    rows): K1-K4, K5 (bloom build and might_contain), K6 (murmur3
@@ -20,10 +22,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    and ntile included), K15 (RANGE frame bounds), K16 (min/max frames)
    and K17 (first/last and lead/lag source rows), with the device time of
    the kernel, the plain version and, where one exists, one PyTorch
-   library call computing the same function (torch.profiler: the summed
-   durations of what each call runs on the card, so host dispatch is not
-   counted; CUDA events where three traces in a row hold no device
-   events, named in the output), and the kernel's bound (the bytes this
+   library call computing the same function (a call of 1 ms or more: its
+   CUDA-event time; a shorter one: torch.profiler's summed durations of
+   what it runs on the card, so host dispatch is not counted, or its
+   CUDA-event time where three traces in a row hold no device events or
+   the sum falls under the kernel's bound, named in the output), and the
+   kernel's bound (the bytes this
    run's data needs, at 3.35 TB/s, the H100 SXM's rate); K9's sort also
    at the 65,536-row build sort, 2^24 rows of heavy ties and 2^22 random
    keys; then edge shapes (partial tiles, several key words, null keys,
@@ -89,7 +93,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    shared memory, texts with signs, exponents and 19+ digits, -0.05, and
    K9's pack and sort of decimal(38,2) keys), and MonthsBetween on the
    card over dates and timestamps, with and without roundOff, bit for
-   bit against a numpy float64 oracle with true division;
+   bit against a numpy float64 oracle with true division; K33
+   (frame_collect), K34 (array_compact, array_distinct) and K35
+   (array_sort) at the slice-12 path shapes (15,000,000 orders in about
+   1,000,000 customers sorted by date and key, collect_list of float64
+   prices over 3 rows and collect_set of int32 years over 6; [2^24, 8]
+   int32 quantities of 1-7 elements filtered, deduplicated and sorted
+   descending) and at edge shapes (`check_slice12_edges`: W = 1, 3, 6
+   and 1,024, every element type with NaN, +-inf, -0.0, INT_MIN and
+   INT_MAX, nulls, empty and all-null rows, dead rows, max_elems 1 to 64,
+   cubes of empty strings), floats bit for bit;
 3. slice 1's hand-built q5 plan at the bench's full size (36M fact rows
    in 8 parquet files, a 2,000-row dimension with a dictionary-encoded
    `region`) over device-cached relations: upload, one cold run and 5
@@ -202,17 +215,42 @@ Phases, in order; any failure exits non-zero and prints no result:
    integer, no float). K31 and K32 must run on every query, K22's and
    K24's decimal modes on the load; each query's launches of K31, K32
    and the two modes, largest device items, host syncs, idle share and
-   peak memory are printed.
+   peak memory are printed;
+14. slice 12's nested columns: first the relation cache across devices
+   (a CPU session caches and queries a small NESTED_ORDERS, then a CUDA
+   session, the first still open, caches the same parquet plan: its
+   parts must be CUDA tensors, its run must launch K3, K8 and K4 and
+   equal the CPU run, and a DataFrame of the one cannot join the
+   other's); then NESTED_ORDERS (q5.py `write_nested_orders`: the
+   15,000,000 SF10 ORDERS of phases 9-13 each carrying its own 1-7 of
+   phase 13's 59,986,052 LINEITEM rows as parallel arrays of quantities,
+   prices, ship dates and ship modes (array<string>), a map of line
+   number to price and an o_info struct) through
+   `read.parquet(...).cache(storage="device")` on the adaptive and the
+   fused engine: the four nested queries (q5.py: nested_explode_query,
+   nested_item_stats_query, customer_order_lists_query,
+   recent_orders_window_query), each against numpy oracles over the
+   draws (counts, sizes, maxima and orders exact, double sums within
+   1e-9 relative, each customer's orders as a multiset and years as a
+   set, each order's price frame in order and its years as a set). The
+   fused engine hands the collect results to the adaptive one; the
+   adaptive window must take the halo mode (5 rows); K33 must run on the
+   window, K34 and K35 on the item statistics, K35 and K26 on the lists,
+   K3 on the explode.
 
-For each query run (phases 3-13) the kernels' launch counts are reset
+For each query run (phases 3-14) the kernels' launch counts are reset
 just before the cold run and read just after it; every kernel of that
-path must have run. Phases 3-5 time 3 hot runs a query, phase 7 1 (cut
-from 2 when phase 12 was added), phase 10 1 (cut from 2 when phase 13
-was added), phases 6, 8, 9 and 11-13 2,
-and each kernel's device time in phase 2 is the mean of 10 calls.
+path must have run. Phases 3-5 time 3 hot runs a query, phases 7 and
+10 none (cut from 2 to 1 when phases 12 and 13 were added, to none when
+phase 14 was: their times are the cold and the profiled run's), phases
+6, 8, 9 and 11-14 1 (cut from 2 when phase 14 was added),
+and each kernel's device time in phase 2 is the mean of 4 calls (10
+before phase 14 was added).
 One more hot run counts the host syncs (torch.cuda's
-sync debug mode) and one, under torch.profiler, gives the device's busy
-time against wall time and must hold no library sort or scan kernel.
+sync debug mode; not in phases 7 and 10 since phase 14 was added: their
+counts stand in PERF.md from PRs 5 and 8) and one, under torch.profiler,
+gives the device's busy time against wall time and must hold no library
+sort or scan kernel.
 
 The line before the last holds the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository
@@ -221,6 +259,7 @@ around this file; the port never falls back to the CPU.
 
 import json
 import math
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -234,17 +273,23 @@ FILES = 8
 STORES = 2000
 REGIONS = 12
 HOT_RUNS = 3
-#: hot runs of each query in phases 6 and 8-12 (phases 3-5 keep HOT_RUNS)
-LATER_HOT_RUNS = 2
+#: hot runs of each query in phases 6, 8, 9, 11 and 12 (phases 3-5 keep
+#: HOT_RUNS; cut from 2 when phase 14 was added)
+LATER_HOT_RUNS = 1
 #: hot runs of each query in phase 7 (its 36M-row checks are the run's
-#: largest; cut from 2 before phase 12 was added)
-SLICE5_HOT_RUNS = 1
+#: largest; cut from 2 before phase 12 was added, to 0 before phase 14:
+#: its queries' times are the cold and the profiled run's)
+SLICE5_HOT_RUNS = 0
 #: hot runs of each query in phase 10 (its 15M-row window checks are the
-#: next largest; cut from 2 before phase 13 was added)
-SLICE8_HOT_RUNS = 1
-#: hot runs of each query in phase 13
-SLICE11_HOT_RUNS = 2
-TIMING_ITERS = 10
+#: next largest; cut from 2 before phase 13 was added, to 0 before phase
+#: 14)
+SLICE8_HOT_RUNS = 0
+#: hot runs of each query in phase 13 (cut from 2 when phase 14 was
+#: added)
+SLICE11_HOT_RUNS = 1
+#: calls a kernel's (and K1-K17's plain and library) device time is the
+#: mean of (cut from 10 when phase 14 was added)
+TIMING_ITERS = 4
 DUP_PER_STORE = 2       # rows per store in the duplicate-key dimension
 REL_TOL = 1e-9          # sums and averages against the oracles
 MERGE_ROWS = 1 << 22    # rows of each run in K13's record
@@ -324,16 +369,27 @@ def traced(run, what: str):
     return None, wall_ms
 
 
-def device_ms(fn, what: str, iters: int = TIMING_ITERS) -> float:
-    """Mean device milliseconds per call after one warm-up: the summed
-    durations of the kernels, copies and memsets the calls put on the card,
-    as torch.profiler traces them. They run on one stream, so they do not
-    overlap; host dispatch between them is not counted. Where the profiler
-    traces nothing, the CUDA-event time (dispatch included)."""
-    import torch
+#: CUDA-event milliseconds a call from which its time is its CUDA-event
+#: time: host dispatch is then a small share, while traces of such calls
+#: have lost kernel records (summing a half or three quarters of it)
+LOST_MIN_MS = 1.0
 
-    fn()
-    torch.cuda.synchronize()
+
+def device_ms(fn, what: str, iters: int = TIMING_ITERS,
+              floor_ms: float = 0.0, event_ms=None) -> float:
+    """Mean milliseconds per call on the card, after one warm-up. A call
+    of LOST_MIN_MS or more: its CUDA-event time. A shorter one: the summed
+    durations of the kernels, copies and memsets the calls put on the
+    card, as torch.profiler traces them (one stream, so they do not
+    overlap; host dispatch between them is not counted), or the CUDA-event
+    time where the trace holds no device events or sums to less than
+    `floor_ms` (the byte bound of a kernel whose data far exceed the 50 MB
+    L2), named in PROFILER_MISSES. `event_ms`: the CUDA-event time of
+    these calls where the caller has it."""
+    if event_ms is None:
+        event_ms = time_ms(fn, iters)
+    if event_ms >= LOST_MIN_MS:
+        return event_ms
 
     def calls():
         for _ in range(iters):
@@ -341,29 +397,22 @@ def device_ms(fn, what: str, iters: int = TIMING_ITERS) -> float:
 
     events, _ = traced(calls, what)
     if events is None:
-        return time_ms(fn, iters)
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+        return event_ms
+    ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+    if ms < floor_ms:
+        PROFILER_MISSES.append(f"{what} (device trace under its bound)")
+        return event_ms
+    return ms
 
 
 def timed(name: str, kernel, plain, library,
           other_iters: int = TIMING_ITERS, floor_ms: float = 0.0) -> dict:
-    """Device times of a kernel's wrapper, its plain version and the
-    library call (None where no one PyTorch call computes the function;
-    those two over other_iters calls), and the CUDA-event time of the
-    wrapper. With `floor_ms` (the byte bound of a kernel whose data far
-    exceed the 50 MB L2), a device time under it is a trace that lost
-    kernel records: the kernel is traced again, twice at most, and else
-    timed by CUDA events (named in PROFILER_MISSES)."""
-    ms = device_ms(kernel, name)
-    for _ in range(2):
-        if ms >= floor_ms:
-            break
-        ms = device_ms(kernel, name)
+    """device_ms of a kernel's wrapper, its plain version and the library
+    call (None where no one PyTorch call computes the function; those two
+    over other_iters calls), and the wrapper's CUDA-event time."""
     event_ms = time_ms(kernel)
-    if ms < floor_ms:
-        PROFILER_MISSES.append(f"{name} (device trace under its bound)")
-        ms = event_ms
-    return dict(ms=ms,
+    return dict(ms=device_ms(kernel, name, floor_ms=floor_ms,
+                             event_ms=event_ms),
                 plain_ms=device_ms(plain, f"{name} plain", other_iters),
                 library_ms=None if library is None
                 else device_ms(library, f"{name} library", other_iters),
@@ -1925,7 +1974,9 @@ ORDERS_WIDTH = 128
 #: shapes: the reference's byte matrices of int64 indices do not fit 80 GB
 #: whole
 PLAIN_CHUNK = 1 << 20
-PLAIN_ITERS = 3
+#: calls a plain version's device time is the mean of at the path shapes
+#: (cut from 3 when phase 14 was added)
+PLAIN_ITERS = 1
 
 
 def _region_rows(dev, n: int, seed: int):
@@ -2814,10 +2865,18 @@ def count_host_syncs(run) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def timed_runs(run, check, hot_runs: int = HOT_RUNS) -> dict:
+def _secs(v) -> str:
+    """Seconds to 4 places, or "none" for a phase timed without hot
+    runs."""
+    return "none" if v is None else f"{v:.4f}"
+
+
+def timed_runs(run, check, hot_runs: int = HOT_RUNS,
+               count_syncs: bool = True) -> dict:
     """Reset the launch counts, one cold run, read the counts; then
-    hot_runs hot runs, each checked against the oracle; one run counting
-    its host syncs; one profiled run."""
+    hot_runs hot runs, each checked against the oracle; with count_syncs
+    one run counting its host syncs (else host_syncs None); one profiled
+    run."""
     import torch
 
     from spark_rapids_tpu_torch import kernels
@@ -2837,8 +2896,10 @@ def timed_runs(run, check, hot_runs: int = HOT_RUNS) -> dict:
         hot.append(time.monotonic() - t0)
         check(got)
     return dict(result_rows=got.num_rows, cold_s=cold_s,
-                hot_median_s=statistics.median(hot), hot_s=hot,
-                launches=launches, host_syncs=count_host_syncs(run),
+                hot_median_s=statistics.median(hot) if hot else None,
+                hot_s=hot,
+                launches=launches,
+                host_syncs=count_host_syncs(run) if count_syncs else None,
                 profile=profile_run(run))
 
 
@@ -3427,7 +3488,7 @@ def run_slice5(dev, root, oracles, fused: bool) -> dict:
         checker_bytes = torch.cuda.memory_allocated(dev) - base
         torch.cuda.reset_peak_memory_stats(dev)
         rec = timed_runs(lambda: build_df(fact).collect_arrow(), check,
-                         SLICE5_HOT_RUNS)
+                         SLICE5_HOT_RUNS, count_syncs=False)
         peak = int(torch.cuda.max_memory_allocated(dev)) - checker_bytes
         del want, check
         ex = spark.last_execution
@@ -4834,7 +4895,7 @@ def run_slice8(dev, root, oracles, fused: bool) -> dict:
     for name, build in builds.items():
         torch.cuda.reset_peak_memory_stats(dev)
         rec = timed_runs(lambda: build(df).collect_arrow(), checks[name],
-                         SLICE8_HOT_RUNS)
+                         SLICE8_HOT_RUNS, count_syncs=False)
         ex = spark.last_execution
         want_engine = SLICE8_FUSED_ENGINE[name] if fused else "aqe"
         if ex["engine"] != want_engine:
@@ -6178,10 +6239,10 @@ def _dec_text(v: int, scale: int) -> str:
     return f"{sign}{whole}.{frac:0{scale}d}" if scale else f"{sign}{whole}"
 
 
-def slice11_oracles() -> dict:
+def slice11_oracles(lines=None) -> dict:
     """The three decimal queries' answers in exact Python integers (each
-    decimal as its unscaled value), from the writers' seeded draws: no
-    float anywhere."""
+    decimal as its unscaled value), from the writers' seeded draws
+    (`lines`: LINEITEM's, when the caller has them): no float anywhere."""
     import numpy as np
 
     from spark_rapids_tpu_torch.q5 import (
@@ -6195,7 +6256,7 @@ def slice11_oracles() -> dict:
 
     cutoff = int(np.datetime64(Q1_SHIP_CUTOFF, "D").astype(np.int64))
     acc = {}
-    for d in lineitem_draws(SF10_LINEITEM, FILES, seed=0):
+    for d in lines or lineitem_draws(SF10_LINEITEM, FILES, seed=0):
         keep = d["shipdate"] <= cutoff
         g = d["flag"] * 2 + d["status"]
         disc_price = d["price_c"] * (100 - d["disc_c"])
@@ -6321,6 +6382,731 @@ def run_slice11(dev, session, oracles, fused: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- slice 12
+
+#: hot runs of each phase-14 query (its 15M-row window and 1M-customer
+#: lists download the most of any phase)
+SLICE12_HOT_RUNS = 1
+#: slice 12's kernel counters, printed with each phase-14 query
+SLICE12_COUNTERS = ("frame_collect", "array_compact", "array_distinct",
+                    "array_sort", "expand_gather_maps", "collect_scatter")
+#: the kernels each phase-14 query must launch on either engine
+SLICE12_PATH_KERNELS = {
+    "nested_explode": ("expand_gather_maps", "gather_leaves",
+                       "seg_sum_count"),
+    "nested_item_stats": ("array_compact", "array_distinct", "array_sort",
+                          "gather_leaves", "seg_sum_count"),
+    "customer_order_lists": ("collect_rank", "collect_scatter",
+                             "array_sort", "sort_words"),
+    "recent_orders_window": ("frame_collect", "pack_keys", "sort_words"),
+}
+#: phase-14 queries the fused engine hands to the adaptive one (collect
+#: results, as the reference's fused engine does)
+SLICE12_FUSED_FALLBACK = ("customer_order_lists",)
+
+
+def _bits(x):
+    """A float tensor as its integer bits (NaN compared by payload)."""
+    import torch
+
+    if x.dtype == torch.float64:
+        return x.view(torch.int64)
+    if x.dtype == torch.float32:
+        return x.view(torch.int32)
+    return x
+
+
+def _exact_bits(name: str, got, want) -> None:
+    """exact() over a tuple of outputs, floats bit for bit."""
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g is None and w is None:
+            continue
+        exact(f"{name} output {k}", _bits(g), _bits(w))
+
+
+def _nested_window(dev, custkey, date, orderkey, cap: int, live: int):
+    """The window's sorted view of the recent-orders frame: partitions by
+    customer, ordered by (date, key), over cap rows of which `live` live
+    (K9, K10, K12 build it, as TpuWindowExec does)."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.ops import windowops as W
+    from spark_rapids_tpu_torch.sqltypes import StructField, StructType
+    from spark_rapids_tpu_torch.sqltypes.datatypes import date as date_t
+    from spark_rapids_tpu_torch.sqltypes.datatypes import long as long_t
+
+    cols = [_col(long_t, custkey, torch.ones(cap, dtype=torch.bool,
+                                             device=dev)),
+            _col(date_t, date, torch.ones(cap, dtype=torch.bool,
+                                          device=dev)),
+            _col(long_t, orderkey, torch.ones(cap, dtype=torch.bool,
+                                              device=dev))]
+    batch = ColumnBatch(StructType([StructField(n, c.dtype) for n, c in
+                                    zip(("c", "d", "k"), cols)]), cols, live)
+    return W.sort_for_window(batch, [cols[0]],
+                             [(cols[1], True, True), (cols[2], True, True)])
+
+
+def check_slice12_kernels(dev):
+    """Phase 2, slice 12: K33 (frame_collect), K34 (array_compact and
+    array_distinct) and K35 (array_sort) at the nested queries' shapes,
+    each against its plain version: K33 over 15,000,000 orders in about
+    1,000,000 customers sorted by (date, key), collect_list of float64
+    prices over ROWS 2 PRECEDING (W = 3) and collect_set of int32 years
+    over 5 PRECEDING (W = 6); K34 over the [15M, 8] int32 quantities of
+    1-7 lines (filter x > 25 and array_distinct); K35 over them
+    descending. The plain versions run in 2^20-row pieces (K33's in one,
+    its frames crossing pieces). Returns {record name: record}."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.expr import collections as CX
+    from spark_rapids_tpu_torch.ops import windowops as W
+
+    src = "spark_rapids_tpu_torch/kernels/csrc/"
+    rng = np.random.default_rng(121)
+    n = SF10_ORDERS
+    cap = 1 << (n - 1).bit_length()
+    out = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def record(name, source, replaces, counter, kernel, plain, library,
+               plain_iters, nbytes, shape):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        _exact_bits(name, got, want)
+        bound = bound_ms(nbytes)
+        out[name] = dict(
+            route="cuda", source=src + source, replaces=replaces,
+            max_abs_err=0.0, counter=counter,
+            **timed(name, kernel, plain, library, plain_iters, bound),
+            bound_ms=bound, bound_by="bytes", shape=shape)
+
+    custkey = np.zeros(cap, dtype=np.int64)
+    custkey[:n] = rng.integers(1, 1_000_001, n)
+    date = np.zeros(cap, dtype=np.int32)
+    date[:n] = rng.integers(8035, 10_591, n)
+    orderkey = np.arange(cap, dtype=np.int64) * 4 + 1
+    sw = _nested_window(dev, t(custkey), t(date), t(orderkey), cap, n)
+    price = t(rng.integers(85_000, 55_000_000, cap) / 100.0)
+    year = t(1992 + (date - 8035) // 366)
+    valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+    valid[:n] = True
+    del custkey, date, orderkey
+    for name, vals, lo, distinct in (("frame_collect_list", price, -2, False),
+                                     ("frame_collect_set", year, -5, True)):
+        w = 1 - lo
+        esize = vals.element_size()
+        # values and validity once, perm, live and the partition bounds
+        # once; out [n, W] values and flags and the lengths
+        record(name, "frame_collect.cu",
+               "spark_rapids_tpu/ops/windowops.py:355", "frame_collect",
+               lambda v=vals, lo=lo, d=distinct: W.frame_collect(
+                   v, valid, sw, lo, 0, d),
+               lambda v=vals, lo=lo, d=distinct: W.frame_collect_plain(
+                   v, valid, sw, lo, 0, d),
+               None, 1, cap * (esize + 1 + 4 + 1 + 4 + 4)
+               + cap * (w * (esize + 1) + 4),
+               f"{n} live of {cap} rows, W = {w}, "
+               f"{'distinct int32' if distinct else 'float64'}")
+    del sw, price, year, valid
+    lens = rng.integers(1, 8, cap).astype(np.int32)
+    in_row = np.arange(8)[None, :] < lens[:, None]
+    qty = t(np.where(in_row, rng.integers(1, 51, (cap, 8)), 0)
+            .astype(np.int32))
+    ev = t(in_row)
+    lengths = t(lens)
+    keep = (qty > 25) & ev
+    del lens, in_row
+    rows_b = cap * 8 * (4 + 1)  # a [cap, 8] int32 matrix and its flags
+
+    def sort_rows_library():
+        s = torch.sort(qty, dim=1, descending=True, stable=True)
+        return s.values, torch.gather(ev, 1, s.indices)
+
+    record("array_compact", "array_rows.cu",
+           "spark_rapids_tpu/expr/collections.py:625", "array_compact",
+           lambda: CX.array_compact(qty, ev, keep),
+           lambda: _chunked(lambda lo, hi: CX.array_compact_plain(
+               qty[lo:hi], ev[lo:hi], keep[lo:hi])[:3], cap),
+           lambda: torch.gather(qty, 1, torch.sort(
+               (~keep).to(torch.int8), dim=1, stable=True).indices),
+           3, rows_b + cap * 8 + rows_b + cap * 4,
+           f"[{cap}, 8] int32 of 1-7 elements, keep x > 25")
+    record("array_distinct", "array_rows.cu",
+           "spark_rapids_tpu/expr/collections.py:944", "array_distinct",
+           lambda: CX.array_distinct(qty, ev, lengths),
+           lambda: _chunked(lambda lo, hi: CX.array_distinct_plain(
+               qty[lo:hi], ev[lo:hi], lengths[lo:hi]), cap),
+           None, 3, rows_b + cap * 4 + rows_b + cap * 4,
+           f"[{cap}, 8] int32 of 1-7 elements")
+    record("array_sort", "array_rows.cu",
+           "spark_rapids_tpu/expr/collections.py:391", "array_sort",
+           lambda: CX.array_sort(qty, ev, lengths, False),
+           lambda: _chunked(lambda lo, hi: CX.array_sort_plain(
+               qty[lo:hi], ev[lo:hi], lengths[lo:hi], False), cap),
+           # values 1-50 and dead slots 0: a stable descending row sort
+           # puts the dead last, as sort_array(desc) does
+           sort_rows_library, 3, rows_b + cap * 4 + rows_b,
+           f"[{cap}, 8] int32 of 1-7 elements, descending")
+    _exact_bits("array_sort library", sort_rows_library(),
+                CX.array_sort(qty, ev, lengths, False))
+    return out
+
+
+def check_slice12_edges(dev) -> int:
+    """Phase 2, slice 12 edge shapes against the plain versions: K33 at
+    W = 1, 3, 6 and 1,024 (frames past the partition and past the batch)
+    over every element type with nulls, NaN, +-inf, -0.0, INT_MIN, dead
+    rows, one-row and all-null partitions, as lists and as sets; K34's
+    compact and distinct and K35 in both directions over empty arrays,
+    all-null rows, NaN, +-inf, -0.0, INT_MIN and INT_MAX, lengths past the
+    width, max_elems 1 to 64 of every element type, and K34's compact of
+    array<string> cubes of empty strings and of 12-byte strings. Returns
+    the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.expr import collections as CX
+    from spark_rapids_tpu_torch.ops import windowops as W
+
+    rng = np.random.default_rng(122)
+    cases = 0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def values(dtype, shape):
+        if dtype in (np.float32, np.float64):
+            pool = np.array([0.0, -0.0, 1.5, -2.0, np.nan, np.inf, -np.inf,
+                             7.0], dtype=dtype)
+        elif dtype == np.bool_:
+            pool = np.array([False, True])
+        else:
+            info = np.iinfo(dtype)
+            pool = np.array([0, 1, -1, info.min, info.max, 3, 3, 9],
+                            dtype=dtype)
+        return pool[rng.integers(0, len(pool), shape)]
+
+    kinds = (np.int8, np.int16, np.int32, np.int64, np.float32, np.float64)
+    for n in (1, 37, 5_000):
+        cap = 1 << max(n - 1, 1).bit_length()
+        live = max(n - 3, 1)
+        for parts in (1, 7, n):
+            custkey = t(np.sort(rng.integers(0, parts, cap)))
+            date = t(rng.integers(0, 40, cap).astype(np.int32))
+            sw = _nested_window(dev, custkey, date,
+                                t(np.arange(cap, dtype=np.int64)), cap,
+                                live)
+            for dtype in kinds:
+                vals = t(values(dtype, cap))
+                # W = 1,024 over one integer and one float type
+                los = ((0, -2, -5, -1023) if dtype in (np.int32, np.float64)
+                       else (0, -2, -5))
+                for valid in (t(rng.random(cap) < 0.8),
+                              torch.zeros(cap, dtype=torch.bool,
+                                          device=dev)):
+                    for lo in los:
+                        for distinct in (False, True):
+                            _exact_bits(
+                                f"frame_collect n={n} W={1 - lo}",
+                                W.frame_collect(vals, valid, sw, lo, 0,
+                                                distinct),
+                                W.frame_collect_plain(vals, valid, sw, lo,
+                                                      0, distinct))
+                            cases += 1
+    for rows in (1, 33, 4_099):
+        for me in (1, 2, 8, 64):
+            for dtype in kinds + (np.bool_,):
+                data = t(values(dtype, (rows, me)))
+                for ev in (t(rng.random((rows, me)) < 0.7),
+                           torch.zeros((rows, me), dtype=torch.bool,
+                                       device=dev)):
+                    lengths = t(rng.integers(0, me + 2, rows)
+                                .astype(np.int32))
+                    keep = ev | t(rng.random((rows, me)) < 0.3)
+                    got = CX.array_compact(data, ev, keep)
+                    want = CX.array_compact_plain(data, ev, keep)
+                    _exact_bits(f"array_compact {rows}x{me}", got, want)
+                    cases += 1
+                    if dtype != np.bool_:
+                        lens = lengths.clamp(max=me)
+                        _exact_bits(f"array_distinct {rows}x{me}",
+                                    CX.array_distinct(data, ev, lens),
+                                    CX.array_distinct_plain(data, ev, lens))
+                        cases += 1
+                    for asc in (True, False):
+                        lens = lengths.clamp(max=me)
+                        _exact_bits(f"array_sort {rows}x{me} asc={asc}",
+                                    CX.array_sort(data, ev, lens, asc),
+                                    CX.array_sort_plain(data, ev, lens, asc))
+                        cases += 1
+    for width in (8, 12):
+        rows, me = 1_000, 4
+        lens = rng.integers(0, width + 1, (rows, me)).astype(np.int32)
+        if width == 8:
+            lens[:] = 0  # cubes of empty strings
+        cube = t(np.where(np.arange(width)[None, None, :] < lens[:, :, None],
+                          rng.integers(97, 123, (rows, me, width)), 0)
+                 .astype(np.uint8))
+        ev = t(rng.random((rows, me)) < 0.8)
+        keep = ev & t(rng.random((rows, me)) < 0.6)
+        _exact_bits(f"array_compact cube width={width}",
+                    CX.array_compact(cube, ev, keep, t(lens)),
+                    CX.array_compact_plain(cube, ev, keep, t(lens)))
+        cases += 1
+    return cases
+
+
+def _days_year(days):
+    """Each day's year (days since 1970-01-01), proleptic Gregorian."""
+    import numpy as np
+
+    return (np.asarray(days).astype("datetime64[D]").astype("datetime64[Y]")
+            .astype(np.int64) + 1970).astype(np.int32)
+
+
+def slice12_oracles(draws) -> dict:
+    """numpy oracles of the four nested queries from NESTED_ORDERS' draws
+    (`nested_orders_draws`): the exploded sums and counts by (status,
+    position); the per-priority sums and counts of the item statistics;
+    each customer's sorted order keys and sorted distinct years; each
+    order's frame of prices (oldest first) and its frame's distinct
+    years, by order key."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.q5 import ORDER_PRIORITIES
+
+    o, counts, lines, modes, _ = draws
+    n = len(counts)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    starts = offsets[:-1]
+    qty = (lines["qty_c"] // 100).astype(np.int64)
+    price = lines["price_c"] / 100.0
+    open_lines = np.add.reduceat(lines["status"], starts)
+    status = np.where(open_lines == 0, 0, np.where(open_lines == counts,
+                                                    1, 2))
+    oid = np.repeat(np.arange(n), counts)
+    pos = np.arange(len(qty)) - np.repeat(starts, counts)
+    key = status[oid] * 8 + pos
+    explode = {}
+    q_sum = np.bincount(key, weights=qty, minlength=24)
+    q_cnt = np.bincount(key, minlength=24)
+    for k in np.flatnonzero(q_cnt):
+        explode[("FOP"[k // 8], int(k % 8))] = (int(q_sum[k]),
+                                                int(q_cnt[k]))
+    n_distinct = _popcount(np.bitwise_or.reduceat(
+        np.left_shift(np.uint64(1), qty.astype(np.uint64)), starts))
+    per_order = dict(
+        lines=counts.astype(np.int64),
+        sum_max_price=np.maximum.reduceat(price, starts),
+        air_orders=np.logical_or.reduceat(modes == 1, starts).astype(
+            np.int64),
+        sum_top_qty=np.maximum.reduceat(qty, starts),
+        sum_distinct=n_distinct,
+        big_lines=np.add.reduceat((qty > 25).astype(np.int64), starts),
+        sum_first_price=price[starts],
+        seven_line_orders=(counts >= 7).astype(np.int64))
+    prio = o["priority"]
+    stats = {}
+    for p, name in enumerate(ORDER_PRIORITIES):
+        sel = prio == p
+        stats[name] = dict(orders=int(sel.sum()),
+                           **{k: v[sel].sum() for k, v in per_order.items()})
+    # each customer's order keys and distinct years, customers ascending
+    cust, okey = o["o_custkey"], o["o_orderkey"]
+    years = _days_year(o["o_orderdate"])
+    # orders by (customer, key) and by (customer, date, key): one argsort
+    # of the fields packed in an int64 (customers < 2^21, days since the
+    # first order date < 2^12, order keys' ranks < 2^26)
+    by_okey = np.argsort(okey, kind="stable")
+    krank = np.empty(n, dtype=np.int64)
+    krank[by_okey] = np.arange(n)
+    day = (o["o_orderdate"].astype(np.int64)
+           - int(o["o_orderdate"].min()))
+    by_cust = np.argsort((cust.astype(np.int64) << 26) | krank)
+    cs = cust[by_cust]
+    first = np.flatnonzero(np.r_[True, cs[1:] != cs[:-1]])
+    ykey = np.unique(cust.astype(np.int64) * 4096 + years)
+    lists = dict(custkey=cs[first],
+                 n_orders=np.diff(np.r_[first, len(cs)]),
+                 order_keys=okey[by_cust],
+                 years=(ykey % 4096).astype(np.int32),
+                 n_years=np.bincount(np.searchsorted(cs[first],
+                                                     ykey // 4096),
+                                     minlength=len(first)))
+    # the frames: orders by (customer, date, key)
+    order = np.argsort((cust.astype(np.int64) << 38) | (day << 26) | krank)
+    cs = cust[order]
+    seg = np.maximum.accumulate(np.where(
+        np.r_[True, cs[1:] != cs[:-1]], np.arange(n), 0))
+    j = np.arange(n)
+    start3 = np.maximum(seg, j - 2)
+    len3 = j - start3 + 1
+    flat3 = np.repeat(start3, len3) + (np.arange(len3.sum())
+                                       - np.repeat(np.cumsum(len3) - len3,
+                                                   len3))
+    ysorted = years[order]
+    ymask = np.zeros(n, dtype=np.int64)
+    for k in range(6):
+        src = np.maximum(j - k, seg)
+        ymask |= np.int64(1) << (ysorted[src] - 1990).astype(np.int64)
+    # by order key: the rank of each sorted row's key
+    inv_order = np.empty(n, dtype=np.int64)
+    inv_order[order] = np.arange(n)
+    by_key = inv_order[by_okey]
+    len3k = len3[by_key]
+    starts3k = (np.cumsum(len3) - len3)[by_key]
+    flat3k = flat3[np.repeat(starts3k, len3k) + (
+        np.arange(len3k.sum()) - np.repeat(np.cumsum(len3k) - len3k,
+                                           len3k))]
+    window = dict(orderkey=okey[order][by_key], len3=len3k,
+                  prices=o["cents"][order][flat3k] / 100.0,
+                  ymask=ymask[by_key])
+    return dict(explode=explode, stats=stats, lists=lists, window=window)
+
+
+def _list_parts(col):
+    """(offsets int64 from 0, flat values numpy) of an Arrow list column."""
+    import numpy as np
+
+    arr = col.combine_chunks() if hasattr(col, "combine_chunks") else col
+    offs = np.asarray(arr.offsets).astype(np.int64)
+    vals = np.asarray(arr.values.to_numpy(zero_copy_only=False))
+    return offs - offs[0], vals[offs[0]:offs[-1]]
+
+
+def _take_lists(offs, vals, order):
+    """The lists of rows `order` in that order: (offsets, flat values),
+    one numpy gather of the values (no Arrow take)."""
+    import numpy as np
+
+    lens = np.diff(offs)[order]
+    new = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=new[1:])
+    idx = np.repeat(offs[:-1][order] - new[:-1], lens) + np.arange(new[-1])
+    return new, vals[idx]
+
+
+def _popcount(x):
+    """Set bits of each int64 (SWAR)."""
+    import numpy as np
+
+    x = x.astype(np.uint64)
+    x = x - ((x >> np.uint64(1)) & np.uint64(0x5555555555555555))
+    x = ((x & np.uint64(0x3333333333333333))
+         + ((x >> np.uint64(2)) & np.uint64(0x3333333333333333)))
+    x = (x + (x >> np.uint64(4))) & np.uint64(0x0F0F0F0F0F0F0F0F)
+    return ((x * np.uint64(0x0101010101010101)) >> np.uint64(56)).astype(
+        np.int64)
+
+
+def check_slice12(name: str, got, want) -> None:
+    """The nested queries against their oracles: counts, sizes, maxima
+    and orders exact, double sums within 1e-9 relative, each customer's
+    order keys as a multiset (Spark leaves collect order open) and its
+    years as a set, each order's price frame in frame order and its
+    years as a set."""
+    import numpy as np
+
+    if name == "nested_explode":
+        rows = {(r["o_orderstatus"], r["pos"]): (r["qty"], r["lines"])
+                for r in got.to_pylist()}
+        if rows != want["explode"]:
+            fail(f"{name}: {rows} != {want['explode']}")
+        return
+    if name == "nested_item_stats":
+        rows = {r["priority"]: r for r in got.to_pylist()}
+        if set(rows) != set(want["stats"]):
+            fail(f"{name}: priorities {sorted(rows)}")
+        for p, w in want["stats"].items():
+            for k, v in w.items():
+                g = rows[p][k]
+                if isinstance(v, (float, np.floating)):
+                    if not math.isclose(g, float(v), rel_tol=REL_TOL):
+                        fail(f"{name} {p} {k}: {g} != {v}")
+                elif g != int(v):
+                    fail(f"{name} {p} {k}: {g} != {v}")
+        return
+    if name == "customer_order_lists":
+        w = want["lists"]
+        cust = got.column("o_custkey").to_numpy()
+        order = np.argsort(cust, kind="stable")
+        cust = cust[order]
+        if not np.array_equal(cust, w["custkey"]):
+            fail(f"{name}: customers differ")
+        for k in ("n_orders", "n_years"):
+            if not np.array_equal(got.column(k).to_numpy()[order], w[k]):
+                fail(f"{name}: {k} differs")
+        offs, vals = _take_lists(*_list_parts(got.column("order_keys")),
+                                 order)
+        # each list sorted: one sort of (row, key) pairs packed in int64
+        row = np.repeat(np.arange(len(offs) - 1, dtype=np.int64),
+                        np.diff(offs))
+        packed = np.sort((row << 32) | vals.astype(np.int64))
+        if not (np.array_equal(np.diff(offs), w["n_orders"])
+                and np.array_equal(packed & 0xFFFFFFFF, w["order_keys"])):
+            fail(f"{name}: order_keys differ as multisets")
+        offs, vals = _take_lists(*_list_parts(got.column("years_sorted")),
+                                 order)
+        if not np.array_equal(vals, w["years"]):
+            fail(f"{name}: years_sorted differ")
+        summary = got.column("summary").combine_chunks()
+        if not (np.array_equal(summary.field("o_custkey").to_numpy()[order],
+                               cust)
+                and np.array_equal(summary.field("n").to_numpy()[order],
+                                   w["n_orders"])):
+            fail(f"{name}: summary differs")
+        return
+    w = want["window"]
+    okey = got.column("o_orderkey").to_numpy()
+    order = np.argsort(okey, kind="stable")
+    if not np.array_equal(okey[order], w["orderkey"]):
+        fail(f"{name}: orders differ")
+    offs, vals = _take_lists(*_list_parts(got.column("last3_prices")),
+                             order)
+    if not (np.array_equal(np.diff(offs), w["len3"])
+            and np.array_equal(vals, w["prices"])):
+        fail(f"{name}: last3_prices differ")
+    offs, vals = _list_parts(got.column("recent_years"))
+    if (np.diff(offs) < 1).any():  # every frame holds its own row's year
+        fail(f"{name}: an empty recent_years")
+    mask = np.bitwise_or.reduceat(
+        np.int64(1) << (vals.astype(np.int64) - 1990), offs[:-1])
+    if not (np.array_equal(mask[order], w["ymask"])
+            and np.array_equal(np.diff(offs), _popcount(mask))):
+        fail(f"{name}: recent_years differ as sets")
+
+
+def host_q5_orders(root: str) -> dict:
+    """Phases 3-8's host work: q5's fact and dimension tables and ORDERS
+    with comments written under root, and the q5, dupjoin and slice 4-6
+    oracles."""
+    from spark_rapids_tpu_torch.q5 import write_orders_data, write_q5_data
+
+    fact_paths, dim_path = write_q5_data(
+        root, ROWS, STORES, REGIONS, FILES, seed=0,
+        dup_per_store=DUP_PER_STORE)
+    want_q5 = q5_oracle(fact_paths, dim_path)
+    want_dup = dupjoin_oracle(
+        fact_paths, os.path.join(root, "dup", "dup-0.parquet"))
+    order_paths = write_orders_data(root, ORDERS_ROWS, FILES, seed=0)
+    return dict(fact_paths=fact_paths, dim_path=dim_path, want_q5=want_q5,
+                want_dup=want_dup,
+                oracles4=slice4_oracles(fact_paths, want_q5),
+                oracles5=slice5_oracles(fact_paths),
+                oracles6=slice6_oracles(order_paths, want_q5, want_dup))
+
+
+def host_dated_customers(root: str) -> dict:
+    """Phases 9-12's host work: the dated ORDERS (typed and as text) and
+    CUSTOMER with its ORDERS written under root, and the slice 7-10
+    oracles."""
+    from spark_rapids_tpu_torch.q5 import (
+        write_customer_data,
+        write_orders_dated,
+    )
+
+    typed_paths, _ = write_orders_dated(root, ORDERS_ROWS, FILES, seed=0)
+    paths9 = write_customer_data(root, SF10_CUSTOMERS, ORDERS_ROWS, FILES,
+                                 seed=0)
+    return dict(oracles7=slice7_oracles(typed_paths),
+                oracles8=slice8_oracles(typed_paths),
+                oracles9=slice9_oracles(paths9),
+                oracles10=slice10_oracles(paths9))
+
+
+def host_lines(root: str) -> dict:
+    """Phases 13-14's host work: LINEITEM's draws once, LINEITEM with
+    CUSTOMER's decimal balance and NESTED_ORDERS (the same lines) written
+    under root, and the slice 11 and 12 oracles."""
+    from spark_rapids_tpu_torch.q5 import (
+        SF10_LINEITEM,
+        lineitem_draws,
+        nested_orders_draws,
+        write_decimal_data,
+        write_nested_orders,
+    )
+
+    lines = lineitem_draws(SF10_LINEITEM, FILES, seed=0)
+    draws = nested_orders_draws(ORDERS_ROWS, SF10_LINEITEM, FILES, seed=0,
+                                lines=lines)
+    write_nested_orders(root, ORDERS_ROWS, SF10_LINEITEM, FILES, seed=0,
+                        draws=draws)
+    oracles12 = slice12_oracles(draws)
+    del draws
+    write_decimal_data(root, SF10_LINEITEM, SF10_CUSTOMERS, FILES, seed=0,
+                       lines=lines)
+    return dict(oracles11=slice11_oracles(lines), oracles12=oracles12)
+
+
+#: the host's work for phases 3-14 (the seeded data and the oracles), one
+#: worker process each, all started before phase 1's build: none of it
+#: then stands between two phases on the card
+HOST_JOBS = (host_q5_orders, host_dated_customers, host_lines)
+
+
+def host_job(job, root: str) -> dict:
+    """job(root) with its seconds, in a worker process. fail() exits, and
+    a worker of multiprocessing.Pool that exits leaves its result
+    unset: every exception comes back as a RuntimeError."""
+    t0 = time.monotonic()
+    try:
+        out = job(root)
+    except BaseException as e:
+        raise RuntimeError(f"{job.__name__}: {e!r}") from None
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def nested_session(dev, root, fused: bool):
+    """The session of phase 14, the fused engine on or off, with
+    NESTED_ORDERS cached on the card: (the session, its DataFrame, the
+    upload's seconds)."""
+    import torch
+
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+
+    spark = (TpuSparkSession.builder
+             .config("spark.sql.shuffle.partitions", 8)
+             .config("spark.rapids.sql.reader.batchSizeRows", 1 << 20)
+             .config("spark.rapids.sql.batchSizeRows", 1 << 20)
+             .config("spark.rapids.shuffle.mode", "DEVICE")
+             .config("spark.rapids.sql.fusedExec.enabled", fused)
+             .getOrCreate())
+    t0 = time.monotonic()
+    df = spark.read.parquet(os.path.join(root, "nested_orders"))
+    df = df.cache(storage="device")
+    spark.cache_manager.lookup(df._plan).materialize()
+    torch.cuda.synchronize()
+    return spark, df, time.monotonic() - t0
+
+
+def run_slice12(dev, session, oracles, fused: bool) -> dict:
+    """Phase 14: the four nested queries (q5.py) over NESTED_ORDERS cached
+    on the card. Returns {query: record}, each with its peak device bytes,
+    its largest device items and the launches of slice 12's kernels."""
+    import torch
+
+    from spark_rapids_tpu_torch.q5 import (
+        customer_order_lists_query,
+        nested_explode_query,
+        nested_item_stats_query,
+        recent_orders_window_query,
+    )
+
+    engine = "fused" if fused else "aqe"
+    spark, df, upload_s = session
+    builds = {
+        "nested_explode": lambda: nested_explode_query(df),
+        "nested_item_stats": lambda: nested_item_stats_query(df),
+        "customer_order_lists": lambda: customer_order_lists_query(df),
+        "recent_orders_window": lambda: recent_orders_window_query(df),
+    }
+    out = {}
+    for name, build in builds.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = timed_runs(lambda: build().collect_arrow(),
+                         lambda g: check_slice12(name, g, oracles),
+                         SLICE12_HOT_RUNS)
+        ex = spark.last_execution
+        want_engine = ("aqe" if fused and name in SLICE12_FUSED_FALLBACK
+                       else engine)
+        if ex["engine"] != want_engine:
+            fail(f"{name} ran on {ex['engine']}, not {want_engine}: {ex}")
+        fell = [e for e, _ in ex["fallbacks"]]
+        if fell != (["fused"] if want_engine != engine else []):
+            fail(f"{name}: unexpected fallbacks {ex['fallbacks']}")
+        missing_launches(f"{engine} {name}", rec["launches"],
+                         SLICE12_PATH_KERNELS[name])
+        mode = (_window_mode(build()) if name == "recent_orders_window"
+                else None)
+        if mode is not None and not fused and mode != (True, 5, None):
+            fail(f"{name}: window mode {mode}, not the halo of 5")
+        rec.update(engine=ex["engine"], aqe=ex["aqe"], fused=ex["fused"],
+                   upload_s=upload_s, window_mode=mode,
+                   peak_device_bytes=int(
+                       torch.cuda.max_memory_allocated(dev)),
+                   slice12_launches={k: rec["launches"].get(k, 0)
+                                     for k in SLICE12_COUNTERS})
+        out[name] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_cache_devices(dev, root: str) -> dict:
+    """The relation cache across devices: in one process a CPU session
+    caches and queries a small NESTED_ORDERS, then a CUDA session, the CPU
+    one still open, caches the same parquet plan and runs the same query.
+    The CUDA session's cached parts must be CUDA tensors and its run must
+    launch the path's kernels (the CPU run none), both answers equal; a
+    query over the CPU session's DataFrame, run after the CUDA session
+    was made, still runs on the CPU (no launch: a DataFrame runs in the
+    session that made it), and a DataFrame of the one session cannot be
+    combined with the other's.
+    Returns a record of both runs."""
+    import torch
+
+    from spark_rapids_tpu_torch import kernels
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+    from spark_rapids_tpu_torch.q5 import (
+        nested_explode_query,
+        write_nested_orders,
+    )
+
+    write_nested_orders(root, 20_000, 80_000, files=2, seed=3)
+    path = os.path.join(root, "nested_orders")
+    runs, sessions = {}, []
+    for name, conf in (("cpu", {"spark.rapids.torch.device": "cpu"}),
+                       ("cuda", {})):
+        spark = TpuSparkSession(conf)
+        sessions.append(spark)
+        df = spark.read.parquet(path).cache(storage="device")
+        entry = spark.cache_manager.lookup(df._plan)
+        kernels.reset_launches()
+        got = nested_explode_query(df).collect_arrow()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernels.launches.items() if v}
+        devices = sorted({x.device.type for p in entry.device_parts()
+                          for c in p.columns for x in c.leaves()})
+        runs[name] = dict(devices=devices, launches=launched,
+                          engine=spark.last_execution["engine"],
+                          rows=sorted((r["o_orderstatus"], r["pos"],
+                                       r["qty"], r["lines"])
+                                      for r in got.to_pylist()),
+                          df=df)
+    if runs["cpu"]["devices"] != ["cpu"] or runs["cpu"]["launches"]:
+        fail(f"cache check: the CPU session's run: {runs['cpu']}")
+    if runs["cuda"]["devices"] != ["cuda"]:
+        fail(f"cache check: the CUDA session's parts on "
+             f"{runs['cuda']['devices']}")
+    missing_launches("cache check (CUDA session)", runs["cuda"]["launches"],
+                     SLICE12_PATH_KERNELS["nested_explode"])
+    if runs["cuda"]["rows"] != runs["cpu"]["rows"]:
+        fail("cache check: the two sessions' answers differ")
+    # the route of the observed fault: a query built over the CPU
+    # session's DataFrame runs in that session, on the CPU, whatever
+    # session was made after it
+    kernels.reset_launches()
+    nested_explode_query(runs["cpu"]["df"]).collect_arrow()
+    if any(kernels.launches.values()):
+        fail("cache check: the CPU session's query launched kernels")
+    try:
+        runs["cuda"]["df"].union(runs["cpu"]["df"])
+    except ValueError:
+        pass
+    else:
+        fail("cache check: a CUDA DataFrame was combined with a CPU one")
+    for spark in sessions:
+        spark.stop()
+    return {k: {f: v for f, v in r.items() if f not in ("df", "rows")}
+            for k, r in runs.items()}
+
+
 def _window_mode(df):
     def find(node):
         if type(node).__name__ == "TpuWindowExec":
@@ -6381,20 +7167,26 @@ def main() -> int:
     sys.path.insert(0, here)
     from spark_rapids_tpu_torch import resolve_device
     from spark_rapids_tpu_torch.kernels import build
-    from spark_rapids_tpu_torch.q5 import (
-        SF10_LINEITEM,
-        write_customer_data,
-        write_decimal_data,
-        write_orders_data,
-        write_orders_dated,
-        write_q5_data,
-    )
+    from spark_rapids_tpu_torch.q5 import SF10_LINEITEM
 
     t_start = time.monotonic()
 
     def stamp(what: str) -> None:
         print(f"{what} at {time.monotonic() - t_start:.1f} s of the run",
               flush=True)
+
+    # phases 3-14's data and oracles are made while the card builds and
+    # checks the kernels, in worker processes (daemons: an exit stops
+    # them). pyarrow is imported here first: imported by the pool's thread
+    # that unpickles the results, its later reads crash
+    import pyarrow.compute  # noqa: F401
+    import pyarrow.parquet  # noqa: F401
+
+    data_dir = tempfile.TemporaryDirectory(prefix="srtpu_smoke_")
+    host_pool = multiprocessing.get_context("spawn").Pool(len(HOST_JOBS))
+    host = {job.__name__: host_pool.apply_async(host_job,
+                                                (job, data_dir.name))
+            for job in HOST_JOBS}
 
     # phase 1: the card, the build
     smi = subprocess.run(
@@ -6420,7 +7212,8 @@ def main() -> int:
             check_slice4_kernels, check_slice5_kernels,
             check_slice6_kernels, check_slice7_kernels,
             check_slice8_kernels, check_slice9_kernels,
-            check_slice10_kernels, check_slice11_kernels)):
+            check_slice10_kernels, check_slice11_kernels,
+            check_slice12_kernels)):
         records.update(check(dev))
         stamp(f"phase 2: slice {k + 1}'s kernels checked")
     for kname, r in records.items():
@@ -6442,7 +7235,7 @@ def main() -> int:
             check_edge_shapes, check_slice2_edges, check_slice3_edges,
             check_slice4_edges, check_slice5_edges, check_slice6_edges,
             check_slice7_edges, check_slice8_edges, check_slice9_edges,
-            check_slice10_edges, check_slice11_edges)):
+            check_slice10_edges, check_slice11_edges, check_slice12_edges)):
         cases += check(dev)
         stamp(f"phase 2: slice {k + 1}'s edge shapes checked")
     print(f"edge shapes: {cases} cases exact against the plain versions",
@@ -6452,20 +7245,22 @@ def main() -> int:
 
     # phases 3-5 at full size: slice 1's plan, the session on the
     # adaptive engine, the session on the fused engine
-    with tempfile.TemporaryDirectory(prefix="srtpu_q5_") as tmp:
-        t0 = time.monotonic()
-        fact_paths, dim_path = write_q5_data(
-            tmp, ROWS, STORES, REGIONS, FILES, seed=0,
-            dup_per_store=DUP_PER_STORE)
+    with data_dir as tmp:
+
+        def host_result(job):
+            t0 = time.monotonic()
+            out = host.pop(job.__name__).get()
+            print(f"{job.__name__}: made in {out['seconds']:.1f} s of a "
+                  f"worker, waited for {time.monotonic() - t0:.1f} s",
+                  flush=True)
+            return out
+
+        done = host_result(host_q5_orders)
+        fact_paths, dim_path = done["fact_paths"], done["dim_path"]
+        want_q5, want_dup = done["want_q5"], done["want_dup"]
         print(f"data: {ROWS} fact rows in {FILES} files, a {STORES}-row "
               f"dimension and a {STORES * DUP_PER_STORE}-row duplicate-key "
-              f"dimension, written in {time.monotonic() - t0:.1f} s",
-              flush=True)
-        t0 = time.monotonic()
-        want_q5 = q5_oracle(fact_paths, dim_path)
-        want_dup = dupjoin_oracle(
-            fact_paths, os.path.join(tmp, "dup", "dup-0.parquet"))
-        print(f"pyarrow oracles in {time.monotonic() - t0:.1f} s",
+              f"dimension, and ORDERS: {ORDERS_ROWS} rows in {FILES} files",
               flush=True)
         plan_rec = run_q5_plan(dev, fact_paths, dim_path, want_q5)
         print("q5_plan: " + json.dumps(plan_rec), flush=True)
@@ -6479,7 +7274,7 @@ def main() -> int:
                       f"aqe={json.dumps(rec['aqe'])} "
                       f"upload_s={rec['upload_s']:.3f} "
                       f"cold_s={rec['cold_s']:.4f} "
-                      f"hot_median_s={rec['hot_median_s']:.4f} "
+                      f"hot_median_s={_secs(rec['hot_median_s'])} "
                       f"host_syncs={rec['host_syncs']} "
                       f"device_busy_ms={rec['profile']['device_busy_ms']} "
                       f"idle_share={rec['profile']['device_idle_share']}",
@@ -6493,10 +7288,7 @@ def main() -> int:
         stamp("phases 3-5 done")
 
         # phase 6: slice 4's sort, TopN, distinct and window queries
-        t0 = time.monotonic()
-        oracles = slice4_oracles(fact_paths, want_q5)
-        print(f"slice 4 oracles in {time.monotonic() - t0:.1f} s",
-              flush=True)
+        oracles, oracles5 = done["oracles4"], done["oracles5"]
         for engine, fused in (("aqe", False), ("fused", True)):
             session = run_slice4(dev, tmp, oracles, fused)
             for qname, rec in session.items():
@@ -6506,7 +7298,7 @@ def main() -> int:
                       f"fused={json.dumps(rec['fused'])} "
                       f"aqe={json.dumps(rec['aqe'])} "
                       f"cold_s={rec['cold_s']:.4f} "
-                      f"hot_median_s={rec['hot_median_s']:.4f} "
+                      f"hot_median_s={_secs(rec['hot_median_s'])} "
                       f"host_syncs={rec['host_syncs']} "
                       f"device_busy_ms={prof['device_busy_ms']} "
                       f"idle_share={prof['device_idle_share']} "
@@ -6523,10 +7315,6 @@ def main() -> int:
         stamp("phase 6 done")
 
         # phase 7: slice 5's window modes
-        t0 = time.monotonic()
-        oracles5 = slice5_oracles(fact_paths)
-        print(f"slice 5 oracles in {time.monotonic() - t0:.1f} s",
-              flush=True)
         for engine, fused in (("aqe", False), ("fused", True)):
             session = run_slice5(dev, tmp, oracles5, fused)
             for qname, rec in session.items():
@@ -6535,7 +7323,7 @@ def main() -> int:
                 print(f"{engine} {qname}: mode={rec['mode']} "
                       f"rows={rec['result_rows']} "
                       f"cold_s={rec['cold_s']:.4f} "
-                      f"hot_median_s={rec['hot_median_s']:.4f} "
+                      f"hot_median_s={_secs(rec['hot_median_s'])} "
                       f"host_syncs={rec['host_syncs']} "
                       f"device_busy_ms={prof['device_busy_ms']} "
                       f"idle_share={prof['device_idle_share']} "
@@ -6553,11 +7341,8 @@ def main() -> int:
         stamp("phase 7 done")
 
         # phase 8: slice 6's string queries, with TPC-H ORDERS at SF10
-        t0 = time.monotonic()
-        order_paths = write_orders_data(tmp, ORDERS_ROWS, FILES, seed=0)
-        oracles6 = slice6_oracles(order_paths, want_q5, want_dup)
-        print(f"orders: {ORDERS_ROWS} rows in {FILES} files and the slice 6 "
-              f"oracles in {time.monotonic() - t0:.1f} s", flush=True)
+        oracles6 = done.pop("oracles6")
+        del done
         for engine, fused in (("aqe", False), ("fused", True)):
             session = run_slice6(dev, tmp, oracles6, fused)
             for qname, rec in session.items():
@@ -6567,7 +7352,7 @@ def main() -> int:
                       f"fused={json.dumps(rec['fused'])} "
                       f"upload_s={rec['upload_s']:.3f} "
                       f"cold_s={rec['cold_s']:.4f} "
-                      f"hot_median_s={rec['hot_median_s']:.4f} "
+                      f"hot_median_s={_secs(rec['hot_median_s'])} "
                       f"host_syncs={rec['host_syncs']} "
                       f"device_busy_ms={prof['device_busy_ms']} "
                       f"idle_share={prof['device_idle_share']} "
@@ -6582,12 +7367,10 @@ def main() -> int:
 
         # phase 9: slice 7's casts, dates and session zones over the dated
         # ORDERS at SF10, typed and as .tbl text
-        t0 = time.monotonic()
-        typed_paths, _ = write_orders_dated(tmp, ORDERS_ROWS, FILES, seed=0)
-        oracles7 = slice7_oracles(typed_paths)
+        done = host_result(host_dated_customers)
+        oracles7 = done.pop("oracles7")
         print(f"dated orders: {ORDERS_ROWS} rows in {FILES} files, typed "
-              f"and as text, and the slice 7 oracles in "
-              f"{time.monotonic() - t0:.1f} s", flush=True)
+              f"and as text", flush=True)
         for engine, fused in (("aqe", False), ("fused", True)):
             session = run_slice7(dev, tmp, oracles7, fused)
             for qname, rec in session.items():
@@ -6598,7 +7381,7 @@ def main() -> int:
                       f"fused={json.dumps(rec['fused'])} "
                       f"upload_s={rec['upload_s']:.3f} "
                       f"cold_s={rec['cold_s']:.4f} "
-                      f"hot_median_s={rec['hot_median_s']:.4f} "
+                      f"hot_median_s={_secs(rec['hot_median_s'])} "
                       f"host_syncs={rec['host_syncs']} "
                       f"device_busy_ms={prof['device_busy_ms']} "
                       f"idle_share={prof['device_idle_share']} "
@@ -6614,10 +7397,7 @@ def main() -> int:
 
         # phase 10: slice 8's statistical, distinct and percentile
         # aggregates and variance windows over the same dated ORDERS
-        t0 = time.monotonic()
-        oracles8 = slice8_oracles(typed_paths)
-        print(f"slice 8 oracles in {time.monotonic() - t0:.1f} s",
-              flush=True)
+        oracles8 = done.pop("oracles8")
         for engine, fused in (("aqe", False), ("fused", True)):
             session = run_slice8(dev, tmp, oracles8, fused)
             for qname, rec in session.items():
@@ -6628,7 +7408,7 @@ def main() -> int:
                       f"fused={json.dumps(rec['fused'])} "
                       f"upload_s={rec['upload_s']:.3f} "
                       f"cold_s={rec['cold_s']:.4f} "
-                      f"hot_median_s={rec['hot_median_s']:.4f} "
+                      f"hot_median_s={_secs(rec['hot_median_s'])} "
                       f"host_syncs={rec['host_syncs']} "
                       f"device_busy_ms={prof['device_busy_ms']} "
                       f"idle_share={prof['device_idle_share']} "
@@ -6647,23 +7427,17 @@ def main() -> int:
         # phases 11 and 12: slice 9's joins, union and repartition, and
         # slice 10's predicates, conditionals, math and hashes, over
         # CUSTOMER and ORDERS at SF10, uploaded once an engine for both
-        t0 = time.monotonic()
-        paths9 = write_customer_data(tmp, SF10_CUSTOMERS, ORDERS_ROWS,
-                                     FILES, seed=0)
-        oracles9 = slice9_oracles(paths9)
+        oracles9, oracles10 = done["oracles9"], done["oracles10"]
+        del done
+        done = host_result(host_lines)
+        host_pool.close()
+        host_pool.join()
+        oracles11, oracles12 = done["oracles11"], done["oracles12"]
+        del done
         print(f"customer: {SF10_CUSTOMERS} rows, orders with customers and "
-              f"comments: {ORDERS_ROWS} rows in {FILES} files, and the slice "
-              f"9 oracles in {time.monotonic() - t0:.1f} s", flush=True)
-        t0 = time.monotonic()
-        oracles10 = slice10_oracles(paths9)
-        print(f"slice 10 oracles in {time.monotonic() - t0:.1f} s",
-              flush=True)
-        t0 = time.monotonic()
-        write_decimal_data(tmp, SF10_LINEITEM, SF10_CUSTOMERS, FILES, seed=0)
-        oracles11 = slice11_oracles()
-        print(f"lineitem: {SF10_LINEITEM} rows in {FILES} files, "
-              f"customer_dec: {SF10_CUSTOMERS} rows, and the slice 11 "
-              f"oracles in {time.monotonic() - t0:.1f} s", flush=True)
+              f"comments: {ORDERS_ROWS} rows in {FILES} files, lineitem: "
+              f"{SF10_LINEITEM} rows in {FILES} files, customer_dec: "
+              f"{SF10_CUSTOMERS} rows", flush=True)
         for engine, fused in (("aqe", False), ("fused", True)):
             session = customer_session(dev, tmp, fused)
             for phase, fn, oracles in ((11, run_slice9, oracles9),
@@ -6679,7 +7453,7 @@ def main() -> int:
                           f"fused={json.dumps(rec['fused'])} "
                           f"upload_s={rec['upload_s']:.3f} "
                           f"cold_s={rec['cold_s']:.4f} "
-                          f"hot_median_s={rec['hot_median_s']:.4f} "
+                          f"hot_median_s={_secs(rec['hot_median_s'])} "
                           f"host_syncs={rec['host_syncs']} "
                           f"device_busy_ms={prof['device_busy_ms']} "
                           f"idle_share={prof['device_idle_share']} "
@@ -6702,8 +7476,44 @@ def main() -> int:
             del session
         del oracles9, oracles10, oracles11
 
+        # phase 14: slice 12's nested columns over NESTED_ORDERS, after
+        # the relation cache's device check
+        cache_rec = check_cache_devices(dev, os.path.join(tmp, "cache"))
+        print("relation cache across devices: " + json.dumps(cache_rec),
+              flush=True)
+        stamp("phase 14: the relation cache's device check done")
+        print(f"nested_orders: {ORDERS_ROWS} orders carrying "
+              f"{SF10_LINEITEM} lines in {FILES} files", flush=True)
+        for engine, fused in (("aqe", False), ("fused", True)):
+            session = nested_session(dev, tmp, fused)
+            done = run_slice12(dev, session, oracles12, fused)
+            for qname, rec in done.items():
+                runs[f"{engine} {qname}"] = rec
+                prof = rec["profile"]
+                print(f"{engine} {qname}: engine={rec['engine']} "
+                      f"rows={rec['result_rows']} "
+                      f"window_mode={rec['window_mode']} "
+                      f"fused={json.dumps(rec['fused'])} "
+                      f"upload_s={rec['upload_s']:.3f} "
+                      f"cold_s={rec['cold_s']:.4f} "
+                      f"hot_median_s={_secs(rec['hot_median_s'])} "
+                      f"host_syncs={rec['host_syncs']} "
+                      f"device_busy_ms={prof['device_busy_ms']} "
+                      f"idle_share={prof['device_idle_share']} "
+                      f"peak_device_bytes={rec['peak_device_bytes']} "
+                      f"slice12_launches="
+                      f"{json.dumps(rec['slice12_launches'])}", flush=True)
+                print(f"{engine} {qname} largest device items: "
+                      + json.dumps(prof["top"][:5]), flush=True)
+                print(f"{engine} {qname} launches per query: "
+                      + json.dumps(rec["launches"]), flush=True)
+            stamp(f"phase 14 ({engine}) done")
+            session[0].stop()
+            del session
+        del oracles12
+
     # each kernel's launches: the sum over every path's cold run (phases
-    # 3-13), each read right after it
+    # 3-14), each read right after it
     launches = {k: sum(r["launches"].get(rec.get("counter", k), 0)
                        for r in runs.values())
                 for k, rec in records.items()}

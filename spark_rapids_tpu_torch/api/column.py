@@ -68,6 +68,25 @@ class Column:
             else self.expr
         return Column(Alias(base, name), name)
 
+    def getItem(self, index) -> "Column":
+        """array[index] (0-based; out of bounds -> null)."""
+        from spark_rapids_tpu_torch.expr.collections import GetArrayItem
+
+        return Column(GetArrayItem(self.expr, _expr(index)), "getItem")
+
+    def getField(self, name: str) -> "Column":
+        """struct.field."""
+        from spark_rapids_tpu_torch.expr.structs import GetStructField
+
+        return Column(GetStructField(self.expr, name), name)
+
+    def __getitem__(self, key) -> "Column":
+        """col[i] on an array (getItem), col["name"] on a struct
+        (getField), as PySpark's Column indexes them."""
+        if isinstance(key, str):
+            return self.getField(key)
+        return self.getItem(key)
+
     def cast(self, to) -> "Column":
         if isinstance(to, str):
             from spark_rapids_tpu_torch.sqltypes.datatypes import (

@@ -174,15 +174,40 @@ class DataFrame:
         return self._finish_project(exprs)
 
     def _finish_project(self, exprs: List[Alias]) -> "DataFrame":
-        """Emit Project, extracting window expressions into Window nodes
+        """Emit Project, extracting a generator into a Generate node
+        (Spark's ExtractGenerator) or window expressions into Window nodes
         first (Spark's ExtractWindowExpressions): one Window node per
         (partitionBy, orderBy) spec, its columns appended to the child's,
         and the Project selecting them."""
+        from spark_rapids_tpu_torch.expr.generators import (
+            Explode,
+            PosExplode,
+            contains_generator,
+        )
         from spark_rapids_tpu_torch.expr.windows import (
             WindowExpression,
             contains_window,
         )
 
+        if any(contains_generator(e) for e in exprs):
+            # Spark's ExtractGenerator: one top-level explode a select
+            if any(contains_window(e) for e in exprs):
+                raise ValueError(
+                    "explode combined with window expressions in one "
+                    "select is not supported; materialize the window "
+                    "column with a prior select first")
+            gens = [e for e in exprs if isinstance(e.children[0], Explode)]
+            others = [e for e in exprs
+                      if not isinstance(e.children[0], Explode)]
+            if len(gens) != 1 or any(contains_generator(e) for e in others):
+                raise ValueError(
+                    "exactly one top-level explode/posexplode per select "
+                    "(Spark's one-generator rule)")
+            gen = gens[0]
+            return DataFrame(L.Generate(
+                others, gen, self._plan,
+                position=isinstance(gen.children[0], PosExplode)),
+                self.session)
         if not any(contains_window(e) for e in exprs):
             return DataFrame(L.Project(exprs, self._plan), self.session)
         plan = self._plan
@@ -240,7 +265,18 @@ class DataFrame:
 
     where = filter
 
+    def _same_device(self, other: "DataFrame") -> None:
+        """Two DataFrames combine only on one device: the result runs in
+        this DataFrame's session, which would otherwise read the other's
+        relations (another device's cached parts) in its query."""
+        if other.session is not self.session and (
+                other.session.device != self.session.device):
+            raise ValueError(
+                f"cannot combine a DataFrame of a session on "
+                f"{other.session.device} with one on {self.session.device}")
+
     def crossJoin(self, other: "DataFrame") -> "DataFrame":
+        self._same_device(other)
         return DataFrame(
             L.Join(self._plan, other._plan, "cross", [], []), self.session)
 
@@ -346,6 +382,7 @@ class DataFrame:
         Column over both sides (its equalities become keys, the rest a
         condition), of any type: inner, cross, left, right, full (outer),
         left_semi (semi), left_anti (anti)."""
+        self._same_device(other)
         how = {"outer": "full", "full_outer": "full", "leftouter": "left",
                "left_outer": "left", "rightouter": "right",
                "right_outer": "right", "leftsemi": "left_semi",
@@ -395,6 +432,7 @@ class DataFrame:
                          self.session)
 
     def union(self, other: "DataFrame") -> "DataFrame":
+        self._same_device(other)
         return DataFrame(L.Union([self._plan, other._plan]), self.session)
 
     unionAll = union
@@ -486,10 +524,11 @@ class DataFrame:
         def fell_back(engine: str, reason: str) -> None:
             rec["fallbacks"].append((engine, reason))
 
-        phys, _meta = self._physical()
-        if self.session.rapids_conf.is_explain_only:
-            return pa.table({})
-        return self._dispatch_engines(phys, ran, fell_back, rec)
+        with self.session.activated():
+            phys, _meta = self._physical()
+            if self.session.rapids_conf.is_explain_only:
+                return pa.table({})
+            return self._dispatch_engines(phys, ran, fell_back, rec)
 
     def _dispatch_engines(self, phys, ran, fell_back, rec) -> pa.Table:
         from spark_rapids_tpu_torch.config import rapids_conf as rc

@@ -6,8 +6,7 @@ aggregates, the statistical ones (`stddev`, `stddev_pop`, `stddev_samp`,
 `covar_pop`, `covar_samp`), `bool_and` (`every`) and `bool_or` (`some`),
 `countDistinct`, `sumDistinct`, `approx_count_distinct` (exact, as the
 reference's), `percentile` and `percentile_approx`, `collect_list` and
-`collect_set` (their array results are refused by the planner, naming
-ROADMAP A3), the sort directions `asc` and
+`collect_set` (array results), the sort directions `asc` and
 `desc`, the window functions `row_number`, `rank`, `dense_rank`,
 `percent_rank`, `cume_dist`, `ntile`, `lead` and `lag`, and the string
 functions (`concat`, `substring`, `upper`, `lower`, `length`, the trim
@@ -26,7 +25,15 @@ math functions (`abs`, `round`, `bround`, `ceil`, `floor`, `pow`, `log`,
 `log10`, `log2`, `log1p`, `atan2`, `hypot`, the unary double functions
 `sqrt` through `radians`, `pmod`), the bitwise ones (`bitwise_not`,
 `shiftleft`, `shiftright`, `shiftrightunsigned`) and the hashes and hex
-(`hash`, `xxhash64`, `hex`). `pmod` is PySpark's; the reference's module
+(`hash`, `xxhash64`, `hex`), and the nested ones: `size`,
+`array_contains`, `element_at`, `array`, `get_item`, `struct`,
+`explode`, `posexplode`, `transform`, `filter_array`, `exists`,
+`forall`, `array_max`, `array_min`, `sort_array`, `slice`,
+`array_position`, `array_remove`, `array_distinct`, `reverse` (strings
+and arrays), `array_union`, `array_intersect`, `array_except`,
+`arrays_overlap`, `concat_arrays`, `map_keys`, `map_values`,
+`map_contains_key`, `create_map` and `map_from_arrays`. `pmod` is
+PySpark's; the reference's module
 has none (its Pmod expression is reached through the Column API
 there)."""
 
@@ -338,7 +345,7 @@ lower = _u(Lower)
 length = _u(Length)
 ascii = _u(Ascii)  # noqa: A001
 initcap = _u(InitCap)
-#: strings only: array reverse comes with nested columns (ROADMAP A3)
+#: a string's characters reversed; `reverse` below takes arrays too
 reverse = _u(StringReverse)
 ltrim = _u(StringTrimLeft)
 rtrim = _u(StringTrimRight)
@@ -642,3 +649,161 @@ def hash(*cs) -> Column:  # noqa: A001
 
 def xxhash64(*cs) -> Column:
     return Column(XxHash64(*[expr_of(c) for c in cs]))
+
+
+# --- collection functions (collectionOperations.scala analog) ---
+
+def _coll(cls_name: str, *args, name: str = None) -> Column:
+    from spark_rapids_tpu_torch.expr import collections as CX
+
+    return Column(getattr(CX, cls_name)(*args), name)
+
+
+def size(c) -> Column:
+    return _coll("Size", expr_of(c), name="size")
+
+
+def array_contains(c, value) -> Column:
+    return _coll("ArrayContains", expr_of(c), expr_of(value),
+                 name="array_contains")
+
+
+def element_at(c, index) -> Column:
+    return _coll("ElementAt", expr_of(c), expr_of(index), name="element_at")
+
+
+def array(*cols) -> Column:
+    return _coll("CreateArray", *[expr_of(c) for c in cols], name="array")
+
+
+def get_item(c, index) -> Column:
+    return _coll("GetArrayItem", expr_of(c), expr_of(index), name="getItem")
+
+
+def struct(*cols) -> Column:
+    """struct(col1, col2, ...) named after each column's output name
+    (Spark's CreateNamedStruct)."""
+    from spark_rapids_tpu_torch.expr.structs import CreateNamedStruct
+
+    names = []
+    for i, c in enumerate(cols):
+        if isinstance(c, Column):
+            names.append(c._name or f"col{i + 1}")
+        elif isinstance(c, str):
+            names.append(c)
+        else:
+            names.append(f"col{i + 1}")
+    return Column(CreateNamedStruct(names, [expr_of(c) for c in cols]),
+                  "struct")
+
+
+def explode(c) -> Column:
+    from spark_rapids_tpu_torch.expr.generators import Explode
+
+    return Column(Explode(expr_of(c)), "col")
+
+
+def posexplode(c) -> Column:
+    from spark_rapids_tpu_torch.expr.generators import PosExplode
+
+    return Column(PosExplode(expr_of(c)), "col")
+
+
+def transform(c, fn) -> Column:
+    """transform(arr, x -> f(x)): fn takes and returns a Column; the
+    lambda tree is built once the array column resolves to its type."""
+    from spark_rapids_tpu_torch.expr.collections import ArrayTransform
+
+    return Column(ArrayTransform(expr_of(c), fn=fn), "transform")
+
+
+def filter_array(c, fn) -> Column:
+    """filter(arr, x -> pred(x))."""
+    from spark_rapids_tpu_torch.expr.collections import ArrayFilter
+
+    return Column(ArrayFilter(expr_of(c), fn=fn), "filter")
+
+
+def exists(c, fn) -> Column:
+    from spark_rapids_tpu_torch.expr.collections import ArrayExists
+
+    return Column(ArrayExists(expr_of(c), fn=fn))
+
+
+def forall(c, fn) -> Column:
+    from spark_rapids_tpu_torch.expr.collections import ArrayForall
+
+    return Column(ArrayForall(expr_of(c), fn=fn))
+
+
+def array_max(c) -> Column:
+    return _coll("ArrayMax", expr_of(c), name="array_max")
+
+
+def array_min(c) -> Column:
+    return _coll("ArrayMin", expr_of(c), name="array_min")
+
+
+def sort_array(c, asc: bool = True) -> Column:
+    return _coll("SortArray", expr_of(c), asc, name="sort_array")
+
+
+def slice(c, start, length) -> Column:  # noqa: A001
+    return _coll("Slice", expr_of(c), expr_of(lit_or(start)),
+                 expr_of(lit_or(length)))
+
+
+def array_position(c, v) -> Column:
+    return _coll("ArrayPosition", expr_of(c), expr_of(lit_or(v)))
+
+
+def array_remove(c, v) -> Column:
+    return _coll("ArrayRemove", expr_of(c), expr_of(lit_or(v)))
+
+
+def array_distinct(c) -> Column:
+    return _coll("ArrayDistinct", expr_of(c))
+
+
+def reverse(c) -> Column:  # noqa: F811 (strings and arrays)
+    return _coll("Reverse", expr_of(c))
+
+
+def array_union(a, b) -> Column:
+    return _coll("ArrayUnion", expr_of(a), expr_of(b))
+
+
+def array_intersect(a, b) -> Column:
+    return _coll("ArrayIntersect", expr_of(a), expr_of(b))
+
+
+def array_except(a, b) -> Column:
+    return _coll("ArrayExcept", expr_of(a), expr_of(b))
+
+
+def arrays_overlap(a, b) -> Column:
+    return _coll("ArraysOverlap", expr_of(a), expr_of(b))
+
+
+def concat_arrays(*cs) -> Column:
+    return _coll("ConcatArrays", *[expr_of(c) for c in cs])
+
+
+def map_keys(c) -> Column:
+    return _coll("MapKeys", expr_of(c))
+
+
+def map_values(c) -> Column:
+    return _coll("MapValues", expr_of(c))
+
+
+def map_contains_key(c, key) -> Column:
+    return _coll("MapContainsKey", expr_of(c), expr_of(lit_or(key)))
+
+
+def create_map(*cols) -> Column:
+    return _coll("CreateMap", *[expr_of(lit_or(c)) for c in cols])
+
+
+def map_from_arrays(keys, values) -> Column:
+    return _coll("MapFromArrays", expr_of(keys), expr_of(values))

@@ -9,7 +9,11 @@ the device relation cache and the last query's execution record.
 The session resolves its device once, from the conf key
 `spark.rapids.torch.device`: unset means the current CUDA device, and
 creating the session raises when there is none; "cpu" runs every
-kernel's plain PyTorch version on the CPU (as the port's tests do). The
+kernel's plain PyTorch version on the CPU (as the port's tests do).
+Sessions of one process share nothing a query reads: each has its own
+relation cache, tied to its device, a DataFrame runs in the session that
+made it and cannot be combined with another device's, and a running
+query sees its own session as the active one. The
 reference's plugin lifecycle (memory pool, spill catalog, semaphore),
 observability, admission control and serving are not ported yet
 (ROADMAP A10, A17).
@@ -18,6 +22,7 @@ observability, admission control and serving are not ported yet
 from __future__ import annotations
 
 import threading
+from contextlib import contextmanager
 from typing import Dict, Optional
 
 from spark_rapids_tpu_torch.config import rapids_conf as rc
@@ -60,6 +65,8 @@ class DataFrameReader:
 
 _active: Optional["TpuSparkSession"] = None
 _active_lock = threading.Lock()
+#: the session whose query this thread is planning or running
+_current = threading.local()
 
 
 class TpuSparkSession:
@@ -77,7 +84,9 @@ class TpuSparkSession:
         #: where every upload of this session goes (raises without a GPU
         #: unless the conf asks for the CPU)
         self.device = conf_device(self.rapids_conf)
-        self.cache_manager = CacheManager()
+        #: this session's relation cache; it holds entries of this
+        #: session's device only
+        self.cache_manager = CacheManager(self.device)
         #: which engine ran the last query, why faster ones were skipped,
         #: and the adaptive executor's decisions
         self.last_execution = None
@@ -96,9 +105,25 @@ class TpuSparkSession:
             if _active is self:
                 _active = None
 
+    @contextmanager
+    def activated(self):
+        """Make this session the active one of this thread while its
+        query is planned and run, so that what reads the active session
+        (the regex limits, ANSI mode, the expression switches) reads this
+        session's conf, and not that of the last session created."""
+        prev = getattr(_current, "session", None)
+        _current.session = self
+        try:
+            yield self
+        finally:
+            _current.session = prev
+
     @staticmethod
     def active() -> Optional["TpuSparkSession"]:
-        return _active
+        """The session whose query this thread runs, else the last one
+        created and not stopped."""
+        s = getattr(_current, "session", None)
+        return s if s is not None else _active
 
 
 TpuSparkSession.builder = TpuSparkSessionBuilder()

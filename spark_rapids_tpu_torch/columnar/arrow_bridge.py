@@ -1,7 +1,7 @@
 """Host (Arrow) <-> device (ColumnBatch) transitions in the port.
 
 Counterpart of `spark_rapids_tpu/columnar/arrow_bridge.py` for primitive,
-decimal, string and dictionary-string columns:
+decimal, string, dictionary-string, array, map and struct columns:
 
 - `arrow_to_device` builds each column's leaves in numpy (the string byte
   matrix vectorised, no per-row Python), writes every leaf of the batch
@@ -10,9 +10,16 @@ decimal, string and dictionary-string columns:
   Dictionary-encoded string columns upload as codes plus an interned
   dictionary (columnar/encoding.py); a decimal column's values are read
   from Arrow's 16-byte words (an int64, or [n, 2] limbs past 18 digits).
+  A list becomes the padded [n, max_elems] element matrix (a list<string>
+  the [n, max_elems, max_bytes] cube), a map its key and value matrices,
+  a struct one child column a field, each from the offsets in one
+  vectorised gather (the reference's `_list_to_matrix`,
+  `_strlist_to_cube`, `_map_to_matrices`).
 - `device_to_arrow` fetches the live rows and rebuilds Arrow arrays,
   decoding encoded columns on the host from codes plus dictionary and
-  decimal columns from their words in one vectorised step;
+  decimal columns from their words in one vectorised step, and lists,
+  maps and structs from their in-row elements with no per-element
+  Python;
   `device_to_arrow_fused` fetches a small batch, its row count and the
   fused engine's flags in ONE device-to-host copy.
 """
@@ -32,7 +39,9 @@ from spark_rapids_tpu_torch.columnar.batch import (
     next_capacity,
 )
 from spark_rapids_tpu_torch.sqltypes import (
+    ArrayType,
     DecimalType,
+    MapType,
     StringType,
     StructField,
     StructType,
@@ -158,54 +167,123 @@ def _primitive_np(arr: pa.Array, np_dtype) -> Tuple[np.ndarray, np.ndarray]:
     return vals.astype(np_dtype, copy=False), validity
 
 
-class _HostColumn:
-    """A column's live-row leaves in numpy, before upload."""
+def _leaf_np(arr: pa.Array, dtype) -> Tuple[np.ndarray, np.ndarray]:
+    """(values, validity) of a flat primitive or decimal(<= 18) array."""
+    if isinstance(dtype, DecimalType):
+        return _decimal_np(arr, dtype)
+    return _primitive_np(arr, dtype.np_dtype)
 
-    __slots__ = ("dtype", "data", "validity", "lengths", "vrange",
-                 "encoding")
 
-    def __init__(self, dtype, data, validity, lengths=None, vrange=None,
-                 encoding=None):
-        self.dtype = dtype
-        self.data = data
-        self.validity = validity
-        self.lengths = lengths
-        self.vrange = vrange
-        self.encoding = encoding
+def _offsets_rows(arr: pa.Array, width_min: int):
+    """A list or map array's element positions: (index [n, me] into its
+    flat child, in_row [n, me], lengths int32) with me the power of two
+    >= the longest row (at least width_min)."""
+    offsets = np.asarray(arr.offsets).astype(np.int64)[:len(arr) + 1]
+    lengths = (offsets[1:] - offsets[:-1]).astype(np.int32)
+    max_len = int(lengths.max()) if len(lengths) else 0
+    me = _round_up_pow2(max(max_len, 1), minimum=width_min)
+    idx = offsets[:-1, None] + np.arange(me, dtype=np.int64)[None, :]
+    in_row = np.arange(me, dtype=np.int32)[None, :] < lengths[:, None]
+    return idx, in_row, lengths
 
-    def leaves(self) -> List[np.ndarray]:
-        out = [self.data, self.validity]
-        if self.lengths is not None:
-            out.append(self.lengths)
-        return out
+
+def _take_rows(flat: np.ndarray, idx: np.ndarray, in_row: np.ndarray):
+    """flat[idx] where in_row, zeros elsewhere (an empty child gives all
+    zeros)."""
+    if len(flat) == 0:
+        return np.zeros(idx.shape + flat.shape[1:], dtype=flat.dtype)
+    got = flat[np.clip(idx, 0, len(flat) - 1)]
+    keep = in_row.reshape(in_row.shape + (1,) * (flat.ndim - 1))
+    return np.where(keep, got, np.zeros((), dtype=flat.dtype))
+
+
+def _list_to_matrix(arr: pa.Array, elem_dtype):
+    """Arrow list<primitive> -> ([n, max_elems] element matrix, lengths
+    int32, elem_validity [n, max_elems]); max_elems is a power of two of
+    at least 4."""
+    idx, in_row, lengths = _offsets_rows(arr, 4)
+    vals, valid = _leaf_np(arr.values, elem_dtype)
+    return (_take_rows(vals, idx, in_row), lengths,
+            _take_rows(valid, idx, in_row))
+
+
+def _strlist_to_cube(arr: pa.Array):
+    """Arrow list<string> -> ([n, max_elems, max_bytes] uint8 cube, row
+    lengths, elem_validity [n, max_elems], element byte lengths
+    [n, max_elems]); max_elems is a power of two of at least 2."""
+    idx, in_row, lengths = _offsets_rows(arr, 2)
+    smat, slens = _string_to_matrix(arr.values)
+    svalid = np.asarray(arr.values.is_valid(), dtype=bool)
+    return (_take_rows(smat, idx, in_row), lengths,
+            _take_rows(svalid, idx, in_row),
+            _take_rows(slens, idx, in_row).astype(np.int32))
+
+
+def _map_to_matrices(arr: pa.Array, dt):
+    """Arrow map<k, v> -> (key matrix, value matrix, lengths, value
+    validity) in the padded layout."""
+    idx, in_row, lengths = _offsets_rows(arr, 4)
+    kvals, _ = _leaf_np(arr.keys, dt.keyType)
+    vvals, vvalid = _leaf_np(arr.items, dt.valueType)
+    return (_take_rows(kvals, idx, in_row), _take_rows(vvals, idx, in_row),
+            lengths, _take_rows(vvalid, idx, in_row))
+
+
+def _nested_from_arrow(arr: pa.Array, field: StructField) -> DeviceColumn:
+    """An array, map or struct Arrow array -> its host leaves."""
+    dt = field.dataType
+    validity = np.asarray(arr.is_valid(), dtype=bool)
+    if isinstance(dt, ArrayType) and isinstance(dt.elementType, StringType):
+        cube, lengths, ev, el = _strlist_to_cube(arr)
+        return DeviceColumn(dt, cube, validity, lengths, elem_validity=ev,
+                           elem_lengths=el)
+    if isinstance(dt, ArrayType):
+        mat, lengths, ev = _list_to_matrix(arr, dt.elementType)
+        return DeviceColumn(dt, mat, validity, lengths, elem_validity=ev)
+    if isinstance(dt, MapType):
+        kmat, vmat, lengths, ev = _map_to_matrices(arr, dt)
+        return DeviceColumn(dt, kmat, validity, lengths, elem_validity=ev,
+                           map_values=vmat)
+    # a struct: one child a field, the parent's validity for the row
+    kids = [column_from_arrow(arr.field(i), f, None)
+            for i, f in enumerate(dt.fields)]
+    return DeviceColumn(dt, np.zeros(len(arr), np.int8), validity,
+                       children=kids)
 
 
 def column_from_arrow(arr: pa.Array, field: StructField,
-                      device: torch.device,
-                      string_pad_min: int = 8) -> _HostColumn:
-    """One pyarrow array -> its host leaves. Dictionary-encoded strings
-    stay encoded; any other dictionary decodes first."""
+                      device: Optional[torch.device],
+                      string_pad_min: int = 8) -> DeviceColumn:
+    """One pyarrow array -> its host leaves: a DeviceColumn of numpy
+    arrays, which `upload_columns` swaps for device views after the one
+    upload (`with_leaves`). Dictionary-encoded strings
+    stay encoded (but inside a struct, whose child has no device: decoded
+    there, as the reference decodes them); any other dictionary decodes
+    first."""
     if pa.types.is_dictionary(arr.type):
         from spark_rapids_tpu_torch.columnar import encoding as _enc
 
-        enc = _enc.encoded_column_from_arrow(arr, field, device)
+        enc = (_enc.encoded_column_from_arrow(arr, field, device)
+               if device is not None else None)
         if enc is not None:
             codes, validity, vrange, dd = enc
-            return _HostColumn(field.dataType, codes, validity,
+            return DeviceColumn(field.dataType, codes, validity,
                                vrange=vrange, encoding=dd)
         arr = arr.dictionary_decode()
+    if isinstance(field.dataType, (ArrayType, MapType, StructType)):
+        return _nested_from_arrow(arr, field)
     if isinstance(field.dataType, StringType):
         mat, lengths = _string_to_matrix(arr, pad_to=string_pad_min)
-        return _HostColumn(field.dataType, mat, np.asarray(arr.is_valid()),
+        return DeviceColumn(field.dataType, mat, np.asarray(arr.is_valid()),
                            lengths)
     if field.dataType.np_dtype is None:
         raise TypeError(f"column {field.name}: type {field.dataType} is not "
                         "ported to the torch package yet")
     if isinstance(field.dataType, DecimalType):
         vals, validity = _decimal_np(arr, field.dataType)
-        return _HostColumn(field.dataType, vals, validity)
+        return DeviceColumn(field.dataType, vals, validity)
     vals, validity = _primitive_np(arr, field.dataType.np_dtype)
-    return _HostColumn(field.dataType, vals, validity)
+    return DeviceColumn(field.dataType, vals, validity)
 
 
 def _upload(leaves: List[np.ndarray], cap: int,
@@ -230,6 +308,16 @@ def _upload(leaves: List[np.ndarray], cap: int,
             for a, (off, end) in zip(leaves, regions)]
 
 
+def upload_columns(host_cols: List[DeviceColumn], cap: int,
+                   device: torch.device) -> List[DeviceColumn]:
+    """Every leaf of the host columns (numpy) in one upload; the device
+    columns are views into the one buffer."""
+    leaves = [leaf for hc in host_cols for leaf in hc.leaves()]
+    dev = iter(_upload(leaves, cap, device))
+    return [hc.with_leaves([next(dev) for _ in hc.leaves()])
+            for hc in host_cols]
+
+
 def arrow_to_device(table, capacity: Optional[int] = None,
                     device=None, string_pad_min: int = 8) -> ColumnBatch:
     """pyarrow Table/RecordBatch -> ColumnBatch on `device` (default
@@ -250,22 +338,76 @@ def arrow_to_device(table, capacity: Optional[int] = None,
                pa.array([], type=table.schema.field(i).type))
         host_cols.append(column_from_arrow(arr, field, device,
                                            string_pad_min))
-    leaves = [leaf for hc in host_cols for leaf in hc.leaves()]
-    dev = iter(_upload(leaves, cap, device))
-    cols = []
-    for hc in host_cols:
-        data, validity = next(dev), next(dev)
-        lengths = next(dev) if hc.lengths is not None else None
-        cols.append(DeviceColumn(hc.dtype, data, validity, lengths,
-                                 vrange=hc.vrange, encoding=hc.encoding))
-    return ColumnBatch(schema, cols, n)
+    return ColumnBatch(schema, upload_columns(host_cols, cap, device), n)
 
 
-def _host_array(field: StructField, col: DeviceColumn,
-                leaves: List[np.ndarray]) -> pa.Array:
-    """One column's fetched live-row leaves -> an Arrow array; encoded
-    columns decode on the host from their codes and the dictionary."""
-    data, validity = leaves[0], leaves[1]
+def _flat_array(flat: np.ndarray, valid: np.ndarray, dtype) -> pa.Array:
+    """Arrow array of flat primitive or decimal(<= 18) values."""
+    if isinstance(dtype, DecimalType):
+        return _decimal_array(flat, valid, dtype)
+    return pa.array(flat.astype(dtype.np_dtype, copy=False),
+                    type=to_arrow_type(dtype),
+                    mask=None if valid.all() else ~valid)
+
+
+def _list_offsets(lengths: np.ndarray, width: int):
+    """(in_row [n, width], int32 offsets) of rows with these element
+    counts (clamped to the matrix width, as the reference does)."""
+    lengths = np.minimum(lengths.astype(np.int64), width)
+    in_row = np.arange(width)[None, :] < lengths[:, None]
+    offsets = np.zeros(len(lengths) + 1, dtype=np.int32)
+    np.cumsum(lengths, out=offsets[1:])
+    return in_row, offsets
+
+
+def _nested_array(dt, col: DeviceColumn) -> pa.Array:
+    """An array, map or struct column's host leaves -> an Arrow array,
+    vectorised (the reference's `_matrix_to_list`, `_cube_to_strlist`,
+    `_matrices_to_map` and struct branch)."""
+    validity = col.validity
+    n = len(validity)
+    mask = None if validity.all() else pa.array(~validity)
+    if isinstance(dt, StructType):
+        kids = [_column_array(f.dataType, k)
+                for f, k in zip(dt.fields, col.children)]
+        return pa.StructArray.from_arrays(
+            kids, fields=[pa.field(f.name, to_arrow_type(f.dataType),
+                                   f.nullable) for f in dt.fields],
+            mask=mask)
+    if n == 0:
+        return pa.array([], type=to_arrow_type(dt))
+    width = col.data.shape[1]
+    if isinstance(dt, ArrayType) and isinstance(dt.elementType, StringType):
+        # null rows contribute no elements
+        in_row, offsets = _list_offsets(
+            np.where(validity, col.lengths, 0), width)
+        values = _matrix_to_string(col.data[in_row],
+                                   col.elem_lengths[in_row],
+                                   col.elem_validity[in_row])
+        return pa.ListArray.from_arrays(pa.array(offsets), values, mask=mask)
+    in_row, offsets = _list_offsets(col.lengths, width)
+    if isinstance(dt, MapType):
+        keys = _flat_array(col.data[in_row],
+                           np.ones(int(in_row.sum()), dtype=bool), dt.keyType)
+        items = _flat_array(col.map_values[in_row], col.elem_validity[in_row],
+                            dt.valueType)
+        out = pa.MapArray.from_arrays(pa.array(offsets, type=pa.int32()),
+                                      keys, items)
+        if mask is not None:
+            out = pa.compute.if_else(pa.array(validity), out,
+                                     pa.nulls(n, to_arrow_type(dt)))
+        return out
+    child = _flat_array(col.data[in_row], col.elem_validity[in_row],
+                        dt.elementType)
+    return pa.ListArray.from_arrays(pa.array(offsets, type=pa.int32()),
+                                    child, mask=mask)
+
+
+def _column_array(dt, col: DeviceColumn) -> pa.Array:
+    """A column whose leaves are fetched numpy live rows -> an Arrow
+    array; encoded columns decode on the host from their codes and the
+    dictionary."""
+    data, validity = col.data, col.validity
     if col.encoding is not None:
         from spark_rapids_tpu_torch.columnar import encoding as _enc
 
@@ -280,13 +422,22 @@ def _host_array(field: StructField, col: DeviceColumn,
         return _matrix_to_string(ddata[codes],
                                  np.where(validity, dlens[codes], 0),
                                  validity)
-    if isinstance(field.dataType, StringType):
-        return _matrix_to_string(data, leaves[2], validity)
-    if isinstance(field.dataType, DecimalType):
-        return _decimal_array(data, validity, field.dataType)
+    if isinstance(dt, (ArrayType, MapType, StructType)):
+        return _nested_array(dt, col)
+    if isinstance(dt, StringType):
+        return _matrix_to_string(data, col.lengths, validity)
+    if isinstance(dt, DecimalType):
+        return _decimal_array(data, validity, dt)
     mask = None if validity.all() else ~validity
-    return pa.array(data.astype(field.dataType.np_dtype, copy=False),
-                    type=to_arrow_type(field.dataType), mask=mask)
+    return pa.array(data.astype(dt.np_dtype, copy=False),
+                    type=to_arrow_type(dt), mask=mask)
+
+
+def _host_array(field: StructField, col: DeviceColumn,
+                leaves: List[np.ndarray]) -> pa.Array:
+    """One column's fetched live-row leaves (in `leaves()` order) -> an
+    Arrow array."""
+    return _column_array(field.dataType, col.with_leaves(leaves))
 
 
 def device_to_arrow(batch: ColumnBatch) -> pa.Table:

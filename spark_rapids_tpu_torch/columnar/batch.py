@@ -16,12 +16,17 @@ every kernel can be diffed array for array against the JAX package:
   decimal(<= 18) is its scaled int64 and a wider one a [cap, 2] int64 limb
   matrix (hi, lo), which travels through every gather, exchange, slice and
   concatenation as one 16-byte leaf;
-- array columns exist only as aggregate buffers (collect_list/set,
-  count(DISTINCT), sum(DISTINCT) and percentile): data [cap, max_elems]
-  of the element type, `lengths` the element count and `elem_validity`
-  [cap, max_elems] bool, the reference's layout. They travel through
+- nested columns keep the reference's layout: an array<primitive> is a
+  [cap, max_elems] element matrix with `lengths` (element counts) and
+  `elem_validity` [cap, max_elems] bool; an array<string> a
+  [cap, max_elems, max_bytes] uint8 cube with `elem_lengths`
+  [cap, max_elems] int32 byte counts besides; a map<k, v> its keys in
+  `data`, its values in `map_values` and their validity in
+  `elem_validity`; a struct a [cap] int8 placeholder `data` with one
+  child column a field in `children` and the parent's validity. Every
+  row-shaped leaf (children's included, depth first) travels through
   gathers, the exchange, slices and concatenation (each piece padded to
-  the widest max_elems); no array column reaches `device_to_arrow`.
+  the widest trailing axes) and the download.
 
 Rows at index >= num_rows are garbage; every operator masks with
 ``row_mask(capacity, num_rows)``.
@@ -46,6 +51,7 @@ from spark_rapids_tpu_torch.kernels import build as _build
 from spark_rapids_tpu_torch.sqltypes import (
     ArrayType,
     DataType,
+    MapType,
     StringType,
     StructType,
 )
@@ -84,24 +90,35 @@ class DeviceColumn:
 
     data:     [cap] of the dtype's torch type; [cap, max_bytes] uint8 for
               strings; [cap] int16/int32 codes for encoded strings;
-              [cap, max_elems] of the element type for arrays; [cap, 2]
-              int64 (hi, lo) limbs for decimals past 18 digits
+              [cap, max_elems] of the element type for arrays (the keys
+              of a map); [cap, max_elems, max_bytes] uint8 for
+              array<string>; [cap, 2] int64 (hi, lo) limbs for decimals
+              past 18 digits; a [cap] int8 placeholder for structs
     validity: [cap] bool, True = valid (non-null row)
     lengths:  [cap] int32 byte counts (plain strings), element counts
-              (arrays)
+              (arrays, maps)
     vrange:   static (lo, hi) bound on integer values or codes; enables
               the sort-free binned group-by. Gathers keep it.
     encoding: DeviceDictionary for dictionary-encoded strings
-    elem_validity: [cap, max_elems] bool, per-element validity (arrays)
+    elem_validity: [cap, max_elems] bool, per-element validity (arrays;
+              the values' validity for maps)
+    map_values: [cap, max_elems] values of a map
+    children: a struct's field columns
+    elem_lengths: [cap, max_elems] int32 element byte counts
+              (array<string>)
     """
 
     __slots__ = ("dtype", "data", "validity", "lengths", "vrange",
-                 "encoding", "elem_validity")
+                 "encoding", "elem_validity", "map_values", "children",
+                 "elem_lengths")
 
     def __init__(self, dtype: DataType, data: torch.Tensor,
                  validity: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                  vrange=None, encoding=None,
-                 elem_validity: Optional[torch.Tensor] = None):
+                 elem_validity: Optional[torch.Tensor] = None,
+                 map_values: Optional[torch.Tensor] = None,
+                 children: Optional[List["DeviceColumn"]] = None,
+                 elem_lengths: Optional[torch.Tensor] = None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
@@ -109,6 +126,9 @@ class DeviceColumn:
         self.vrange = vrange
         self.encoding = encoding
         self.elem_validity = elem_validity
+        self.map_values = map_values
+        self.children = children
+        self.elem_lengths = elem_lengths
 
     @property
     def is_string(self) -> bool:
@@ -144,25 +164,42 @@ class DeviceColumn:
             kw.get("lengths", self.lengths),
             kw.get("vrange", self.vrange),
             kw.get("encoding", self.encoding),
-            kw.get("elem_validity", self.elem_validity))
+            kw.get("elem_validity", self.elem_validity),
+            kw.get("map_values", self.map_values),
+            kw.get("children", self.children),
+            kw.get("elem_lengths", self.elem_lengths))
+
+    def with_validity(self, validity: torch.Tensor) -> "DeviceColumn":
+        return self.replace(validity=validity)
 
     def leaves(self) -> List[torch.Tensor]:
-        """The row-shaped tensors a gather moves; an encoded column's
-        dictionary is shared, not row-shaped, and stays."""
+        """The row-shaped tensors a gather moves, a struct's children's
+        after its own; an encoded column's dictionary is shared, not
+        row-shaped, and stays."""
         out = [self.data, self.validity]
-        if self.lengths is not None:
-            out.append(self.lengths)
-        if self.elem_validity is not None:
-            out.append(self.elem_validity)
+        for x in (self.lengths, self.elem_validity, self.map_values,
+                  self.elem_lengths):
+            if x is not None:
+                out.append(x)
+        for c in self.children or ():
+            out += c.leaves()
         return out
 
     def with_leaves(self, leaves: Sequence[torch.Tensor]) -> "DeviceColumn":
         rest = iter(leaves[2:])
-        return self.replace(
-            data=leaves[0], validity=leaves[1],
-            lengths=next(rest) if self.lengths is not None else None,
-            elem_validity=(next(rest) if self.elem_validity is not None
-                           else None))
+
+        def nxt(x):
+            return next(rest) if x is not None else None
+
+        lengths, ev = nxt(self.lengths), nxt(self.elem_validity)
+        mv, el = nxt(self.map_values), nxt(self.elem_lengths)
+        kids = None
+        if self.children is not None:
+            kids = [c.with_leaves([next(rest) for _ in c.leaves()])
+                    for c in self.children]
+        return self.replace(data=leaves[0], validity=leaves[1],
+                            lengths=lengths, elem_validity=ev,
+                            map_values=mv, elem_lengths=el, children=kids)
 
     def gather(self, indices: torch.Tensor) -> "DeviceColumn":
         """Row gather; indices must lie in [0, capacity) (the kernel traps
@@ -274,7 +311,8 @@ def gather_leaves(srcs: Sequence[torch.Tensor],
                   idxs: Sequence[torch.Tensor],
                   masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
                   clamp: bool = False) -> List[torch.Tensor]:
-    """Kernel K8: out[k][i] = srcs[k][idxs[k][i]] for row-major leaves,
+    """Kernel K8: out[k][i] = srcs[k][idxs[k][i]] for row-major leaves
+    (a row is every trailing axis of a leaf),
     every index vector of one length, in one launch per 32 leaves. A mask
     zeroes the out rows where it is False; `clamp` clips indices into
     range (decode's dictionary codes) where otherwise an index outside
@@ -299,12 +337,12 @@ def gather_leaves(srcs: Sequence[torch.Tensor],
     for x, idx, mask in zip(srcs, idxs, masks):
         if not x.is_contiguous():
             x = x.contiguous()
-        if (x.get_device() != dev_index or x.shape[0] == 0
-                or x.dim() > 2):
+        if x.get_device() != dev_index or x.shape[0] == 0:
             raise ValueError(f"leaf of {tuple(x.shape)} on {x.device}: "
-                             "expected a non-empty 1-d column or 2-d byte "
-                             f"matrix on {dev}")
-        row_bytes = x.element_size() * (x.shape[1] if x.dim() == 2 else 1)
+                             f"expected a non-empty leaf on {dev}")
+        # a row is its trailing axes' bytes (an array<string> cube's
+        # [max_elems, max_bytes] included)
+        row_bytes = x.element_size() * int(np.prod(x.shape[1:], dtype=int))
         out = torch.empty((n_out,) + x.shape[1:], dtype=x.dtype, device=dev)
         outs.append(out)
         if mask is not None:
@@ -351,17 +389,40 @@ def gather_columns(pairs: Sequence[Tuple[DeviceColumn, torch.Tensor]],
 
 def _empty_column(dtype: DataType, capacity: int, string_bytes: int,
                   device: torch.device) -> DeviceColumn:
-    valid = torch.zeros(capacity, dtype=torch.bool, device=device)
+    """A column of no valid rows; an array, map or struct gets width-1
+    element leaves (the reference's `_empty_column`)."""
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    valid = zeros(capacity, torch.bool)
     if isinstance(dtype, StringType):
+        return DeviceColumn(dtype, zeros((capacity, string_bytes),
+                                         torch.uint8),
+                            valid, zeros(capacity, torch.int32))
+    if isinstance(dtype, ArrayType):
+        et = dtype.elementType
+        lens, ev = zeros(capacity, torch.int32), zeros((capacity, 1),
+                                                       torch.bool)
+        if isinstance(et, StringType):  # the array<string> cube
+            return DeviceColumn(
+                dtype, zeros((capacity, 1, string_bytes), torch.uint8),
+                valid, lens, elem_validity=ev,
+                elem_lengths=zeros((capacity, 1), torch.int32))
+        return DeviceColumn(dtype, zeros((capacity, 1), torch_dtype(et)),
+                            valid, lens, elem_validity=ev)
+    if isinstance(dtype, MapType):
         return DeviceColumn(
-            dtype,
-            torch.zeros((capacity, string_bytes), dtype=torch.uint8,
-                        device=device),
-            valid, torch.zeros(capacity, dtype=torch.int32, device=device))
+            dtype, zeros((capacity, 1), torch_dtype(dtype.keyType)), valid,
+            zeros(capacity, torch.int32),
+            elem_validity=zeros((capacity, 1), torch.bool),
+            map_values=zeros((capacity, 1), torch_dtype(dtype.valueType)))
+    if isinstance(dtype, StructType):
+        return DeviceColumn(
+            dtype, zeros(capacity, torch.int8), valid,
+            children=[_empty_column(f.dataType, capacity, string_bytes,
+                                    device) for f in dtype.fields])
     shape = (capacity, 2) if is_wide(dtype) else (capacity,)
-    return DeviceColumn(
-        dtype, torch.zeros(shape, dtype=torch_dtype(dtype), device=device),
-        valid)
+    return DeviceColumn(dtype, zeros(shape, torch_dtype(dtype)), valid)
 
 
 def empty_like_schema(schema: StructType, capacity: int,
@@ -384,9 +445,11 @@ def _pad_rows(x: torch.Tensor, cap: int) -> torch.Tensor:
 
 def _concat_columns(pieces, cap: int, total: int,
                     dtype: DataType) -> DeviceColumn:
-    """Concatenate per-batch column prefixes into one [cap] column.
-    Encoded pieces stay encoded only when every piece shares one
-    dictionary; any mismatch decodes first."""
+    """Concatenate per-batch column prefixes into one [cap] column
+    (recursing into a struct's children). Encoded pieces stay encoded only
+    when every piece shares one dictionary; any mismatch decodes first.
+    Variable-width leaves (string bytes, array elements, both axes of an
+    array<string> cube) are zero-padded to the widest piece."""
     if any(c.encoding is not None for c, _ in pieces):
         from spark_rapids_tpu_torch.columnar import encoding as _enc
 
@@ -395,31 +458,33 @@ def _concat_columns(pieces, cap: int, total: int,
     first = pieces[0][0]
 
     def cat(parts):
-        if parts[0].dim() == 2:
-            # string byte and array element matrices: zero-pad to the
-            # widest piece
-            width = max(int(p.shape[1]) for p in parts)
-            parts = [p if p.shape[1] == width else torch.cat(
-                [p, p.new_zeros((p.shape[0], width - int(p.shape[1])))],
-                dim=1) for p in parts]
+        if parts[0].dim() >= 2:
+            target = [max(int(p.shape[ax]) for p in parts)
+                      for ax in range(1, parts[0].dim())]
+            parts = [pad_trailing(p, target) for p in parts]
         return _pad_rows(torch.cat(parts, dim=0), cap)
 
-    data = cat([c.data[:n] for c, n in pieces])
-    val = cat([c.validity[:n] for c, n in pieces])
-    lens = None
-    if first.lengths is not None:
-        lens = cat([c.lengths[:n] for c, n in pieces])
-    ev = None
-    if first.elem_validity is not None:
-        ev = cat([c.elem_validity[:n] for c, n in pieces])
+    def leaf(name):
+        if getattr(first, name) is None:
+            return None
+        return cat([getattr(c, name)[:n] for c, n in pieces])
+
+    kids = None
+    if first.children is not None:
+        kids = [_concat_columns([(c.children[i], n) for c, n in pieces],
+                                cap, total, first.children[i].dtype)
+                for i in range(len(first.children))]
     # encoded columns keep their [0, K) code bound through concat (the
     # binned group-by depends on it); plain columns drop vrange here,
     # as the reference does
     vr = first.vrange if (
         first.encoding is not None
         and all(c.vrange == first.vrange for c, _ in pieces)) else None
-    return DeviceColumn(dtype, data, val, lens, vrange=vr,
-                        encoding=first.encoding, elem_validity=ev)
+    return DeviceColumn(dtype, leaf("data"), leaf("validity"),
+                        leaf("lengths"), vrange=vr, encoding=first.encoding,
+                        elem_validity=leaf("elem_validity"),
+                        map_values=leaf("map_values"), children=kids,
+                        elem_lengths=leaf("elem_lengths"))
 
 
 def concat_batches(batches: List[ColumnBatch]) -> ColumnBatch:

@@ -26,6 +26,9 @@ compile, so the port keeps what the engine does, not how it is compiled:
 - partial aggregates SHRINK to the group capacity; more groups set the
   capacity flag and the query runs again with the capacity quadrupled
   and the expansion doubled;
+- an explode (Generate) applies the pending mask and expands into a
+  static `expansion x input capacity` (K3's gather maps, one K8 launch);
+  more elements set the capacity flag, as in the reference;
 - the flags stay on the device until ONE host read at the end of the
   run, which also fetches a small result (`device_to_arrow_fused`).
 
@@ -35,7 +38,8 @@ ladder and the plain-parquet device scan (ROADMAP A10). An error on the
 card propagates. Lowerings exist for the operators the port's planner
 emits (scan, cached relation, filter, project, hash aggregate, hash,
 round-robin and range exchange, broadcast and shuffled hash joins,
-union, sort, window, local limit); any other node (the nested-loop join,
+union, sort, window, local limit, generate); any other node (the
+nested-loop join,
 as in the reference) raises `FusedCompileError` and the session falls
 back to the per-operator engines. A union concatenates its children's
 parts; a join that is no lookup is a blocking step over both sides'
@@ -61,13 +65,12 @@ import pyarrow as pa
 import torch
 
 from spark_rapids_tpu_torch.columnar.arrow_bridge import (
-    _HostColumn,
     _decimal_np,
     _primitive_np,
-    _upload,
     column_from_arrow,
     device_to_arrow_fused,
     schema_from_arrow,
+    upload_columns,
 )
 from spark_rapids_tpu_torch.columnar.batch import (
     ColumnBatch,
@@ -205,18 +208,12 @@ def upload_narrowed(table: pa.Table, bucket: bool = True,
                               if isinstance(dt, DecimalType)
                               else _primitive_np(arr, np_dt))
             vals, vrange = _narrow(np.ascontiguousarray(vals))
-            host_cols.append(_HostColumn(dt, vals, validity, vrange=vrange))
+            host_cols.append(DeviceColumn(dt, vals, validity, vrange=vrange))
             continue
         host_cols.append(column_from_arrow(arr, field, device))
-    leaves = [leaf for hc in host_cols for leaf in hc.leaves()]
-    dev = iter(_upload(leaves, cap, device))
-    cols = []
-    for hc in host_cols:
-        data, validity = next(dev), next(dev)
-        lengths = next(dev) if hc.lengths is not None else None
-        cols.append(DeviceColumn(hc.dtype, data, validity, lengths,
-                                 vrange=hc.vrange, encoding=hc.encoding))
-    return ColumnBatch(schema, cols, n)
+    # nested columns upload as arrow_to_device uploads them: their element
+    # leaves keep their types (the reference narrows flat columns only)
+    return ColumnBatch(schema, upload_columns(host_cols, cap, device), n)
 
 
 def widen_traced(batch: ColumnBatch) -> ColumnBatch:
@@ -260,7 +257,7 @@ _SOURCE_TYPES = (ops.TpuFileScanExec, ops.TpuCachedRelationExec)
 #: node types with no fused lowering yet, and the ROADMAP item that
 #: ports them
 _UNPORTED = {
-    "TpuGenerateExec": "A12", "TpuExpandExec": "A12",
+    "TpuExpandExec": "A12",
 }
 
 
@@ -379,7 +376,7 @@ class FusedSingleChipExecutor:
         # the nested-loop join has no fused lowering, as in the reference:
         # the session hands such a plan to the adaptive engine
         if not isinstance(node, (
-                ops.TpuProjectExec, ops.TpuFilterExec,
+                ops.TpuProjectExec, ops.TpuFilterExec, ops.TpuGenerateExec,
                 ops.TpuHashAggregateExec, ops.TpuShuffleExchangeExec,
                 J.TpuShuffledHashJoinExec, J.TpuBroadcastHashJoinExec,
                 ops.UnionExec, ops.TpuSortExec, ops.TpuWindowExec,
@@ -445,7 +442,8 @@ class FusedSingleChipExecutor:
                 group_cap *= 4
 
     def _is_per_partition(self, node: PhysicalPlan) -> bool:
-        if isinstance(node, (ops.TpuProjectExec, ops.TpuFilterExec)):
+        if isinstance(node, (ops.TpuProjectExec, ops.TpuFilterExec,
+                             ops.TpuGenerateExec)):
             return True
         return (isinstance(node, ops.TpuHashAggregateExec)
                 and node.mode == "partial")
@@ -540,6 +538,13 @@ class FusedSingleChipExecutor:
                     mask = m if mask is None else mask & m
                 elif isinstance(nd, ops.TpuProjectExec):
                     b = nd._run(b)  # row-preserving; mask stays aligned
+                elif isinstance(nd, ops.TpuGenerateExec):
+                    # explode into the static expansion x capacity; more
+                    # elements set the capacity flag (a retry larger)
+                    b, mask = materialized(b, mask), None
+                    b, o = nd._explode_to_cap(
+                        b, next_capacity(expansion * b.capacity))
+                    flags.add("ovf", o)
                 elif isinstance(nd, agg_pushdown.MergeTail):
                     # the pushdown's terminator: merge the joined buffer
                     # rows of this part; the cross-part merge is blocking

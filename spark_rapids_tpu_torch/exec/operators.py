@@ -2,8 +2,9 @@
 for the port's slice: the cached-relation source, the parquet scan
 (PERFILE), filter, project, the hash aggregate in complete, partial and
 final modes, the hash, round-robin and range shuffle exchanges with
-device-resident blocks, the union, the out-of-core sort, the local limit and the window in the
-reference planner's four modes (whole partition, halo, running, u2u).
+device-resident blocks, the union, the out-of-core sort, the local limit, the window in the
+reference planner's four modes (whole partition, halo, running, u2u) and
+the generator (explode and posexplode of array columns).
 
 The hash aggregate keeps the reference's two grouping paths:
 - binned (`_partial_binned`): when every group key is an integer column
@@ -55,6 +56,8 @@ from spark_rapids_tpu_torch.exec.base import (
 from spark_rapids_tpu_torch.expr.aggregates import (
     AggregateFunction,
     Average,
+    CollectList,
+    CollectSet,
     Count,
     CountDistinct,
     First,
@@ -209,6 +212,93 @@ class TpuFilterExec(PhysicalPlan):
     def execute_partition(self, pid, ctx):
         for batch in self.children[0].execute_partition(pid, ctx):
             yield self._run(batch)
+
+
+# --------------------------------------------------------------- generate
+
+class TpuGenerateExec(PhysicalPlan):
+    """explode / posexplode over the padded array layout (the reference's
+    TpuGenerateExec, GpuGenerateExec.scala): a count pass, one host read
+    of the element total for the output capacity, then K3's gather maps
+    (row, element) and one K8 launch that moves the pass-through leaves
+    by row and the element leaves ([cap, max_elems] data and validity, an
+    array<string> cube's [max_bytes] rows and byte counts) by the
+    flattened index row * max_elems + element."""
+
+    def __init__(self, pass_through: List[Alias], gen_alias: Alias,
+                 position: bool, child, conf=None):
+        from spark_rapids_tpu_torch.sqltypes.datatypes import integer
+
+        fields = [StructField(a.name, a.dtype, a.nullable)
+                  for a in pass_through]
+        if position:
+            fields.append(StructField("pos", integer, False))
+        fields.append(StructField(gen_alias.name, gen_alias.dtype, True))
+        super().__init__([child], StructType(fields), conf)
+        self.pass_through = pass_through
+        self.gen_alias = gen_alias
+        self.position = position
+
+    def _counts(self, batch: ColumnBatch):
+        ectx = EvalContext(batch)
+        arr = self.gen_alias.children[0].children[0].eval(ectx)
+        counts = torch.where(batch.live_mask() & arr.validity, arr.lengths,
+                             torch.zeros_like(arr.lengths)).to(torch.int32)
+        return ectx, arr, counts
+
+    def _explode_to_cap(self, batch: ColumnBatch, out_cap: int, pre=None):
+        """Explode into a static capacity: (batch, overflow), the overflow
+        a 0-d device bool (total > out_cap). The adaptive engine passes
+        the exact capacity and its count pass's results in `pre`; the
+        fused engine a static one, retried larger on overflow."""
+        from spark_rapids_tpu_torch.sqltypes.datatypes import integer
+
+        ectx, arr, counts = pre if pre is not None else self._counts(batch)
+        lo = torch.zeros_like(counts)
+        pi, ei, total = joinops.expand_gather_maps(lo, counts, out_cap)
+        overflow = total > out_cap
+        me = int(arr.data.shape[1])
+        flat = (pi.to(torch.int64) * me
+                + ei.to(torch.int64).clamp(0, me - 1)).to(torch.int32)
+        passed = [a.eval(ectx) for a in self.pass_through]
+        elems = [arr.data.reshape((-1,) + tuple(arr.data.shape[2:])),
+                 arr.elem_validity.reshape(-1)]
+        if arr.elem_lengths is not None:
+            elems.append(arr.elem_lengths.reshape(-1))
+        srcs, idxs = [], []
+        for c in passed:
+            srcs += c.leaves()
+            idxs += [pi] * len(c.leaves())
+        got = gather_leaves(srcs + elems, idxs + [flat] * len(elems))
+        cols, at = [], 0
+        for c in passed:
+            k = len(c.leaves())
+            cols.append(c.with_leaves(got[at:at + k]))
+            at += k
+        if self.position:
+            cols.append(DeviceColumn(integer, ei, torch.ones(
+                out_cap, dtype=torch.bool, device=pi.device)))
+        vals, ev = got[at], got[at + 1]
+        # an array<string> element becomes a padded string row
+        cols.append(DeviceColumn(
+            self.gen_alias.dtype, vals, ev,
+            got[at + 2] if arr.elem_lengths is not None else None))
+        return ColumnBatch(self.schema, cols,
+                           total.clamp(max=out_cap)), overflow
+
+    def _explode_batch(self, batch: ColumnBatch) -> ColumnBatch:
+        pre = self._counts(batch)
+        total = int(pre[2].sum().item())
+        out, _ = self._explode_to_cap(batch, next_capacity(max(total, 1)),
+                                      pre=pre)
+        out._host_rows = total
+        return out
+
+    def execute_partition(self, pid, ctx):
+        for batch in self.children[0].execute_partition(pid, ctx):
+            out = self._explode_batch(batch)
+            if out.row_count() > 0:
+                yield out
 
 
 # -------------------------------------------------------------- aggregate
@@ -1027,8 +1117,9 @@ class TpuWindowExec(PhysicalPlan):
       brings the spill catalog.
 
     Variance and stddev frames take K14's frame count and sums of x and
-    x^2 (three outputs of its one evaluation launch). Collect frames are
-    not ported (the planner refuses them: ROADMAP A3, array columns)."""
+    x^2 (three outputs of its one evaluation launch). collect_list and
+    collect_set over bounded ROWS frames are K33's (`frame_collect`),
+    array columns of the frame's width."""
 
     def __init__(self, window_exprs: List[Alias], child, conf=None,
                  presorted: bool = False, halo: Optional[int] = None,
@@ -1129,6 +1220,17 @@ class TpuWindowExec(PhysicalPlan):
                     isinstance(fn, Max), prefix(inp, torch.int64, True),
                     perm=sw.perm, inv=inv)
                 slots.append(("col", DeviceColumn(wexpr.dtype, d, v)))
+            elif isinstance(fn, CollectList):  # CollectSet subclasses it
+                # K33 over the bounded ROWS frame (the planner refuses any
+                # other), at each row's input position; never null
+                inp = input_of(fn)
+                fr = wexpr.spec.frame
+                d, ev, lens = W.frame_collect(
+                    inp.data, inp.validity, sw, fr.lower, fr.upper,
+                    isinstance(fn, CollectSet))
+                slots.append(("col", DeviceColumn(
+                    wexpr.dtype, d, torch.ones_like(inp.validity), lens,
+                    elem_validity=ev)))
             elif isinstance(fn, (VariancePop, VarianceSamp)):
                 # moments over frames from K14's prefix frames of x and
                 # x^2 and its count (StddevPop/Samp subclass these), as

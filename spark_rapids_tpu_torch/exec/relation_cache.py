@@ -21,6 +21,10 @@ engine cannot lower. Either way integer columns are narrowed with a
 quantized `vrange` and parts sit in 1/16-octave capacity buckets, so a
 group-by on an integer key of a cached relation takes the binned path.
 
+Each entry lives on one device, its conf's; a session's `CacheManager`
+registers entries of the session's device only, so one session never
+reads another device's parts.
+
 Not ported yet: the spill catalog behind the parts and device-loss
 recovery (ROADMAP A10, A17).
 """
@@ -128,11 +132,25 @@ class DeviceCacheEntry:
 
 
 class CacheManager:
-    """Session-level registry: canonical plan key -> DeviceCacheEntry."""
+    """Session-level registry: canonical plan key -> DeviceCacheEntry, every
+    entry on the session's device."""
 
-    def __init__(self):
+    def __init__(self, device):
+        import torch
+
+        self.device = torch.device(device)
         self._entries: Dict[tuple, DeviceCacheEntry] = {}
         self._lock = threading.Lock()
+
+    def _check_device(self, conf) -> None:
+        """A conf naming another device than the session's never gets an
+        entry here: checked before anything is planned or uploaded."""
+        from spark_rapids_tpu_torch.exec.base import conf_device
+
+        if conf_device(conf) != self.device:
+            raise ValueError(
+                f"a relation cached for {conf_device(conf)} cannot be "
+                f"registered with a session on {self.device}")
 
     @staticmethod
     def _key(logical) -> tuple:
@@ -141,6 +159,7 @@ class CacheManager:
         return plan_key(logical)
 
     def register(self, logical, conf) -> DeviceCacheEntry:
+        self._check_device(conf)
         key = self._key(logical)
         with self._lock:
             entry = self._entries.get(key)

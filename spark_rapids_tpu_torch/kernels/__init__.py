@@ -85,6 +85,15 @@ module that the JAX package keeps the function in:
 - K32 `ops.decimal128.seg_sum128`: the segmented 128-bit sum with its
   counts (csrc/seg_sum128.cu)
 
+- K33 `ops.windowops.frame_collect`: collect_list and collect_set over
+  bounded ROWS frames, written back to input order (csrc/frame_collect.cu)
+- K34 `expr.collections.array_compact` and `array_distinct`: kept
+  elements left-packed in each row, and the first occurrences of each
+  row (csrc/array_rows.cu; their launches count apart, as
+  "array_compact" and "array_distinct")
+- K35 `expr.collections.array_sort`: each row's elements sorted stably
+  (csrc/array_rows.cu)
+
 K18-K22 and K24 share the row reader and writer of csrc/strings.cuh, K22
 and K24 the calendar of csrc/calendar.cuh, K24, K31 and K32 the 128-bit
 arithmetic of csrc/decimal128.cuh.
@@ -151,6 +160,10 @@ launches: Dict[str, int] = {
     "seg_sum128": 0,
     "str_parse_decimal": 0,
     "str_format_decimal": 0,
+    "frame_collect": 0,
+    "array_compact": 0,
+    "array_distinct": 0,
+    "array_sort": 0,
 }
 
 
@@ -303,6 +316,10 @@ MAX_RANK_TARGETS = 128
 #: K24's modes (FormatMode in csrc/str_format.cu)
 (FORMAT_INT, FORMAT_DATE, FORMAT_TIMESTAMP, FORMAT_PATTERN, FORMAT_HEX,
  FORMAT_DECIMAL, FORMAT_DECIMAL128) = range(7)
+#: K34's and K35's modes and the opaque element kind (ArrMode, ArrKind in
+#: csrc/array_rows.cu)
+ARR_COMPACT, ARR_DISTINCT, ARR_SORT_ASC, ARR_SORT_DESC = range(4)
+ARR_BYTES = 6
 #: K31's modes (D128Mode in csrc/decimal128.cu)
 (D128_ADD, D128_SUB, D128_MUL, D128_RESCALE, D128_AVG, D128_NEG, D128_ABS,
  D128_CMP, D128_TO_F64, D128_TO_I64) = range(10)

@@ -101,6 +101,10 @@ _SIGNATURES = {
     "srtpu_decimal128": [_I, _P, _I, _I, _P, _I, _I, _P, _P, _L, _I, _I, _P,
                          _P, _I, _P],
     "srtpu_seg_sum128": [_P, _I, _P, _P, _L, _I, _P, _P, _P, _I, _I, _P],
+    "srtpu_frame_collect": [_P, _I, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I,
+                            _P, _P, _P, _I, _P],
+    "srtpu_array_rows": [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P,
+                         _P, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -30,9 +30,9 @@ them.
 
 Frames are inclusive position ranges [start, end] in the sorted domain:
 the default frame, ROWS frames (offsets clipped to the partition) and
-RANGE frames over one ascending numeric key. `frame_collect`
-(collect_list/collect_set frames) is not ported: it needs array columns
-(ROADMAP A3).
+RANGE frames over one ascending numeric key. K33 (`frame_collect`)
+collects each bounded ROWS frame's values into an array row
+(collect_list, collect_set), written at its input row.
 """
 
 from __future__ import annotations
@@ -1039,3 +1039,92 @@ def cume_dist(sw: SortedWindow) -> torch.Tensor:
 
 def ntile(sw: SortedWindow, n: int) -> torch.Tensor:
     return _rank_of(sw, kernels.WIN_NTILE, n)
+
+
+# ------------------------------------------------------------------ K33
+
+def _nan_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a == b, NaN equal to NaN for floating values."""
+    eq = a == b
+    if a.dtype.is_floating_point:
+        eq = eq | (torch.isnan(a) & torch.isnan(b))
+    return eq
+
+
+def frame_collect_plain(vals: torch.Tensor, valid: torch.Tensor,
+                        sw: SortedWindow, lower: int, upper: int,
+                        distinct: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K33: the reference's `frame_collect` (a
+    [cap, W] take of each frame through the permutation, the duplicate
+    test of a set with NaN equal to NaN, a left-pack of the kept slots in
+    order), its dropped slots zeroed, written back to input order."""
+    n = int(sw.pos.shape[0])
+    width = int(upper) - int(lower) + 1
+    start, end = rows_frame_bounds(sw, int(lower), int(upper))
+    idx = start.to(torch.int64)[:, None] + torch.arange(
+        width, dtype=torch.int64, device=vals.device)[None, :]
+    inside = idx <= end.to(torch.int64)[:, None]
+    safe = idx.clamp(0, max(n - 1, 0))
+    src = sw.perm.to(torch.int64)[safe]
+    elem = vals[src]
+    ok = inside & valid[src] & sw.live[safe]
+    if distinct:
+        dup = torch.zeros_like(ok)
+        for j in range(1, width):
+            prev = _nan_eq(elem[:, :j], elem[:, j:j + 1]) & ok[:, :j]
+            dup[:, j] = prev.any(dim=1)
+        ok = ok & ~dup
+    from spark_rapids_tpu_torch.expr.collections import _left_pack
+
+    packed, kept = _left_pack(elem, ok), _left_pack(ok, ok)
+    lengths = ok.sum(dim=1).to(torch.int32)
+    dst = sw.perm.to(torch.int64)
+    out = torch.empty_like(packed)
+    out_ev = torch.empty_like(kept)
+    out_len = torch.empty_like(lengths)
+    out[dst], out_ev[dst], out_len[dst] = packed, kept, lengths
+    return out, out_ev, out_len
+
+
+def frame_collect(vals: torch.Tensor, valid: torch.Tensor,
+                  sw: SortedWindow, lower: int, upper: int, distinct: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel K33: collect_list (or, with `distinct`, collect_set) of each
+    row's ROWS BETWEEN lower AND upper frame (both bounded, W = upper -
+    lower + 1 <= 1,024): (data [cap, W], elem_validity [cap, W], lengths
+    [cap]) at each row's input position, the frame's valid values of
+    live rows left-packed in frame order, a set keeping first occurrences
+    (NaN equal to NaN). vals and valid are in input order; the rows are
+    read through sw.perm."""
+    if vals.device.type == "cpu":
+        return frame_collect_plain(vals, valid, sw, lower, upper, distinct)
+    dev = vals.device
+    width = int(upper) - int(lower) + 1
+    if not 1 <= width <= 1024:
+        raise ValueError(f"K33 takes frames of 1 to 1,024 rows, not {width}")
+    kind = kernels.ELEM_KINDS.get(vals.dtype)
+    if kind is None or vals.dim() != 1:
+        raise TypeError(f"K33 collects flat scalar values, not "
+                        f"{vals.dtype} of {vals.dim()} dims")
+    n = int(vals.shape[0])
+    vals, valid = vals.contiguous(), valid.contiguous()
+    kernels.require(vals, "vals", vals.dtype, dev)
+    kernels.require(valid, "valid", torch.bool, dev)
+    for name, x in (("live", sw.live), ("perm", sw.perm),
+                    ("seg_start", sw.seg_start), ("seg_end", sw.seg_end)):
+        kernels.require(x, name, torch.bool if name == "live"
+                        else torch.int32, dev)
+        if x.shape[0] != n:
+            raise ValueError(f"{name} of {x.shape[0]} rows for {n}")
+    out = torch.empty((n, width), dtype=vals.dtype, device=dev)
+    out_ev = torch.empty((n, width), dtype=torch.bool, device=dev)
+    out_len = torch.empty(n, dtype=torch.int32, device=dev)
+    _build.check(_build.lib().srtpu_frame_collect(
+        vals.data_ptr(), kind, valid.data_ptr(), sw.live.data_ptr(),
+        sw.perm.data_ptr(), sw.seg_start.data_ptr(), sw.seg_end.data_ptr(),
+        n, int(lower), int(upper), width, int(distinct), out.data_ptr(),
+        out_ev.data_ptr(), out_len.data_ptr(), kernels.sm_count(vals),
+        kernels.stream_ptr(vals)), "frame_collect")
+    kernels.launches["frame_collect"] += 1
+    return out, out_ev, out_len

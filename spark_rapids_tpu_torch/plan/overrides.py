@@ -18,7 +18,8 @@ evaluation mode.
 The reference converts an untaggable node to its CPU operator; the port
 has no CPU engine (`exec/cpu_eval.py` is not ported), so such a node,
 and every node type outside the slice (scan, cached relation, filter,
-project, join, union, repartition, aggregate, sort, window, limit), raises
+project, join, union, repartition, aggregate, sort, window, limit,
+generate), raises
 NotImplementedError naming the ROADMAP item that ports it. Nothing ever
 runs on the CPU in place of the device.
 """
@@ -57,7 +58,7 @@ from spark_rapids_tpu_torch.sqltypes import (
 )
 
 #: the aggregates the reference's window evaluates on the device (its
-#: `supported_aggs`); collect frames need array columns (ROADMAP A3)
+#: `supported_aggs`); collect frames are checked apart
 _WINDOW_AGGS = (AGG.Sum, AGG.Count, AGG.Min, AGG.Max, AGG.Average,
                 AGG.First, AGG.VariancePop, AGG.VarianceSamp)
 
@@ -68,7 +69,7 @@ _K12_TYPES = (torch.int32, torch.int64, torch.float32, torch.float64)
 _NOT_PORTED = {
     "LocalRelation": "A9 (createDataFrame)",
     "Range": "A9 (spark.range)",
-    "Generate": "A12", "Expand": "A12", "Sample": "A12",
+    "Expand": "A12", "Sample": "A12",
     "MapInPandas": "A15", "GroupedMapInPandas": "A15",
     "CoGroupedMapInPandas": "A15",
 }
@@ -153,6 +154,11 @@ class TpuOverrides:
                     meta.cannot_run(r)
         elif isinstance(node, L.Window):
             self._tag_window(node, meta)
+        elif isinstance(node, L.Generate):
+            # the pass-through columns and the generator's input, as the
+            # reference tags them
+            self._exprs(meta, list(node.pass_through)
+                        + [node.gen_alias.children[0].children[0]])
         elif isinstance(node, L.FileScan):
             if node.fmt != "parquet":
                 meta.cannot_run(f"{node.fmt} scans are not ported yet "
@@ -229,7 +235,8 @@ class TpuOverrides:
         offset functions need ORDER BY; partition, order, input and
         default expressions must be ported; string min/max is refused;
         RANGE offsets need exactly one ascending numeric ORDER BY key;
-        collect frames are not ported (array columns), and an aggregate
+        collect frames take bounded ROWS frames of flat elements
+        (`_tag_window_collect`), and an aggregate
         the reference's window does not evaluate on its device (skewness,
         corr, count(DISTINCT), ...) runs on its CPU engine. Where the
         reference plans its CPU
@@ -240,8 +247,10 @@ class TpuOverrides:
         for f in node.children[0].schema.fields:
             if isinstance(f.dataType, StructType):
                 meta.cannot_run(
-                    f"struct payload column {f.name!r}: device window "
-                    "has no struct lowering (ROADMAP A3)")
+                    f"struct payload column {f.name!r}: the reference's "
+                    "device window has no struct lowering and runs it on "
+                    "its CPU engine; the port has no CPU engine yet "
+                    "(ROADMAP A9)")
         for a in node.window_exprs:
             wexpr = a.children[0]
             self._exprs(meta, list(wexpr.spec.partitions)
@@ -259,10 +268,8 @@ class TpuOverrides:
                 if isinstance(fn, we.Lead):
                     self._exprs(meta, fn.children)
                     self._window_decimal(fn, meta)
-            elif isinstance(fn, AGG.CollectList):
-                meta.cannot_run(
-                    f"window {type(fn).__name__} is not ported yet (ROADMAP "
-                    "A3: array columns)")
+            elif isinstance(fn, AGG.CollectList):  # CollectSet too
+                self._tag_window_collect(wexpr, fn, meta)
             elif not isinstance(fn, PORTED_EXPRESSIONS):
                 meta.cannot_run(f"window function {type(fn).__name__} is "
                                 "not ported yet (ROADMAP A12)")
@@ -278,8 +285,9 @@ class TpuOverrides:
                     if isinstance(fn.input.dtype, (ArrayType, MapType)):
                         meta.cannot_run(
                             f"window {type(fn).__name__} over "
-                            f"{fn.input.dtype} is not ported yet (ROADMAP "
-                            "A3)")
+                            f"{fn.input.dtype.simpleString} runs on the "
+                            "reference's CPU engine; the port has no CPU "
+                            "engine yet (ROADMAP A9)")
                 if (isinstance(fn, (Min, Max))
                         and isinstance(fn.input.dtype, StringType)):
                     meta.cannot_run(
@@ -367,6 +375,9 @@ class TpuOverrides:
             return self._convert_sort(node, children[0])
         if isinstance(node, L.Window):
             return self._convert_window(node, children[0])
+        if isinstance(node, L.Generate):
+            return ops.TpuGenerateExec(node.pass_through, node.gen_alias,
+                                       node.position, children[0], conf)
         if isinstance(node, L.Limit):
             return self._convert_limit(node, children[0])
         if isinstance(node, L.Union):
@@ -377,6 +388,30 @@ class TpuOverrides:
             return ops.TpuShuffleExchangeExec(children[0], node.keys,
                                               node.num_partitions, conf)
         raise NotImplementedError(f"logical node {type(node).__name__}")
+
+    def _tag_window_collect(self, wexpr, fn, meta: PlanMeta) -> None:
+        """The reference's window-collect checks: bounded ROWS frames of a
+        span <= 1,024 (K33's output width is the frame's span) over flat
+        scalar elements; what it refuses runs on its CPU engine (A9)."""
+        self._exprs(meta, [fn.input])
+        self._window_decimal(fn, meta)
+        frame = wexpr.spec.frame
+        if not (frame is not None and frame.frame_type == "rows"
+                and frame.lower is not None and frame.upper is not None):
+            meta.cannot_run(
+                "window collect over unbounded frames runs on the "
+                "reference's CPU engine (the device output width is the "
+                "static frame span); the port has no CPU engine yet "
+                "(ROADMAP A9)")
+        elif int(frame.upper) - int(frame.lower) + 1 > 1024:
+            meta.cannot_run(
+                "window collect frame span > 1024 runs on the reference's "
+                "CPU engine; the port has no CPU engine yet (ROADMAP A9)")
+        elif isinstance(fn.input.dtype, (StringType, ArrayType, MapType)):
+            meta.cannot_run(
+                "window collect of string/array/map elements runs on the "
+                "reference's CPU engine; the port has no CPU engine yet "
+                "(ROADMAP A9)")
 
     def _convert_aggregate(self, node: L.Aggregate,
                            child: PhysicalPlan) -> PhysicalPlan:

@@ -17,7 +17,12 @@ what the reference sends to its CPU engine (a decimal(> 18) grouping or
 join key, division or Multiply operand, hash input, float or string to
 decimal(> 18), decimal(> 18, scale > 18) to string) names A9, and the
 rest of the library over decimals (math, `div`, `%`, pmod, the
-conditionals, greatest and least) names A3.
+conditionals, greatest and least) names A3. Nested types are the
+reference's device types: arrays of primitive, decimal(<= 18) or string
+elements (the string cube only for size, contains, getItem, element_at,
+explode and selection: `_cube_reasons`), maps of flat primitive entries,
+structs of flat fields; the rest, which the reference runs on its CPU
+engine, names A9, as do array, map and struct keys.
 """
 
 from __future__ import annotations
@@ -26,12 +31,15 @@ from typing import List, Optional
 
 from spark_rapids_tpu_torch.config import rapids_conf as rc
 from spark_rapids_tpu_torch.expr import arith as A
+from spark_rapids_tpu_torch.expr import collections as CX
 from spark_rapids_tpu_torch.expr import conditional as C
 from spark_rapids_tpu_torch.expr import datetimes as D
 from spark_rapids_tpu_torch.expr import hashexpr as H
 from spark_rapids_tpu_torch.expr import mathexpr as M
 from spark_rapids_tpu_torch.expr import predicates as P
 from spark_rapids_tpu_torch.expr import strings as S
+from spark_rapids_tpu_torch.expr import structs as ST
+from spark_rapids_tpu_torch.expr.generators import Explode, PosExplode
 from spark_rapids_tpu_torch.expr import aggregates as AGG
 from spark_rapids_tpu_torch.expr import (
     Add,
@@ -95,7 +103,9 @@ PORTED_EXPRESSIONS = (BoundReference, Literal, Alias, Add, Subtract,
                       P.EqualNullSafe, P.IsNull, P.IsNotNull, P.IsNaN, P.In,
                       A.IntegralDivide, A.Remainder, A.Pmod, A.UnaryMinus,
                       A.Abs, *C.CONDITIONAL_EXPRESSIONS,
-                      *M.MATH_EXPRESSIONS, *H.HASH_EXPRESSIONS)
+                      *M.MATH_EXPRESSIONS, *H.HASH_EXPRESSIONS,
+                      *CX.COLLECTION_EXPRESSIONS, *ST.STRUCT_EXPRESSIONS,
+                      Explode, PosExplode)
 
 #: expressions the reference evaluates on its CPU engine only (no device
 #: implementation); the port has no CPU engine yet
@@ -176,6 +186,12 @@ _CHILD_TYPES.update({
     H.Murmur3Hash: _ORDERABLE_DEC,
     H.XxHash64: _ORDERABLE_DEC,
 })
+_CHILD_TYPES.update({
+    Explode: (ArrayType,),
+    PosExplode: (ArrayType,),
+    ST.GetStructField: (StructType,),
+    ST.CreateNamedStruct: _ORDERABLE_DEC,
+})
 _CHILD_TYPES.update({cls: _NUMERIC
                      for cls in M.UNARY_MATH + M.NULL_DOMAIN_LOGS})
 _CHILD_TYPES.update({cls: (IntegralType,)
@@ -217,6 +233,35 @@ def _wide_decimal_reasons(e: Expression) -> List[str]:
     return []
 
 
+#: the collection expressions that take no array<string> cube (the
+#: reference's `_register_cube_gates`: only contains, getItem,
+#: element_at, size, explode and plain selection are cube-aware)
+_CUBE_GATED = (CX.ArrayTransform, CX.ArrayFilter, CX.ArrayMax, CX.ArrayMin,
+               CX.SortArray, CX.Slice, CX.ArrayPosition, CX.ArrayRemove,
+               CX.ArrayDistinct, CX.Reverse, CX.ArrayExists, CX.ArrayForall,
+               CX.ConcatArrays, CX.ArraysOverlap, CX.ArrayIntersect,
+               CX.ArrayExcept, CX.ArrayUnion, CX.CreateArray, Literal)
+
+
+def _is_cube(dt) -> bool:
+    return isinstance(dt, ArrayType) and isinstance(dt.elementType,
+                                                    StringType)
+
+
+def _cube_reasons(e: Expression) -> List[str]:
+    """What the reference runs on its CPU engine over array<string> (and
+    array literals, which its Literal does not fill); each names A9."""
+    if not isinstance(e, _CUBE_GATED):
+        return []
+    if isinstance(e, Literal) and isinstance(e.dtype, ArrayType):
+        return ["an array literal runs on the reference's CPU engine"
+                + _NO_CPU]
+    if any(_is_cube(c.dtype) for c in e.children) or _is_cube(e.dtype):
+        return [f"{type(e).__name__} over array<string> runs on the "
+                "reference's CPU engine (no cube lowering)" + _NO_CPU]
+    return []
+
+
 def _device_check_reasons(e: Expression) -> List[str]:
     """Cast's and DateFormat's device checks (the reference's
     `_cast_check` and `_date_format_check`); the reference runs what they
@@ -247,17 +292,57 @@ def _regex_reasons(e: Expression, conf) -> List[str]:
 
 
 def type_supported(dt: DataType) -> Optional[str]:
+    """The reference's device types (its `type_supported`): arrays of
+    primitive, decimal(<= 18) or string elements, maps of primitive or
+    decimal(<= 18) keys and values, structs of flat fields. The nested
+    types it runs on its CPU engine name A9."""
     if isinstance(dt, NullType) or isinstance(dt, DEVICE_TYPES):
         return None
-    return (f"type {dt} is not ported yet (ROADMAP A3: array, map and "
-            "struct columns)")
+    if isinstance(dt, ArrayType):
+        et = dt.elementType
+        if isinstance(et, StringType):
+            return None  # the [cap, elems, bytes] cube
+        if isinstance(et, (ArrayType, StructType, MapType)) or is_wide(et):
+            return (f"array element type {et.simpleString} runs on the "
+                    "reference's CPU engine (device arrays hold primitive "
+                    "and string elements)" + _NO_CPU)
+        return type_supported(et)
+    if isinstance(dt, MapType):
+        for part, t in (("key", dt.keyType), ("value", dt.valueType)):
+            if isinstance(t, (StringType, ArrayType, MapType, StructType)) \
+                    or is_wide(t):
+                return (f"map {part} type {t.simpleString} runs on the "
+                        "reference's CPU engine (device maps hold "
+                        "primitive entries)" + _NO_CPU)
+            r = type_supported(t)
+            if r:
+                return r
+        return None
+    if isinstance(dt, StructType):
+        for f in dt.fields:
+            if isinstance(f.dataType, (ArrayType, MapType, StructType)):
+                return (f"struct field {f.name!r} type "
+                        f"{f.dataType.simpleString} runs on the reference's "
+                        "CPU engine (device structs hold flat fields)"
+                        + _NO_CPU)
+            r = type_supported(f.dataType)
+            if r:
+                return r
+        return None
+    return f"type {dt} is not supported on the device"
 
 
 def sort_key_type_supported(dt: DataType) -> Optional[str]:
     """Sort keys need orderable device keys (a decimal(> 18) orders by its
-    two limbs in K9)."""
-    if isinstance(dt, (ArrayType, StructType, MapType)):
-        return f"{dt}-typed keys have no orderable device keys"
+    two limbs in K9); the reference runs array, struct and map keys on
+    its CPU engine."""
+    if isinstance(dt, StructType):
+        return ("struct-typed keys take the reference's struct-key rewrite "
+                "(plan/struct_keys.py), which is not ported yet (ROADMAP "
+                "A9)")
+    if isinstance(dt, (ArrayType, MapType)):
+        return (f"{dt.simpleString}-typed keys run on the reference's CPU "
+                "engine (no orderable device keys)" + _NO_CPU)
     return type_supported(dt)
 
 
@@ -282,6 +367,7 @@ def expr_unsupported_reasons(expr: Expression, conf=None) -> List[str]:
                            f"expression.{name}=false")
         reasons.extend(_regex_reasons(e, conf))
         reasons.extend(_device_check_reasons(e))
+        reasons.extend(_cube_reasons(e))
         if not isinstance(e, PORTED_EXPRESSIONS + CPU_ONLY_EXPRESSIONS):
             reasons.append(f"expression {name} is not ported yet "
                            "(ROADMAP A12)")

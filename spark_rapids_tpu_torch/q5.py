@@ -1126,7 +1126,7 @@ def decimal_array(cents: np.ndarray, precision: int, scale: int
 
 
 def write_decimal_data(root: str, lineitem: int, customers: int,
-                       files: int = 8, seed: int = 0) -> dict:
+                       files: int = 8, seed: int = 0, lines=None) -> dict:
     """Write the decimal queries' tables under root, PLAIN parquet:
 
     - lineitem/ (`files` files): LINEITEM as `lineitem_draws` draws it,
@@ -1138,12 +1138,13 @@ def write_decimal_data(root: str, lineitem: int, customers: int,
 
     A decimal(<= 18) is stored as a parquet INT64 (INT32 up to 9 digits),
     as Spark's writer stores it, where this pyarrow can (its
-    `store_decimal_as_integer`). Returns {table: [paths]}."""
+    `store_decimal_as_integer`). `lines`: the `lineitem_draws` of these
+    arguments, when the caller has them. Returns {table: [paths]}."""
     out = {"lineitem": []}
     for sub in ("lineitem", "customer_dec"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
     flags, statuses = pa.array(RETURN_FLAGS), pa.array(LINE_STATUSES)
-    for i, d in enumerate(lineitem_draws(lineitem, files, seed)):
+    for i, d in enumerate(lines or lineitem_draws(lineitem, files, seed)):
         t = pa.table({
             "l_quantity": decimal_array(d["qty_c"], 15, 2),
             "l_extendedprice": decimal_array(d["price_c"], 15, 2),
@@ -1214,3 +1215,205 @@ def q5_plan(fact_entry, dim_entry,
          Alias(Average(ref(ps, "amount")), "avg_amount"),
          Alias(Count(), "sales")],
         proj)
+
+
+# ------------------------------------------------------------ nested orders
+
+#: TPC-H's ship modes (spec 4.2.2.13: MODES)
+SHIP_MODES = ("REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB")
+
+
+def nested_orders_draws(orders: int, lineitem: int, files: int = 8,
+                        seed: int = 0, lines=None):
+    """The draws of NESTED_ORDERS: `orders_dated_draws`' ORDERS (all
+    files' rows concatenated), each order's line count uniform over 1-7
+    as dbgen draws it, then moved by one on seeded orders until the counts
+    sum to `lineitem` exactly (>= orders), the `lineitem_draws` LINEITEM
+    rows of `write_decimal_data` (the same seed, so the same lines) in
+    order, each order's own lines being the next count of them, a ship
+    mode a line (an index into SHIP_MODES) and a clerk an order (1 to
+    SF * 1,000); `lines` takes the caller's `lineitem_draws(lineitem,
+    files, seed)`. Returns (orders dict, counts int32, lines dict, modes,
+    clerks)."""
+    if lineitem < orders:
+        raise ValueError(f"{lineitem} lines cannot give {orders} orders "
+                         "one line each")
+    o = orders_dated_draws(orders, files, seed)
+    o = {k: np.concatenate([d[k] for d in o]) for k in o[0]}
+    rng = np.random.default_rng([seed, 11])
+    counts = rng.integers(1, 8, orders)
+    diff = lineitem - int(counts.sum())
+    while diff:
+        room = np.flatnonzero(counts < 7 if diff > 0 else counts > 1)
+        pick = rng.choice(room, size=min(abs(diff), len(room)),
+                          replace=False)
+        counts[pick] += 1 if diff > 0 else -1
+        diff = lineitem - int(counts.sum())
+    lines = lines or lineitem_draws(lineitem, files, seed)
+    lines = {k: np.concatenate([d[k] for d in lines]) for k in lines[0]}
+    modes = rng.integers(0, len(SHIP_MODES), lineitem)
+    clerks = rng.integers(1, max(orders // 1500, 1) + 1, orders)
+    return o, counts.astype(np.int32), lines, modes, clerks
+
+
+def _nested_orders_table(draws, files: int, i: int) -> pa.Table:
+    """File i's rows of NESTED_ORDERS (`nested_orders_tables`)."""
+    o, counts, lines, modes, clerks = draws
+    orders = len(counts)
+    offsets = np.zeros(orders + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    per = -(-orders // files)
+    lo, hi = i * per, min((i + 1) * per, orders)
+    a, b = int(offsets[lo]), int(offsets[hi])
+    off = offsets[lo:hi + 1] - a
+    n_open = np.add.reduceat(lines["status"][a:b], off[:-1]) \
+        if hi > lo else np.zeros(0, dtype=np.int64)
+    status = np.where(n_open == 0, 0,
+                      np.where(n_open == counts[lo:hi], 1, 2))
+    line_no = (np.arange(b - a, dtype=np.int64)
+               - np.repeat(off[:-1], counts[lo:hi]) + 1).astype(np.int32)
+    off = pa.array(off.astype(np.int32))
+
+    def lst(values):
+        return pa.ListArray.from_arrays(off, values)
+
+    price = pa.array(lines["price_c"][a:b] / 100.0)
+    return pa.table({
+        "o_orderkey": pa.array(o["o_orderkey"][lo:hi]),
+        "o_custkey": pa.array(o["o_custkey"][lo:hi]),
+        "o_orderdate": pa.array(o["o_orderdate"][lo:hi], type=pa.date32()),
+        "o_totalprice": pa.array(o["cents"][lo:hi] / 100.0),
+        "o_orderstatus": pa.array(["F", "O", "P"]).take(pa.array(status)),
+        "o_info": pa.StructArray.from_arrays(
+            [pa.array(ORDER_PRIORITIES).take(pa.array(o["priority"][lo:hi])),
+             pa.array(clerks[lo:hi].astype(np.int32)),
+             pa.array(np.zeros(hi - lo, dtype=np.int32))],
+            names=["priority", "clerk", "shippriority"]),
+        "l_quantity": lst(pa.array(
+            (lines["qty_c"][a:b] // 100).astype(np.int32))),
+        "l_extendedprice": lst(price),
+        "l_shipdate": lst(pa.array(lines["shipdate"][a:b],
+                                   type=pa.date32())),
+        "l_shipmode": lst(pa.array(SHIP_MODES).take(pa.array(modes[a:b]))),
+        "l_price_by_line": pa.MapArray.from_arrays(
+            off, pa.array(line_no), price)})
+
+
+def nested_orders_tables(orders: int, lineitem: int, files: int = 8,
+                         seed: int = 0, draws=None) -> List[pa.Table]:
+    """NESTED_ORDERS in `files` tables: ORDERS at one row an order
+    (o_orderkey, o_custkey int64, o_orderdate date32, o_totalprice
+    float64, o_orderstatus F, O or P from its lines' statuses as dbgen
+    derives it, o_info struct<priority: string, clerk: int, shippriority:
+    int>) carrying its own LINEITEM rows as parallel arrays (l_quantity
+    array<int>, l_extendedprice array<double>, l_shipdate array<date>,
+    l_shipmode array<string>) and l_price_by_line map<int, double> from
+    line number (1-7) to price, all built from offsets with
+    pa.ListArray.from_arrays (`nested_orders_draws`, or `draws` when the
+    caller has them)."""
+    draws = draws or nested_orders_draws(orders, lineitem, files, seed)
+    return [_nested_orders_table(draws, files, i) for i in range(files)]
+
+
+def write_nested_orders(root: str, orders: int, lineitem: int,
+                        files: int = 8, seed: int = 0,
+                        draws=None) -> List[str]:
+    """Write NESTED_ORDERS (`nested_orders_tables`) under
+    root/nested_orders, PLAIN parquet, one file a table, the files built
+    and written in parallel threads. Returns the paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    os.makedirs(os.path.join(root, "nested_orders"), exist_ok=True)
+    draws = draws or nested_orders_draws(orders, lineitem, files, seed)
+
+    def write(i):
+        path = os.path.join(root, "nested_orders",
+                            f"nested_orders-{i}.parquet")
+        pq.write_table(_nested_orders_table(draws, files, i), path,
+                       compression="NONE", use_dictionary=False)
+        return path
+
+    with ThreadPoolExecutor(max_workers=min(files, 8)) as pool:
+        return list(pool.map(write, range(files)))
+
+
+def nested_explode_query(orders, F=None):
+    """The flattening every nested pipeline does: posexplode the order's
+    quantities, then sum and count the lines by (o_orderstatus, line
+    position)."""
+    F = _functions(F)
+    return (orders.select("o_orderstatus", F.posexplode("l_quantity"))
+            .groupBy("o_orderstatus", "pos")
+            .agg(F.sum("col").alias("qty"), F.count("col").alias("lines")))
+
+
+def nested_item_stats_query(orders, F=None):
+    """Per order: its line count, largest price, whether any line ships
+    by AIR (over the array<string> cube), its largest quantity (the first
+    of the quantities sorted descending), its distinct quantities and
+    quantities over 25, the first line's price and whether a seventh line
+    exists (the map); then sums and counts by o_info.priority."""
+    F = _functions(F)
+    per_order = orders.select(
+        F.col("o_info").getField("priority").alias("priority"),
+        F.size("l_quantity").alias("n_lines"),
+        F.array_max("l_extendedprice").alias("max_price"),
+        F.array_contains("l_shipmode", F.lit("AIR")).alias("air"),
+        F.element_at(F.sort_array("l_quantity", False), 1).alias("top_qty"),
+        F.size(F.array_distinct("l_quantity")).alias("n_distinct"),
+        F.size(F.filter_array("l_quantity", lambda x: x > 25))
+        .alias("n_big"),
+        F.element_at("l_price_by_line", 1).alias("first_price"),
+        F.map_contains_key("l_price_by_line", 7).alias("has7"))
+    return per_order.groupBy("priority").agg(
+        F.count("*").alias("orders"),
+        F.sum("n_lines").alias("lines"),
+        F.sum("max_price").alias("sum_max_price"),
+        F.sum(F.col("air").cast("int")).alias("air_orders"),
+        F.sum("top_qty").alias("sum_top_qty"),
+        F.sum("n_distinct").alias("sum_distinct"),
+        F.sum("n_big").alias("big_lines"),
+        F.sum("first_price").alias("sum_first_price"),
+        F.sum(F.col("has7").cast("int")).alias("seven_line_orders"))
+
+
+def customer_order_lists_query(orders, F=None):
+    """Each customer's orders and order years as arrays: collect_list of
+    o_orderkey and collect_set of year(o_orderdate) by o_custkey, with
+    their sizes, the years sorted and a struct of the key and its order
+    count."""
+    F = _functions(F)
+    lists = orders.groupBy("o_custkey").agg(
+        F.collect_list("o_orderkey").alias("order_keys"),
+        F.collect_set(F.year("o_orderdate")).alias("years"))
+    return lists.select(
+        "o_custkey", "order_keys",
+        F.size("order_keys").alias("n_orders"),
+        F.size("years").alias("n_years"),
+        F.sort_array("years").alias("years_sorted"),
+        F.struct("o_custkey", F.size("order_keys").alias("n"))
+        .alias("summary"))
+
+
+def recent_orders_window_query(orders, F=None, Window=None):
+    """The per-customer recent-orders feature table: over each customer's
+    orders in (o_orderdate, o_orderkey) order, the prices of the order and
+    the two before it (collect_list over ROWS 2 PRECEDING to CURRENT ROW)
+    and the distinct years of the order and the five before it
+    (collect_set over ROWS 5 PRECEDING to CURRENT ROW). `Window` is the
+    window builder of the package `F` belongs to (the port's by
+    default)."""
+    F = _functions(F)
+    if Window is None:
+        from spark_rapids_tpu_torch.api.window import Window
+    w = Window.partitionBy("o_custkey").orderBy("o_orderdate", "o_orderkey")
+    # the flat columns first: a struct payload stays off the device window
+    # in both packages
+    flat = orders.select("o_orderkey", "o_custkey", "o_orderdate",
+                         "o_totalprice")
+    return flat.select(
+        "o_orderkey", "o_custkey",
+        F.collect_list("o_totalprice").over(w.rowsBetween(-2, 0))
+        .alias("last3_prices"),
+        F.collect_set(F.year("o_orderdate")).over(w.rowsBetween(-5, 0))
+        .alias("recent_years"))

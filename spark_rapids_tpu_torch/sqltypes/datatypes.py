@@ -480,9 +480,17 @@ _TORCH_DTYPES = {
 
 def torch_dtype(dt) -> torch.dtype:
     """torch dtype of a numpy dtype, or of a DataType's `data` leaf
-    (StringType -> the uint8 byte matrix)."""
+    (StringType -> the uint8 byte matrix; an array's element type, its
+    cube's uint8 for array<string>; a map's key type; a struct's int8
+    placeholder)."""
     if isinstance(dt, StringType):
         return torch.uint8
+    if isinstance(dt, ArrayType):
+        return torch_dtype(dt.elementType)
+    if isinstance(dt, MapType):
+        return torch_dtype(dt.keyType)
+    if isinstance(dt, StructType):
+        return torch.int8
     if isinstance(dt, DataType):
         dt = dt.np_dtype
     return _TORCH_DTYPES[np.dtype(dt)]

@@ -725,13 +725,13 @@ def test_pushdown_gate_matches_reference(tmp_path, agg):
 
 
 @pytest.mark.parametrize("agg,item", [
-    ("collect_list", "A3"), ("collect_set", "A3"),
+    ("collect_list", "A9"), ("collect_set", "A9"),
     ("countDistinct", "A9"), ("var_samp", "numeric input")])
 def test_unported_aggregates_are_refused(tmp_path, agg, item):
-    """collect_list and collect_set as results raise naming ROADMAP A3
-    (array columns do not reach the collect); count(DISTINCT) of a string
-    names A9 (the reference runs it on its CPU engine); a moment of a
-    string needs numeric input, as the reference's check says."""
+    """collect_list, collect_set and count(DISTINCT) of a string name A9
+    (the reference runs them on its CPU engine; collect results of a
+    number run since slice 12, and named A3 before); a moment of a string
+    needs numeric input, as the reference's check says."""
     pq.write_table(pa.table({"k": [1, 1, 2], "s": ["a", "b", "a"]}),
                    str(tmp_path / "t.parquet"))
     spark = TpuSparkSession({"spark.rapids.torch.device": "cpu"})

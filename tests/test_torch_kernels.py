@@ -747,6 +747,7 @@ from spark_rapids_tpu_torch.expr import datetimes as port_datetimes  # noqa: E40
 from spark_rapids_tpu_torch.expr import aggregates as port_aggregates  # noqa: E402,E501
 from spark_rapids_tpu_torch.expr import mathexpr as port_math  # noqa: E402
 from spark_rapids_tpu_torch.ops import decimal128 as port_d128  # noqa: E402,E501
+from spark_rapids_tpu_torch.expr import collections as port_collections  # noqa: E402,E501
 
 # every kernel wrapper: on a CUDA tensor each one launches its kernel, so
 # a plain version (the kernel's check on the card) must reach none of them
@@ -794,6 +795,9 @@ _WRAPPERS = [
     (port_d128, "compare"), (port_d128, "to_double"), (port_d128, "to_long"),
     (port_d128, "seg_sum128"), (port_d128, "_launch"),
     (port_stringcast, "parse_decimal"), (port_cast, "_decimal_to_string"),
+    (port_windowops, "frame_collect"), (port_collections, "array_compact"),
+    (port_collections, "array_distinct"), (port_collections, "array_sort"),
+    (port_collections, "_launch_rows"),
 ]
 
 
@@ -995,6 +999,34 @@ def _slice11_plain_cases(s_col=None, d_col=None, l_col=None):
     }
 
 
+def _slice12_plain_cases(l_col=None, perm=None, live=None):
+    """K33's, K34's (both modes) and K35's plain versions over the long
+    key as values: a bounded frame collected as a list and a set, and the
+    key's residues as [rows, 8] arrays."""
+    def rows():
+        n = l_col.data.shape[0]
+        data = (l_col.data[:, None] + torch.arange(8)) % 7
+        ev = (torch.arange(8)[None, :] + l_col.data[:, None]) % 5 != 0
+        return data, ev, (l_col.data.abs() % 9).clamp(max=8).to(
+            torch.int32).reshape(n)
+
+    def window():
+        return _plain_window(l_col.data.shape[0], perm, live)
+
+    return {
+        "frame_collect_plain_list": lambda: port_windowops.frame_collect_plain(
+            l_col.data, l_col.validity, window(), -2, 0, False),
+        "frame_collect_plain_set": lambda: port_windowops.frame_collect_plain(
+            l_col.data % 3, l_col.validity, window(), -5, 0, True),
+        "array_compact_plain": lambda: port_collections.array_compact_plain(
+            rows()[0], rows()[1], rows()[0] > 2),
+        "array_distinct_plain": lambda: port_collections.array_distinct_plain(
+            *rows()),
+        "array_sort_plain": lambda: port_collections.array_sort_plain(
+            *rows(), False),
+    }
+
+
 _STRING_PLAIN = sorted(_string_plain_cases(port_strings.DeviceColumn(
     None, torch.zeros((1, 8), dtype=torch.uint8), torch.ones(1, dtype=bool),
     torch.zeros(1, dtype=torch.int32))))
@@ -1095,6 +1127,7 @@ def _plain_case(name, pb):
     cases.update(_slice9_plain_cases())
     cases.update(_slice10_plain_cases(s_col, d_col, l_col))
     cases.update(_slice11_plain_cases(s_col, d_col, l_col))
+    cases.update(_slice12_plain_cases(l_col, perm, live))
     return cases[name]()
 
 
@@ -1120,7 +1153,8 @@ def _plain_window(n, perm, live):
     "range_bounds_plain", "frame_minmax_plain", "frame_pick_plain",
     *_STRING_PLAIN, *sorted(_slice7_plain_cases()),
     *sorted(_slice8_plain_cases()), *sorted(_slice9_plain_cases()),
-    *sorted(_slice10_plain_cases()), *sorted(_slice11_plain_cases())])
+    *sorted(_slice10_plain_cases()), *sorted(_slice11_plain_cases()),
+    *sorted(_slice12_plain_cases())])
 def test_plain_versions_reach_no_kernel_wrapper(name, monkeypatch):
     """With every kernel wrapper, wherever it is bound, replaced by one
     that raises, each plain version still runs."""

@@ -414,13 +414,15 @@ def test_range_frames_raise_a11b(data, lower, upper, monkeypatch):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("CollectList", "A3"), ("CollectSet", "A3"), ("Skewness", "A9"),
+    ("CollectList", "A9"), ("CollectSet", "A9"), ("Skewness", "A9"),
     ("CountDistinct", "A9")])
 def test_collect_and_variance_frames_raise(data, name, item):
     """Window aggregates the port does not evaluate raise naming the
-    ROADMAP item that ports them: collect frames need array columns (A3);
-    an aggregate the reference's window runs on its CPU engine (skewness,
-    count(DISTINCT)) names A9. Variance and stddev frames ran into A12
+    ROADMAP item that ports them: collect frames without a lower bound
+    (the reference evaluates only bounded ROWS collect frames on its
+    device, K33's since slice 12; it named A3 before), and an aggregate
+    the reference's window runs on its CPU engine (skewness,
+    count(DISTINCT)), name A9. Variance and stddev frames ran into A12
     here until slice 8 ported them (K14's frame sums of x and x^2)."""
     from spark_rapids_tpu_torch.api.column import Column
     from spark_rapids_tpu_torch.api.functions import UnresolvedColumn
@@ -430,7 +432,9 @@ def test_collect_and_variance_frames_raise(data, name, item):
     port = TpuSparkSession(dict(CONF, **{"spark.rapids.torch.device":
                                          "cpu"}))
     fact = port.read.parquet(os.path.join(data, "fact"))
-    w = PortWindow.partitionBy("store").orderBy("day").rowsBetween(-2, 0)
+    w = PortWindow.partitionBy("store").orderBy("day").rowsBetween(
+        PortWindow.unboundedPreceding if name.startswith("Collect") else -2,
+        0)
     df = fact.select("store", Column(fn).over(w).alias("x"))
     with pytest.raises(NotImplementedError, match=item):
         df.collect_arrow()
