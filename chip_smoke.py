@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    spark_rapids_tpu_torch/kernels/csrc with nvcc (sm_90a, one process
    per source, all started together). Phases 3-14's seeded data and
    oracles are made meanwhile, in three worker processes (HOST_JOBS),
-   while phases 1 and 2 run;
+   while phases 1 and 2 run; phase 15's, in a freed worker, while phases
+   11-14 run (its Morton order once the Delta write has named its
+   files);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the q5 path gives it (bench.py's full size: 8 parts of 4.5M
    rows): K1-K4, K5 (bloom build and might_contain), K6 (murmur3
@@ -102,7 +104,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    descending) and at edge shapes (`check_slice12_edges`: W = 1, 3, 6
    and 1,024, every element type with NaN, +-inf, -0.0, INT_MIN and
    INT_MAX, nulls, empty and all-null rows, dead rows, max_elems 1 to 64,
-   cubes of empty strings), floats bit for bit;
+   cubes of empty strings), floats bit for bit; K36 (the Z-order
+   interleave) at OPTIMIZE ZORDER BY's shape (the o_custkey and
+   o_orderdate ranks of 15,000,000 ORDERS rows in capacity 2^24, from
+   column_ranks, which must equal a numpy stable-argsort oracle) and at
+   edge shapes (`check_slice13_edges`: n = 1-5, 8, 63, 64 and 65 rank
+   columns at capacities 1,024 and 2^24, column_ranks over every key
+   type with nulls, NaN, +-inf, -0.0, ties and dead rows, all-dead
+   batches, and zorder_sort against the numpy Morton order). K10's and
+   K13's library calls (torch.unique_consecutive over the sorted words; a
+   stable torch.sort chain over both runs' words) are checked equal to
+   their kernels before they are timed;
 3. slice 1's hand-built q5 plan at the bench's full size (36M fact rows
    in 8 parquet files, a 2,000-row dimension with a dictionary-encoded
    `region`) over device-cached relations: upload, one cold run and 5
@@ -236,16 +248,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    fused engine hands the collect results to the adaptive one; the
    adaptive window must take the halo mode (5 rows); K33 must run on the
    window, K34 and K35 on the item statistics, K35 and K26 on the lists,
-   K3 on the explode.
+   K3 on the explode;
+15. slice 13's Delta Lake upkeep of phase 9's typed ORDERS (q5.py): the
+   write with deletion vectors enabled (15 files of 2^20 rows, each add's
+   stats equal to pyarrow's, the priority summary read back on both
+   engines), OPTIMIZE ZORDER BY (o_custkey, o_orderdate) (its row order
+   equal to the numpy Morton order of the snapshot's files, a dashboard
+   filter's candidate files through the log's statistics equal to the
+   oracle's before and after; K9, K14's inverse, K36 and K8 must run, and
+   the sort is profiled alone), TPC-H RF1 and RF2 as MERGEs (15,000
+   orders in, 15,000 out; K2 must run), the retention DELETE (dates
+   before 1993) and a request DELETE through deletion vectors (no data
+   file written; the second's vectors hold the first's), an UPDATE of
+   the top 1 % of prices, and the read-back on both engines: each
+   priority's count, revenue (1e-9 relative) and order keys against a
+   numpy oracle that applied the same steps.
 
-For each query run (phases 3-14) the kernels' launch counts are reset
-just before the cold run and read just after it; every kernel of that
-path must have run. Phases 3-5 time 3 hot runs a query, phases 7 and
-10 none (cut from 2 to 1 when phases 12 and 13 were added, to none when
-phase 14 was: their times are the cold and the profiled run's), phases
-6, 8, 9 and 11-14 1 (cut from 2 when phase 14 was added),
-and each kernel's device time in phase 2 is the mean of 4 calls (10
-before phase 14 was added).
+For each query run (phases 3-14) and each phase-15 step the kernels'
+launch counts are reset just before the cold run and read just after it;
+every kernel of that path must have run. Phases 3-5 time 3 hot runs a
+query, phases 7 and 10 none (cut from 2 to 1 when phases 12 and 13 were
+added, to none when phase 14 was: their times are the cold and the
+profiled run's), phases 6, 8, 9 and 11-14 1 (cut from 2 when phase 14
+was added), and each kernel's device time in phase 2 is the mean of 4
+calls (10 before phase 14 was added).
 One more hot run counts the host syncs (torch.cuda's
 sync debug mode; not in phases 7 and 10 since phase 14 was added: their
 counts stand in PERF.md from PRs 5 and 8) and one, under torch.profiler,
@@ -1011,6 +1037,23 @@ def check_slice3_kernels(dev):
     torch.cuda.synchronize()
     for a, b, what in zip(gb, gb_p, gb._fields):
         exact(f"group_bounds {what}", a, b)
+
+    def bounds_library():
+        # one library call over the sorted words: its groups are K10's
+        # live groups and, after them, the dead rows' one group
+        return torch.unique_consecutive(words.index_select(1, perm.long()),
+                                        dim=1, return_inverse=True,
+                                        return_counts=True)
+
+    _, inverse, counts = bounds_library()
+    ng = int(gb.num_groups.item())
+    first = torch.cumsum(counts, 0) - counts
+    exact("group_bounds library gid", inverse[:live_rows].to(torch.int32),
+          gb.gid[:live_rows])
+    exact("group_bounds library first_pos", first[:ng].to(torch.int32),
+          gb.first_pos[:ng])
+    if counts.numel() != ng + (live_rows < n):
+        fail(f"group_bounds library: {counts.numel()} groups, K10 {ng}")
     out["group_bounds"] = dict(
         route="cuda",
         source="spark_rapids_tpu_torch/kernels/csrc/group_bounds.cu",
@@ -1019,7 +1062,7 @@ def check_slice3_kernels(dev):
         **timed("group_bounds",
                 lambda: segmented.group_bounds(words, perm, live),
                 lambda: segmented.group_bounds_plain(words, perm, live),
-                None),
+                bounds_library),
         # perm and live per row, both words only for the live sorted
         # rows; gid, live_s, first_pos and num_groups out
         bound_ms=bound_ms(n * (4 + 1) + live_rows * 16 + n * (4 + 1 + 4)
@@ -1470,6 +1513,17 @@ def check_slice4_kernels(dev):
     torch.cuda.synchronize()
     for k, (a, b) in enumerate(zip(got, want)):
         exact(f"merge_runs leaf {k}", a, b)
+
+    def merge_library():
+        # a stable torch.sort chain over both runs' words, the first run's
+        # first (its rows win ties), then each leaf gathered by it
+        order = common.sort_permutation_plain(
+            list(torch.cat([ka, kb], 1).unbind(0)), 2 * n).long()
+        return [torch.cat([xa, xb]).index_select(0, order)
+                for xa, xb in zip(la, lb)]
+
+    for k, (a, b) in enumerate(zip(merge_library(), got)):
+        exact(f"merge_runs library leaf {k}", a, b)
     leaf_bytes = sum(x[0].numel() * x.element_size() for x in la)
     out["merge_runs"] = dict(
         route="cuda",
@@ -1479,7 +1533,7 @@ def check_slice4_kernels(dev):
         **timed("merge_runs",
                 lambda: sortops.merge_runs(ka, kb, n, n, la, lb, 2 * n),
                 lambda: sortops.merge_runs_plain(ka, kb, n, n, la, lb,
-                                                 2 * n), None),
+                                                 2 * n), merge_library),
         # both runs' key words and leaves read once, the output written
         bound_ms=bound_ms(2 * n * (ka.shape[0] * 8 + leaf_bytes)
                           + 2 * n * leaf_bytes),
@@ -6882,6 +6936,581 @@ def check_slice12(name: str, got, want) -> None:
         fail(f"{name}: recent_years differ as sets")
 
 
+def _rank_oracle(vals, valid, live):
+    """numpy oracle of column_ranks: each row's position in a stable sort
+    by (null rank: null 0, value 1, dead 2; the value in Java's order,
+    -0.0 below 0.0 and NaN above +inf, zeroed for null and dead rows)."""
+    import numpy as np
+
+    if vals.dtype.kind == "f":
+        wide = vals.dtype == np.float64
+        bits = vals.view(np.int64 if wide else np.int32).astype(np.int64)
+        top = np.int64(0x7FF8000000000000 if wide else 0x7FC00000)
+        least = np.int64(-(1 << 63) if wide else -(1 << 31))
+        bits = np.where(np.isnan(vals), top, bits)
+        with np.errstate(over="ignore"):
+            key = np.where(bits < 0, least - bits - 1, bits)
+    else:
+        key = vals.astype(np.int64)
+        if np.array_equal(valid, live):
+            # no nulls: one stable sort, dead rows after every live value
+            order = np.argsort(np.where(live, key, np.iinfo(np.int64).max),
+                               kind="stable")
+            ranks = np.empty(len(order), dtype=np.int32)
+            ranks[order] = np.arange(len(order), dtype=np.int32)
+            return ranks
+    rank_key = np.where(~live, 2, np.where(valid, 1, 0))
+    key = np.where(valid & live, key, 0)
+    order = np.lexsort((key, rank_key))
+    ranks = np.empty(len(order), dtype=np.int32)
+    ranks[order] = np.arange(len(order), dtype=np.int32)
+    return ranks
+
+
+def _morton_oracle(ranks, rank_bits):
+    """numpy oracle of K36: the reference's double loop in int64."""
+    import numpy as np
+
+    n = len(ranks)
+    use = min(rank_bits, max(1, 63 // n))
+    shift = max(0, rank_bits - use)
+    z = np.zeros(len(ranks[0]), dtype=np.uint64)
+    for c, r in enumerate(ranks):
+        v = r.astype(np.int64) >> shift
+        for b in range(use):
+            pos = b * n + c
+            if pos >= 64:
+                break
+            z |= ((v >> b) & 1).astype(np.uint64) << np.uint64(pos)
+    return z.view(np.int64)
+
+
+#: phase 2's slice-13 shape: SF10 ORDERS' 15,000,000 rows in their
+#: capacity, ranked by (o_custkey, o_orderdate)
+ZORDER_CAP = 1 << 24
+
+
+def _same_rows(name: str, got, want) -> None:
+    """Two Arrow tables row for row: validity equal, floats bit for bit
+    (NaN by NaN), everything else equal."""
+    import numpy as np
+    import pyarrow as pa
+
+    if got.num_rows != want.num_rows or got.column_names != want.column_names:
+        fail(f"{name}: {got.num_rows} rows {got.column_names}, expected "
+             f"{want.num_rows} {want.column_names}")
+    for c in want.column_names:
+        a, b = got.column(c).combine_chunks(), want.column(c).combine_chunks()
+        va = a.is_valid().to_numpy(zero_copy_only=False)
+        vb = b.is_valid().to_numpy(zero_copy_only=False)
+        if pa.types.is_floating(b.type):
+            xa = a.fill_null(0).to_numpy()
+            xb = b.fill_null(0).to_numpy()
+            ints = np.int64 if xb.dtype == np.float64 else np.int32
+            zero = xb.dtype.type(0)
+            ok = (xa.dtype == xb.dtype
+                  and np.array_equal(np.isnan(xa), np.isnan(xb))
+                  and np.array_equal(
+                      np.where(np.isnan(xa), zero, xa).view(ints),
+                      np.where(np.isnan(xb), zero, xb).view(ints)))
+        else:
+            ok = a.equals(b)
+        if not (np.array_equal(va, vb) and ok):
+            fail(f"{name}: column {c} differs")
+
+
+def check_slice13_kernels(dev):
+    """Phase 2, slice 13: K36 (the Z-order interleave) against its plain
+    version at OPTIMIZE ZORDER BY (o_custkey, o_orderdate)'s shape: the
+    ranks of 15,000,000 live rows of capacity 2^24 (o_custkey int64 over
+    1,500,000 customers, o_orderdate date32 over 2,406 days: ties in
+    both), ranked by column_ranks (K9, K14's inverse), which must equal a
+    numpy stable-argsort oracle. Returns {record name: record}."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.ops import zorder as Z
+    from spark_rapids_tpu_torch.sqltypes import StructField, StructType
+    from spark_rapids_tpu_torch.sqltypes.datatypes import date, long
+
+    # slice 12's tensors leave blocks of other sizes in the allocator's
+    # cache; without them the 2^24-row outputs below need no cudaMalloc
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(131)
+    n, cap = SF10_ORDERS, ZORDER_CAP
+    live = np.arange(cap) < n
+    cust = np.where(live, rng.integers(1, SF10_CUSTOMERS + 1, cap), 0)
+    day = np.where(live, rng.integers(8035, 8035 + 2406, cap),
+                   0).astype(np.int32)
+    valid = torch.from_numpy(live).to(dev)
+    schema = StructType([StructField("o_custkey", long),
+                         StructField("o_orderdate", date)])
+    batch = ColumnBatch(schema, [
+        _col(long, torch.from_numpy(cust).to(dev), valid.clone()),
+        _col(date, torch.from_numpy(day).to(dev), valid.clone())], n)
+    ranks = [Z.column_ranks(batch, i) for i in range(2)]
+    for k, vals in enumerate((cust, day)):
+        want = _rank_oracle(vals, live, live)
+        if not np.array_equal(ranks[k].cpu().numpy(), want):
+            fail(f"column_ranks column {k} differs from the numpy oracle")
+    rank_bits = (cap - 1).bit_length()
+    got = Z.interleave_bits(ranks, rank_bits)
+    want = Z.interleave_bits_plain(ranks, rank_bits)
+    torch.cuda.synchronize()
+    exact("zorder_interleave", got, want)
+    if not np.array_equal(got.cpu().numpy(),
+                          _morton_oracle([r.cpu().numpy() for r in ranks],
+                                         rank_bits)):
+        fail("zorder_interleave differs from the numpy oracle")
+    return {"zorder_interleave": dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/zorder.cu",
+        replaces="spark_rapids_tpu/ops/zorder.py:34",
+        max_abs_err=max_abs_err(got, want), counter="zorder_interleave",
+        **timed("zorder_interleave",
+                lambda: Z.interleave_bits(ranks, rank_bits),
+                lambda: Z.interleave_bits_plain(ranks, rank_bits), None,
+                floor_ms=bound_ms(cap * (2 * 4 + 8))),
+        # two int32 ranks read and one int64 key written a row
+        bound_ms=bound_ms(cap * (2 * 4 + 8)), bound_by="bytes",
+        shape=f"2 int32 rank vectors of {cap} rows ({n} live) -> int64 z")}
+
+
+def check_slice13_edges(dev) -> int:
+    """Phase 2, slice 13 edge shapes: K36 against its plain version at
+    n = 1-5, 8, 63, 64 and 65 rank columns and capacities 1,024 and 2^24
+    (n = 1 and 3 at 2^24 drop low bits: shift > 0 for n = 3; n >= 64 puts
+    column 63 on the sign bit and drops the rest); column_ranks against
+    the numpy oracle over every key type with nulls, NaN, +-inf, -0.0,
+    ties and dead rows, all-dead batches included; zorder_sort over
+    those batches against the numpy Morton order. Returns the number of
+    cases."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.arrow_bridge import (
+        arrow_to_device,
+        device_to_arrow,
+    )
+    from spark_rapids_tpu_torch.ops import zorder as Z
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(132)
+    cases = 0
+    for cap in (1024, ZORDER_CAP):
+        rank_bits = (cap - 1).bit_length()
+        for n in ((1, 2, 3, 4, 5, 8, 63, 64, 65) if cap == 1024
+                  else (1, 3, 8, 64, 65)):
+            ranks = [torch.randint(0, cap, (cap,), generator=g, device=dev,
+                                   dtype=torch.int32) for _ in range(n)]
+            exact(f"zorder_interleave n={n} cap={cap}",
+                  Z.interleave_bits(ranks, rank_bits),
+                  Z.interleave_bits_plain(ranks, rank_bits))
+            cases += 1
+            del ranks
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(133)
+    pools = {
+        "double": np.array([0.0, -0.0, 1.5, -2.0, np.nan, np.inf, -np.inf,
+                            7.0, 1.5]),
+        "float": np.array([0.0, -0.0, 1.5, np.nan, -np.inf, 3.0],
+                          dtype=np.float32),
+        "long": np.array([0, 1, -1, -(1 << 63), (1 << 63) - 1, 5, 5]),
+        "int": np.array([0, 7, -3, -(1 << 31), 7], dtype=np.int32),
+        "short": np.array([0, 2, -2, 2], dtype=np.int16),
+        "date": np.arange(40, dtype=np.int32),
+    }
+    for rows in (1, 700, 5_000):
+        for dead in sorted({0, min(3, rows), rows}):
+            cols, host = {}, []
+            for name, pool in pools.items():
+                vals = pool[rng.integers(0, len(pool), rows)]
+                valid = rng.random(rows) >= 0.2
+                cols[name] = pa.array(
+                    vals, mask=~valid,
+                    type=pa.date32() if name == "date" else None)
+                host.append((vals, valid))
+            table = pa.table(cols)
+            batch = arrow_to_device(table, device=dev)
+            live_rows = rows - dead
+            batch.num_rows = live_rows
+            cap = batch.capacity
+            live = np.arange(cap) < live_rows
+            ranks = []
+            for i, (vals, valid) in enumerate(host):
+                v = np.zeros(cap, dtype=vals.dtype)
+                ok = np.zeros(cap, dtype=bool)
+                v[:rows], ok[:rows] = vals, valid
+                want = _rank_oracle(v, ok, live)
+                if not np.array_equal(Z.column_ranks(batch, i).cpu().numpy(),
+                                      want):
+                    fail(f"column_ranks {table.column_names[i]} rows={rows} "
+                         f"dead={dead} differs from the numpy oracle")
+                ranks.append(want)
+                cases += 1
+            for ords in ((0, 5), (1, 2, 3), (4,)):
+                z = _morton_oracle([ranks[i] for i in ords],
+                                   max(1, (cap - 1).bit_length()))
+                order = np.lexsort((z, ~live))[:live_rows]
+                got = device_to_arrow(Z.zorder_sort(batch, list(ords)))
+                _same_rows(f"zorder_sort {ords} rows={rows} dead={dead}",
+                           got, table.take(pa.array(order.astype(np.int64))))
+                cases += 1
+    return cases
+
+
+#: rows of each data file a Delta write or rewrite lands
+DELTA_FILE_ROWS = 1 << 20
+#: the kernels phase 15's steps must launch: the Z-order's K9 (keys and
+#: sort), K14's inverse, K36 and K8; the MERGEs' joins (K2's probe)
+SLICE13_PATH_KERNELS = {
+    "delta_zorder": ("pack_keys", "sort_words", "window_inverse",
+                     "zorder_interleave", "gather_leaves"),
+    "delta_rf1": ("probe_ranges",),
+    "delta_rf2": ("probe_ranges",),
+}
+
+
+def _days(iso: str) -> int:
+    import numpy as np
+
+    return int(np.datetime64(iso, "D").astype(np.int64))
+
+
+def _probe_hits(cust, day, lo: int, hi: int) -> int:
+    """Files of DELTA_FILE_ROWS consecutive rows whose min/max statistics
+    overlap zorder_probe (as the log's statistics would say)."""
+    from spark_rapids_tpu_torch.q5 import ZORDER_PROBE_MONTH
+
+    d_lo, d_hi = (_days(x) for x in ZORDER_PROBE_MONTH)
+    hits = 0
+    for s in range(0, len(cust), DELTA_FILE_ROWS):
+        c, d = cust[s:s + DELTA_FILE_ROWS], day[s:s + DELTA_FILE_ROWS]
+        hits += bool(c.min() <= hi and c.max() >= lo and d.min() <= d_hi
+                     and d.max() >= d_lo)
+    return hits
+
+
+def _orders_columns():
+    """Phase 9's typed ORDERS (`write_orders_dated`, seed 0) as numpy
+    columns, in the written order."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.q5 import orders_dated_draws
+
+    draws = orders_dated_draws(ORDERS_ROWS, FILES, seed=0)
+    return {k: np.concatenate([d[k] for d in draws])
+            for k in ("o_orderkey", "priority", "o_orderdate", "cents",
+                      "o_custkey")}
+
+
+def host_delta_orders(root: str) -> dict:
+    """Phase 15's oracles that need no run on the card: the priority
+    summary of ORDERS as written, and the table after RF1, RF2, both
+    deletes and the update (its keys in order with their priorities, and
+    its summary)."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.q5 import (
+        DELTA_RETENTION_DATE,
+        ORDER_PRIORITIES,
+        refresh_draws,
+        request_delete_custkey,
+        update_price_cutoff,
+    )
+
+    o = _orders_columns()
+
+    def summary(prio, price):
+        return {ORDER_PRIORITIES[k]: (int((prio == k).sum()),
+                                      float(price[prio == k].sum()))
+                for k in range(len(ORDER_PRIORITIES))}
+
+    base = summary(o["priority"], o["cents"] / 100.0)
+    rf = refresh_draws(ORDERS_ROWS, seed=0)
+    rf1 = rf["rf1"]
+    rf1_prio = np.array([ORDER_PRIORITIES.index(p) for p in
+                         rf1.column("o_orderpriority").to_pylist()])
+    key = np.concatenate([o["o_orderkey"],
+                          rf1.column("o_orderkey").to_numpy()])
+    prio = np.concatenate([o["priority"], rf1_prio])
+    day = np.concatenate([o["o_orderdate"], rf1.column(
+        "o_orderdate").cast("int32").to_numpy()])
+    price = np.concatenate([o["cents"] / 100.0,
+                            rf1.column("o_totalprice").to_numpy()])
+    cust = np.concatenate([o["o_custkey"],
+                           rf1.column("o_custkey").to_numpy()])
+    keep = ~np.isin(key, rf["rf2"].column("o_orderkey").to_numpy())
+    keep &= day >= _days(DELTA_RETENTION_DATE)
+    keep &= cust >= request_delete_custkey(ORDERS_ROWS)
+    prio = np.where(price > update_price_cutoff(), 0, prio)
+    key, prio, price = key[keep], prio[keep], price[keep]
+    order = np.argsort(key, kind="stable")
+    return dict(base=base, final=summary(prio, price),
+                final_keys=key[order], final_prio=prio[order].astype(np.int8))
+
+
+def host_zorder_oracle(root: str, piece_order) -> dict:
+    """The numpy Morton order of phase 15's OPTIMIZE ZORDER BY (o_custkey,
+    o_orderdate): ORDERS as written, its files of DELTA_FILE_ROWS rows
+    taken in the snapshot's file order (`piece_order`: each snapshot
+    file's place in the write), stable-argsort ranks of both columns, 24
+    bits of each interleaved (capacity 2^24), a stable sort by z. Returns
+    the keys in that order and zorder_probe's file hits before and after
+    the rewrite."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.q5 import zorder_probe_bounds
+
+    o = _orders_columns()
+    n = len(o["o_orderkey"])
+    idx = np.concatenate([np.arange(j * DELTA_FILE_ROWS,
+                                    min(n, (j + 1) * DELTA_FILE_ROWS))
+                          for j in piece_order])
+    key, cust, day = (o[k][idx] for k in ("o_orderkey", "o_custkey",
+                                          "o_orderdate"))
+    lo, hi = zorder_probe_bounds(ORDERS_ROWS)
+    before = _probe_hits(cust, day, lo, hi)
+    ranks = []
+    for col in (cust, day):
+        r = np.empty(n, dtype=np.int64)
+        r[np.argsort(col, kind="stable")] = np.arange(n)
+        ranks.append(r)
+    z = _morton_oracle(ranks, (ZORDER_CAP - 1).bit_length())
+    order = np.argsort(z, kind="stable")
+    return dict(keys=key[order], before=before,
+                after=_probe_hits(cust[order], day[order], lo, hi))
+
+
+def _log_actions(path: str, version: int) -> list:
+    from spark_rapids_tpu_torch.lakehouse.delta import _commit_file
+
+    with open(_commit_file(path, version)) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _check_add_stats(path: str, adds) -> None:
+    """Each add action's stats equal pyarrow's row count, min, max and
+    null count of its file."""
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    def iso(v):
+        return v.isoformat() if hasattr(v, "isoformat") else v
+
+    for add in adds:
+        st = json.loads(add["stats"])
+        t = pq.read_table(os.path.join(path, add["path"]))
+        if st["numRecords"] != t.num_rows:
+            fail(f"{add['path']}: numRecords {st['numRecords']} of "
+                 f"{t.num_rows} rows")
+        for name in t.column_names:
+            col = t.column(name)
+            want = (col.null_count, iso(pc.min(col).as_py()),
+                    iso(pc.max(col).as_py()))
+            got = (st["nullCount"].get(name), st["minValues"].get(name),
+                   st["maxValues"].get(name))
+            if got != want:
+                fail(f"{add['path']} {name}: stats {got}, pyarrow {want}")
+
+
+def _check_summary(what: str, got, want) -> None:
+    rows = {r["o_orderpriority"]: (r["orders"], r["revenue"])
+            for r in got.to_pylist()}
+    if set(rows) != set(want):
+        fail(f"{what}: priorities {sorted(rows)}")
+    for p, (cnt, rev) in want.items():
+        g_cnt, g_rev = rows[p]
+        if g_cnt != cnt or abs(g_rev - rev) > REL_TOL * abs(rev):
+            fail(f"{what} {p}: ({g_cnt}, {g_rev}), expected ({cnt}, {rev})")
+
+
+def delta_sessions():
+    """Phase 15's two sessions over one device: the fused engine on (the
+    default, which runs the DML) and off (the adaptive engine)."""
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+
+    out = []
+    for fused in (True, False):
+        out.append(TpuSparkSession.builder
+                   .config("spark.sql.shuffle.partitions", 8)
+                   .config("spark.rapids.sql.reader.batchSizeRows", 1 << 20)
+                   .config("spark.rapids.sql.batchSizeRows", 1 << 20)
+                   .config("spark.rapids.shuffle.mode", "DEVICE")
+                   .config("spark.rapids.sql.fusedExec.enabled", fused)
+                   .getOrCreate())
+    return out
+
+
+def run_slice13(dev, root: str, oracles: dict, morton_job) -> dict:
+    """Phase 15: ORDERS' upkeep as a Delta table through the port's
+    session (q5.py): the write with deletion vectors enabled (15 files;
+    each add's stats against pyarrow; the priority summary read back on
+    both engines), OPTIMIZE ZORDER BY (o_custkey, o_orderdate) (its row
+    order against the numpy Morton order, zorder_probe's file candidates
+    against the oracle's files, before and after), RF1 and RF2 as MERGEs,
+    the retention and the request DELETE through deletion vectors (no
+    data file rewritten; the second's vectors hold the first's), the
+    UPDATE, and the read-back on both engines against the oracle. Each
+    step's launches are counted over its cold run; `morton_job(piece
+    order)` starts the Morton oracle in a worker once the write has named
+    its files. Returns ({step: record}, the phase's seconds)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import torch
+
+    from spark_rapids_tpu_torch import kernels
+    from spark_rapids_tpu_torch.columnar.arrow_bridge import arrow_to_device
+    from spark_rapids_tpu_torch.lakehouse import deletion_vectors as DV
+    from spark_rapids_tpu_torch.lakehouse.delta import (
+        DeltaTable,
+        load_snapshot,
+    )
+    from spark_rapids_tpu_torch.ops.zorder import zorder_sort
+    from spark_rapids_tpu_torch.q5 import (
+        ORDER_PRIORITIES,
+        delta_priority_summary_query,
+        delta_request_delete,
+        delta_retention_delete,
+        delta_rf1,
+        delta_rf2,
+        delta_update,
+        delta_write,
+        delta_zorder,
+        refresh_draws,
+        zorder_probe,
+    )
+
+    t_phase = time.monotonic()
+    spark, spark_aqe = delta_sessions()
+    path = os.path.join(root, "orders_delta")
+    rf = refresh_draws(ORDERS_ROWS, seed=0)
+    out = {}
+
+    def step(name, run):
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        rec = dict(cold_s=time.monotonic() - t0,
+                   version=load_snapshot(path).version,
+                   launches=dict(kernels.launches))
+        missing_launches(name, rec["launches"],
+                         SLICE13_PATH_KERNELS.get(name, ()))
+        out[name] = rec
+        return rec
+
+    def read_back(what: str, want_summary):
+        for engine, s in (("fused", spark), ("aqe", spark_aqe)):
+            got = delta_priority_summary_query(s.read.delta(path)
+                                               ).collect_arrow()
+            if s.last_execution["engine"] != engine:
+                fail(f"{what}: ran on {s.last_execution['engine']}, not "
+                     f"{engine}: {s.last_execution}")
+            _check_summary(f"{what} ({engine})", got, want_summary)
+
+    step("delta_write", lambda: delta_write(
+        spark.read.parquet(os.path.join(root, "orders_dated")), path))
+    adds0 = [a["add"] for a in _log_actions(path, 0) if "add" in a]
+    snap = load_snapshot(path)
+    written = [a["path"] for a in adds0]
+    morton = morton_job([written.index(p) for p in snap.file_paths])
+    if len(adds0) != -(-ORDERS_ROWS // DELTA_FILE_ROWS):
+        fail(f"delta_write: {len(adds0)} data files")
+    _check_add_stats(path, adds0)
+    read_back("delta_write read-back", oracles["base"])
+    probe = zorder_probe(ORDERS_ROWS).expr
+    table = DeltaTable.forPath(spark, path)
+    before = len(table._candidates(snap, probe))
+
+    rec = step("delta_zorder", lambda: delta_zorder(spark, path))
+    adds = [a["add"] for a in _log_actions(path, rec["version"])
+            if "add" in a]
+    keys = np.concatenate([pq.read_table(
+        os.path.join(path, a["path"]), columns=["o_orderkey"]).column(
+            0).to_numpy() for a in adds])
+    after = len(table._candidates(load_snapshot(path), probe))
+    t0 = time.monotonic()
+    want = morton.get()
+    rec.update(oracle_wait_s=time.monotonic() - t0,
+               oracle_s=want["seconds"], candidates_before=before,
+               candidates_after=after, oracle_before=want["before"],
+               oracle_after=want["after"], files=len(adds))
+    if not np.array_equal(keys, want["keys"]):
+        bad = (int(np.argmax(keys != want["keys"]))
+               if len(keys) == len(want["keys"]) else -1)
+        fail(f"delta_zorder: row order differs from the Morton oracle "
+             f"(first at {bad} of {len(keys)})")
+    if (before, after) != (want["before"], want["after"]):
+        fail(f"delta_zorder: candidates {before} -> {after}, the oracle's "
+             f"files {want['before']} -> {want['after']}")
+    del keys, want
+    # the Z-order's device work alone, profiled: the table as the rewrite
+    # left it, uploaded once, sorted along its curve
+    cur = pa.concat_tables([pq.read_table(os.path.join(path, a["path"]))
+                     for a in adds])
+    batch = arrow_to_device(cur, device=dev)
+    ords = [cur.column_names.index(c) for c in ("o_custkey", "o_orderdate")]
+    del cur
+    rec["profile"] = profile_run(lambda: zorder_sort(batch, ords))
+    del batch
+    torch.cuda.empty_cache()
+
+    step("delta_rf1", lambda: delta_rf1(spark, path, rf["rf1"]))
+    step("delta_rf2", lambda: delta_rf2(spark, path, rf["rf2"]))
+    files = set(load_snapshot(path).file_paths)
+    for name, run in (
+            ("delta_dv_delete", lambda: delta_retention_delete(spark,
+                                                                path)),
+            ("delta_dv_delete2", lambda: delta_request_delete(
+                spark, path, ORDERS_ROWS))):
+        prev = load_snapshot(path)
+        rec = step(name, run)
+        actions = _log_actions(path, rec["version"])
+        new = [a["add"] for a in actions if "add" in a]
+        if any(a["path"] not in files or not a.get("deletionVector")
+               for a in new):
+            fail(f"{name}: a data file was written, or an add has no "
+                 "deletion vector")
+        grown = 0
+        for a in new:
+            old = prev.files[a["path"]].get("deletionVector")
+            if old is None:
+                continue
+            was = DV.load_descriptor(path, old)
+            now = DV.load_descriptor(path, a["deletionVector"])
+            if not np.isin(was, now).all():
+                fail(f"{name}: {a['path']}'s new vector drops rows")
+            grown += 1
+        rec.update(vectors=len(new), unioned=grown,
+                   removed=sum("remove" in a for a in actions) - len(new))
+        if name == "delta_dv_delete2" and not grown:
+            fail("delta_dv_delete2: no file's vector unioned with the "
+                 "first's")
+    step("delta_update", lambda: delta_update(spark, path))
+
+    read_back("final read-back", oracles["final"])
+    codes = pa.array(ORDER_PRIORITIES)
+    for engine, s in (("fused", spark), ("aqe", spark_aqe)):
+        got = s.read.delta(path).select("o_orderkey", "o_orderpriority"
+                                        ).collect_arrow()
+        key = got.column(0).to_numpy()
+        order = np.argsort(key, kind="stable")
+        prio = pc.index_in(got.column(1), value_set=codes).to_numpy(
+            zero_copy_only=False)[order]
+        if not (np.array_equal(key[order], oracles["final_keys"])
+                and np.array_equal(prio, oracles["final_prio"])):
+            fail(f"final read-back ({engine}): the orders of some "
+                 "priority differ from the oracle's")
+    for s in (spark, spark_aqe):
+        s.stop()
+    return out, time.monotonic() - t_phase
+
+
 def host_q5_orders(root: str) -> dict:
     """Phases 3-8's host work: q5's fact and dimension tables and ORDERS
     with comments written under root, and the q5, dupjoin and slice 4-6
@@ -6944,19 +7573,19 @@ def host_lines(root: str) -> dict:
     return dict(oracles11=slice11_oracles(lines), oracles12=oracles12)
 
 
-#: the host's work for phases 3-14 (the seeded data and the oracles), one
+#: the host's work for phases 3-15 (the seeded data and the oracles), one
 #: worker process each, all started before phase 1's build: none of it
 #: then stands between two phases on the card
 HOST_JOBS = (host_q5_orders, host_dated_customers, host_lines)
 
 
-def host_job(job, root: str) -> dict:
-    """job(root) with its seconds, in a worker process. fail() exits, and
-    a worker of multiprocessing.Pool that exits leaves its result
-    unset: every exception comes back as a RuntimeError."""
+def host_job(job, root: str, *args) -> dict:
+    """job(root, *args) with its seconds, in a worker process. fail()
+    exits, and a worker of multiprocessing.Pool that exits leaves its
+    result unset: every exception comes back as a RuntimeError."""
     t0 = time.monotonic()
     try:
-        out = job(root)
+        out = job(root, *args)
     except BaseException as e:
         raise RuntimeError(f"{job.__name__}: {e!r}") from None
     out["seconds"] = time.monotonic() - t0
@@ -7175,7 +7804,7 @@ def main() -> int:
         print(f"{what} at {time.monotonic() - t_start:.1f} s of the run",
               flush=True)
 
-    # phases 3-14's data and oracles are made while the card builds and
+    # phases 3-15's data and oracles are made while the card builds and
     # checks the kernels, in worker processes (daemons: an exit stops
     # them). pyarrow is imported here first: imported by the pool's thread
     # that unpickles the results, its later reads crash
@@ -7213,7 +7842,7 @@ def main() -> int:
             check_slice6_kernels, check_slice7_kernels,
             check_slice8_kernels, check_slice9_kernels,
             check_slice10_kernels, check_slice11_kernels,
-            check_slice12_kernels)):
+            check_slice12_kernels, check_slice13_kernels)):
         records.update(check(dev))
         stamp(f"phase 2: slice {k + 1}'s kernels checked")
     for kname, r in records.items():
@@ -7235,7 +7864,8 @@ def main() -> int:
             check_edge_shapes, check_slice2_edges, check_slice3_edges,
             check_slice4_edges, check_slice5_edges, check_slice6_edges,
             check_slice7_edges, check_slice8_edges, check_slice9_edges,
-            check_slice10_edges, check_slice11_edges, check_slice12_edges)):
+            check_slice10_edges, check_slice11_edges, check_slice12_edges,
+            check_slice13_edges)):
         cases += check(dev)
         stamp(f"phase 2: slice {k + 1}'s edge shapes checked")
     print(f"edge shapes: {cases} cases exact against the plain versions",
@@ -7430,8 +8060,10 @@ def main() -> int:
         oracles9, oracles10 = done["oracles9"], done["oracles10"]
         del done
         done = host_result(host_lines)
-        host_pool.close()
-        host_pool.join()
+        # phase 15's oracles on the worker that host_lines freed, while
+        # phases 11-14 run
+        host[host_delta_orders.__name__] = host_pool.apply_async(
+            host_job, (host_delta_orders, tmp))
         oracles11, oracles12 = done["oracles11"], done["oracles12"]
         del done
         print(f"customer: {SF10_CUSTOMERS} rows, orders with customers and "
@@ -7512,8 +8144,33 @@ def main() -> int:
             del session
         del oracles12
 
+        # phase 15: slice 13's Delta Lake upkeep of phase 9's typed ORDERS
+        done = host_result(host_delta_orders)
+        steps, phase_s = run_slice13(
+            dev, tmp, done, lambda order: host_pool.apply_async(
+                host_job, (host_zorder_oracle, tmp, order)))
+        host_pool.close()
+        host_pool.join()
+        del done
+        for sname, rec in steps.items():
+            runs[f"phase 15 {sname}"] = rec
+            extra = {k: v for k, v in rec.items()
+                     if k not in ("launches", "profile")}
+            print(f"{sname}: " + json.dumps(extra), flush=True)
+            if "profile" in rec:
+                prof = rec["profile"]
+                print(f"{sname} zorder_sort profiled: device_busy_ms="
+                      f"{prof['device_busy_ms']} wall_ms={prof['wall_ms']} "
+                      f"idle_share={prof['device_idle_share']} top="
+                      + json.dumps(prof["top"][:6]), flush=True)
+            print(f"{sname} launches: " + json.dumps(
+                {k: v for k, v in rec["launches"].items() if v}),
+                flush=True)
+        print(f"phase 15: {phase_s:.1f} s", flush=True)
+        stamp("phase 15 done")
+
     # each kernel's launches: the sum over every path's cold run (phases
-    # 3-14), each read right after it
+    # 3-14) and phase 15's steps, each read right after it
     launches = {k: sum(r["launches"].get(rec.get("counter", k), 0)
                        for r in runs.values())
                 for k, rec in records.items()}

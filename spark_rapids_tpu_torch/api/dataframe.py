@@ -4,7 +4,8 @@
 `withColumn`, `withColumnRenamed`, `join` of every type on names or on
 a condition, `crossJoin`, `union`/`unionAll`, `repartition`,
 `groupBy(...).agg(...)`, `orderBy`/`sort`, `limit`, `distinct`, device
-caching, `collect_arrow`/`collect`, `count` and `explain`. Every
+caching, `collect_arrow`/`collect`, `count`, `explain` and `write` (Delta
+tables; `DataFrameWriter`). Every
 resolved expression gets the session's time zone (`_stamp_session`),
 and a collect pins current_date and current_timestamp to one literal a
 query (`_pin_query_time`).
@@ -592,6 +593,10 @@ class DataFrame:
         agg_df = self.agg(F.count("*").alias("count"))
         return agg_df.collect_arrow().column("count").to_pylist()[0]
 
+    @property
+    def write(self) -> "DataFrameWriter":
+        return DataFrameWriter(self)
+
     def explain(self, extended: bool = False):
         phys, meta = self._physical()
         print("== Physical Plan ==")
@@ -607,6 +612,58 @@ class DataFrame:
                 print(f"  fell back from {eng}: {reason}")
             for d in rec.get("aqe") or []:
                 print(f"  aqe: {d}")
+
+
+class DataFrameWriter:
+    """df.write.format("delta").mode(...).option(...).save(path) — the
+    Delta Lake commit protocol (lakehouse/delta.py): `delta.*` options
+    become table properties, `mode` is error (errorifexists), append,
+    overwrite or ignore. Partitioned Delta writes raise, as in the
+    reference. The other formats ride the reference's columnar writers,
+    its committed-output protocol and its stage scheduler
+    (`io/writers.py`, `io/commit.py`, `runtime/scheduler.py`), which are
+    not ported yet (ROADMAP A14); nor are the reference's query-scoped
+    write events (A17)."""
+
+    def __init__(self, df: DataFrame):
+        self._df = df
+        self._format = "parquet"
+        self._mode = "error"
+        self._partition_by: List[str] = []
+        self._options: dict = {}
+
+    def format(self, fmt: str) -> "DataFrameWriter":
+        self._format = fmt
+        return self
+
+    def mode(self, m: str) -> "DataFrameWriter":
+        self._mode = {"errorifexists": "error"}.get(m, m)
+        return self
+
+    def option(self, k, v) -> "DataFrameWriter":
+        self._options[k] = v
+        return self
+
+    def partitionBy(self, *cols) -> "DataFrameWriter":
+        self._partition_by = list(cols)
+        return self
+
+    def save(self, path: str):
+        if self._format != "delta":
+            raise NotImplementedError(
+                f"{self._format} writes are not ported yet (ROADMAP A14: "
+                "io/writers.py, io/commit.py, runtime/scheduler.py)")
+        from spark_rapids_tpu_torch.lakehouse.delta import write_delta
+
+        props = {k: str(v) for k, v in self._options.items()
+                 if k.startswith("delta.")}
+        write_delta(self._df, path, mode=self._mode,
+                    partition_by=self._partition_by,
+                    properties=props or None)
+
+    def delta(self, path: str):
+        self._format = "delta"
+        return self.save(path)
 
 
 class Row(dict):

@@ -1,6 +1,8 @@
 """TpuSparkSession — the port's session entry point, counterpart of
-`spark_rapids_tpu/api/session.py`: the builder, conf, `read.parquet`,
-the device relation cache and the last query's execution record.
+`spark_rapids_tpu/api/session.py`: the builder, conf, the readers
+(`read.parquet`, `read.delta`, `read.format(...).load`),
+`createDataFrame`, the device relation cache and the last query's
+execution record.
 
     spark = TpuSparkSession.builder.getOrCreate()    # the CUDA device
     fact = spark.read.parquet(path).cache(storage="device")
@@ -47,8 +49,52 @@ class TpuSparkSessionBuilder:
 
 
 class DataFrameReader:
+    """spark.read: `parquet`, `delta` and `format(...).load(path)` over
+    the data-source registry (io/datasource.py), parquet and delta. The
+    reference's csv, json, orc, avro, hivetext and iceberg readers are
+    not ported yet (ROADMAP A14)."""
+
     def __init__(self, session: "TpuSparkSession"):
         self.session = session
+        self._options: Dict[str, object] = {}
+        self._schema = None
+        self._format = "parquet"
+
+    def option(self, k, v) -> "DataFrameReader":
+        self._options[k] = v
+        return self
+
+    def schema(self, s) -> "DataFrameReader":
+        if not hasattr(s, "fields"):
+            from spark_rapids_tpu_torch.columnar.arrow_bridge import (
+                schema_from_arrow,
+            )
+
+            s = schema_from_arrow(s)
+        self._schema = s
+        return self
+
+    def format(self, fmt: str) -> "DataFrameReader":
+        self._format = fmt
+        return self
+
+    def load(self, path: str):
+        from spark_rapids_tpu_torch.io.datasource import lookup_format
+
+        ext = lookup_format(self._format)
+        if ext is not None:
+            return ext(self.session, path, self._schema, self._options)
+        if self._format == "delta":
+            return self.delta(path)
+        if self._format == "parquet":
+            return self.parquet(path)
+        raise NotImplementedError(
+            f"{self._format} reads are not ported yet (ROADMAP A14)")
+
+    def delta(self, path: str):
+        from spark_rapids_tpu_torch.lakehouse.delta import read_delta
+
+        return read_delta(self.session, path)
 
     def parquet(self, *paths: str):
         from spark_rapids_tpu_torch.api.dataframe import DataFrame
@@ -97,6 +143,36 @@ class TpuSparkSession:
     @property
     def read(self) -> DataFrameReader:
         return DataFrameReader(self)
+
+    def createDataFrame(self, data, schema=None):
+        """A DataFrame over in-memory data: an Arrow table, a pandas
+        frame, a dict of columns, or a list of rows with a schema (a list
+        of names or a schema with `.names`). It stays on the host until
+        the first operator of its query uploads it."""
+        import pyarrow as pa
+
+        from spark_rapids_tpu_torch.api.dataframe import DataFrame
+        from spark_rapids_tpu_torch.plan.logical import LocalRelation
+
+        if isinstance(data, pa.Table):
+            table = data
+        elif hasattr(data, "dtypes") and hasattr(data, "columns"):
+            table = pa.Table.from_pandas(data, preserve_index=False)
+        elif isinstance(data, dict):
+            table = pa.table(data)
+        elif isinstance(data, list) and schema is not None:
+            names = schema if isinstance(schema, list) else schema.names
+            cols = list(zip(*data)) if data else [[] for _ in names]
+            table = pa.table({n: list(c) for n, c in zip(names, cols)})
+        else:
+            raise TypeError("createDataFrame accepts arrow Table, pandas "
+                            "DataFrame, dict of columns, or list of rows "
+                            "with schema")
+        return DataFrame(LocalRelation(table), self)
+
+    def range(self, *args, **kwargs):
+        raise NotImplementedError(
+            "spark.range is not ported yet (ROADMAP A9)")
 
     def stop(self):
         global _active

@@ -1210,13 +1210,17 @@ PORT_READ_KEYS = frozenset(e.key for e in (
     FUSED_AGG_PUSHDOWN, FUSED_SINGLE_SYNC_FETCH_BYTES, FUSED_SHAPE_BUCKETS,
     ANSI_ENABLED, WINDOW_STREAMING, WINDOW_U2U_FOLD, REGEXP_ENABLED,
     REGEX_MAX_STATES, REGEX_COMPLEXITY_LIMIT, SESSION_TZ, SKEW_JOIN_ENABLED,
-    SKEW_JOIN_FACTOR, SKEW_JOIN_THRESHOLD))
+    SKEW_JOIN_FACTOR, SKEW_JOIN_THRESHOLD, DELTA_READ_ENABLED,
+    DELTA_CHECKPOINT_INTERVAL, DELTA_DV_INLINE_MAX_BYTES, IO_RETRY_ATTEMPTS,
+    IO_RETRY_BACKOFF_MS, IO_RETRY_MAX_BACKOFF_MS,
+    WRITE_DELTA_COMMIT_ATTEMPTS))
 
 
 def check_port_settings(conf: "RapidsConf", keys) -> List[str]:
     """A session's check of the settings it was given (`keys`) against
     what the port reads: ANSI mode raises NotImplementedError (the port
-    has no ANSI checks, so it would silently run non-ANSI); every other
+    has no ANSI checks, so it would silently run non-ANSI), and so does
+    an armed chaos harness (no fault would be injected); every other
     given key that nothing reads and that is set to a non-default value,
     or that no entry defines, gets a warning. Returns those keys."""
     import warnings
@@ -1225,6 +1229,11 @@ def check_port_settings(conf: "RapidsConf", keys) -> List[str]:
         raise NotImplementedError(
             "spark.sql.ansi.enabled=true: ANSI overflow, divide-by-zero and "
             "cast checks are not ported yet (ROADMAP A7, expr/ansicheck.py)")
+    if conf.get(CHAOS_ENABLED):
+        raise NotImplementedError(
+            "spark.rapids.tpu.chaos.enabled=true: the fault-injection sites "
+            "are not ported yet (ROADMAP A17, runtime/faults.py); the port "
+            "would run with no fault injected")
     unknown = set(conf.unknown_keys)
     ignored = sorted(
         k for k in keys

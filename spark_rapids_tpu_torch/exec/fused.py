@@ -32,7 +32,10 @@ compile, so the port keeps what the engine does, not how it is compiled:
 - the flags stay on the device until ONE host read at the end of the
   run, which also fetches a small result (`device_to_arrow_fused`).
 
-Not ported: the XLA program machinery (cached_jit, compile caches,
+Sources: a parquet or Delta scan uploads each table it reads as a part,
+an in-memory relation (createDataFrame) its table as one part, and a
+cached relation hands over its device parts. Not ported: the XLA program
+machinery (cached_jit, compile caches,
 program keys, variant accounting), the HBM budget gates, the OOM/chaos
 ladder and the plain-parquet device scan (ROADMAP A10). An error on the
 card propagates. Lowerings exist for the operators the port's planner
@@ -252,7 +255,8 @@ def shrink_traced(batch: ColumnBatch, cap2: int):
 
 # --------------------------------------------------------- the executor
 
-_SOURCE_TYPES = (ops.TpuFileScanExec, ops.TpuCachedRelationExec)
+_SOURCE_TYPES = (ops.TpuFileScanExec, ops.ArrowToDeviceExec,
+                 ops.TpuCachedRelationExec)
 
 #: node types with no fused lowering yet, and the ROADMAP item that
 #: ports them
@@ -338,7 +342,10 @@ class FusedSingleChipExecutor:
         else:
             with ThreadPoolExecutor(max_workers=min(8, len(tasks))) as pool:
                 groups = list(pool.map(one, tasks))
-        return [b for g in groups for b in g]
+        # files of no rows (an empty Delta table's one file) read as no
+        # table at all
+        return ([b for g in groups for b in g]
+                or [empty_like_schema(scan.schema, 1024, self.device)])
 
     def _prepare(self, phys: PhysicalPlan,
                  root_may_be_source: bool = False
@@ -356,6 +363,11 @@ class FusedSingleChipExecutor:
                 ps = s.entry.device_parts()
             elif isinstance(s, ops.TpuFileScanExec):
                 ps = self._scan_parts(s)
+            elif isinstance(s, ops.ArrowToDeviceExec):
+                # an in-memory relation: its tables as one narrowed part
+                table = pa.concat_tables(list(s.host_tables()))
+                ps = [upload_narrowed(table, bucket=self._shape_buckets,
+                                      device=self.device)]
             else:
                 raise FusedCompileError(
                     f"{type(s).__name__} source has no fused lowering")

@@ -1,10 +1,11 @@
 """Physical operators — counterpart of `spark_rapids_tpu/exec/operators.py`
-for the port's slice: the cached-relation source, the parquet scan
-(PERFILE), filter, project, the hash aggregate in complete, partial and
-final modes, the hash, round-robin and range shuffle exchanges with
-device-resident blocks, the union, the out-of-core sort, the local limit, the window in the
-reference planner's four modes (whole partition, halo, running, u2u) and
-the generator (explode and posexplode of array columns).
+for the port's slice: the in-memory source with its upload, the
+cached-relation source, the parquet and Delta scan (PERFILE), filter,
+project, the hash aggregate in complete, partial and final modes, the
+hash, round-robin and range shuffle exchanges with device-resident
+blocks, the union, the out-of-core sort, the local limit, the window in
+the reference planner's four modes (whole partition, halo, running, u2u)
+and the generator (explode and posexplode of array columns).
 
 The hash aggregate keeps the reference's two grouping paths:
 - binned (`_partial_binned`): when every group key is an integer column
@@ -35,6 +36,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 import numpy as np
+import pyarrow as pa
 import torch
 
 from spark_rapids_tpu_torch.columnar import encoding as _encoding
@@ -96,6 +98,42 @@ def _conf_get(conf, entry, default):
 
 # ---------------------------------------------------------------- sources
 
+class LocalRelationExec(PhysicalPlan):
+    """An in-memory Arrow table (createDataFrame), one partition on the
+    host; `ArrowToDeviceExec` above it uploads it."""
+
+    is_tpu = False
+
+    def __init__(self, table: pa.Table, schema, conf=None):
+        super().__init__([], schema, conf)
+        self.table = table
+
+    def execute_partition(self, pid, ctx):
+        yield self.table
+
+
+class ArrowToDeviceExec(PhysicalPlan):
+    """Host Arrow tables -> device batches on the plan's device (the
+    GpuRowToColumnarExec role). The reference's device admission (the
+    task semaphore) is not ported yet (ROADMAP A10)."""
+
+    def __init__(self, child, conf=None):
+        super().__init__([child], child.schema, conf)
+
+    def host_tables(self):
+        """Every partition's host tables, in order (the fused engine
+        uploads them narrowed)."""
+        child = self.children[0]
+        for pid in range(child.num_partitions):
+            yield from child.execute_partition(pid, new_task_context(
+                self.conf))
+
+    def execute_partition(self, pid, ctx):
+        device = conf_device(self.conf)
+        for table in self.children[0].execute_partition(pid, ctx):
+            yield arrow_to_device(table, device=device)
+
+
 class TpuCachedRelationExec(PhysicalPlan):
     """Source over a device-resident cache entry (exec/relation_cache.py):
     one partition per cached part. The parts keep the fused engine's
@@ -124,7 +162,10 @@ class TpuFileScanExec(PhysicalPlan):
     row-capped at spark.rapids.sql.reader.batchSizeRows, each table
     uploaded with `arrow_to_device`. String columns are read as parquet
     DICTIONARY arrays (spark.rapids.tpu.encoded.*), so they upload as
-    codes plus one interned dictionary. AUTO resolves to PERFILE here;
+    codes plus one interned dictionary. A Delta table with deletion
+    vectors or column mapping scans with fmt "delta": each file is one
+    table read through `lakehouse.delta.read_data_file` (its deleted rows
+    dropped, its columns renamed). AUTO resolves to PERFILE here;
     COALESCING and MULTITHREADED, pushed row-group pruning (the Filter
     above the scan stays exact without it) and hive-partitioned layouts
     are not ported yet (ROADMAP A10)."""
@@ -133,7 +174,7 @@ class TpuFileScanExec(PhysicalPlan):
                  pushed_columns: Optional[List[str]] = None,
                  pushed_filters=None, options: Optional[dict] = None):
         super().__init__([], schema, conf)
-        if fmt != "parquet":
+        if fmt not in ("parquet", "delta"):
             raise NotImplementedError(
                 f"{fmt} scans are not ported yet (ROADMAP A14)")
         strategy = _conf_get(conf, rc.PARQUET_READER_TYPE, "AUTO")
@@ -170,6 +211,11 @@ class TpuFileScanExec(PhysicalPlan):
         """The Arrow tables of one read task (the fused engine uploads them
         narrowed)."""
         cols = self.pushed_columns
+        if self.fmt == "delta":
+            from spark_rapids_tpu_torch.lakehouse.delta import read_data_file
+
+            ctx = self.options["delta_ctx"]
+            return iter([read_data_file(ctx, f, cols) for f in files])
         return readers.read_parquet_task(
             files, cols, self._batch_rows,
             read_dictionary=self._dict_columns(cols))

@@ -94,6 +94,9 @@ module that the JAX package keeps the function in:
 - K35 `expr.collections.array_sort`: each row's elements sorted stably
   (csrc/array_rows.cu)
 
+- K36 `ops.zorder.interleave_bits`: the Morton key of rank columns, the
+  top bits of each interleaved round-robin (csrc/zorder.cu)
+
 K18-K22 and K24 share the row reader and writer of csrc/strings.cuh, K22
 and K24 the calendar of csrc/calendar.cuh, K24, K31 and K32 the 128-bit
 arithmetic of csrc/decimal128.cuh.
@@ -164,6 +167,7 @@ launches: Dict[str, int] = {
     "array_compact": 0,
     "array_distinct": 0,
     "array_sort": 0,
+    "zorder_interleave": 0,
 }
 
 

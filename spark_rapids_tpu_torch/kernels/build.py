@@ -105,6 +105,7 @@ _SIGNATURES = {
                             _P, _P, _P, _I, _P],
     "srtpu_array_rows": [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P,
                          _P, _I, _P],
+    "srtpu_zorder_interleave": [_P, _I, _L, _I, _I, _P, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -17,9 +17,9 @@ evaluation mode.
 
 The reference converts an untaggable node to its CPU operator; the port
 has no CPU engine (`exec/cpu_eval.py` is not ported), so such a node,
-and every node type outside the slice (scan, cached relation, filter,
-project, join, union, repartition, aggregate, sort, window, limit,
-generate), raises
+and every node type outside the slice (scan, in-memory relation, cached
+relation, filter, project, join, union, repartition, aggregate, sort,
+window, limit, generate), raises
 NotImplementedError naming the ROADMAP item that ports it. Nothing ever
 runs on the CPU in place of the device.
 """
@@ -67,7 +67,6 @@ _K12_TYPES = (torch.int32, torch.int64, torch.float32, torch.float64)
 
 #: logical nodes outside the slice, by the ROADMAP item that ports them
 _NOT_PORTED = {
-    "LocalRelation": "A9 (createDataFrame)",
     "Range": "A9 (spark.range)",
     "Expand": "A12", "Sample": "A12",
     "MapInPandas": "A15", "GroupedMapInPandas": "A15",
@@ -160,17 +159,18 @@ class TpuOverrides:
             self._exprs(meta, list(node.pass_through)
                         + [node.gen_alias.children[0].children[0]])
         elif isinstance(node, L.FileScan):
-            if node.fmt != "parquet":
+            fmt_entry = rc._FMT_READ_ENTRIES.get(node.fmt)
+            if node.fmt not in ("parquet", "delta"):
                 meta.cannot_run(f"{node.fmt} scans are not ported yet "
                                 "(ROADMAP A14)")
-            elif not self.conf.get(rc.PARQUET_READ_ENABLED):
-                meta.cannot_run("parquet reads disabled via "
-                                "spark.rapids.sql.format.parquet.read."
-                                "enabled=false")
-            for f in node.schema.fields:
-                r = type_supported(f.dataType)
-                if r:
-                    meta.cannot_run(f"column {f.name!r}: {r}")
+            elif not self.conf.get(fmt_entry):
+                meta.cannot_run(f"{node.fmt} reads disabled via "
+                                f"{fmt_entry.key}=false")
+            self._column_types(meta, node.schema)
+        elif isinstance(node, L.LocalRelation):
+            # stays on the host until the upload above it (the
+            # reference's host-side relation and its transition)
+            self._column_types(meta, node.schema)
         elif type(node).__name__ in _NOT_PORTED:
             meta.cannot_run(f"{op_name} is not ported yet (ROADMAP "
                             f"{_NOT_PORTED[op_name]})")
@@ -178,6 +178,13 @@ class TpuOverrides:
         meta.children = [self.tag(c) for c in node.children]
         self.metas.append(meta)
         return meta
+
+    @staticmethod
+    def _column_types(meta: PlanMeta, schema) -> None:
+        for f in schema.fields:
+            r = type_supported(f.dataType)
+            if r:
+                meta.cannot_run(f"column {f.name!r}: {r}")
 
     def _tag_aggregates(self, node: L.Aggregate, meta: PlanMeta) -> None:
         """The reference's aggregate checks: the moment, bivariate and
@@ -347,6 +354,9 @@ class TpuOverrides:
                 "port has no CPU engine: " + "; ".join(meta.reasons))
         if isinstance(node, L.CachedRelation):
             return ops.TpuCachedRelationExec(node.entry, node.schema, conf)
+        if isinstance(node, L.LocalRelation):
+            return ops.ArrowToDeviceExec(
+                ops.LocalRelationExec(node.table, node.schema, conf), conf)
         if isinstance(node, L.FileScan):
             return ops.TpuFileScanExec(
                 node.fmt, node.paths, node.schema, conf,

@@ -53,7 +53,12 @@ decimal(15,2) money columns), `orders_tbl_decimal_query` (a .tbl load
 typed to decimal, its sums printed as text) and `q22_decimal_query`
 (TPC-H q22 over a decimal balance) run over the LINEITEM and decimal
 CUSTOMER that `write_decimal_data` writes and the ORDERS text and table
-above. Through the
+above. `delta_write`, `delta_zorder`, `delta_rf1`, `delta_rf2`,
+`delta_retention_delete`, `delta_request_delete` and `delta_update`
+keep the typed ORDERS as a Delta table (the write with deletion
+vectors, OPTIMIZE ZORDER BY, TPC-H's refresh functions as MERGEs, two
+DELETEs and an UPDATE); `delta_priority_summary_query` reads it back.
+Through the
 port's session with bench.py's conf they run on the fused engine
 (exec/fused.py), which evaluates every window over the whole partition;
 with
@@ -1417,3 +1422,148 @@ def recent_orders_window_query(orders, F=None, Window=None):
         .alias("last3_prices"),
         F.collect_set(F.year("o_orderdate")).over(w.rowsBetween(-5, 0))
         .alias("recent_years"))
+
+
+# ------------------------------------------------ Delta Lake: ORDERS upkeep
+#
+# The upkeep of an ORDERS fact table kept as a Delta table: written once
+# with deletion vectors enabled, clustered by OPTIMIZE ZORDER BY on the
+# columns dashboards filter by (o_custkey, o_orderdate), then TPC-H's
+# refresh functions as MERGEs (RF1 inserts SF x 1,500 new orders, RF2
+# deletes SF x 1,500 old ones), a retention DELETE and a request DELETE
+# through deletion vectors, and an UPDATE of a priority. `DeltaTable` and
+# `F` are the package's own (the port's by default), so the tests run the
+# same steps through the JAX package's session.
+
+#: the retention DELETE's cutoff (about a seventh of dbgen's order dates)
+DELTA_RETENTION_DATE = "1993-01-01"
+#: the Z-order probe's month of o_orderdate, as ISO dates (the log's
+#: statistics hold dates so)
+ZORDER_PROBE_MONTH = ("1995-06-01", "1995-06-30")
+
+
+def _delta_table(DeltaTable):
+    if DeltaTable is None:
+        from spark_rapids_tpu_torch.lakehouse.delta import DeltaTable
+    return DeltaTable
+
+
+def refresh_draws(rows: int, seed: int = 0) -> dict:
+    """TPC-H's refresh sets for ORDERS of `rows` rows (SF = rows /
+    1,500,000): RF1's SF x 1,500 new orders, keyed in the holes of
+    dbgen's sparse key space (4i + 3, where the table holds 4i + 1), the
+    other columns drawn as `orders_dated_draws` draws them, and RF2's SF x
+    1,500 existing keys to delete. Returns {"rf1": Arrow table in ORDERS'
+    column order, "rf2": Arrow table of o_orderkey}."""
+    rng = np.random.default_rng([seed, 13])
+    n = max(1, rows // 1000)
+    slots = np.sort(rng.choice(rows, n, replace=False)).astype(np.int64)
+    prio = pa.array(ORDER_PRIORITIES)
+    rf1 = pa.table({
+        "o_orderkey": pa.array(slots * 4 + 3),
+        "o_orderpriority": prio.take(pa.array(
+            rng.integers(0, len(ORDER_PRIORITIES), n))),
+        "o_orderdate": pa.array(rng.integers(
+            ORDER_DATE_LO, ORDER_DATE_HI + 1, n).astype(np.int32),
+            type=pa.date32()),
+        "o_totalprice": pa.array(rng.integers(
+            ORDER_PRICE_CENTS[0], ORDER_PRICE_CENTS[1] + 1, n) / 100.0),
+        "o_custkey": pa.array(_custkeys(rng, n, rows)),
+    })
+    gone = np.sort(rng.choice(rows, n, replace=False)).astype(np.int64)
+    return {"rf1": rf1, "rf2": pa.table({"o_orderkey": gone * 4 + 1})}
+
+
+def request_delete_custkey(rows: int) -> int:
+    """The request DELETE's bound: o_custkey below it (about 3 % of the
+    customers of ORDERS of `rows` rows)."""
+    return max(2, rows // 300)
+
+
+def update_price_cutoff() -> float:
+    """The UPDATE's bound: o_totalprice above it (the top 1 % of dbgen's
+    price range)."""
+    lo, hi = ORDER_PRICE_CENTS
+    return (hi - (hi - lo) // 100) / 100.0
+
+
+def delta_write(orders, path: str) -> None:
+    """Write ORDERS as a Delta table with deletion vectors enabled."""
+    (orders.write.format("delta")
+     .option("delta.enableDeletionVectors", "true").save(path))
+
+
+def delta_priority_summary_query(orders, F=None):
+    """The read-back: orders and revenue per priority."""
+    F = _functions(F)
+    return orders.groupBy("o_orderpriority").agg(
+        F.count("*").alias("orders"),
+        F.sum("o_totalprice").alias("revenue"))
+
+
+def delta_zorder(spark, path: str, DeltaTable=None) -> None:
+    """OPTIMIZE ZORDER BY (o_custkey, o_orderdate)."""
+    (_delta_table(DeltaTable).forPath(spark, path).optimize()
+     .executeZOrderBy("o_custkey", "o_orderdate"))
+
+
+def zorder_probe_bounds(rows: int) -> Tuple[int, int]:
+    """zorder_probe's o_custkey range: 1 % of the customers of ORDERS of
+    `rows` rows, from the middle."""
+    top = max(rows // 10, 3)
+    lo = top // 2
+    return lo, lo + max(1, top // 100)
+
+
+def zorder_probe(rows: int, F=None):
+    """A dashboard's filter, for file pruning by the log's statistics:
+    o_custkey within zorder_probe_bounds, o_orderdate within
+    ZORDER_PROBE_MONTH (ISO strings, as the statistics hold dates; the
+    filter serves the statistics, not a query)."""
+    F = _functions(F)
+    lo, hi = zorder_probe_bounds(rows)
+    c = F.col("o_custkey")
+    d = F.col("o_orderdate")
+    return ((c >= F.lit(lo)) & (c <= F.lit(hi))
+            & (d >= F.lit(ZORDER_PROBE_MONTH[0]))
+            & (d <= F.lit(ZORDER_PROBE_MONTH[1])))
+
+
+def delta_rf1(spark, path: str, new_orders, DeltaTable=None) -> None:
+    """TPC-H RF1 as a MERGE: insert the new orders not in the table."""
+    (_delta_table(DeltaTable).forPath(spark, path)
+     .merge(spark.createDataFrame(new_orders), "o_orderkey")
+     .whenNotMatchedInsertAll().execute())
+
+
+def delta_rf2(spark, path: str, old_keys, DeltaTable=None) -> None:
+    """TPC-H RF2 as a MERGE: delete the orders of the given keys."""
+    (_delta_table(DeltaTable).forPath(spark, path)
+     .merge(spark.createDataFrame(old_keys), "o_orderkey")
+     .whenMatchedDelete().execute())
+
+
+def delta_retention_delete(spark, path: str, F=None,
+                           DeltaTable=None) -> None:
+    """DELETE WHERE o_orderdate < DELTA_RETENTION_DATE (deletion vectors
+    on a table that enables them)."""
+    F = _functions(F)
+    (_delta_table(DeltaTable).forPath(spark, path).delete(
+        F.col("o_orderdate") < F.to_date(F.lit(DELTA_RETENTION_DATE))))
+
+
+def delta_request_delete(spark, path: str, rows: int, F=None,
+                         DeltaTable=None) -> None:
+    """DELETE WHERE o_custkey < request_delete_custkey(rows)."""
+    F = _functions(F)
+    (_delta_table(DeltaTable).forPath(spark, path).delete(
+        F.col("o_custkey") < F.lit(request_delete_custkey(rows))))
+
+
+def delta_update(spark, path: str, F=None, DeltaTable=None) -> None:
+    """UPDATE SET o_orderpriority = '1-URGENT' WHERE o_totalprice >
+    update_price_cutoff()."""
+    F = _functions(F)
+    (_delta_table(DeltaTable).forPath(spark, path).update(
+        F.col("o_totalprice") > F.lit(update_price_cutoff()),
+        {"o_orderpriority": "1-URGENT"}))

@@ -47,16 +47,19 @@ def test_session_without_gpu_raises(monkeypatch):
 
 
 def test_unported_plans_raise_not_implemented(data):
-    """What the port still lacks raises naming its ROADMAP item: an
-    in-memory relation (A9) and the ICI mesh shuffle (A16). A left join, a
-    union and a shuffled hash join (a build side over the broadcast
-    threshold) plan."""
+    """What the port still lacks raises naming its ROADMAP item: a range
+    relation (A9) and the ICI mesh shuffle (A16). An in-memory relation
+    (its upload above it), a left join, a union and a shuffled hash join
+    (a build side over the broadcast threshold) plan."""
     spark = TpuSparkSession(PORT_CONF)
     fact = spark.read.parquet(os.path.join(data, "fact"))
     dim = spark.read.parquet(os.path.join(data, "dim"))
-    rel = port_logical.LocalRelation(pa.table({"x": [1, 2]}))
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        plan_query(rel, spark.rapids_conf)
+        plan_query(port_logical.Range(0, 10, 1, 1), spark.rapids_conf)
+    rel = port_logical.LocalRelation(pa.table({"x": [1, 2]}))
+    upload = plan_query(rel, spark.rapids_conf)[0]
+    assert [type(upload).__name__, type(upload.children[0]).__name__] == \
+        ["ArrowToDeviceExec", "LocalRelationExec"]
     ici = TpuSparkSession(dict(PORT_CONF, **{
         "spark.rapids.shuffle.mode": "ICI",
         "spark.sql.autoBroadcastJoinThreshold": 10}))

@@ -748,6 +748,7 @@ from spark_rapids_tpu_torch.expr import aggregates as port_aggregates  # noqa: E
 from spark_rapids_tpu_torch.expr import mathexpr as port_math  # noqa: E402
 from spark_rapids_tpu_torch.ops import decimal128 as port_d128  # noqa: E402,E501
 from spark_rapids_tpu_torch.expr import collections as port_collections  # noqa: E402,E501
+from spark_rapids_tpu_torch.ops import zorder as port_zorder  # noqa: E402
 
 # every kernel wrapper: on a CUDA tensor each one launches its kernel, so
 # a plain version (the kernel's check on the card) must reach none of them
@@ -797,7 +798,7 @@ _WRAPPERS = [
     (port_stringcast, "parse_decimal"), (port_cast, "_decimal_to_string"),
     (port_windowops, "frame_collect"), (port_collections, "array_compact"),
     (port_collections, "array_distinct"), (port_collections, "array_sort"),
-    (port_collections, "_launch_rows"),
+    (port_collections, "_launch_rows"), (port_zorder, "interleave_bits"),
 ]
 
 
@@ -1128,7 +1129,23 @@ def _plain_case(name, pb):
     cases.update(_slice10_plain_cases(s_col, d_col, l_col))
     cases.update(_slice11_plain_cases(s_col, d_col, l_col))
     cases.update(_slice12_plain_cases(l_col, perm, live))
+    cases.update(_slice13_plain_cases(perm))
     return cases[name]()
+
+
+def _slice13_plain_cases(perm=None):
+    """K36's plain version over three and 65 rank columns (the sort's
+    permutation and its shifts as ranks)."""
+    def ranks(k):
+        n = perm.shape[0]
+        return [(perm + c) % n for c in range(k)]
+
+    return {
+        "interleave_bits_plain[3]": lambda: port_zorder.interleave_bits_plain(
+            ranks(3), 10),
+        "interleave_bits_plain[65]":
+            lambda: port_zorder.interleave_bits_plain(ranks(65), 10),
+    }
 
 
 def _plain_window(n, perm, live):
@@ -1154,7 +1171,7 @@ def _plain_window(n, perm, live):
     *_STRING_PLAIN, *sorted(_slice7_plain_cases()),
     *sorted(_slice8_plain_cases()), *sorted(_slice9_plain_cases()),
     *sorted(_slice10_plain_cases()), *sorted(_slice11_plain_cases()),
-    *sorted(_slice12_plain_cases())])
+    *sorted(_slice12_plain_cases()), *sorted(_slice13_plain_cases())])
 def test_plain_versions_reach_no_kernel_wrapper(name, monkeypatch):
     """With every kernel wrapper, wherever it is bound, replaced by one
     that raises, each plain version still runs."""
