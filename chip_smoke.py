@@ -21,8 +21,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    sorted 2^22-row runs), K14 (the window's frame prefix, restarted at
    each partition for float64 sums, its inverse permutation and its
    evaluation with the write-back to input order, percent_rank, cume_dist
-   and ntile included), K15 (RANGE frame bounds), K16 (min/max frames)
-   and K17 (first/last and lead/lag source rows), with the device time of
+   and ntile included), K15 (RANGE frame bounds; its search launch also
+   timed alone, and its library call the gather through perm, the
+   sentinels and one searchsorted), K16 (min/max frames) and K17
+   (first/last and lead/lag source rows), K2 also at TPC-H q13's join
+   (1,500,000 c_custkey against 15,000,000 o_custkey), with the device
+   time of
    the kernel, the plain version and, where one exists, one PyTorch
    library call computing the same function (a call of 1 ms or more: its
    CUDA-event time; a shorter one: torch.profiler's summed durations of
@@ -39,7 +43,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    with empty, dead and string runs, K14 at 1 to 70,001 rows; K15-K17
    and K14's new kinds at 1 to 70,001 rows and every row dead, over every
    key and value type with nulls, NaN, +-inf and -0.0, empty frames and
-   offsets past any partition), exact but for K14's float64 sums (1e-9
+   offsets past any partition; K15 also over targets at +-inf and past
+   the int64 sentinels, one-row partitions and frames across its tiles
+   and halos (`check_range_edges`); K2 at W = 1-5 over duplicate runs,
+   equal keys, INT64_MIN and INT64_MAX, bound 0 and build sizes on both
+   sides of each of its switches up to 1,500,000 rows
+   (`check_probe_edges`)), exact but for K14's float64 sums (1e-9
    relative); K18-K21 (slice 6's string kernels: the regex DFA walk, the
    needle search, the byte rewrite and the span assembly) at the path
    shapes, 15,000,000 ORDERS comments of width 128 and 36,000,000 decoded
@@ -431,6 +440,19 @@ def device_ms(fn, what: str, iters: int = TIMING_ITERS,
     return ms
 
 
+def kernel_ms(fn, kernel: str, what: str, iters: int = TIMING_ITERS):
+    """Mean milliseconds a call of the kernels whose name holds `kernel`,
+    from torch.profiler's device records of `iters` calls of fn after one
+    warm-up; None where the trace holds none of them."""
+    fn()
+    events, _ = traced(lambda: [fn() for _ in range(iters)],
+                       f"{what}: {kernel}")
+    picked = [e for e in events or () if kernel in e.name]
+    if not picked:
+        return None
+    return sum(e.time_range.elapsed_us() for e in picked) / 1e3 / iters
+
+
 def timed(name: str, kernel, plain, library,
           other_iters: int = TIMING_ITERS, floor_ms: float = 0.0) -> dict:
     """device_ms of a kernel's wrapper, its plain version and the library
@@ -538,6 +560,7 @@ def check_kernels(dev):
         bound_ms=bound_ms(bcap * 8 + 4 + cap * (8 + 1) + cap * 8),
         bound_by="bytes",
         shape=f"build [1, {bcap}] int64, probe [1, {cap}] int64")
+    out["probe_ranges large"] = probe_ranges_large(dev)
 
     # K3 expand_gather_maps: K2's ranges -> the join's gather maps
     total = int(counts.sum().item())
@@ -1130,6 +1153,160 @@ def time_large_sorts(dev) -> list:
     return out
 
 
+def probe_ranges_large(dev) -> dict:
+    """K2 past shared memory, at TPC-H q13's join: CUSTOMER's 1,500,000
+    c_custkey (1..1,500,000, sorted; capacity 2^21) as the build, ORDERS'
+    15,000,000 o_custkey as dbgen draws them (a third of the customers
+    place none) as the probe, capacity 2^24 with its tail dead."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import next_capacity
+    from spark_rapids_tpu_torch.ops import joinops
+
+    bcap, pcap = next_capacity(SF10_CUSTOMERS), next_capacity(ORDERS_ROWS)
+    cust = torch.arange(1, SF10_CUSTOMERS + 1, dtype=torch.int64,
+                        device=dev)
+    build = torch.zeros(bcap, dtype=torch.int64, device=dev)
+    build[:SF10_CUSTOMERS] = cust
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    k = torch.randint(1, SF10_CUSTOMERS + 1, (pcap,), generator=g,
+                      device=dev)
+    k = k + (k % 3 == 0)
+    k = torch.where(k > SF10_CUSTOMERS, SF10_CUSTOMERS - 1, k)
+    live = torch.arange(pcap, device=dev) < ORDERS_ROWS
+    probe = torch.where(live, k, 0)
+    bound = torch.tensor(SF10_CUSTOMERS, dtype=torch.int32, device=dev)
+    args = ([build], [probe], bound, live, bcap)
+    lo, counts = joinops.probe_bounds(*args)
+    lo_p, counts_p = joinops.probe_bounds_plain(*args)
+    torch.cuda.synchronize()
+    exact("probe_ranges large lo", lo, lo_p)
+    exact("probe_ranges large count", counts, counts_p)
+
+    def library_probe():
+        return (torch.searchsorted(cust, probe),
+                torch.searchsorted(cust, probe, right=True))
+
+    rec = dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/probe_ranges.cu",
+        replaces="spark_rapids_tpu/ops/joinops.py:86",
+        max_abs_err=max(max_abs_err(lo, lo_p),
+                        max_abs_err(counts, counts_p)),
+        **timed("probe_ranges large", lambda: joinops.probe_bounds(*args),
+                lambda: joinops.probe_bounds_plain(*args), library_probe),
+        bound_ms=bound_ms(SF10_CUSTOMERS * 8 + 4 + pcap * (8 + 1)
+                          + pcap * 8),
+        bound_by="bytes", counter="probe_ranges",
+        shape=f"build [1, {bcap}] int64 ({SF10_CUSTOMERS} c_custkey), "
+              f"probe [1, {pcap}] int64 ({ORDERS_ROWS} o_custkey)")
+    del build, probe, lo, counts, lo_p, counts_p, k, live
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_probe_edges(dev) -> int:
+    """K2 bit for bit against its plain version: W = 1-5 (5 takes the
+    generic path); build keys unique and dense, unique and spread over
+    all of int64 (buckets past 2^32 values), in duplicate runs of 1, 2 and
+    1,000 rows, all equal, at INT64_MIN and INT64_MAX, and skewed (a dense
+    run and far outliers); probes that hit, miss, and fall below and
+    above the build's range; bound 0, below the capacity and at it; dead
+    and null probe rows (all_valid False); build capacities on both sides
+    of every switch of the kernel: 2,048, 6,144 and 6,145 (the former 48 KB
+    limit), 8,192 and 8,193 at W = 1 (two blocks an SM and one), 16,385
+    (the index's 2^14 buckets), the largest build kept in shared memory
+    (200 KB: 25,600 rows at W = 1) and one row more; an unaligned build;
+    and 1,500,000 build rows at W = 1 and 2. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.ops import joinops
+
+    rng = np.random.default_rng(15)
+    cases = 0
+    i64 = np.iinfo(np.int64)
+
+    def word0(pattern, rows):
+        if pattern == "unique":
+            return np.arange(rows, dtype=np.int64) * 3 - rows
+        if pattern == "spread":
+            return np.unique(rng.integers(i64.min, i64.max, rows,
+                                          dtype=np.int64, endpoint=True))
+        if pattern == "runs":
+            lens = rng.choice([1, 2, 1000], rows // 50 + 2)
+            return np.repeat(np.arange(len(lens), dtype=np.int64) * 7,
+                             lens)[:rows]
+        if pattern == "equal":
+            return np.full(rows, 42, np.int64)
+        v = rng.integers(-50, 50, rows)
+        if pattern == "extremes":
+            third = rows // 3
+            v[:third] = i64.min
+            v[rows - third:] = i64.max
+        else:  # skewed: a dense run and a few far outliers
+            v = rng.integers(0, max(rows // 2, 1), rows)
+            v[:3] = [i64.min + 1, 1 << 40, i64.max - 1][:rows]
+        return np.sort(v)
+
+    def case(w, bcap, pattern, bound, n, offset=0):
+        nonlocal cases
+        b0 = word0(pattern, max(bound, 1))
+        rows = len(b0)
+        words = [b0] + [np.full(rows, 5, np.int64) if pattern == "equal"
+                        else rng.integers(-2, 3, rows) for _ in range(w - 1)]
+        order = np.lexsort(words[::-1])
+        build = np.zeros((w, bcap + offset), np.int64)
+        build[:, offset:] = rng.integers(-9, 9, (w, bcap))  # dead tail
+        take = min(rows, bcap)
+        for k in range(w):
+            build[k, offset:offset + take] = words[k][order][:take]
+        bound = min(bound, take)
+        # probes: build rows (hits), some of them moved by -2..2 in one
+        # word (misses), and the extremes below and above the range
+        src = rng.integers(0, max(bound, 1), n)
+        qw = [build[k, offset:][src].copy() for k in range(w)]
+        miss = rng.random(n) < 0.3
+        moved = rng.integers(0, w, n)
+        for k in range(w):
+            m = miss & (moved == k)
+            qw[k][m] += rng.integers(-2, 3, int(m.sum()))
+        live = build[0, offset:offset + max(bound, 1)]
+        qw[0][:4] = [i64.min, i64.max,
+                     live.min() - 1 if live.min() > i64.min else i64.min,
+                     live.max() + 1 if live.max() < i64.max else i64.max]
+        dev_build = torch.from_numpy(build).to(dev)
+        keys = [dev_build[k, offset:] for k in range(w)]
+        pkeys = [torch.from_numpy(x).to(dev) for x in qw]
+        all_valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        bnd = torch.tensor(bound, dtype=torch.int32, device=dev)
+        args = (keys, pkeys, bnd, all_valid, bcap)
+        for a, b, what in zip(joinops.probe_bounds(*args),
+                              joinops.probe_bounds_plain(*args),
+                              ("lo", "count")):
+            exact(f"probe_ranges W={w} cap={bcap} {pattern} bound={bound}"
+                  f" offset={offset} {what}", a, b)
+        cases += 1
+
+    patterns = ("unique", "spread", "runs", "equal", "extremes", "skewed")
+    for w in (1, 2, 3, 4, 5):
+        smem_rows = 200 * 1024 // (8 * w)
+        caps = sorted({2048, 6144, 6145, smem_rows, smem_rows + 1}
+                      | ({8192, 8193, 16385} if w == 1 else set()))
+        for bcap in caps:
+            for pattern in patterns:
+                for bound in (bcap, bcap - 7, 0):
+                    case(w, bcap, pattern, bound, 3000)
+    case(1, 2048, "unique", 2000, 5000, offset=1)
+    case(1, 6145, "runs", 6145, 5000, offset=1)
+    for w in (1, 2):
+        case(w, 1 << 21, "unique", SF10_CUSTOMERS, 1 << 20)
+        case(w, 1 << 21, "runs", SF10_CUSTOMERS, 1 << 18)
+    torch.cuda.synchronize()
+    return cases
+
+
 def check_slice3_edges(dev) -> int:
     """Phase 2, slice 3 edge shapes, exact against the plain versions:
     1-7 key columns of every kind (strings of 0-12 bytes with bytes >=
@@ -1209,6 +1386,7 @@ def check_slice3_edges(dev) -> int:
                   segmented.dense_bin_perm(occ, n),
                   segmented.dense_bin_perm_plain(occ, n))
         cases += 4
+    cases += check_probe_edges(dev)
     dead = torch.zeros(4096, dtype=torch.bool, device=dev)
     w, _ = common.pack_keys([common.KeySpec(columns(4096)[5])], dead)
     p = common.sort_words(w)
@@ -1781,25 +1959,57 @@ def check_slice5_kernels(dev):
                                    None, True)
     torch.cuda.synchronize()
     exact("range_bounds", start, want)
-    day_s = torch.where(sw.live, day.data.index_select(
-        0, sw.perm.to(torch.int64)), 1 << 20)
-    keys = sw.seg_start.to(torch.int64) * 2048 + day_s
+
+    def range_keys():
+        """K15's function in library calls: the key and its validity
+        through perm, the sentinels (a null below its partition's days,
+        a dead row above the last partition's), one (partition, day) key
+        a row (day < 365 < 1,024)."""
+        d = day.data.index_select(0, sw.perm)
+        ok = day.validity.index_select(0, sw.perm) & sw.live
+        day_s = torch.where(ok, d, torch.where(sw.live, -1, 1024))
+        return sw.seg_start.to(torch.int64) * 2048 + day_s
+
+    def library_range():
+        keys = range_keys()
+        return torch.searchsorted(keys, keys - 6)
+
+    keys = range_keys()
+    lib = torch.searchsorted(keys, keys - 6).to(torch.int32)
+    if not torch.equal(lib[sw.live], want[sw.live]):
+        fail("range_bounds: the library call's (partition, day) search "
+             "differs from K15's bounds on the live rows")
+    del lib
     targets = keys - 6
-    out["range_bounds"] = dict(
+
+    def wrapper():
+        W.range_bounds(sw, day.data, day.validity, sw.perm, -6, None, True)
+
+    rec = dict(
         route="cuda", source=src + "range_bounds.cu",
         replaces="spark_rapids_tpu/ops/windowops.py:167",
         max_abs_err=max_abs_err(start, want),
-        **timed("range_bounds",
-                lambda: W.range_bounds(sw, day.data, day.validity, sw.perm,
-                                       -6, None, True),
+        **timed("range_bounds", wrapper,
                 lambda: W.range_bounds_plain(sw, day.data, day.validity,
                                              sw.perm, -6, None, True),
-                lambda: torch.searchsorted(keys, targets)),
+                library_range),
         # perm, live_s, the key and its validity in, start out
         bound_ms=bound_ms(cap * (4 + 1 + 8 + 1 + 4)), bound_by="bytes",
         shape=f"day [{cap}] int64 through perm, {nparts} partitions, "
               "lower offset -6")
-    del want, day_s, keys, targets
+    # the search launch alone, from the profiler's record of each kernel,
+    # and the one searchsorted over keys and targets made beforehand
+    search_ms = kernel_ms(wrapper, "range_search_kernel", "range_bounds")
+    sorted_ms = device_ms(lambda: torch.searchsorted(keys, targets),
+                          "range_bounds searchsorted alone")
+    rec.update(search_ms=search_ms, searchsorted_ms=sorted_ms,
+               extra="search launch "
+                     + ("not measured" if search_ms is None
+                        else f"{search_ms:.4f}") + " ms (torch.profiler's "
+                     f"range_search_kernel records); searchsorted alone "
+                     f"over keys made beforehand {sorted_ms:.4f} ms")
+    out["range_bounds"] = rec
+    del want, keys, targets
 
     # K16: min of amount over those RANGE frames, with its validity
     fr = W.Frame(kernels.WIN_GIVEN, kernels.WIN_PEER, start=start)
@@ -1902,6 +2112,121 @@ def check_slice5_kernels(dev):
     return out
 
 
+def _key_window(part, data, valid, live_rows: int, nulls_first: bool):
+    """The window of a (part, key) batch partitioned by part and ordered
+    by the key ascending, nulls first or last, as the RANGE frame's
+    callers sort it; `live_rows` rows live."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.ops import windowops as W
+    from spark_rapids_tpu_torch.sqltypes import StructField, StructType
+    from spark_rapids_tpu_torch.sqltypes.datatypes import (
+        double,
+        integer,
+        long,
+        short,
+    )
+
+    import torch
+
+    kind = {torch.int16: short, torch.int32: integer, torch.int64: long,
+            torch.float64: double}[data.dtype]
+    key = _col(kind, data, valid)
+    batch = ColumnBatch(StructType([StructField("p", part.dtype),
+                                    StructField("k", kind)]),
+                        [part, key], live_rows)
+    return W.sort_for_window(batch, [part], [(key, True, nulls_first)])
+
+
+def range_bounds_cases(what: str, sw, data, valid, nulls_first: bool,
+                       offsets) -> int:
+    """K15 against its plain version over the window sw (sorted by data),
+    for each (lower, upper) of offsets, with the key read through sw.perm
+    and already sorted. Returns the number of cases."""
+    from spark_rapids_tpu_torch.ops import windowops as W
+
+    p64 = sw.perm.long()
+    sorted_key = (data.index_select(0, p64), valid.index_select(0, p64))
+    cases = 0
+    for lower, upper in offsets:
+        for perm, (d, v) in ((sw.perm, (data, valid)), (None, sorted_key)):
+            args = (sw, d, v, perm, lower, upper, nulls_first)
+            for side, (g, w) in enumerate(zip(W.range_bounds(*args),
+                                              W.range_bounds_plain(*args))):
+                if w is not None:
+                    exact(f"range_bounds {data.dtype} {what} "
+                          f"nf={nulls_first} {lower},{upper} "
+                          f"perm={perm is not None} side {side}", g, w)
+            cases += 1
+    return cases
+
+
+def check_range_edges(dev) -> int:
+    """K15 bit for bit against its plain version over windows sorted by
+    the key it searches: float64 keys with NaN sorted before +inf values,
+    -inf, -0.0, 1e308 and -1e308, trailing nulls and dead rows, in both
+    null orders, under offsets whose targets reach +inf on either side
+    (1e308 with 1e308, +inf values); int64 keys at and past +-2^62 (the
+    int64 sentinels) and at INT64_MIN and INT64_MAX, with offsets that
+    carry targets past the sentinels and wrap them; one-row partitions;
+    every row dead; and partitions and frames across the search launch's
+    2,048-row tiles and 512-row halos: ~1,900-row partitions and one
+    partition of 70,001 rows, with frames of +-100,000 over values in
+    [0, 300,000). Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.sqltypes.datatypes import long
+
+    rng = np.random.default_rng(14)
+    big = 1 << 62
+    i64 = np.iinfo(np.int64)
+    int_specials = np.array(
+        [big - 7, big - 1, big, big + 1, big + 6, -big - 6, -big - 1, -big,
+         -big + 1, -big + 7, i64.max, i64.min, i64.max - 3], np.int64)
+    float_specials = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e308,
+                               -1e308, 1.5])
+    offsets = {
+        "float64": ((-2, 3), (-1.5, 0.5), (1e308, 1e308), (-1e308, 1e308),
+                    (None, 1e308), (-1e308, None), (-100000, 100000)),
+        "int64": ((-3, 4), (-big, big), (1, big + 3),
+                  (-(i64.max), 7), (None, 5), (-5, None),
+                  (-100000, 100000)),
+    }
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def key(kind, n, spread, special):
+        pick = rng.random(n) < special
+        if kind == "float64":
+            v = rng.integers(0, spread, n).astype(np.float64) - spread // 2
+            v[pick] = rng.choice(float_specials, int(pick.sum()))
+        else:
+            v = rng.integers(0, spread, n) - spread // 2
+            v[pick] = rng.choice(int_specials, int(pick.sum()))
+        return t(v)
+
+    cases = 0
+    # (capacity, live rows, partitions or 0 for one row each, value spread,
+    # share of special values, share of null keys)
+    for cap, live_rows, nparts, spread, special, nulls in (
+            (1, 1, 1, 60, 0.3, 0.1), (600, 0, 5, 60, 0.3, 0.1),
+            (4097, 3000, 2, 60, 0.3, 0.15), (5000, 5000, 0, 60, 0.3, 0.1),
+            (70001, 69000, 37, 300000, 0.02, 0.05),
+            (70001, 70001, 1, 300000, 0.02, 0.05)):
+        part = np.arange(cap) if nparts == 0 else rng.integers(0, nparts, cap)
+        pcol = _col(long, t(part), t(rng.random(cap) < 0.98))
+        for kind in ("float64", "int64"):
+            data = key(kind, cap, spread, special)
+            valid = t(rng.random(cap) >= nulls)
+            for nf in (True, False):
+                sw = _key_window(pcol, data, valid, live_rows, nf)
+                cases += range_bounds_cases(f"cap={cap} parts={nparts}", sw,
+                                            data, valid, nf, offsets[kind])
+    torch.cuda.synchronize()
+    return cases
+
+
 def check_slice5_edges(dev) -> int:
     """Phase 2, slice 5 edge shapes against the plain versions, at 1 to
     70,001 rows, every row dead, partitions of one row and of thousands:
@@ -1941,21 +2266,16 @@ def check_slice5_edges(dev) -> int:
                 "int32": t(rng.integers(-50, 50, n).astype(np.int32)),
                 "int64": t(rng.integers(-50, 50, n)),
                 "float64": t(f)}
+        # each key searched over a window sorted by it, as K15's callers
+        # sort it (the reference's search assumes that order)
         for kname, key in keys.items():
             for nf in (True, False):
-                for lower, upper in ((-3, 2), (1, 4), (-1.5, 0.5),
-                                     (-100000, 100000), (None, -2)):
-                    for perm in (sw.perm, None):
-                        args = (sw, key, valid, perm, lower, upper, nf)
-                        for side, (g, w) in enumerate(zip(
-                                W.range_bounds(*args),
-                                W.range_bounds_plain(*args))):
-                            if w is not None:
-                                exact(f"range_bounds {kname} cap={cap} "
-                                      f"nf={nf} {lower},{upper} "
-                                      f"side {side}", g, w)
-                        cases += 1
-        given, _ = W.range_bounds(sw, keys["int64"], valid, sw.perm, -3,
+                cases += range_bounds_cases(
+                    f"cap={cap}", _key_window(store, key, valid, live_rows,
+                                              nf),
+                    key, valid, nf, ((-3, 2), (1, 4), (-1.5, 0.5),
+                                     (-100000, 100000), (None, -2)))
+        given, _ = W.range_bounds(sw, day.data, day.validity, sw.perm, -3,
                                   None, True)
         # K16
         d = rng.random(n) * 200 - 100
@@ -2016,6 +2336,7 @@ def check_slice5_edges(dev) -> int:
                 exact(f"window_eval cap={cap} rank kind {k} validity", gv,
                       wv)
             cases += 2
+    cases += check_range_edges(dev)
     torch.cuda.synchronize()
     return cases
 

@@ -4,7 +4,10 @@ Each kernel's wrapper lives beside its plain PyTorch version in the ops
 module that the JAX package keeps the function in:
 
 - K1 `ops.filterops.compact_perm`        (csrc/compact_perm.cu)
-- K2 `ops.joinops.probe_bounds`          (csrc/probe_ranges.cu)
+- K2 `ops.joinops.probe_bounds`          (csrc/probe_ranges.cu: a bucket
+  index on the first key word, then searches inside each row's bucket,
+  galloping from an interpolated guess; the build in shared memory up
+  to 200 KB, with the gallop of csrc/search.cuh shared with K15)
 - K3 `ops.joinops.expand_gather_maps`    (csrc/expand_gather_maps.cu)
 - K4 `ops.segmented.seg_sum_count_multi` (csrc/seg_sum_count.cu)
 - K5 `ops.bloom.build`, `ops.bloom.might_contain` (csrc/bloom.cu)
@@ -23,8 +26,7 @@ module that the JAX package keeps the function in:
 - K11 `ops.segmented.dense_bin_perm` (csrc/dense_bin_perm.cu)
 - K12 `ops.segmented.seg_min`, `ops.segmented.seg_max` (csrc/seg_minmax.cu)
 - K13 `ops.sortops.merge_runs`, behind `merge_sorted`
-  (csrc/merge_runs.cu, with the key search of csrc/search.cuh shared
-  with K2)
+  (csrc/merge_runs.cu, with the key search of csrc/search.cuh)
 - K14 `ops.windowops.window_prefix` (the frame prefix sums),
   `ops.windowops.inverse_permutation` (the write-back's inverse
   permutation) and `ops.windowops.window_eval` (frames, the rank family
@@ -32,7 +34,11 @@ module that the JAX package keeps the function in:
   order) (csrc/window_frames.cu, with the frame sides of
   csrc/window_frame.cuh shared with K15-K17)
 - K15 `ops.windowops.range_bounds`, behind `range_frame_bounds` and the
-  RANGE frames of `frame_of` (csrc/range_bounds.cu)
+  RANGE frames of `frame_of` (csrc/range_bounds.cu: one gather through
+  the permutation, then each row gallops inside its own partition from
+  the previous row's answer over values staged in shared memory; the
+  targets where the reference's search is not monotone search all rows
+  as it does)
 - K16 `ops.windowops.frame_minmax` (csrc/frame_minmax.cu)
 - K17 `ops.windowops.frame_pick`, behind `frame_first_last` and
   `lead_lag` (csrc/frame_pick.cu)
@@ -261,6 +267,9 @@ class WinFrame(ctypes.Structure):
                 ("start", ctypes.c_void_p), ("end", ctypes.c_void_p)]
 
 
+#: int32 slots of K2's bucket-index scratch (2^kIndexLogMax + 1 in
+#: csrc/probe_ranges.cu)
+PROBE_INDEX_SLOTS = (1 << 14) + 1
 #: K15's key types (RangeKeyType in csrc/range_bounds.cu)
 RANGE_TYPES = {torch.int16: 0, torch.int32: 1, torch.int64: 2,
                torch.float32: 3, torch.float64: 4, torch.int8: 5}

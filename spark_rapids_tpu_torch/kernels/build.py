@@ -53,7 +53,8 @@ _D = ctypes.c_double
 #: C entry points: name -> argtypes (every one returns a cudaError_t)
 _SIGNATURES = {
     "srtpu_compact_perm": [_P, _I, _P, _P, _P, _P],
-    "srtpu_probe_ranges": [_P, _I, _I, _P, _P, _L, _P, _P, _P, _I, _P],
+    "srtpu_probe_ranges": [_P, _I, _I, _P, _P, _L, _P, _P, _P, _P, _I,
+                           _P],
     "srtpu_expand_gather_maps": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     "srtpu_seg_sum_count": [_I, _I, _P, _P, _P, _P, _L, _I, _P, _P, _P, _I,
                             _I, _I, _P],

@@ -1,6 +1,8 @@
-// The lexicographic binary search over sorted int64 key words that K2
-// (probe_ranges.cu) and K13 (merge_runs.cu) share: the device form of
-// spark_rapids_tpu/ops/joinops.py:86 _binary_search.
+// The lexicographic binary search over sorted int64 key words that K13
+// (merge_runs.cu) uses: the device form of
+// spark_rapids_tpu/ops/joinops.py:86 _binary_search; and the galloping
+// search from a guess that K2 (probe_ranges.cu) and K15 (range_bounds.cu)
+// use.
 //
 // Keys are word-major: word w of row r of a [W, rows] table sits at
 // keys[w * rows + r], so one word of neighbouring rows is contiguous (the
@@ -40,6 +42,49 @@ __device__ __forceinline__ int key_search(const i64* __restrict__ keys,
     else hi = mid;
   }
   return lo;
+}
+
+// first p in [lo, hi) with less(p) false, hi when there is none, for a
+// predicate that is true and then false over [lo, hi): steps of 1, 2, 4,
+// ... rows from the guess g toward the answer, then a binary search inside
+// the last step. An answer d rows from g costs about 2 log2(d + 1) probes,
+// and threads with neighbouring guesses probe neighbouring rows.
+template <typename Less>
+__device__ __forceinline__ int gallop(int lo, int hi, int g, Less less) {
+  if (lo >= hi) return lo;
+  g = g < lo ? lo : (g >= hi ? hi - 1 : g);
+  int a, b;  // the answer lies in (a, b]
+  if (less(g)) {
+    a = g;
+    b = hi;
+    for (unsigned step = 1; step < (unsigned)(hi - g); step <<= 1) {
+      const int p = g + (int)step;
+      if (!less(p)) {
+        b = p;
+        break;
+      }
+      a = p;
+    }
+  } else {
+    a = lo - 1;
+    b = g;
+    for (unsigned step = 1; step <= (unsigned)(g - lo); step <<= 1) {
+      const int p = g - (int)step;
+      if (less(p)) {
+        a = p;
+        break;
+      }
+      b = p;
+    }
+  }
+  while (b - a > 1) {
+    const int m = a + ((b - a) >> 1);
+    if (less(m))
+      a = m;
+    else
+      b = m;
+  }
+  return b;
 }
 
 }  // namespace srtpu

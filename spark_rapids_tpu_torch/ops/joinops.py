@@ -136,10 +136,12 @@ def probe_bounds(build_keys: List[torch.Tensor],
                          f"{tuple(probe.shape)} do not match {build_cap}, {n}")
     lo = torch.empty(n, dtype=torch.int32, device=dev)
     counts = torch.empty(n, dtype=torch.int32, device=dev)
+    index = torch.empty(kernels.PROBE_INDEX_SLOTS, dtype=torch.int32,
+                        device=dev)
     _build.check(_build.lib().srtpu_probe_ranges(
         build.data_ptr(), build_cap, w, valid_bound.data_ptr(),
         probe.data_ptr(), n, all_valid.data_ptr(), lo.data_ptr(),
-        counts.data_ptr(), kernels.sm_count(all_valid),
+        counts.data_ptr(), index.data_ptr(), kernels.sm_count(all_valid),
         kernels.stream_ptr(all_valid)), "probe_ranges")
     kernels.launches["probe_ranges"] += 1
     return lo, counts

@@ -336,7 +336,8 @@ def range_bounds(sw: SortedWindow, data: torch.Tensor, valid: torch.Tensor,
                                                    device=dev)
     end = None if upper is None else torch.empty(n, dtype=torch.int32,
                                                  device=dev)
-    scratch = torch.empty(n, dtype=torch.int64, device=dev)
+    # the sorted values (int64 or float64), then a null byte a row
+    scratch = torch.empty(n * 9, dtype=torch.uint8, device=dev)
     as_float = dtype == torch.float64
     _build.check(_build.lib().srtpu_range_bounds(
         kind, int(as_float), data.data_ptr(), valid.data_ptr(),
