@@ -454,7 +454,8 @@ def kernel_ms(fn, kernel: str, what: str, iters: int = TIMING_ITERS):
 
 
 def timed(name: str, kernel, plain, library,
-          other_iters: int = TIMING_ITERS, floor_ms: float = 0.0) -> dict:
+          other_iters: int = TIMING_ITERS, floor_ms: float = 0.0,
+          library_floor_ms: float = 0.0) -> dict:
     """device_ms of a kernel's wrapper, its plain version and the library
     call (None where no one PyTorch call computes the function; those two
     over other_iters calls), and the wrapper's CUDA-event time."""
@@ -463,7 +464,8 @@ def timed(name: str, kernel, plain, library,
                              event_ms=event_ms),
                 plain_ms=device_ms(plain, f"{name} plain", other_iters),
                 library_ms=None if library is None
-                else device_ms(library, f"{name} library", other_iters),
+                else device_ms(library, f"{name} library", other_iters,
+                               floor_ms=library_floor_ms),
                 event_ms=event_ms)
 
 
@@ -1096,10 +1098,11 @@ def check_slice3_kernels(dev):
     occ_np = np.zeros(bins, bool)
     occ_np[1:STORES + 1] = True  # bin 0 is the null key; stores 0..1999
     occupied = torch.from_numpy(occ_np).to(dev)
-    d = segmented.dense_bin_perm(occupied, bins)
-    d_p = segmented.dense_bin_perm_plain(occupied, bins)
+    d, d_count = segmented.dense_bin_perm(occupied, bins)
+    d_p, d_count_p = segmented.dense_bin_perm_plain(occupied, bins)
     torch.cuda.synchronize()
     exact("dense_bin_perm", d, d_p)
+    exact("dense_bin_perm count", d_count, d_count_p)
     out["dense_bin_perm"] = dict(
         route="cuda",
         source="spark_rapids_tpu_torch/kernels/csrc/dense_bin_perm.cu",
@@ -1109,8 +1112,30 @@ def check_slice3_kernels(dev):
                 lambda: segmented.dense_bin_perm(occupied, bins),
                 lambda: segmented.dense_bin_perm_plain(occupied, bins),
                 lambda: torch.nonzero(occupied)),
-        bound_ms=bound_ms(bins + bins * 4), bound_by="bytes",
+        bound_ms=bound_ms(bins + bins * 4 + 4), bound_by="bytes",
         shape=f"occupied [{bins}] bool, {STORES} occupied")
+    # the binned path's largest table, 2^20 bins, past the one-block
+    # kernel's limit
+    bins = 1 << 20
+    occupied = torch.from_numpy(
+        np.random.default_rng(11).random(bins) < 0.3).to(dev)
+    d, d_count = segmented.dense_bin_perm(occupied, bins)
+    d_p, d_count_p = segmented.dense_bin_perm_plain(occupied, bins)
+    torch.cuda.synchronize()
+    exact("dense_bin_perm large", d, d_p)
+    exact("dense_bin_perm large count", d_count, d_count_p)
+    out["dense_bin_perm large"] = dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/dense_bin_perm.cu",
+        replaces="spark_rapids_tpu/ops/segmented.py:297",
+        max_abs_err=max_abs_err(d, d_p),
+        **timed("dense_bin_perm large",
+                lambda: segmented.dense_bin_perm(occupied, bins),
+                lambda: segmented.dense_bin_perm_plain(occupied, bins),
+                lambda: torch.nonzero(occupied)),
+        bound_ms=bound_ms(bins + bins * 4 + 4), bound_by="bytes",
+        counter="dense_bin_perm",
+        shape=f"occupied [{bins}] bool, {int(d_count_p)} occupied")
     return out
 
 
@@ -1307,6 +1332,81 @@ def check_probe_edges(dev) -> int:
     return cases
 
 
+def check_dense_edges(dev) -> int:
+    """K11 bit for bit against its plain version, the count against the
+    occupancy's sum: bins around a warp (31-33), the one-block kernel's
+    switch from 4- to 16-byte loads (4,096) and its 2^14 limit, the three
+    launches' tiles past it up to the binned path's 2^20, at occupancy 0,
+    0.3 and 1, and an input that is not 16-byte aligned. Returns the
+    number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.ops import segmented
+
+    rng = np.random.default_rng(15)
+    cases = 0
+    for n in (1, 31, 32, 33, 1000, 1024, 4096, 4097, 5000, 16384, 16385,
+              32768, 32769, 65536, 65537, 70001, 1 << 20):
+        for p_occ in (0.0, 0.3, 1.0):
+            occ_np = rng.random(n) < p_occ
+            occ = torch.from_numpy(occ_np).to(dev)
+            got, count = segmented.dense_bin_perm(occ, n)
+            want, want_count = segmented.dense_bin_perm_plain(occ, n)
+            exact(f"dense_bin_perm n={n} p={p_occ}", got, want)
+            exact(f"dense_bin_perm count n={n} p={p_occ}", count,
+                  want_count)
+            if int(count) != int(occ_np.sum()):
+                fail(f"dense_bin_perm count n={n} p={p_occ}: {int(count)}"
+                     f", the occupancy holds {int(occ_np.sum())}")
+            cases += 1
+    for n in (1000, 4096):
+        buf = torch.from_numpy(rng.random(n + 1) < 0.3).to(dev)
+        occ = buf[1:]  # one byte past the allocation's alignment
+        got, count = segmented.dense_bin_perm(occ, n)
+        want, want_count = segmented.dense_bin_perm_plain(occ, n)
+        exact(f"dense_bin_perm unaligned n={n}", got, want)
+        exact(f"dense_bin_perm unaligned count n={n}", count, want_count)
+        cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def check_inverse_edges(dev) -> int:
+    """K14's inverse bit for bit against its plain version at one
+    destination window less one row, one window, one window and one row,
+    a ragged last window (2.5 windows) and range_query's 37,748,736 rows,
+    over the identity, the reversal and a random permutation, and a perm
+    that is not 16-byte aligned. Returns the number of cases."""
+    import torch
+
+    from spark_rapids_tpu_torch.ops import windowops as W
+
+    w = W.INVERSE_WINDOW_ROWS
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    cases = 0
+    for n in (w - 1, w, w + 1, 5 * w // 2, 37_748_736):
+        ident = torch.arange(n, dtype=torch.int32, device=dev)
+        for kind, perm in (("identity", ident),
+                           ("reversed", ident.flip(0)),
+                           ("random", torch.randperm(
+                               n, generator=g, device=dev).to(torch.int32))):
+            exact(f"window_inverse n={n} {kind}", W.inverse_permutation(perm),
+                  W.inverse_permutation_plain(perm))
+            cases += 1
+        del ident, perm
+    n = w + 1
+    buf = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    buf[1:] = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+    exact("window_inverse unaligned", W.inverse_permutation(buf[1:]),
+          W.inverse_permutation_plain(buf[1:]))
+    del buf
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cases + 1
+
+
 def check_slice3_edges(dev) -> int:
     """Phase 2, slice 3 edge shapes, exact against the plain versions:
     1-7 key columns of every kind (strings of 0-12 bytes with bytes >=
@@ -1380,12 +1480,8 @@ def check_slice3_edges(dev) -> int:
         w, _ = common.pack_keys(specs, live, lead_rank=True)
         exact(f"pack_keys lead rank n={n}", w,
               common.pack_keys_plain(specs, live, lead_rank=True)[0])
-        for p_occ in (0.0, 0.3, 1.0):
-            occ = t(rng.random(n) < p_occ)
-            exact(f"dense_bin_perm n={n} p={p_occ}",
-                  segmented.dense_bin_perm(occ, n),
-                  segmented.dense_bin_perm_plain(occ, n))
-        cases += 4
+        cases += 1
+    cases += check_dense_edges(dev)
     cases += check_probe_edges(dev)
     dead = torch.zeros(4096, dtype=torch.bool, device=dev)
     w, _ = common.pack_keys([common.KeySpec(columns(4096)[5])], dead)
@@ -1951,6 +2047,26 @@ def check_slice5_kernels(dev):
                 lambda: torch.argsort(sw.perm)),
         bound_ms=bound_ms(cap * (4 + 4)), bound_by="bytes",
         shape=f"perm [{cap}] int32")
+    # at OPTIMIZE ZORDER BY's ranks: ORDERS' 15M rows at capacity 2^24
+    zn = 1 << 24
+    g = torch.Generator(device=dev)
+    g.manual_seed(24)
+    zperm = torch.randperm(zn, generator=g, device=dev).to(torch.int32)
+    zinv = W.inverse_permutation(zperm)
+    zwant = W.inverse_permutation_plain(zperm)
+    torch.cuda.synchronize()
+    exact("window_inverse zorder", zinv, zwant)
+    out["window_inverse zorder"] = dict(
+        route="cuda", source=src + "window_frames.cu",
+        replaces="spark_rapids_tpu/ops/zorder.py:28",
+        max_abs_err=max_abs_err(zinv, zwant),
+        **timed("window_inverse zorder",
+                lambda: W.inverse_permutation(zperm),
+                lambda: W.inverse_permutation_plain(zperm),
+                lambda: torch.argsort(zperm)),
+        bound_ms=bound_ms(zn * (4 + 4)), bound_by="bytes",
+        counter="window_inverse", shape=f"perm [{zn}] int32 (random)")
+    del zperm, zinv, zwant
 
     # K15: the lower side of RANGE BETWEEN 6 PRECEDING AND CURRENT ROW
     start, _ = W.range_bounds(sw, day.data, day.validity, sw.perm, -6, None,
@@ -2236,7 +2352,9 @@ def check_slice5_edges(dev) -> int:
     float64 and bool values (nulls, NaN, +-inf and -0.0, bit for bit) over
     empty, one-tile, many-tile, whole-partition and RANGE frames; K17's
     five kinds with shifts of 1-3 and past the partition; K14's inverse
-    and new kinds with ntile(1, 3, 7). Returns the number of cases."""
+    and new kinds with ntile(1, 3, 7); K14's inverse around its
+    destination windows (check_inverse_edges). Returns the number of
+    cases."""
     import numpy as np
     import torch
 
@@ -2337,6 +2455,7 @@ def check_slice5_edges(dev) -> int:
                       wv)
             cases += 2
     cases += check_range_edges(dev)
+    cases += check_inverse_edges(dev)
     torch.cuda.synchronize()
     return cases
 
@@ -6167,8 +6286,9 @@ def check_slice11_kernels(dev):
     def record(name, source, replaces, counter, kernel, plain, library,
                plain_iters, nbytes, shape, as_bits=False):
         """Check kernel() against plain() exactly, time both and keep the
-        record (its device time held to its byte bound: every input here
-        exceeds the L2); returns the kernel's output."""
+        record (its device time, and the library call's, held to its byte
+        bound: every input here exceeds the L2); returns the kernel's
+        output."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         if as_bits:
@@ -6178,7 +6298,8 @@ def check_slice11_kernels(dev):
         out[name] = dict(
             route="cuda", source=src + source, replaces=replaces,
             max_abs_err=err, counter=counter,
-            **timed(name, kernel, plain, library, plain_iters, bound),
+            **timed(name, kernel, plain, library, plain_iters, bound,
+                    bound),
             bound_ms=bound, bound_by="bytes", shape=shape)
         return got
 
@@ -6237,14 +6358,16 @@ def check_slice11_kernels(dev):
                sums[lo:hi], 2), m),
            None, PLAIN_ITERS, m * (16 + 8),
            f"{m} decimal(25,2) limbs -> float64", as_bits=True)
-    lo_limb = sums[:, 1].contiguous()
+    # the library call reads the [n, 2] rows as K31 does (a strided view of
+    # the low limb), not a low limb extracted beforehand; timed over
+    # TIMING_ITERS calls, as one call's CUDA-event time is mostly the
+    # host's dispatch
     record("decimal128_i64", "decimal128.cu",
            "spark_rapids_tpu/expr/cast.py:245", "decimal128",
            lambda: D.to_long(sums, 2), lambda: D.to_long_plain(sums, 2),
-           lambda: torch.div(lo_limb, 100, rounding_mode="trunc"), 1,
-           m * (16 + 8),
+           lambda: torch.div(sums[:, 1], 100, rounding_mode="trunc"),
+           TIMING_ITERS, m * (16 + 8),
            f"{m} decimal(25,2) limbs -> int64 (values within int64)")
-    del lo_limb
     # K32 over q1's products: sorted ids in 6 groups, and 1,024 bins
     for label, gid, nseg in (
             ("sorted", t(np.repeat(np.arange(6, dtype=np.int32),

@@ -538,11 +538,9 @@ class TpuHashAggregateExec(PhysicalPlan):
                     ci += len(grp)
                     out_cols.extend(a.children[0].update(vals, live, gid,
                                                          bcap))
-        occupied = counts > 0
-        num_groups = occupied.sum().to(torch.int32)
         # bins -> dense group positions (front-compacted like the sorted
-        # path's segment-id outputs)
-        perm = segmented.dense_bin_perm(occupied, bcap)
+        # path's segment-id outputs) and the group count
+        perm, num_groups = segmented.dense_bin_perm(counts > 0, bcap)
         return ColumnBatch(_buffer_schema(self.grouping, self.aggs),
                            gather_columns([(c, perm) for c in out_cols]),
                            num_groups)

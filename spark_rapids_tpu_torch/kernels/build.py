@@ -66,12 +66,12 @@ _SIGNATURES = {
     "srtpu_pack_keys": [_P, _I, _I, _P, _L, _P, _P, _I, _P],
     "srtpu_sort_words": [_P, _I, _I, _P, _P, _I, _P],
     "srtpu_group_bounds": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "srtpu_dense_bin_perm": [_P, _I, _P, _P, _P],
+    "srtpu_dense_bin_perm": [_P, _I, _P, _P, _P, _I, _P],
     "srtpu_seg_minmax": [_I, _I, _P, _P, _P, _L, _I, _P, _I, _I, _P],
     "srtpu_merge_runs": [_P, _L, _P, _L, _I, _P, _P, _L, _P, _I, _P, _I, _I,
                          _P],
     "srtpu_window_prefix": [_I, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
-    "srtpu_window_inverse": [_P, _L, _P, _I, _P],
+    "srtpu_window_inverse": [_P, _L, _P, _L, _L, _I, _P],
     "srtpu_window_eval": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _I, _P],
     "srtpu_range_bounds": [_I, _I, _P, _P, _P, _P, _L, _I, _L, _L, _D, _D,
                            _P, _P, _P, _P, _P, _P, _P, _I, _P],

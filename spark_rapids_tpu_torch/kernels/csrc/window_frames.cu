@@ -17,7 +17,8 @@
 //    c[j]. The reference keeps one whole-batch prefix, and a frame's sum,
 //    a difference of two prefixes, then loses up to the prefix's rounding
 //    (2e-7 relative for a store's first small amount at 37.7M rows).
-// 2. srtpu_window_inverse: inv[perm[j]] = j, the reference's `inv`.
+// 2. srtpu_window_inverse: inv[perm[j]] = j, the reference's `inv`, in
+//    passes over destination windows (below).
 // 3. srtpu_window_eval: per sorted row j and per requested output, one of
 //      row_number   = j - seg_start + 1
 //      rank         = peer_start - seg_start + 1
@@ -59,6 +60,26 @@
 // perm (four data and four validity writes a row, each a read-modify-write
 // of a 32-byte sector) took 20.6 ms at 37.7M rows on the H100, 30x its
 // bound.
+//
+// The inverse alone is bound by bytes too: perm read once, inv written
+// once, 8 bytes a row (0.0902 ms at 37,748,736 rows). Its stores land on
+// random 4-byte slots of inv; at 37.7M rows inv is 151 MB, three times
+// the 50 MB L2, so in one pass a 32-byte sector leaves the L2 long before
+// its neighbours arrive and nearly every store becomes its own partial
+// sector write to device memory: one pass took 0.069 ns a row at
+// 37,748,736 rows (2.35-2.61 ms) and 0.0585 at 2^24, against 0.0165 at
+// 2^22, whose 16 MiB of inv stay in the L2 (H100 80GB HBM3, 700.00 W;
+// tools/parent_ab.py). So the inverse runs in passes (one launch each):
+// pass p reads all of perm with evict-first loads and stores only the j
+// whose perm[j] lies in destination window p, with an L2 evict-last
+// hint, so the window's lines stay in the L2 until they are whole and
+// then go to device memory once. A window is INVERSE_WINDOW_ROWS rows of
+// ops/windowops.py (32 MiB; its sweep is beside it); at most one window,
+// one pass. 37,748,736 rows take 5 passes: 1.03 ms over a random
+// permutation, 0.99 over range_query's (argsort(perm) 1.92). What is
+// left is the L2's rate of scattered 4-byte stores (~40-60 G/s), which
+// no window size changes: 2^24 rows take 0.40-0.47 ms in 2 to 8 passes.
+// Plain stores lost the windows' lines past 24 MiB (1.15 ms at 32 MiB).
 
 #include "window_frame.cuh"
 
@@ -353,11 +374,47 @@ __device__ __forceinline__ i64 floordiv(i64 a, i64 b) {
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
+// inv[d] = j with an L2 evict-last hint (policy from createpolicy)
+__device__ __forceinline__ void store_evict_last(int* p, int v,
+                                                 unsigned long long policy) {
+  asm volatile("st.global.L2::cache_hint.b32 [%0], %1, %2;"
+               :: "l"(p), "r"(v), "l"(policy) : "memory");
+}
+
+// One pass of the inverse: inv[perm[j]] = j for the j whose perm[j] lies
+// in the destination window [lo, lo + span). perm is read with evict-first
+// loads, four rows a thread where it is 16-byte aligned, and inv written
+// with evict-last stores, so the window's lines of inv stay in the L2
+// until they are whole.
 __global__ void __launch_bounds__(kThreads)
-inverse_kernel(const int* __restrict__ perm, i64 n, int* __restrict__ inv) {
-  for (i64 j = (i64)blockIdx.x * blockDim.x + threadIdx.x; j < n;
-       j += (i64)gridDim.x * blockDim.x)
-    inv[perm[j]] = (int)j;
+inverse_pass_kernel(const int* __restrict__ perm, i64 n, int lo,
+                    unsigned span, int* __restrict__ inv) {
+  const i64 stride = (i64)gridDim.x * blockDim.x;
+  const i64 t = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned long long keep;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(keep));
+  i64 head = 0;  // rows before it were read four at a time
+  if ((reinterpret_cast<uintptr_t>(perm) & 15) == 0) {
+    const i64 quads = n >> 2;
+    const int4* p4 = reinterpret_cast<const int4*>(perm);
+    for (i64 q = t; q < quads; q += stride) {
+      const int4 d = __ldcs(p4 + q);
+      const int j = (int)(q << 2);
+      if ((unsigned)(d.x - lo) < span) store_evict_last(inv + d.x, j, keep);
+      if ((unsigned)(d.y - lo) < span)
+        store_evict_last(inv + d.y, j + 1, keep);
+      if ((unsigned)(d.z - lo) < span)
+        store_evict_last(inv + d.z, j + 2, keep);
+      if ((unsigned)(d.w - lo) < span)
+        store_evict_last(inv + d.w, j + 3, keep);
+    }
+    head = quads << 2;
+  }
+  for (i64 j = head + t; j < n; j += stride) {
+    const int d = __ldcs(perm + j);
+    if ((unsigned)(d - lo) < span) store_evict_last(inv + d, (int)j, keep);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -461,12 +518,17 @@ extern "C" int srtpu_window_prefix(int is_f64, const void* vals,
       (long long*)scratch, (uint8_t*)flags, s);
 }
 
-// perm: [n] int32; inv: [n] int32 out, inv[perm[j]] = j.
+// perm: [n] int32, a permutation of [0, n); inv: [n] int32 out. One pass:
+// inv[perm[j]] = j for each j with lo <= perm[j] < hi (the wrapper runs
+// one pass a window of windowops.inverse_windows, which cover [0, n)).
 extern "C" int srtpu_window_inverse(const void* perm, long long n, void* inv,
-                                    int sm_count, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  inverse_kernel<<<row_blocks(n, sm_count), kThreads, 0,
-                   (cudaStream_t)stream>>>((const int*)perm, n, (int*)inv);
+                                    long long lo, long long hi, int sm_count,
+                                    void* stream) {
+  if (n < 1 || n > 0x7fffffffLL || lo < 0 || hi <= lo || hi > n)
+    return (int)cudaErrorInvalidValue;
+  inverse_pass_kernel<<<row_blocks((n + 3) / 4, sm_count), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const int*)perm, n, (int)lo, (unsigned)(hi - lo), (int*)inv);
   return (int)cudaGetLastError();
 }
 

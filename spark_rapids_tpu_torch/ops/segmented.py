@@ -322,21 +322,24 @@ def seg_first(values: torch.Tensor,
                          clamp=True)[0]
 
 
-def dense_bin_perm_plain(occupied: torch.Tensor, cap: int) -> torch.Tensor:
+def dense_bin_perm_plain(occupied: torch.Tensor,
+                         cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K11: the reference's cumsum plus a scatter
     whose unoccupied bins write to a spare slot `cap` that is sliced off
-    (its mode="drop")."""
+    (its mode="drop"), and the occupied count as int32."""
     dense = torch.cumsum(occupied.to(torch.int32), 0, dtype=torch.int32) - 1
     target = torch.where(occupied, dense, cap).to(torch.int64)
     out = torch.zeros(cap + 1, dtype=torch.int32, device=occupied.device)
     out[target] = torch.arange(cap, dtype=torch.int32,
                                device=occupied.device)
-    return out[:cap]
+    return out[:cap], occupied.sum().to(torch.int32)
 
 
-def dense_bin_perm(occupied: torch.Tensor, cap: int) -> torch.Tensor:
-    """Kernel K11: gather permutation mapping dense group position j -> the
-    j-th occupied bin (positions past num_groups hold 0)."""
+def dense_bin_perm(occupied: torch.Tensor,
+                   cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K11: (gather permutation mapping dense group position j ->
+    the j-th occupied bin, positions past the count holding 0; the count
+    of occupied bins, a 0-dim int32 tensor)."""
     if occupied.device.type == "cpu":
         return dense_bin_perm_plain(occupied, cap)
     dev = occupied.device
@@ -344,13 +347,15 @@ def dense_bin_perm(occupied: torch.Tensor, cap: int) -> torch.Tensor:
     if occupied.shape[0] != cap:
         raise ValueError(f"occupied has {occupied.shape[0]} bins, cap {cap}")
     out = torch.empty(cap, dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
     tiles = -(-cap // kernels.TILE_ROWS)
-    scratch = torch.empty(2 * tiles + 1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
     _build.check(_build.lib().srtpu_dense_bin_perm(
-        occupied.data_ptr(), cap, out.data_ptr(), scratch.data_ptr(),
-        kernels.stream_ptr(occupied)), "dense_bin_perm")
+        occupied.data_ptr(), cap, out.data_ptr(), count.data_ptr(),
+        scratch.data_ptr(), 0, kernels.stream_ptr(occupied)),
+        "dense_bin_perm")
     kernels.launches["dense_bin_perm"] += 1
-    return out
+    return out, count
 
 
 class GroupBounds(NamedTuple):

@@ -484,17 +484,37 @@ def inverse_permutation_plain(perm: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(pos).index_copy_(0, perm.to(torch.int64), pos)
 
 
+#: Rows of one destination window of K14's inverse passes: 32 MiB of
+#: int32 (its lines held by evict-last stores in the H100's 50 MB L2).
+#: tools/parent_ab.py's sweep on one H100 80GB HBM3 at 700.00 W, ms over
+#: random permutations of 37,748,736 / 2^24 rows: 8 MiB 1.373 / 0.458,
+#: 16 MiB 1.153 / 0.446, 20 MiB 1.125 / 0.441, 24 MiB 1.054 / 0.431,
+#: 28 MiB 1.059 / 0.418, 32 MiB 1.025 / 0.401, 40 MiB 1.046 / 0.408,
+#: 48 MiB 1.436 / 0.524 (PERF.md section 6).
+INVERSE_WINDOW_ROWS = 8 << 20
+
+
+def inverse_windows(n: int, rows: int = INVERSE_WINDOW_ROWS):
+    """The [lo, hi) destination windows of K14's inverse passes over n
+    rows: consecutive windows of `rows`, the last one ragged."""
+    return [(lo, min(lo + rows, n)) for lo in range(0, n, rows)]
+
+
 def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
     """Kernel K14, the inverse permutation (the reference's `inv`) that
-    K14, K16 and K17 write their results back through."""
+    K14, K16 and K17 write their results back through: one launch a
+    destination window of `inverse_windows` (one call, one count)."""
     if perm.device.type == "cpu":
         return inverse_permutation_plain(perm)
     kernels.require(perm, "perm", torch.int32, perm.device)
     n = int(perm.shape[0])
     inv = torch.empty(n, dtype=torch.int32, device=perm.device)
-    _build.check(_build.lib().srtpu_window_inverse(
-        perm.data_ptr(), n, inv.data_ptr(), kernels.sm_count(perm),
-        kernels.stream_ptr(perm)), "window_inverse")
+    lib, sms, stream = (_build.lib(), kernels.sm_count(perm),
+                        kernels.stream_ptr(perm))
+    for lo, hi in inverse_windows(n):
+        _build.check(lib.srtpu_window_inverse(
+            perm.data_ptr(), n, inv.data_ptr(), lo, hi, sms, stream),
+            "window_inverse")
     kernels.launches["window_inverse"] += 1
     return inv
 

@@ -263,8 +263,9 @@ def test_seg_sum_count_multi_matches_single_sums():
 def test_dense_bin_perm(p_occ):
     rng = np.random.default_rng(40)
     occupied = rng.random(1024) < p_occ
-    same(port_segmented.dense_bin_perm(t(occupied), 1024),
-         jax_segmented.dense_bin_perm(jnp.asarray(occupied), 1024))
+    perm, count = port_segmented.dense_bin_perm(t(occupied), 1024)
+    same(perm, jax_segmented.dense_bin_perm(jnp.asarray(occupied), 1024))
+    same(count, jnp.sum(jnp.asarray(occupied)).astype(jnp.int32))
 
 
 @pytest.mark.parametrize("dtype", ["f64", "i64"])
@@ -721,12 +722,17 @@ def test_k10_group_bounds_edges(live_rows):
 
 
 @pytest.mark.parametrize("cap,p_occ", [(1, 1.0), (5000, 0.3), (8192, 0.0),
-                                       (12289, 0.9)])
+                                       (12289, 0.9), (65536, 0.3),
+                                       (65537, 1.0), (1 << 20, 0.3)])
 def test_k11_dense_bin_perm_sizes(cap, p_occ):
+    """Up to the binned path's largest 2^20 bins (on the card K11 takes
+    its three launches past 2^14); the count is the reference's sum of
+    the occupancy."""
     rng = np.random.default_rng(75)
     occupied = rng.random(cap) < p_occ
-    same(port_segmented.dense_bin_perm(t(occupied), cap),
-         jax_segmented.dense_bin_perm(jnp.asarray(occupied), cap))
+    perm, count = port_segmented.dense_bin_perm(t(occupied), cap)
+    same(perm, jax_segmented.dense_bin_perm(jnp.asarray(occupied), cap))
+    same(count, jnp.sum(jnp.asarray(occupied)).astype(jnp.int32))
 
 
 # ------------------------------------------- plain versions stay plain
@@ -749,6 +755,23 @@ from spark_rapids_tpu_torch.expr import mathexpr as port_math  # noqa: E402
 from spark_rapids_tpu_torch.ops import decimal128 as port_d128  # noqa: E402,E501
 from spark_rapids_tpu_torch.expr import collections as port_collections  # noqa: E402,E501
 from spark_rapids_tpu_torch.ops import zorder as port_zorder  # noqa: E402
+
+
+@pytest.mark.parametrize("n", [1, port_windowops.INVERSE_WINDOW_ROWS - 1,
+                               port_windowops.INVERSE_WINDOW_ROWS,
+                               port_windowops.INVERSE_WINDOW_ROWS + 1,
+                               37_748_736])
+def test_k14_inverse_windows_cover_once(n):
+    """K14's inverse passes: the destination windows tile [0, n) in
+    order, each at most INVERSE_WINDOW_ROWS rows, so every inv slot is
+    written by exactly one pass."""
+    windows = port_windowops.inverse_windows(n)
+    assert windows[0][0] == 0 and windows[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(windows, windows[1:]))
+    assert all(0 < hi - lo <= port_windowops.INVERSE_WINDOW_ROWS
+               for lo, hi in windows)
+    assert len(windows) == -(-n // port_windowops.INVERSE_WINDOW_ROWS)
+
 
 # every kernel wrapper: on a CUDA tensor each one launches its kernel, so
 # a plain version (the kernel's check on the card) must reach none of them

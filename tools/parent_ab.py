@@ -1,4 +1,5 @@
-"""Time this tree's K2 and K15 against another tree's on one card, in turns.
+"""Time this tree's redesigned kernels against another tree's on one card,
+in turns.
 
     git archive <commit> | tar -x -C build/parent
     python3 tools/parent_ab.py build/parent [--hot-runs 5] [--kernels-only]
@@ -16,14 +17,28 @@ its tree's kernels into its tree's build directory, then
   the window's permutation, offset -6), whole, and its two launches
   alone from torch.profiler's records, beside one `index_select` of the
   key and one of its validity through the permutation;
+- K11 (`dense_bin_perm`) at q5's 4,096 bins (2,000 occupied) and at the
+  binned path's largest 2^20 (three in ten occupied), with its device
+  kernels a call from torch.profiler's records, beside
+  `torch.nonzero`; where the tree's K11 takes a route, its one-block
+  kernel and its three launches each at 2^12 and 2^14-2^17 and 2^20
+  bins;
+- K14's inverse (`inverse_permutation`) at range_query's permutation,
+  and over random permutations of 2^22 rows (16 MiB of destinations, in
+  the L2), 2^24 (OPTIMIZE ZORDER BY's ranks of ORDERS' capacity) and
+  37,748,736, beside `torch.argsort`; where the tree plans the inverse
+  in destination windows, each of 8, 16, 20, 24, 28, 32, 40 and 48 MiB
+  windows at 2^24 and 37,748,736 rows;
 - the cold and hot times (median of --hot-runs) of q5 and dupjoin
-  (phases 4-5's conf) and of range_query and moving_query (phase 7's) on
-  the adaptive and the fused engine, through the session over relations
-  cached on the device, with each query's K2 and K15 launches (not with
-  --kernels-only).
+  (phases 4-5's conf, which run K11) and of range_query and moving_query
+  (phase 7's, which run K14's inverse on both engines) on the adaptive
+  and the fused engine, through the session over relations cached on
+  the device, with each query's launches of K2, K11, K14's inverse and
+  K15 (not with --kernels-only).
 
-Kernel times are means of CUDA-event timed calls after a warm-up (and
-the profiler's device time for the launches). Prints one JSON line a
+Every kernel output is checked against its plain version before it is
+timed. Kernel times are means of CUDA-event timed calls after a warm-up
+(and the profiler's device time where named so). Prints one JSON line a
 process and a summary, and with --out writes every record to that JSON
 file. Needs one CUDA device and no network.
 """
@@ -58,8 +73,9 @@ def event_ms(fn, iters: int = KERNEL_ITERS) -> float:
     return a.elapsed_time(b) / iters
 
 
-def profiled_ms(fn, kernel: str, iters: int = KERNEL_ITERS):
-    """Mean device ms a call of the kernels named like `kernel`."""
+def profiled_kernels(fn, kernel: str = "", iters: int = KERNEL_ITERS):
+    """(mean device ms, device kernels) a call of the kernels named like
+    `kernel`, from torch.profiler; (None, None) where it traced none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -74,12 +90,132 @@ def profiled_ms(fn, kernel: str, iters: int = KERNEL_ITERS):
     picked = [e for e in prof.events() if e.device_type == DeviceType.CUDA
               and kernel in e.name]
     if not picked:
-        return None
-    return sum(e.time_range.elapsed_us() for e in picked) / 1e3 / iters
+        return None, None
+    return (sum(e.time_range.elapsed_us() for e in picked) / 1e3 / iters,
+            len(picked) / iters)
+
+
+def profiled_ms(fn, kernel: str, iters: int = KERNEL_ITERS):
+    """Mean device ms a call of the kernels named like `kernel`."""
+    return profiled_kernels(fn, kernel, iters)[0]
+
+
+def _first(x):
+    return x[0] if isinstance(x, tuple) else x
+
+
+def _same(what: str, got, want) -> None:
+    import torch
+
+    if not torch.equal(got, want):
+        raise RuntimeError(f"{what}: kernel differs from its plain version")
+
+
+def dense_times(dev) -> dict:
+    """K11 at q5's and the binned path's largest shapes, and its two
+    designs apart where the tree has both."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import kernels
+    from spark_rapids_tpu_torch.kernels import build
+    from spark_rapids_tpu_torch.ops import segmented
+
+    out = {}
+    rng = np.random.default_rng(11)
+    q5 = np.zeros(4096, bool)
+    q5[1:2001] = True  # bin 0 is the null key; 2,000 stores
+    for label, occ_np in (("k11_q5", q5),
+                          ("k11_2^20", rng.random(1 << 20) < 0.3)):
+        occ = torch.from_numpy(occ_np).to(dev)
+        bins = occ_np.size
+        got = segmented.dense_bin_perm(occ, bins)
+        want = segmented.dense_bin_perm_plain(occ, bins)
+        _same(label, _first(got), _first(want))
+        if isinstance(got, tuple):
+            _same(f"{label} count", got[1], want[1])
+        out[f"{label}_ms"] = event_ms(
+            lambda: segmented.dense_bin_perm(occ, bins))
+        out[f"{label}_device_ms"], out[f"{label}_kernels"] = (
+            profiled_kernels(lambda: segmented.dense_bin_perm(occ, bins)))
+        out[f"{label}_nonzero_device_ms"] = profiled_kernels(
+            lambda: torch.nonzero(occ))[0]
+    if len(build._SIGNATURES["srtpu_dense_bin_perm"]) < 7:
+        return out  # a K11 without routes
+    lib = build.lib()
+    for bins in (1 << 12, 1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 20):
+        occ = torch.from_numpy(rng.random(bins) < 0.3).to(dev)
+        want = segmented.dense_bin_perm_plain(occ, bins)
+        perm = torch.empty(bins, dtype=torch.int32, device=dev)
+        count = torch.empty((), dtype=torch.int32, device=dev)
+        scratch = torch.empty(2 * -(-bins // kernels.TILE_ROWS),
+                              dtype=torch.int32, device=dev)
+        for route, name in ((1, "one_block"), (2, "three_launches")):
+            def call(route=route):
+                build.check(lib.srtpu_dense_bin_perm(
+                    occ.data_ptr(), bins, perm.data_ptr(), count.data_ptr(),
+                    scratch.data_ptr(), route, kernels.stream_ptr(occ)),
+                    "dense_bin_perm")
+
+            call()
+            _same(f"k11 {name} {bins}", perm, want[0])
+            _same(f"k11 {name} {bins} count", count, want[1])
+            out[f"k11_{name}_{bins}_device_ms"] = profiled_kernels(call)[0]
+    return out
+
+
+def inverse_times(dev, range_perm) -> dict:
+    """K14's inverse at range_query's permutation and over random ones
+    (the L2 check and Z-order's shape), beside argsort; the window sweep
+    where the tree plans windows."""
+    import torch
+
+    from spark_rapids_tpu_torch import kernels
+    from spark_rapids_tpu_torch.kernels import build
+    from spark_rapids_tpu_torch.ops import windowops as W
+
+    out = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    perms = {"range": range_perm}
+    for n in (1 << 22, 1 << 24, 37_748_736):
+        perms[f"random_{n}"] = torch.randperm(n, generator=g,
+                                              device=dev).to(torch.int32)
+    for label, perm in perms.items():
+        _same(f"k14 inverse {label}", W.inverse_permutation(perm),
+              W.inverse_permutation_plain(perm))
+        ms = event_ms(lambda: W.inverse_permutation(perm))
+        out[f"k14_inverse_{label}_ms"] = ms
+        out[f"k14_inverse_{label}_ns_a_row"] = ms * 1e6 / perm.numel()
+        out[f"k14_inverse_{label}_argsort_ms"] = event_ms(
+            lambda: torch.argsort(perm))
+    if hasattr(W, "inverse_windows"):
+        lib = build.lib()
+        for label in ("random_16777216", "random_37748736"):
+            perm = perms[label]
+            n = perm.numel()
+            want = W.inverse_permutation_plain(perm)
+            inv = torch.empty_like(perm)
+            for mib in (8, 16, 20, 24, 28, 32, 40, 48):
+                windows = W.inverse_windows(n, mib << 18)
+
+                def passes(windows=windows):
+                    for lo, hi in windows:
+                        build.check(lib.srtpu_window_inverse(
+                            perm.data_ptr(), n, inv.data_ptr(), lo, hi,
+                            kernels.sm_count(perm),
+                            kernels.stream_ptr(perm)), "window_inverse")
+
+                passes()
+                _same(f"k14 inverse {label} {mib} MiB", inv, want)
+                out[f"k14_inverse_{label}_{mib}MiB_ms"] = event_ms(passes)
+    del perms
+    return out
 
 
 def kernel_times(cs) -> dict:
-    """K2 at q5's and q13's shapes, K15 at range_query's."""
+    """K2 at q5's and q13's shapes, K15 and K14's inverse at range_query's
+    and K11 at q5's."""
     import numpy as np
     import torch
 
@@ -141,7 +277,11 @@ def kernel_times(cs) -> dict:
         lambda: day.data.index_select(0, sw.perm))
     out["gather_valid_ms"] = event_ms(
         lambda: day.validity.index_select(0, sw.perm))
-    del batch, sw
+    range_perm = sw.perm
+    del batch, sw, store, day
+    out.update(inverse_times(dev, range_perm))
+    del range_perm
+    out.update(dense_times(dev))
     torch.cuda.empty_cache()
     return out
 
@@ -193,7 +333,8 @@ def query_times(cs, root: str, hot_runs: int) -> dict:
                 torch.cuda.synchronize()
                 cold = time.monotonic() - t0
                 launches = {k: kernels.launches[k]
-                            for k in ("probe_ranges", "range_bounds")}
+                            for k in ("probe_ranges", "range_bounds",
+                                      "dense_bin_perm", "window_inverse")}
                 hot = []
                 for _ in range(hot_runs):
                     t0 = time.monotonic()
@@ -235,7 +376,7 @@ def main() -> int:
     ap.add_argument("other", help="the tree to time this one against")
     ap.add_argument("--hot-runs", type=int, default=5)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="time K2 and K15 alone, no queries")
+                    help="time the kernels alone, no queries")
     ap.add_argument("--out", help="write every run's record to this file")
     ap.add_argument("--worker", nargs=2, metavar=("TREE", "DATA"),
                     help=argparse.SUPPRESS)
@@ -289,10 +430,13 @@ def main() -> int:
                 [get(r) for r in results if r["label"] == "this"])
 
     summary = {}
-    for key in ("k2_q5_ms", "k2_q5_device_ms", "k2_q13_ms", "k15_ms",
-                "k15_search_device_ms", "k15_values_device_ms",
-                "gather_key_ms", "gather_valid_ms"):
-        summary[key] = pair(lambda r, k=key: r[k])
+    skip = ("label", "tree", "device", "seconds", "build_s", "queries")
+    for key in results[0]:
+        if key not in skip:
+            summary[key] = pair(lambda r, k=key: r.get(k))
+    for key in results[1]:
+        if key not in summary and key not in skip:
+            summary[key] = pair(lambda r, k=key: r.get(k))
     for q in results[0]["queries"]:
         summary[f"{q} hot_median_s"] = pair(
             lambda r, q=q: r["queries"][q]["hot_median_s"])
