@@ -410,8 +410,40 @@ def traced(run, what: str):
 LOST_MIN_MS = 1.0
 
 
+def queued_ms(fn, what: str, iters: int = TIMING_ITERS):
+    """Mean milliseconds per call on the card's clock, after one warm-up:
+    CUDA events around `iters` calls queued behind a device sleep that
+    outlasts the host's queueing (checked: the start event has not run
+    when the host has queued the last call; else a sleep four times as
+    long, three tries), so the calls' kernels, copies and memsets run
+    back to back, with no host dispatch between them. None where no
+    sleep covered the queueing (a call that waits for the card), named
+    in PROFILER_MISSES."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 200_000_000  # about 0.1 s at the H100's 1.98 GHz
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    PROFILER_MISSES.append(f"{what} (host queueing outlasted the sleep)")
+    return None
+
+
 def device_ms(fn, what: str, iters: int = TIMING_ITERS,
-              floor_ms: float = 0.0, event_ms=None) -> float:
+              floor_ms: float = 0.0, event_ms=None,
+              queued: bool = False) -> float:
     """Mean milliseconds per call on the card, after one warm-up. A call
     of LOST_MIN_MS or more: its CUDA-event time. A shorter one: the summed
     durations of the kernels, copies and memsets the calls put on the
@@ -420,9 +452,20 @@ def device_ms(fn, what: str, iters: int = TIMING_ITERS,
     time where the trace holds no device events or sums to less than
     `floor_ms` (the byte bound of a kernel whose data far exceed the 50 MB
     L2), named in PROFILER_MISSES. `event_ms`: the CUDA-event time of
-    these calls where the caller has it."""
+    these calls where the caller has it. `queued`: for a call of any
+    length whose host side outlasts its device work, queued_ms instead
+    of a trace (traces under phase 2's host workers lose records even of
+    one call), held to `floor_ms` the same way."""
     if event_ms is None:
         event_ms = time_ms(fn, iters)
+    if queued:
+        ms = queued_ms(fn, what, iters)
+        if ms is None:
+            return event_ms
+        if ms < floor_ms:
+            PROFILER_MISSES.append(f"{what} (queued time under its bound)")
+            return event_ms
+        return ms
     if event_ms >= LOST_MIN_MS:
         return event_ms
 
@@ -455,17 +498,19 @@ def kernel_ms(fn, kernel: str, what: str, iters: int = TIMING_ITERS):
 
 def timed(name: str, kernel, plain, library,
           other_iters: int = TIMING_ITERS, floor_ms: float = 0.0,
-          library_floor_ms: float = 0.0) -> dict:
+          library_floor_ms: float = 0.0, queued: bool = False) -> dict:
     """device_ms of a kernel's wrapper, its plain version and the library
     call (None where no one PyTorch call computes the function; those two
-    over other_iters calls), and the wrapper's CUDA-event time."""
+    over other_iters calls), and the wrapper's CUDA-event time; `queued`:
+    the wrapper's and the library call's queued time at any length
+    (device_ms)."""
     event_ms = time_ms(kernel)
     return dict(ms=device_ms(kernel, name, floor_ms=floor_ms,
-                             event_ms=event_ms),
+                             event_ms=event_ms, queued=queued),
                 plain_ms=device_ms(plain, f"{name} plain", other_iters),
                 library_ms=None if library is None
                 else device_ms(library, f"{name} library", other_iters,
-                               floor_ms=library_floor_ms),
+                               floor_ms=library_floor_ms, queued=queued),
                 event_ms=event_ms)
 
 
@@ -4397,10 +4442,12 @@ def check_slice8_kernels(dev):
         dev)
     day = torch.from_numpy(rng.integers(0, 2406, n).astype(np.float64)).to(
         dev)
+    lengths = torch.bincount(gid, minlength=STAT_GROUPS)
     for k in (5, 8):
         vecs = ([price, day, price * day, price * price, day * day]
                 if k == 5 else [price ** (1 + j % 4) * (j + 1)
                                 for j in range(k)])
+        stacked = torch.stack(vecs, 1)
 
         def k4(vecs=vecs):
             r = S.seg_sum_count_multi(vecs, valid, gid, STAT_GROUPS)
@@ -4421,15 +4468,19 @@ def check_slice8_kernels(dev):
             replaces="spark_rapids_tpu/ops/segmented.py:392",
             max_abs_err=err, counter="seg_sum_count",
             **timed(f"seg_multi_sum k={k}", k4, k4_plain,
-                    lambda vecs=vecs: [S.seg_sum(v, valid, gid, STAT_GROUPS)
-                                       for v in vecs]),
+                    lambda stacked=stacked: torch.segment_reduce(
+                        stacked, "sum", lengths=lengths)),
             # valid for every row; gid and the k values for the valid rows;
             # k sums and a count out
             bound_ms=bound_ms(n + n * (4 + 8 * k) + STAT_GROUPS * 8 * (k + 1)),
             bound_by="bytes",
             shape=f"{k} float64 vectors of [{n}], {STAT_GROUPS} sorted groups",
-            library_call=f"{k} separate K4 launches")
-        del vecs, got, want
+            library_call="torch.segment_reduce(sum, lengths) over the "
+                         f"[{n}, {k}] stacked vectors")
+        lib = torch.segment_reduce(stacked, "sum", lengths=lengths)
+        _f64_close(f"seg_multi_sum k={k}: torch.segment_reduce",
+                   lib.t().contiguous(), torch.stack(got[1:]), REL_TOL)
+        del vecs, got, want, stacked, lib
     # K25 select: the sorted update of one part
     cap = n  # a 2^20-row batch is its own capacity bucket
     K = 128
@@ -7955,6 +8006,397 @@ def run_slice13(dev, root: str, oracles: dict, morton_job) -> dict:
     return out, time.monotonic() - t_phase
 
 
+#: K4's sorted shapes, as the paths launch them: the fused posexplode's
+#: sums (phase 14: SF10's 59,986,052 lines by (o_orderstatus, position),
+#: 21 groups; the l_quantity sum with the count) and orders_ingest's (phase
+#: 9: ORDERS' 15,000,000 rows by order year, 7 groups; the price sum with
+#: the count). Each launch sums over its batch's capacity, with nseg the
+#: capacity too: the groups are the first ids.
+K4_SORTED = {
+    # o_orderstatus' shares (F, O, P at SF10), each order's 1-7 lines
+    "explode": dict(rows=59_986_052, weights=[
+        s * (7 - p) / 28 for s in (0.4874, 0.4878, 0.0248)
+        for p in range(7)], dtype="int64"),
+    # the days of 1992-1998 dbgen's order dates fall on
+    "ingest": dict(rows=15_000_000, weights=[
+        d / 2406 for d in (366, 365, 365, 365, 366, 365, 214)],
+        dtype="float64"),
+}
+#: the exactly rounded sum's tolerance of K4's float64 sums at the
+#: explode shape (seg_sum_count.cu's header)
+K4_FSUM_TOL = 1e-12
+
+
+def k4_sorted_inputs(dev, which: str, seed: int = 16) -> dict:
+    """K4's inputs at one of K4_SORTED's shapes, drawn with numpy: the
+    group sizes in proportion to its weights (the last takes the
+    remainder), sorted ids, the live rows first in the capacity, the
+    values (int64 quantities 1-50, or float64 prices in whole cents) and,
+    at the explode shape, float64 values k * 2^-20 for integers k below
+    2^39, whose exact sum a group is an integer sum. Returns the device
+    tensors, the host values, the sizes and nseg."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import next_capacity
+
+    spec = K4_SORTED[which]
+    rows = spec["rows"]
+    cap = next_capacity(rows)
+    w = np.array(spec["weights"])
+    sizes = np.floor(w / w.sum() * rows).astype(np.int64)
+    sizes[-1] += rows - sizes.sum()
+    rng = np.random.default_rng(seed)
+    gid = np.zeros(cap, np.int32)
+    gid[:rows] = np.repeat(np.arange(sizes.size, dtype=np.int32), sizes)
+    gid[rows:] = sizes.size - 1  # dead rows keep the last id, as K10's
+    if spec["dtype"] == "int64":
+        vals = np.zeros(cap, np.int64)
+        vals[:rows] = rng.integers(1, 51, rows)
+    else:
+        vals = np.zeros(cap, np.float64)
+        vals[:rows] = rng.integers(90_000, 50_000_000, rows) / 100.0
+    out = dict(rows=rows, cap=cap, nseg=cap, sizes=sizes,
+               valid=torch.arange(cap, device=dev) < rows,
+               gid=torch.from_numpy(gid).to(dev), vals=torch.from_numpy(
+                   vals).to(dev))
+    if which == "explode":
+        ints = rng.integers(0, 1 << 39, rows)
+        dy = np.zeros(cap, np.float64)
+        dy[:rows] = np.ldexp(ints.astype(np.float64), -20)
+        out.update(dyadic=torch.from_numpy(dy).to(dev), dyadic_ints=ints)
+    return out
+
+
+def k4_exact_sums(ints, sizes) -> list:
+    """The exactly rounded float64 sum of each group of values
+    ints * 2^-20: the exact integer sum, rounded once (Python rounds an int
+    to the nearest float), as math.fsum gives it."""
+    import numpy as np
+
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    tot = np.add.reduceat(ints, starts)  # below 2^39 * 2^24: exact int64
+    return [math.ldexp(float(int(t)), -20) for t in tot]
+
+
+def check_k4_sorted(dev):
+    """Phase 2: K4's runs route at the paths' sorted shapes (K4_SORTED)
+    against its plain version, both it and the library call timed
+    queued behind a device sleep (queued_ms), beside torch.segment_reduce
+    over the same masked values with the lengths made beforehand (only
+    the call timed; int64 values go to it as float64, which it sums and
+    int64 it does not take); at the explode shape also a float64 launch held to the exactly
+    rounded sums (within K4_FSUM_TOL relative; math.fsum checks the
+    integer route on the smallest group) and to the plain version (within
+    REL_TOL). Returns {record name: record}."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.ops import segmented as S
+
+    out = {}
+    for which, q in (("explode", "posexplode sums"),
+                     ("ingest", "orders_ingest's year sums")):
+        d = k4_sorted_inputs(dev, which)
+        valid, gid, vals, nseg = d["valid"], d["gid"], d["vals"], d["nseg"]
+        rows, ngroups = d["rows"], d["sizes"].size
+
+        def k4():
+            return S.seg_sum_count_multi([vals], valid, gid, nseg)
+
+        def k4_plain():
+            return S.seg_sum_count_plain([vals], valid, gid, nseg)
+
+        got, want = k4(), k4_plain()
+        torch.cuda.synchronize()
+        exact(f"seg_sum_count sorted {which} count", got.count, want.count)
+        if vals.dtype == torch.int64:
+            exact(f"seg_sum_count sorted {which} sum", got.sums[0],
+                  want.sums[0])
+            err = 0.0
+        else:
+            err = _f64_close(f"seg_sum_count sorted {which} sum",
+                             got.sums[0], want.sums[0], REL_TOL)
+        masked = torch.where(valid, vals, 0).to(torch.float64)
+        lengths = torch.from_numpy(np.append(
+            d["sizes"], d["cap"] - rows)).to(dev)
+        lib = torch.segment_reduce(masked, "sum", lengths=lengths)
+        torch.cuda.synchronize()
+        _f64_close(f"seg_sum_count sorted {which}: torch.segment_reduce",
+                   lib[:ngroups], got.sums[0][:ngroups].to(torch.float64),
+                   REL_TOL)
+        extra = ""
+        if which == "explode":
+            dy = d["dyadic"]
+            g = S.seg_sum_count_multi([dy], valid, gid, nseg,
+                                      with_count=False).sums[0]
+            w = S.seg_sum_count_plain([dy], valid, gid, nseg,
+                                      with_count=False).sums[0]
+            torch.cuda.synchronize()
+            _f64_close("seg_sum_count sorted explode float64", g, w, REL_TOL)
+            ex = k4_exact_sums(d["dyadic_ints"], d["sizes"])
+            small = int(np.argmin(d["sizes"]))
+            lo = int(d["sizes"][:small].sum())
+            fs = math.fsum(np.ldexp(d["dyadic_ints"][
+                lo:lo + int(d["sizes"][small])].astype(np.float64), -20))
+            if fs != ex[small]:
+                fail(f"k4_exact_sums: {ex[small]} where math.fsum gives {fs}")
+            gk = g[:ngroups].cpu().tolist()
+            wk = w[:ngroups].cpu().tolist()
+            rel_k = max(abs(a - b) / abs(b) for a, b in zip(gk, ex))
+            rel_p = max(abs(a - b) / abs(b) for a, b in zip(wk, ex))
+            if not rel_k <= K4_FSUM_TOL:
+                fail(f"seg_sum_count sorted explode: float64 sums "
+                     f"{rel_k} relative from the exactly rounded sums")
+            extra = (f"float64 sums at this shape: {rel_k:.3e} relative "
+                     f"from the exactly rounded ones (the plain version "
+                     f"{rel_p:.3e})")
+            del dy, g, w
+        # valid for every row, gid and the value for the valid rows; the
+        # sums and the counts out, [nseg] each
+        bound = bound_ms(d["cap"] + rows * (4 + 8) + nseg * 8 * 2)
+        out[f"seg_sum_count sorted {which}"] = dict(
+            route="cuda",
+            source="spark_rapids_tpu_torch/kernels/csrc/seg_sum_count.cu",
+            replaces="spark_rapids_tpu/ops/segmented.py:371",
+            counter="seg_sum_count_runs", max_abs_err=err,
+            # device time: phase 2's host workers stretch these
+            # calls' host side past their device work (on the H100, 4.66
+            # and 2.42 ms of CUDA events against 0.63 and 0.17 ms of
+            # device time), and their traces lose records: the calls are
+            # timed queued behind a device sleep, held to the byte bound
+            **timed(f"seg_sum_count sorted {which}", k4, k4_plain,
+                    lambda: torch.segment_reduce(masked, "sum",
+                                                 lengths=lengths),
+                    floor_ms=bound, queued=True),
+            bound_ms=bound,
+            bound_by="bytes",
+            shape=f"{q}: {rows} valid rows of {d['cap']} in {ngroups} sorted "
+                  f"groups, 1 {vals.dtype} vector with the count, nseg "
+                  f"{nseg}",
+            library_call="torch.segment_reduce(sum, lengths)",
+            **(dict(extra=extra) if extra else {}))
+        del d, valid, gid, vals, masked, lengths, got, want, lib
+        torch.cuda.empty_cache()
+    return out
+
+
+def _k4_case(dev, rng, n: int, nseg: int, k: int, ids: str, dtype: str,
+             valid_share: float = 0.9, masked: bool = True):
+    """One K4 edge case's inputs: ids "runs" (sorted runs whose lengths
+    cross the thread, warp, step and block boundaries), "one" (every row
+    one id), "random" (unsorted) or "wild" (sorted, a tenth outside [0,
+    nseg)); values int64 near 2^62 (their sums wrap) or float64 with
+    +-inf and NaN."""
+    import numpy as np
+    import torch
+
+    if ids == "runs":
+        lens = rng.choice([1, 7, 8, 31, 32, 33, 255, 256, 257, 1023, 1024,
+                           1025, 2047, 2048, 2049, 40_000], n)
+        m = int(np.searchsorted(np.cumsum(lens), n)) + 1
+        gid = np.repeat(np.arange(m), lens[:m])[:n]
+        nseg = max(nseg, m)
+    elif ids == "one":
+        gid = np.full(n, nseg - 1)
+    elif ids == "random":
+        gid = rng.integers(0, nseg, n)
+    else:
+        gid = np.sort(rng.integers(-3, nseg + 3, n))
+    if dtype == "int64":
+        vals = [rng.integers(1 << 61, 1 << 62, n) for _ in range(k)]
+    else:
+        vals = []
+        for _ in range(k):
+            v = rng.random(n) * 100 + 0.5
+            pick = rng.random(n) < 0.001
+            v[pick] = rng.choice([np.inf, -np.inf, np.nan], int(pick.sum()))
+            vals.append(v)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    masks = [t(rng.random(n) < 0.8) if masked and j % 2 == 0 else None
+             for j in range(k)]
+    return ([t(v) for v in vals], t(rng.random(n) < valid_share),
+            t(gid.astype(np.int32)), masks, nseg)
+
+
+def check_k4_edges(dev) -> int:
+    """Phase 2: K4 at the edges its runs route must keep, against the
+    plain version (counts and int64 sums exact, float64 sums within
+    F64_ATOMIC_TOL relative with inf and NaN where the plain version has
+    them; positive values, so no sum cancels): runs across thread, warp,
+    step and block boundaries, one group over every row, nseg = 1, every
+    row invalid, ids out of range, unsorted ids on the sorted route and
+    the shared one, int64 sums that wrap, +-inf and NaN, k = 0, 1, 5 and
+    8 with masks. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.ops import segmented as S
+
+    rng = np.random.default_rng(160)
+    cases = 0
+    shapes = [(1, 1, "one", 0.9), (33, 1, "one", 0.9), (2049, 3, "runs", 0.9),
+              (300_001, 1, "one", 1.0), (300_001, 7, "runs", 0.9),
+              (300_001, 21, "wild", 0.9), (300_001, 64, "random", 0.9),
+              (70_000, 5, "runs", 0.0), (1_048_577, 35, "runs", 0.95)]
+    for n, nseg, ids, share in shapes:
+        for k in (0, 1, 5, 8):
+            for dtype in ("int64", "float64"):
+                if k == 0 and dtype == "float64":
+                    continue
+                vals, valid, gid, masks, m = _k4_case(dev, rng, n, nseg, k,
+                                                      ids, dtype, share)
+                routes = [True] + ([False] if ids == "random" else [])
+                for sorted_ids in routes:
+                    def run():
+                        return S.seg_sum_count_multi(
+                            vals, valid, gid, m, masks, value_counts=k > 0)
+
+                    if sorted_ids:
+                        got = run()
+                    else:
+                        with S.unsorted_gids():
+                            got = run()
+                    want = S.seg_sum_count_plain(vals, valid, gid, m, masks,
+                                                 value_counts=k > 0)
+                    what = (f"seg_sum_count edge n={n} nseg={m} {ids} "
+                            f"k={k} {dtype} sorted={sorted_ids}")
+                    exact(what + " count", got.count, want.count)
+                    for j in range(k):
+                        exact(f"{what} value count {j}", got.value_counts[j],
+                              want.value_counts[j])
+                        if dtype == "int64":
+                            exact(f"{what} sum {j}", got.sums[j],
+                                  want.sums[j])
+                        else:
+                            _f64_close(f"{what} sum {j}", got.sums[j],
+                                       want.sums[j], F64_ATOMIC_TOL)
+                    cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def _k16_window(dev, n: int, nparts: int, seed: int, identity: bool):
+    """A sorted window of n rows in nparts partitions (a tenth of the rows
+    dead at the end), ordered by day; identity: the rows already sorted,
+    so perm is the identity."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import ColumnBatch
+    from spark_rapids_tpu_torch.ops import windowops as W
+    from spark_rapids_tpu_torch.sqltypes import StructField, StructType
+    from spark_rapids_tpu_torch.sqltypes.datatypes import long
+
+    rng = np.random.default_rng(seed)
+    live = n - n // 10
+    part = rng.integers(0, nparts, n)
+    day = rng.integers(0, 400, n)
+    if identity:
+        order = np.lexsort((day[:live], part[:live]))
+        part[:live], day[:live] = part[:live][order], day[:live][order]
+    part[live:] = 0
+    day[live:] = 0
+    valid = torch.arange(n, device=dev) < live
+    schema = StructType([StructField("part", long), StructField("day", long)])
+    cols = [_col(long, torch.from_numpy(part).to(dev), valid.clone()),
+            _col(long, torch.from_numpy(day).to(dev), valid.clone())]
+    batch = ColumnBatch(schema, cols, live)
+    sw = W.sort_for_window(batch, [cols[0]], [(cols[1], True, True)])
+    if identity and not torch.equal(
+            sw.perm[:live], torch.arange(live, device=dev,
+                                         dtype=torch.int32)):
+        fail("_k16_window: the sorted rows did not keep their order")
+    return sw, cols[1]
+
+
+def check_k16_edges(dev) -> int:
+    """Phase 2: K16 against its plain version bit for bit at the edges its
+    staged windows and block table must keep: ROWS frames of 0, 1, 31, 32,
+    33, 1,023, 1,024, 1,025 and 3,000 rows (ending at the row, and
+    shifted off it), whole-partition, running and empty frames, RANGE
+    frames, NaN and -0.0, long stretches of null rows (all-null frames),
+    the identity perm and random ones, n not a multiple of 32; float64,
+    float32, int32 and bool values; with the count prefix (from which the
+    kernel reads "valid and live") and the caller's inv, with the prefix
+    and no inv, and with inv and no prefix (valid gathered through perm,
+    no validity out). Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import kernels
+    from spark_rapids_tpu_torch.ops import windowops as W
+
+    rng = np.random.default_rng(161)
+    cases = 0
+    specials = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf])
+    for n, nparts, identity in ((1, 1, False), (4_097, 2, True),
+                                (70_001, 3, False), (300_007, 5, True),
+                                (300_007, 40, False)):
+        sw, day = _k16_window(dev, n, nparts, 1600 + n, identity)
+        d = rng.random(n) * 200 - 100
+        pick = rng.random(n) < 0.2
+        d[pick] = rng.choice(specials, int(pick.sum()))
+        v = rng.random(n) < 0.9
+        # stretches of nulls longer than a block
+        for s in rng.integers(0, n, 3):
+            v[s:s + 2_500] = False
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        valid = t(v)
+        values = {"float64": t(d), "float32": t(d.astype(np.float32)),
+                  "int32": t(rng.integers(-9, 9, n).astype(np.int32)),
+                  "bool": t(rng.random(n) < 0.5)}
+        pcnt = W.window_prefix(None, valid, sw.live, sw.perm, torch.int64)
+        given, _ = W.range_bounds(sw, day.data, day.validity, sw.perm, -40,
+                                  None, True)
+        off = kernels.WIN_OFFSET
+        frames = [W.Frame(off, off, -(m - 1), 0)
+                  for m in (1, 31, 32, 33, 1023, 1024, 1025, 3000)]
+        frames += [W.Frame(off, off, -m, -m + 30) for m in (33, 1025, 2000)]
+        frames += [W.Frame(off, off, 1, 0),  # empty
+                   W.Frame(off, off, 500, 1600),
+                   W.Frame(kernels.WIN_SEG, kernels.WIN_SEG),
+                   W.Frame(kernels.WIN_SEG, off, 0, 0),
+                   W.Frame(off, kernels.WIN_SEG, 0, 0),
+                   W.Frame(kernels.WIN_GIVEN, kernels.WIN_PEER, start=given)]
+        inv = W.inverse_permutation(sw.perm)
+        for vname, x in values.items():
+            for fr in frames:
+                for is_max in (False, True):
+                    for p, i, how in ((pcnt, inv, "prefix and inv"),
+                                      (pcnt, None, "prefix"),
+                                      (None, inv, "inv")):
+                        want = W.frame_minmax_plain(x, valid, sw, fr, is_max,
+                                                    p, sw.perm)
+                        got = W.frame_minmax_eval(x, valid, sw, fr, is_max,
+                                                  p, sw.perm, i)
+                        what = (f"frame_minmax edge n={n} {vname} "
+                                f"{fr.start_kind}/{fr.end_kind} {fr.lower},"
+                                f"{fr.upper} max={is_max} with {how}")
+                        same_bits(what, got[0], want[0])
+                        if p is None:
+                            if got[1] is not None or want[1] is not None:
+                                fail(what + ": a validity without a prefix")
+                        else:
+                            exact(what + " validity", got[1], want[1])
+                        cases += 1
+                # sorted values, no perm, no validity
+                got = W.frame_minmax_eval(x[:n], valid, sw, frames[5], True)
+                want = W.frame_minmax_plain(x[:n], valid, sw, frames[5], True)
+                same_bits(f"frame_minmax edge n={n} {vname} sorted", got[0],
+                          want[0])
+                cases += 1
+        del sw, day, values, pcnt, given, inv
+    torch.cuda.synchronize()
+    return cases
+
+
 def host_q5_orders(root: str) -> dict:
     """Phases 3-8's host work: q5's fact and dimension tables and ORDERS
     with comments written under root, and the q5, dupjoin and slice 4-6
@@ -8280,15 +8722,15 @@ def main() -> int:
 
     # phase 2: each kernel against its plain version
     records = {}
-    for k, check in enumerate((
+    for check in (
             check_kernels, check_slice2_kernels, check_slice3_kernels,
             check_slice4_kernels, check_slice5_kernels,
             check_slice6_kernels, check_slice7_kernels,
             check_slice8_kernels, check_slice9_kernels,
             check_slice10_kernels, check_slice11_kernels,
-            check_slice12_kernels, check_slice13_kernels)):
+            check_slice12_kernels, check_slice13_kernels, check_k4_sorted):
         records.update(check(dev))
-        stamp(f"phase 2: slice {k + 1}'s kernels checked")
+        stamp(f"phase 2: {check.__name__} done")
     for kname, r in records.items():
         lib = r["library_ms"]
         print(f"{kname}: {r['shape']}: kernel_ms={r['ms']:.4f} "
@@ -8304,14 +8746,14 @@ def main() -> int:
               f"library_ms={r['library_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.6f}", flush=True)
     cases = 0
-    for k, check in enumerate((
+    for check in (
             check_edge_shapes, check_slice2_edges, check_slice3_edges,
             check_slice4_edges, check_slice5_edges, check_slice6_edges,
             check_slice7_edges, check_slice8_edges, check_slice9_edges,
             check_slice10_edges, check_slice11_edges, check_slice12_edges,
-            check_slice13_edges)):
+            check_slice13_edges, check_k4_edges, check_k16_edges):
         cases += check(dev)
-        stamp(f"phase 2: slice {k + 1}'s edge shapes checked")
+        stamp(f"phase 2: {check.__name__} done")
     print(f"edge shapes: {cases} cases exact against the plain versions",
           flush=True)
 
@@ -8625,7 +9067,9 @@ def main() -> int:
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
              bound_by=r["bound_by"], library_ms=r["library_ms"])
         for k, r in records.items()]
-    print("device times by CUDA events (the profiler traced nothing): "
+    print("device times by CUDA events (the profiler traced nothing, a "
+          "trace or queued time fell under its bound, or no sleep covered "
+          "the queueing): "
           + json.dumps(PROFILER_MISSES), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)

@@ -130,6 +130,8 @@ launches: Dict[str, int] = {
     "probe_ranges": 0,
     "expand_gather_maps": 0,
     "seg_sum_count": 0,
+    # of them, launches on K4's runs route (sorted ids)
+    "seg_sum_count_runs": 0,
     "bloom_build": 0,
     "bloom_might_contain": 0,
     "murmur3": 0,

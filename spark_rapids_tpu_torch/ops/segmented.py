@@ -56,9 +56,10 @@ class GroupedBatch(NamedTuple):
 
 
 # The binned (sort-free) grouping path produces gids in row order, not
-# sorted. K4 reads this to choose its strategy: unsorted ids privatise
-# bins per block in shared memory; sorted ids hit few bins per block and
-# add straight into device memory. A ContextVar, as in the reference.
+# sorted. K4 reads this to choose its route: unsorted ids privatise bins
+# per block in shared memory; sorted ids (and bins too many for shared
+# memory) fold runs of equal ids in registers and add each run's totals
+# once a block. A ContextVar, as in the reference.
 _SORTED_GIDS = contextvars.ContextVar("srtpu_torch_sorted_gids",
                                       default=True)
 
@@ -139,6 +140,17 @@ def seg_sum_count_multi(values: Sequence[torch.Tensor], valid: torch.Tensor,
                                  with_count, value_counts)
 
 
+def seg_sum_route(k: int, num_segments: int, sorted_ids: bool,
+                  smem_optin: int) -> str:
+    """K4's route (csrc/seg_sum_count.cu launch): "shared" (private bins
+    in shared memory) for unsorted ids whose k sums, k value counts and
+    row count a bin, 8 bytes each, fit the `smem_optin` bytes a block may
+    take; else "runs" (runs of equal ids folded in registers)."""
+    if sorted_ids or num_segments * (16 * k + 8) > smem_optin:
+        return "runs"
+    return "shared"
+
+
 def _seg_sum_count_launch(values, valid, gid, num_segments, masks,
                           with_count, value_counts) -> SegSums:
     """One K4 launch over at most K4_MAX_VECTORS value vectors."""
@@ -169,13 +181,16 @@ def _seg_sum_count_launch(values, valid, gid, num_segments, masks,
         *[v.data_ptr() for v in values])
     mptrs = (ctypes.c_void_p * K4_MAX_VECTORS)(
         *[None if m is None else m.data_ptr() for m in masks])
+    runs = seg_sum_route(k, num_segments, _SORTED_GIDS.get(),
+                         kernels.smem_optin(valid)) == "runs"
     _build.check(_build.lib().srtpu_seg_sum_count(
         int(dtype == torch.float64), k, vptrs, mptrs, valid.data_ptr(),
         gid.data_ptr(), n, num_segments, _ptr(sums), _ptr(vcounts),
-        _ptr(count), int(not _SORTED_GIDS.get()), kernels.sm_count(valid),
-        kernels.smem_optin(valid), kernels.stream_ptr(valid)),
-        "seg_sum_count")
+        _ptr(count), int(not runs), kernels.sm_count(valid),
+        kernels.stream_ptr(valid)), "seg_sum_count")
     kernels.launches["seg_sum_count"] += 1
+    if runs:
+        kernels.launches["seg_sum_count_runs"] += 1
     sums_l = [] if sums is None else list(sums.unbind(0))
     vcounts_l = [] if vcounts is None else list(vcounts.unbind(0))
     return SegSums(sums_l, vcounts_l if value_counts else None, count)

@@ -21,8 +21,9 @@ frame sums, counts and averages) and writes each at its input row:
 input row i is evaluated from sorted row inv[i] (the reference's
 inverse-permutation scatter followed by a take). K15 (`range_bounds`)
 finds RANGE frame bounds, K16 (`frame_minmax_eval`) answers min/max
-frames from a two-level range structure instead of the reference's
-full sparse table, and K17 (`frame_pick`) gives first/last and lead/lag
+frames in sorted order from keys staged in shared memory and a sparse
+table over 1,024-row blocks instead of the reference's full sparse
+table, and K17 (`frame_pick`) gives first/last and lead/lag
 their source rows, which K8 gathers. `frame_count`, `frame_sum`,
 `frame_minmax`, `frame_first_last`, `lead_lag`, `range_frame_bounds` and
 the rank functions keep the reference's sorted-domain shapes on top of
@@ -799,6 +800,36 @@ def frame_minmax_plain(vals: torch.Tensor, valid: Optional[torch.Tensor],
     return _scatter_back(perm, data, (cnt > 0) & ~empty)
 
 
+class MinmaxPlan(NamedTuple):
+    """K16's scratch over n sorted rows (csrc/frame_minmax.cu): the keys,
+    one extremum a 32-row subtile, a sparse table of `levels` levels over
+    the 1,024-row blocks and, when the results are gathered through inv,
+    a 16-byte pair a row; `words` int64 words in all."""
+
+    subtiles: int
+    blocks: int
+    levels: int
+    words: int
+
+
+#: rows of K16's blocks (kMmBlockRows in csrc/frame_minmax.cu)
+MINMAX_BLOCK_ROWS = 1024
+
+
+def minmax_plan(n: int, pairs: bool) -> MinmaxPlan:
+    """K16's scratch layout over n >= 1 rows (mm_levels and the offsets
+    of srtpu_frame_minmax): keys [n], subtile extrema [ceil(n / 32)],
+    levels = the bit length of the block count, each [blocks], then the
+    pairs [2n] from an even word."""
+    subtiles = -(-n // 32)
+    blocks = -(-n // MINMAX_BLOCK_ROWS)
+    levels = blocks.bit_length()
+    words = n + subtiles + levels * blocks
+    if pairs:
+        words = (words + 1) // 2 * 2 + 2 * n
+    return MinmaxPlan(subtiles, blocks, levels, words)
+
+
 def frame_minmax_eval(vals: torch.Tensor, valid: Optional[torch.Tensor],
                       sw: SortedWindow, fr: Frame, is_max: bool,
                       pcnt: Optional[torch.Tensor] = None,
@@ -810,8 +841,10 @@ def frame_minmax_eval(vals: torch.Tensor, valid: Optional[torch.Tensor],
     identity for an empty frame and its float rules; with `pcnt` (K14's
     count prefix of the valid live rows) also the validity, the frame's
     count > 0. Values are read through perm and results written at input
-    rows (`inv`, perm's inverse, when the caller has it); without perm
-    both are in sorted order."""
+    rows (through `inv`, perm's inverse, computed here when the caller
+    has none); without perm both are in sorted order. With perm and
+    pcnt the kernel reads "valid and live" from pcnt instead of gathering
+    valid through perm."""
     if sw.pos.device.type == "cpu":
         return frame_minmax_plain(vals, valid, sw, fr, is_max, pcnt, perm)
     dev = sw.pos.device
@@ -830,16 +863,14 @@ def frame_minmax_eval(vals: torch.Tensor, valid: Optional[torch.Tensor],
         kernels.require(perm, "perm", torch.int32, dev)
         if inv is None:
             inv = inverse_permutation(perm)
+        kernels.require(inv, "inv", torch.int32, dev)
     elif vals.shape[0] < n:
         raise ValueError(f"{vals.shape[0]} values for {n} rows")
-    if inv is not None:
-        kernels.require(inv, "inv", torch.int32, dev)
     if pcnt is not None:
         kernels.require(pcnt, "pcnt", torch.int64, dev)
         if pcnt.shape[0] != n + 1:
             raise ValueError(f"prefix of {pcnt.shape[0]} for {n} rows")
-    tiles = -(-n // 32)
-    scratch = torch.empty(3 * n + tiles.bit_length() * tiles,
+    scratch = torch.empty(minmax_plan(n, perm is not None).words,
                           dtype=torch.int64, device=dev)
     out = torch.empty(n, dtype=vals.dtype, device=dev)
     out_valid = (None if pcnt is None

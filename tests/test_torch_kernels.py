@@ -1214,3 +1214,113 @@ def test_plain_versions_reach_no_kernel_wrapper(name, monkeypatch):
             if callable(val) and val in wrappers:
                 monkeypatch.setattr(mod, attr, raiser(wrappers[val]))
     _plain_case(name, pb)
+
+
+# ------------------------------- K4's runs route and K16's staged blocks
+
+from spark_rapids_tpu.ops import windowops as jax_windowops  # noqa: E402
+
+
+def _sorted_groups(rng, n: int, sizes) -> np.ndarray:
+    """Sorted ids: group g over sizes[g] rows, the rest dead at the end
+    (id of the last group)."""
+    gid = np.full(n, len(sizes) - 1, np.int32)
+    gid[:sum(sizes)] = np.repeat(np.arange(len(sizes), dtype=np.int32),
+                                 sizes)
+    return gid
+
+
+@pytest.mark.parametrize("case", ["nseg_1", "groups_7", "int64_wrap"])
+def test_k4_plain_few_sorted_groups_match_reference(case):
+    """K4's plain version over sorted ids in few groups (the shapes its
+    runs route now folds in registers) against the reference's
+    segmented sums: one segment, 7 year-like groups, and int64 sums that
+    wrap."""
+    rng = np.random.default_rng(160)
+    n = 3000
+    if case == "nseg_1":
+        nseg, gid = 1, np.zeros(n, np.int32)
+    else:
+        nseg = 4096 if case == "groups_7" else 16
+        gid = _sorted_groups(rng, n, [300, 500, 400, 450, 350, 500, 200])
+    valid = np.arange(n) < (n if case == "nseg_1" else 2700)
+    valid &= rng.random(n) < 0.95
+    if case == "int64_wrap":
+        vals = rng.integers(1 << 61, 1 << 62, n)
+    else:
+        vals = rng.integers(1, 51, n)
+    got = port_segmented.seg_sum_count_multi([t(vals)], t(valid), t(gid),
+                                             nseg)
+    jargs = (jnp.asarray(vals), jnp.asarray(valid), jnp.asarray(gid), nseg)
+    js, jc = jax_segmented.seg_sum_count(*jargs)
+    same(got.sums[0], js, "sum")
+    same(got.count, jc, "count")
+    if case == "int64_wrap":
+        exact = [sum(int(v) for v, g, ok in zip(vals, gid, valid)
+                     if ok and g == k) for k in range(7)]
+        assert any(e >= 1 << 63 for e in exact)  # the sums do wrap
+        wrapped = [(e + (1 << 63)) % (1 << 64) - (1 << 63) for e in exact]
+        assert got.sums[0][:7].tolist() == wrapped
+
+
+@pytest.mark.parametrize("frame", [(-1100, 0), (-300, 700), (None, 0)])
+def test_k16_plain_frame_across_a_block_matches_reference(frame):
+    """K16's plain version over ROWS frames that cross a 1,024-row block
+    of its table (3,000 rows in one partition) against the reference's
+    frame_minmax."""
+    rng = np.random.default_rng(161)
+    n = 3000
+    d = rng.random(n) * 200 - 100
+    d[rng.random(n) < 0.05] = np.nan
+    table = pa.table({
+        "p": pa.array(np.zeros(n, np.int64)),
+        "o": pa.array(rng.integers(0, 400, n)),
+        "d": pa.array(d, mask=rng.random(n) < 0.1)})
+    jb, pb = both_batches(table, dead=40)
+    jsw = jax_windowops.sort_for_window(jb, [jb.columns[0]],
+                                        [(jb.columns[1], True, True)])
+    psw = port_windowops.sort_for_window(pb, [pb.columns[0]],
+                                         [(pb.columns[1], True, True)])
+    jse = jax_windowops.rows_frame_bounds(jsw, *frame)
+    pse = port_windowops.rows_frame_bounds(psw, *frame)
+    jc, pc = jb.columns[2].gather(jsw.perm), pb.columns[2].gather(psw.perm)
+    for maximum in (False, True):
+        want = np.asarray(jax_windowops.frame_minmax(
+            jc.data, jc.validity, jsw, *jse, maximum))
+        got = port_windowops.frame_minmax(pc.data, pc.validity, psw, *pse,
+                                          maximum).numpy()
+        np.testing.assert_array_equal(got.view(np.int64),
+                                      want.view(np.int64))
+
+
+@pytest.mark.parametrize("k,nseg,sorted_ids,route", [
+    (1, 21, True, "runs"),           # sorted ids: always the runs
+    (0, 1 << 26, True, "runs"),
+    (2, 1024, False, "shared"),      # q5's binned partial
+    (8, 1709, False, "shared"),      # k = 8: 136 bytes a bin, 232,424
+    (8, 1710, False, "runs"),        # one bin more: past 232,448 bytes
+    (0, 29_056, False, "shared"),    # 8 bytes a bin
+    (0, 29_057, False, "runs"),
+])
+def test_k4_route_choice(k, nseg, sorted_ids, route):
+    """K4's route: shared-memory bins only for unsorted ids whose bins fit
+    the H100's 232,448 bytes a block may opt into."""
+    assert port_segmented.seg_sum_route(k, nseg, sorted_ids,
+                                        232_448) == route
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 1023, 1024, 1025, 4097,
+                               37_748_736])
+def test_k16_minmax_plan(n):
+    """K16's scratch: the keys, a subtile extremum for each 32 rows, a
+    table level for each bit of the 1,024-row block count, each level one
+    entry a block, and the 16-byte pairs from an even word."""
+    bare = port_windowops.minmax_plan(n, False)
+    full = port_windowops.minmax_plan(n, True)
+    blocks = -(-n // 1024)
+    assert bare.subtiles == -(-n // 32) and bare.blocks == blocks
+    assert 1 << (bare.levels - 1) <= blocks < 1 << bare.levels
+    assert bare.words == n + bare.subtiles + bare.levels * blocks
+    assert full[:3] == bare[:3]
+    start = full.words - 2 * n
+    assert start % 2 == 0 and bare.words <= start <= bare.words + 1
