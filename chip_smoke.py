@@ -1779,7 +1779,9 @@ def check_slice4_kernels(dev):
             W.WinRequest(kernels.WIN_RANK),
             W.WinRequest(kernels.WIN_DENSE_RANK),
             W.WinRequest(kernels.WIN_SUM_F64, frame, p, pcnt)]
-    got = W.window_eval(sw, reqs, sw.perm)
+    # the path hands window_eval the window's inverse: timed so
+    inv = W.inverse_permutation(sw.perm)
+    got = W.window_eval(sw, reqs, sw.perm, inv)
     want = W.window_eval_plain(sw, reqs, sw.perm)
     torch.cuda.synchronize()
     err, rel = 0, 0.0
@@ -1795,15 +1797,15 @@ def check_slice4_kernels(dev):
         source="spark_rapids_tpu_torch/kernels/csrc/window_frames.cu",
         replaces="spark_rapids_tpu/ops/windowops.py:397",
         max_abs_err=err,
-        **timed("window_eval", lambda: W.window_eval(sw, reqs, sw.perm),
+        **timed("window_eval", lambda: W.window_eval(sw, reqs, sw.perm, inv),
                 lambda: W.window_eval_plain(sw, reqs, sw.perm), None),
-        # perm, seg_start, peer_start, peer_end, pid and both prefixes a
+        # inv, seg_start, peer_start, peer_end, pid and both prefixes a
         # row; three int32 and one float64 column with validity out
         bound_ms=bound_ms(cap * (5 * 4 + 2 * 8) + cap * (3 * 5 + 9)),
         bound_by="bytes", rel_err=rel,
         shape=f"{cap} sorted rows, {nparts} partitions, {npeers} peer "
               "runs -> rn, rk, drk, run_amount")
-    del batch, sw, got, want, p, pcnt, live_pos, gid
+    del batch, sw, got, want, p, pcnt, live_pos, gid, inv
     torch.cuda.empty_cache()
 
     # K13: two sorted 2^22-row (store, qty) runs, as the merge tree meets
@@ -2609,7 +2611,7 @@ def check_slice6_kernels(dev):
     out = {}
 
     def record(name, csrc, replaces, kernel, plain, library, nbytes,
-               shape, counter=None):
+               shape, counter=None, queued=False):
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -2617,7 +2619,8 @@ def check_slice6_kernels(dev):
         del got, want
         rec = dict(route="cuda", source=src + csrc, replaces=replaces,
                    max_abs_err=err,
-                   **timed(name, kernel, plain, library, PLAIN_ITERS),
+                   **timed(name, kernel, plain, library, PLAIN_ITERS,
+                           queued=queued),
                    bound_ms=bound_ms(nbytes), bound_by="bytes", shape=shape)
         if counter:
             rec["counter"] = counter
@@ -2720,7 +2723,7 @@ def check_slice6_kernels(dev):
            lambda: torch.gather(data, 1, torch.argsort(
                (~keep).to(torch.uint8), dim=1, stable=True)),
            held + n * (4 + 16 + 4), f"region [{n}, 16], substring(8, 2)",
-           counter="str_rewrite")
+           counter="str_rewrite", queued=True)
     del keep
     up, _ = S._rewrite(data, lens, S.Rewrite(K.REWRITE_MAP, S._UPPER),
                        new_lengths=False)
@@ -8397,6 +8400,178 @@ def check_k16_edges(dev) -> int:
     return cases
 
 
+#: K20's edge widths: both sides of a 16-byte word, the path's 16 and 128,
+#: past 512, one too wide for Reverse's two 32-row tiles and one too wide
+#: for any tile (the row route)
+K20_EDGE_WIDTHS = (1, 8, 12, 16, 24, 64, 128, 512, 520, 1_000, 2_000)
+
+
+def _k20_edge_rows(rng, n: int, mb: int):
+    """_edge_rows' rows, and where the width passes the row count, every
+    seventh row filled to within two bytes of the width; row 3 of length
+    -4, row 4 of length mb + 9 (full of bytes), row 5 only spaces and row
+    6 only 'a's (both in the edge trim set)."""
+    import numpy as np
+
+    d, ln, v = _edge_rows(rng, n, mb)
+    for i in range(0, n, 7):
+        want = max(0, mb - i % 3)
+        if want <= ln[i]:
+            continue
+        raw = b""
+        while len(raw) < want:
+            raw += _EDGE_PIECES[rng.integers(0, len(_EDGE_PIECES))]
+        d[i, :want] = list(raw[:want])
+        ln[i] = want
+    if n > 6:
+        d[3], ln[3] = 0, -4
+        d[4], ln[4] = rng.integers(1, 256, mb), mb + 9
+        d[5], ln[5] = ord(" "), mb
+        d[6], ln[6] = 0, min(mb, 3)
+        d[6, :min(mb, 3)] = ord("a")
+    return d, ln, v
+
+
+def check_k20_edges(dev) -> int:
+    """Phase 2: K20 against its plain versions bit for bit, every kind
+    (upper, lower, translate with deletions, two ranges, reverse, InitCap,
+    the four trims, 30 substrings, length; the case maps, reverse and
+    InitCap with and without new lengths) at K20_EDGE_WIDTHS, with 1 row,
+    a tile plus 37 rows and three tiles plus 37 (n not a multiple of the
+    tile), the data as a view whose tiles start 8 bytes past a 16-byte
+    boundary where the width allows it, rows only of trim bytes, and
+    lengths below 0 and above the width. Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.expr import strings as S
+
+    rng = np.random.default_rng(170)
+    cases = 0
+
+    def check(name, kernel, plain):
+        nonlocal cases
+        _exact_all(name, kernel(), plain())
+        cases += 1
+
+    space_a = np.zeros(256, dtype=np.int16)
+    space_a[[ord(" "), ord("a")]] = -1
+    translate = np.arange(256, dtype=np.int16)
+    translate[ord("a")], translate[ord("b")], translate[0xA9] = (
+        ord("B"), -1, -1)
+    for mb in K20_EDGE_WIDTHS:
+        tile = max(S._rewrite_plan(K.REWRITE_MAP, mb, 0, 0).tile_rows, 1)
+        # rows a view skips so its tiles start 8 bytes past a 16-byte
+        # boundary (the wrapper copies a view that is not 8-byte aligned)
+        skip = next((k for k in range(1, 17) if (k * mb) % 16 == 8), 0)
+        for n in (1, tile + 37, 3 * tile + 37):
+            d, ln, _ = _k20_edge_rows(rng, n, mb)
+            whole = torch.from_numpy(np.concatenate(
+                [np.zeros((skip, mb), np.uint8), d])).to(dev)
+            lens = torch.from_numpy(ln).to(dev)
+            views = [("aligned", whole[skip:].clone())]
+            if skip:
+                views.append(("offset", whole[skip:]))
+            for how, data in views:
+                tag = f"k20 mb={mb} n={n} {how}"
+                lo, hi = S._substring_index_bounds(data, lens, b"a", -2)
+                rules = [S.Rewrite(K.REWRITE_MAP, S._UPPER),
+                         S.Rewrite(K.REWRITE_MAP, S._LOWER),
+                         S.Rewrite(K.REWRITE_MAP, translate),
+                         S.Rewrite(K.REWRITE_RANGE, lo=lo, hi=hi),
+                         S.Rewrite(K.REWRITE_RANGE, lo=lo - 3, hi=hi + 100),
+                         S.Rewrite(K.REWRITE_REVERSE),
+                         S.Rewrite(K.REWRITE_INITCAP)]
+                rules += [S.Rewrite(K.REWRITE_TRIM, space_a, a, b)
+                          for a, b in ((1, 1), (1, 0), (0, 1), (0, 0))]
+                rules += [S.Rewrite(K.REWRITE_CHARS, a=p, b=q)
+                          for p in (1, 2, 0, -1, -3, -mb - 5)
+                          for q in (1, 3, 0, -1, 1 << 30)]
+                for rw in rules:
+                    check(f"{tag} rewrite {rw.kind} {rw.a} {rw.b}",
+                          lambda: S._rewrite(data, lens, rw),
+                          lambda: S._rewrite_plain(data, lens, rw))
+                for rw in rules[:2] + rules[5:7]:
+                    check(f"{tag} rewrite {rw.kind} kept lengths",
+                          lambda: S._rewrite(data, lens, rw, False)[0],
+                          lambda: S._rewrite_plain(data, lens, rw)[0])
+                check(f"{tag} length", lambda: S._char_count(data, lens),
+                      lambda: S._char_count_plain(data, lens))
+            del whole, lens, views
+    torch.cuda.synchronize()
+    return cases
+
+
+def check_k14_edges(dev) -> int:
+    """Phase 2: K14's evaluation against its plain version bit for bit:
+    request sets of 1-8 outputs of mixed kinds (sets whose records pass 32
+    bytes, 9-20 outputs over several launches), each in sorted order (no
+    perm), through perm with the caller's inv and through perm alone (the
+    wrapper's own inverse), at 1 row, 255, 257 and 70,001 rows (n not a
+    multiple of the 256-row block), with one-row partitions beside larger
+    ones and ntile(k) for k above the partition length. Returns the number
+    of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.ops import windowops as W
+
+    rng = np.random.default_rng(171)
+    cases = 0
+    for cap, live in ((1, 1), (255, 255), (257, 230), (70_001, 64_000)):
+        batch = _fact_batch(dev, cap, live, 1700 + cap)
+        store, day, amount, qty = batch.columns
+        # the first third of the rows in one-row partitions
+        idx = torch.arange(cap, device=dev)
+        store.data.copy_(torch.where(idx < cap // 3, idx + 100,
+                                     store.data % 9))
+        day.data.copy_(day.data % 6)
+        sw = W.sort_for_window(batch, [store], [(day, True, True)])
+        inv = W.inverse_permutation(sw.perm)
+        pf = W.window_prefix(amount.data, amount.validity, sw.live, sw.perm,
+                             torch.float64, sw.seg_start)
+        pi = W.window_prefix(qty.data, amount.validity, sw.live, sw.perm,
+                             torch.int64)
+        pc = W.window_prefix(None, amount.validity, sw.live, sw.perm,
+                             torch.int64)
+        frames = [W.frame_of(None, True),
+                  W.Frame(K.WIN_OFFSET, K.WIN_OFFSET, -2, 1),
+                  W.Frame(K.WIN_SEG, K.WIN_OFFSET, 0, 0),
+                  W.Frame(K.WIN_GIVEN, K.WIN_GIVEN,
+                          start=torch.maximum(sw.pos - 3, sw.seg_start),
+                          end=torch.minimum(sw.pos + 2, sw.seg_end))]
+        pool = [W.WinRequest(k) for k in (
+            K.WIN_ROW_NUMBER, K.WIN_RANK, K.WIN_DENSE_RANK,
+            K.WIN_PERCENT_RANK, K.WIN_CUME_DIST)]
+        pool += [W.WinRequest(K.WIN_NTILE, buckets=b) for b in (1, 4, 7, 5000)]
+        for fr in frames:
+            pool += [W.WinRequest(K.WIN_SUM_F64, fr, pf, pc),
+                     W.WinRequest(K.WIN_SUM_I64, fr, pi, pc),
+                     W.WinRequest(K.WIN_COUNT, fr, pcnt=pc),
+                     W.WinRequest(K.WIN_AVG, fr, pf, pc)]
+        sets = [pool[:3] + [pool[9]], pool[3:6], pool[9:17], [pool[0]],
+                [pool[12]], [pool[9]], pool[:8], pool]
+        sets += [[pool[i] for i in rng.choice(len(pool), int(rng.integers(
+            1, 9)), replace=False)] for _ in range(10)]
+        for reqs in sets:
+            for perm, given, how in ((None, None, "sorted"),
+                                     (sw.perm, inv, "inv given"),
+                                     (sw.perm, None, "perm alone")):
+                got = W.window_eval(sw, reqs, perm, given)
+                want = W.window_eval_plain(sw, reqs, perm)
+                for k, ((gd, gv), (wd, wv)) in enumerate(zip(got, want)):
+                    what = (f"window_eval edge n={cap} {how} {len(reqs)} "
+                            f"outputs, out {k} kind {reqs[k].kind}")
+                    same_bits(what, gd, wd)
+                    exact(what + " validity", gv, wv)
+                cases += 1
+        del batch, sw, inv, pf, pi, pc, frames, pool, sets
+    torch.cuda.synchronize()
+    return cases
+
+
 def host_q5_orders(root: str) -> dict:
     """Phases 3-8's host work: q5's fact and dimension tables and ORDERS
     with comments written under root, and the q5, dupjoin and slice 4-6
@@ -8751,9 +8926,11 @@ def main() -> int:
             check_slice4_edges, check_slice5_edges, check_slice6_edges,
             check_slice7_edges, check_slice8_edges, check_slice9_edges,
             check_slice10_edges, check_slice11_edges, check_slice12_edges,
-            check_slice13_edges, check_k4_edges, check_k16_edges):
-        cases += check(dev)
-        stamp(f"phase 2: {check.__name__} done")
+            check_slice13_edges, check_k4_edges, check_k16_edges,
+            check_k20_edges, check_k14_edges):
+        got = check(dev)
+        cases += got
+        stamp(f"phase 2: {check.__name__} done ({got} cases)")
     print(f"edge shapes: {cases} cases exact against the plain versions",
           flush=True)
 

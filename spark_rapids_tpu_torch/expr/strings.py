@@ -346,6 +346,67 @@ def _rewrite_plain(data: torch.Tensor, lengths: torch.Tensor, rw: Rewrite
     raise ValueError(f"rewrite kind {k}")
 
 
+#: K20's tile route (csrc/str_rewrite.cu): shared memory a block takes at
+#: most, the tile sizes it may take (rows, most first; 128 threads a block,
+#: fewer below 128 rows), and the bytes a tile of more than 128 rows holds
+#: at most
+REWRITE_TILE_SMEM = 48 * 1024
+REWRITE_TILE_ROWS = (1024, 512, 256, 128, 64, 32)
+REWRITE_TILE_BYTES = 8192
+
+
+class RewritePlan(NamedTuple):
+    """K20's launch plan: `tile_rows` rows a block (0: the row route over
+    device memory), a thread every 128 rows; each row `pitch` bytes of
+    shared memory (an odd number of 4-byte words, so a warp's threads
+    reading word k of their rows meet 32 banks); `vec`-byte loads and
+    stores; `smem` bytes of shared memory a block."""
+
+    tile_rows: int
+    pitch: int
+    vec: int
+    smem: int
+
+
+def _rewrite_plan(kind: int, mb: int, *addresses: int) -> RewritePlan:
+    """The tile a K20 block takes for rows of width mb whose data and
+    output start at `addresses`: the widest word (16 bytes down to 1) that
+    divides the width and aligns both starts, so a word holds one row's
+    bytes and every tile starts on a word; the most rows, up to 128 or
+    REWRITE_TILE_BYTES (a narrow row's thread takes several), whose tile
+    (two for Reverse, which cannot rewrite in place) fits
+    REWRITE_TILE_SMEM; the row route where not even 32 rows fit."""
+    vec = 16
+    while vec > 1 and (mb % vec or any(a % vec for a in addresses)):
+        vec //= 2
+    words = -(-mb // 4)
+    pitch = 4 * (words + 1 - words % 2)
+    tiles = 2 if kind == kernels.REWRITE_REVERSE else 1
+    for rows in REWRITE_TILE_ROWS:
+        smem = 768 + 4 * rows + tiles * rows * pitch + 16
+        if smem <= REWRITE_TILE_SMEM and (
+                rows <= 128 or rows * mb <= REWRITE_TILE_BYTES):
+            return RewritePlan(rows, pitch, vec, smem)
+    return RewritePlan(0, 0, 0, 0)
+
+
+def _launch_rewrite(kind: int, data: torch.Tensor, lengths: torch.Tensor,
+                    table, a: int, b: int, lo, hi, out, out_len) -> None:
+    n, mb = int(data.shape[0]), int(data.shape[1])
+    plan = _rewrite_plan(kind, mb, data.data_ptr(),
+                         0 if out is None else out.data_ptr())
+    _build.check(_build.lib().srtpu_str_rewrite(
+        kind, data.data_ptr(), lengths.data_ptr(), n, mb,
+        None if table is None else table.data_ptr(), int(a), int(b),
+        None if lo is None else lo.data_ptr(),
+        None if hi is None else hi.data_ptr(),
+        None if out is None else out.data_ptr(),
+        None if out_len is None else out_len.data_ptr(), plan.tile_rows,
+        plan.pitch, plan.vec, kernels.sm_count(data),
+        kernels.stream_ptr(data)), "str_rewrite")
+    kernels.launches["str_rewrite"] += 1
+
+
 def _rewrite(data: torch.Tensor, lengths: torch.Tensor, rw: Rewrite,
              new_lengths: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K20: (data [n, mb] uint8, lengths) rewritten by the rule,
@@ -366,14 +427,8 @@ def _rewrite(data: torch.Tensor, lengths: torch.Tensor, rw: Rewrite,
     if n:
         table = None if rw.table is None else _device_bytes(
             rw.table.astype(np.int16).tobytes(), str(dev), torch.int16)
-        _build.check(_build.lib().srtpu_str_rewrite(
-            rw.kind, data.data_ptr(), lengths.data_ptr(), n, mb,
-            None if table is None else table.data_ptr(), int(rw.a),
-            int(rw.b), None if rw.lo is None else rw.lo.data_ptr(),
-            None if rw.hi is None else rw.hi.data_ptr(), out.data_ptr(),
-            out_len.data_ptr() if new_lengths else None,
-            kernels.sm_count(data), kernels.stream_ptr(data)), "str_rewrite")
-        kernels.launches["str_rewrite"] += 1
+        _launch_rewrite(rw.kind, data, lengths, table, rw.a, rw.b, rw.lo,
+                        rw.hi, out, out_len if new_lengths else None)
     return out, out_len
 
 
@@ -389,14 +444,11 @@ def _char_count(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     if data.device.type == "cpu":
         return _char_count_plain(data, lengths)
     data, lengths, dev = _rows(data, lengths)
-    n, mb = int(data.shape[0]), int(data.shape[1])
+    n = int(data.shape[0])
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
-        _build.check(_build.lib().srtpu_str_rewrite(
-            kernels.REWRITE_LENGTH, data.data_ptr(), lengths.data_ptr(), n,
-            mb, None, 0, 0, None, None, None, out.data_ptr(),
-            kernels.sm_count(data), kernels.stream_ptr(data)), "str_rewrite")
-        kernels.launches["str_rewrite"] += 1
+        _launch_rewrite(kernels.REWRITE_LENGTH, data, lengths, None, 0, 0,
+                        None, None, None, out)
     return out
 
 

@@ -242,7 +242,7 @@ class WinOut(ctypes.Structure):
     """One output of a K14 evaluation (WinOut in csrc/window_frames.cu)."""
 
     _fields_ = [("kind", ctypes.c_int), ("start_kind", ctypes.c_int),
-                ("end_kind", ctypes.c_int), ("pad", ctypes.c_int),
+                ("end_kind", ctypes.c_int), ("slot", ctypes.c_int),
                 ("lower", ctypes.c_longlong), ("upper", ctypes.c_longlong),
                 ("start", ctypes.c_void_p), ("end", ctypes.c_void_p),
                 ("psum", ctypes.c_void_p), ("pcnt", ctypes.c_void_p),

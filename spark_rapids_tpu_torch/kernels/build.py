@@ -72,7 +72,8 @@ _SIGNATURES = {
                          _P],
     "srtpu_window_prefix": [_I, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
     "srtpu_window_inverse": [_P, _L, _P, _L, _L, _I, _P],
-    "srtpu_window_eval": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _I, _P],
+    "srtpu_window_eval": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _P],
     "srtpu_range_bounds": [_I, _I, _P, _P, _P, _P, _L, _I, _L, _L, _D, _D,
                            _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "srtpu_frame_minmax": [_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P,
@@ -82,7 +83,7 @@ _SIGNATURES = {
                         _P],
     "srtpu_str_find": [_I, _P, _P, _L, _I, _P, _I, _L, _P, _P, _I, _P],
     "srtpu_str_rewrite": [_I, _P, _P, _L, _I, _P, _L, _L, _P, _P, _P, _P,
-                          _I, _P],
+                          _I, _I, _I, _I, _P],
     "srtpu_str_assemble": [_I, _P, _I, _L, _P, _I, _L, _P, _P, _I, _P, _I,
                            _P],
     "srtpu_str_parse": [_I, _P, _L, _P, _P, _L, _I, _L, _L, _P, _P, _I, _P],

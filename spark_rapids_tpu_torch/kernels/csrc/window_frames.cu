@@ -41,25 +41,35 @@
 //    scatter of the positions into its inverse permutation followed by a
 //    take.
 //
-// Bound on the H100: bytes. For the window query over 36M rows (row_number,
-// rank, dense_rank and a running sum of a double) the function reads perm,
-// the live mask, seg_start, peer_start, peer_end, pid and the summed column
-// with its validity, and writes three int32 and one float64 column with
-// their validity: about 54 bytes a row, 0.58 ms at 3.35 TB/s.
+// Bound on the H100: bytes. For the window query over 37.7M rows
+// (row_number, rank, dense_rank and a running sum of a double) the
+// evaluation reads inv, seg_start, peer_start, peer_end, pid and both
+// prefixes and writes three int32 and one float64 column with their
+// validity: 60 bytes a row, 0.68 ms at 3.35 TB/s.
 //
 // Design: the prefix is K1's three-launch tile scan (tile sums, which also
 // park c[j] in p[j + 1]; one block scans the tile sums; each tile scans its
 // parked values in place), in a fixed order, so it is deterministic; the
 // restarted prefix scans (restart flag, value) pairs the same way, a tile
-// carrying out its sum from its last partition start. The
-// evaluation writes in input order: one launch scatters the inverse
-// permutation once per window (K15-K17 read it too), then one thread an
-// input row i evaluates sorted row inv[i] for up to eight outputs (their
-// descriptors in parameter space) and writes out[i]. So the random access
-// is one 4-byte write and a few reads a row; writing every output through
-// perm (four data and four validity writes a row, each a read-modify-write
-// of a 32-byte sector) took 20.6 ms at 37.7M rows on the H100, 30x its
-// bound.
+// carrying out its sum from its last partition start. The inverse
+// permutation is scattered once per window (K15-K17 read it too). The
+// evaluation takes two launches with inv, one without. Launch 1, in
+// sorted order: a thread a sorted row j reads its bounds coalesced, its
+// prefix entries near j and pid[seg_start] (shared by the partition's
+// rows, so cached), evaluates up to eight outputs (their descriptors in
+// parameter space) and, without inv, writes them at j; with inv it packs
+// them into one 32-byte record a row (16 where they fit; more records
+// where they pass 32 bytes), each value at the slot ops/windowops.py
+// record_layout gives it and the validity bits in a word of the last
+// record, and writes each record whole, one sector. Launch 2, in input
+// order: a thread an input row i reads inv[i] coalesced and the records
+// of sorted row inv[i], one random sector each, and writes every output
+// and validity at i coalesced. So the random traffic is one sector a row
+// and record. Reading the bounds and prefixes through inv, one thread an
+// input row (the design before this one), took 8-10 random sectors a row,
+// 8.35 ms at 37.7M rows for the window query's four outputs; writing every
+// output through perm (four data and four validity writes a row, each a
+// read-modify-write of a 32-byte sector), 20.6 ms.
 //
 // The inverse alone is bound by bytes too: perm read once, inv written
 // once, 8 bytes a row (0.0902 ms at 37,748,736 rows). Its stores land on
@@ -94,7 +104,7 @@ struct WinOut {
   int kind;           // WinKind
   int start_kind;     // WinBound: seg_start, peer_start, j + lower, given
   int end_kind;       // WinBound: seg_end, peer_end, j + upper, given
-  int pad;
+  int slot;           // byte of its value in the row's records (with inv)
   long long lower;    // offsets of kOffset bounds; ntile's bucket count
   long long upper;
   const int* start;   // given bounds (kGiven)
@@ -417,74 +427,174 @@ inverse_pass_kernel(const int* __restrict__ perm, i64 n, int lo,
   }
 }
 
+// the value of output o at sorted row j (an int32 in the low word, a
+// float64 or an int64 as its bits) and, in ok, its validity: the
+// reference's formulas (file comment, 3.)
+__device__ __forceinline__ unsigned long long eval_one(
+    const WinOut& o, i64 j, i64 ss, i64 n, const SegBounds& b,
+    const int* __restrict__ pid, bool& ok) {
+  ok = true;
+  if (o.kind <= kDenseRank || o.kind == kNtile) {
+    int v;
+    if (o.kind == kRowNumber) {
+      v = (int)(j - ss + 1);
+    } else if (o.kind == kRank) {
+      v = (int)(b.peer_start[j] - ss + 1);
+    } else if (o.kind == kDenseRank) {
+      v = pid[j] - pid[clip(ss, 0, n - 1)] + 1;
+    } else {
+      const i64 len = b.seg_end[j] - ss + 1, idx = j - ss;
+      const i64 q = floordiv(len, o.lower), r = len - q * o.lower;
+      const i64 threshold = r * (q + 1);
+      v = (int)((idx < threshold
+                     ? floordiv(idx, q + 1 > 1 ? q + 1 : 1)
+                     : r + floordiv(idx - threshold, q > 1 ? q : 1)) +
+                1);
+    }
+    return (unsigned)v;
+  }
+  if (o.kind == kPercentRank || o.kind == kCumeDist) {
+    const i64 len = b.seg_end[j] - ss + 1;
+    double v;
+    if (o.kind == kPercentRank)
+      v = len > 1 ? (double)(b.peer_start[j] - ss) / (double)(len - 1)
+                  : 0.0;
+    else
+      v = (double)(b.peer_end[j] - ss + 1) / (double)len;
+    return (unsigned long long)__double_as_longlong(v);
+  }
+  i64 start, end;
+  frame_bounds(o.start_kind, o.end_kind, o.lower, o.upper, o.start, o.end,
+               b, j, start, end);
+  const bool any = end >= start;
+  const i64 hi = clip(end + 1, 0, n), lo = clip(start, 0, n);
+  const long long cnt =
+      any && o.pcnt != nullptr ? o.pcnt[hi] - o.pcnt[lo] : 0;
+  ok = cnt > 0;
+  // a float64 prefix restarts at the partition: below its start, 0
+  if (o.kind == kSumF64) {
+    const double* ps = (const double*)o.psum;
+    return (unsigned long long)__double_as_longlong(
+        any ? ps[hi] - (lo == ss ? 0.0 : ps[lo]) : 0.0);
+  }
+  if (o.kind == kSumI64) {
+    const long long* ps = (const long long*)o.psum;
+    return (unsigned long long)(any ? ps[hi] - ps[lo] : 0);
+  }
+  if (o.kind == kCount) {
+    ok = true;
+    return (unsigned long long)cnt;
+  }
+  const double* ps = (const double*)o.psum;  // kAvg
+  const double sum = any ? ps[hi] - (lo == ss ? 0.0 : ps[lo]) : 0.0;
+  return (unsigned long long)__double_as_longlong(
+      sum / (double)(cnt > 1 ? cnt : 1));
+}
+
+__device__ __forceinline__ bool wide_out(int kind) {
+  return !(kind <= kDenseRank || kind == kNtile);
+}
+
+__device__ __forceinline__ void store_out(const WinOut& o, i64 dst,
+                                          unsigned long long bits,
+                                          bool ok) {
+  if (wide_out(o.kind))
+    ((unsigned long long*)o.out)[dst] = bits;
+  else
+    ((int*)o.out)[dst] = (int)(unsigned)bits;
+  if (o.out_valid != nullptr) o.out_valid[dst] = ok;
+}
+
+// w[q] = v for the one q == at, w kept in registers
+__device__ __forceinline__ void put_word(uint32_t (&w)[8], int at,
+                                         uint32_t v) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    if (q == at) w[q] = v;
+}
+
+__device__ __forceinline__ uint32_t get_word(const uint32_t (&w)[8],
+                                             int at) {
+  uint32_t v = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    if (q == at) v = w[q];
+  return v;
+}
+
+// Launch 1, sorted order: one thread a sorted row j evaluates every
+// output; without records it writes them at j, with records it packs them
+// into the row's records (each output's value at its slot, the validity
+// bits in the last record's valid word) and writes each record whole.
 __global__ void __launch_bounds__(kThreads)
-window_eval_kernel(WinOuts outs, int nouts, i64 n, SegBounds b,
-                   const int* __restrict__ pid,
-                   const int* __restrict__ inv) {
-  for (i64 dst = (i64)blockIdx.x * blockDim.x + threadIdx.x; dst < n;
-       dst += (i64)gridDim.x * blockDim.x) {
-    const i64 j = inv != nullptr ? (i64)inv[dst] : dst;
+window_eval_sorted(WinOuts outs, int nouts, i64 n, SegBounds b,
+                   const int* __restrict__ pid, uint32_t* __restrict__ rec,
+                   int rec_words, int nrec, int valid_slot) {
+  for (i64 j = (i64)blockIdx.x * blockDim.x + threadIdx.x; j < n;
+       j += (i64)gridDim.x * blockDim.x) {
     const i64 ss = b.seg_start[j];
-    for (int k = 0; k < nouts; ++k) {
-      const WinOut& o = outs.o[k];
-      if (o.kind <= kDenseRank || o.kind == kNtile) {
-        int v;
-        if (o.kind == kRowNumber) {
-          v = (int)(j - ss + 1);
-        } else if (o.kind == kRank) {
-          v = (int)(b.peer_start[j] - ss + 1);
-        } else if (o.kind == kDenseRank) {
-          v = pid[j] - pid[clip(ss, 0, n - 1)] + 1;
-        } else {
-          const i64 len = b.seg_end[j] - ss + 1, idx = j - ss;
-          const i64 q = floordiv(len, o.lower), r = len - q * o.lower;
-          const i64 threshold = r * (q + 1);
-          v = (int)((idx < threshold
-                         ? floordiv(idx, q + 1 > 1 ? q + 1 : 1)
-                         : r + floordiv(idx - threshold, q > 1 ? q : 1)) +
-                    1);
-        }
-        ((int*)o.out)[dst] = v;
-        if (o.out_valid != nullptr) o.out_valid[dst] = 1;
-        continue;
+    if (rec == nullptr) {
+      for (int k = 0; k < nouts; ++k) {
+        bool ok;
+        const unsigned long long v = eval_one(outs.o[k], j, ss, n, b, pid,
+                                              ok);
+        store_out(outs.o[k], j, v, ok);
       }
-      if (o.kind == kPercentRank || o.kind == kCumeDist) {
-        const i64 len = b.seg_end[j] - ss + 1;
-        double v;
-        if (o.kind == kPercentRank)
-          v = len > 1 ? (double)(b.peer_start[j] - ss) / (double)(len - 1)
-                      : 0.0;
-        else
-          v = (double)(b.peer_end[j] - ss + 1) / (double)len;
-        ((double*)o.out)[dst] = v;
-        if (o.out_valid != nullptr) o.out_valid[dst] = 1;
-        continue;
+      continue;
+    }
+    uint32_t vbits = 0;
+    for (int r = 0; r < nrec; ++r) {
+      uint32_t w[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      for (int k = 0; k < nouts; ++k) {
+        const WinOut& o = outs.o[k];
+        if ((o.slot >> 5) != r) continue;
+        bool ok;
+        const unsigned long long v = eval_one(o, j, ss, n, b, pid, ok);
+        vbits |= (uint32_t)ok << k;
+        const int at = (o.slot & 31) >> 2;
+        put_word(w, at, (uint32_t)v);
+        if (wide_out(o.kind)) put_word(w, at + 1, (uint32_t)(v >> 32));
       }
-      i64 start, end;
-      frame_bounds(o.start_kind, o.end_kind, o.lower, o.upper, o.start,
-                   o.end, b, j, start, end);
-      const bool any = end >= start;
-      const i64 hi = clip(end + 1, 0, n), lo = clip(start, 0, n);
-      const long long cnt =
-          any && o.pcnt != nullptr ? o.pcnt[hi] - o.pcnt[lo] : 0;
-      bool ok = cnt > 0;
-      // a float64 prefix restarts at the partition: below its start, 0
-      if (o.kind == kSumF64) {
-        const double* ps = (const double*)o.psum;
-        ((double*)o.out)[dst] =
-            any ? ps[hi] - (lo == ss ? 0.0 : ps[lo]) : 0.0;
-      } else if (o.kind == kSumI64) {
-        const long long* ps = (const long long*)o.psum;
-        ((long long*)o.out)[dst] = any ? ps[hi] - ps[lo] : 0;
-      } else if (o.kind == kCount) {
-        ((long long*)o.out)[dst] = cnt;
-        ok = true;
-      } else {  // kAvg
-        const double* ps = (const double*)o.psum;
-        const double sum = any ? ps[hi] - (lo == ss ? 0.0 : ps[lo]) : 0.0;
-        ((double*)o.out)[dst] = sum / (double)(cnt > 1 ? cnt : 1);
+      if (valid_slot >= 0 && (valid_slot >> 5) == r)
+        put_word(w, (valid_slot & 31) >> 2, vbits);
+      uint4* dst = reinterpret_cast<uint4*>(rec + ((i64)r * n + j) *
+                                                      rec_words);
+      dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+      if (rec_words == 8) dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+    }
+  }
+}
+
+// Launch 2, input order: one thread an input row i reads inv[i] and the
+// records of sorted row inv[i], last record (the valid word) first, and
+// writes every output at i.
+__global__ void __launch_bounds__(kThreads)
+window_eval_gather(WinOuts outs, int nouts, i64 n,
+                   const int* __restrict__ inv,
+                   const uint32_t* __restrict__ rec, int rec_words,
+                   int nrec, int valid_slot) {
+  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (i64)gridDim.x * blockDim.x) {
+    const i64 j = __ldcs(inv + i);
+    uint32_t vbits = 0xFFu;
+    for (int r = nrec - 1; r >= 0; --r) {
+      const uint4* src =
+          reinterpret_cast<const uint4*>(rec + ((i64)r * n + j) * rec_words);
+      const uint4 a = __ldcs(src);
+      const uint4 c = rec_words == 8 ? __ldcs(src + 1)
+                                     : make_uint4(0, 0, 0, 0);
+      const uint32_t w[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+      if (valid_slot >= 0 && (valid_slot >> 5) == r)
+        vbits = get_word(w, (valid_slot & 31) >> 2);
+      for (int k = 0; k < nouts; ++k) {
+        const WinOut& o = outs.o[k];
+        if ((o.slot >> 5) != r) continue;
+        const int at = (o.slot & 31) >> 2;
+        unsigned long long v = get_word(w, at);
+        if (wide_out(o.kind))
+          v |= (unsigned long long)get_word(w, at + 1) << 32;
+        store_out(o, i, v, (vbits >> k) & 1u);
       }
-      if (o.out_valid != nullptr) o.out_valid[dst] = ok;
     }
   }
 }
@@ -534,25 +644,48 @@ extern "C" int srtpu_window_inverse(const void* perm, long long n, void* inv,
 
 // outs: host array of nouts WinOut (at most 8); the bounds and pid: [n]
 // int32, sorted order; inv: [n] int32 (srtpu_window_inverse's), or null
-// (results in sorted order).
+// (results in sorted order, one launch). With inv, rec: nrec * n records
+// of rec_words (4 or 8) uint32 scratch, each output's value at byte
+// WinOut.slot of its row's records (slot / 32: the record) and, where
+// valid_slot >= 0, bit k of the word at valid_slot (in the last record)
+// output k's validity (ops/windowops.py record_layout).
 extern "C" int srtpu_window_eval(const WinOut* outs, int nouts, long long n,
                                  const void* seg_start, const void* seg_end,
                                  const void* peer_start, const void* peer_end,
-                                 const void* pid, const void* inv,
+                                 const void* pid, const void* inv, void* rec,
+                                 int rec_words, int nrec, int valid_slot,
                                  int sm_count, void* stream) {
-  if (nouts < 1 || nouts > kMaxWinOuts || n < 1)
+  if (nouts < 1 || nouts > kMaxWinOuts || n < 1 ||
+      (inv != nullptr &&
+       (rec == nullptr || nrec < 1 || (rec_words != 4 && rec_words != 8) ||
+        (valid_slot >= 0 && (valid_slot >> 5) != nrec - 1) ||
+        (rec_words == 4 && nrec != 1))))
     return (int)cudaErrorInvalidValue;
   WinOuts t = {};
   for (int k = 0; k < nouts; ++k) {
     t.o[k] = outs[k];
     if (outs[k].kind == kNtile && outs[k].lower < 1)
       return (int)cudaErrorInvalidValue;
+    if (inv != nullptr &&
+        (outs[k].slot < 0 || outs[k].slot >= nrec * 32 ||
+         (outs[k].slot & 31) + (outs[k].kind <= kDenseRank ||
+                                        outs[k].kind == kNtile
+                                    ? 4
+                                    : 8) > 4 * rec_words))
+      return (int)cudaErrorInvalidValue;
   }
   const SegBounds b = {(const int*)seg_start, (const int*)seg_end,
                        (const int*)peer_start, (const int*)peer_end};
-  window_eval_kernel<<<row_blocks(n, sm_count), kThreads, 0,
-                       (cudaStream_t)stream>>>(t, nouts, n, b,
-                                               (const int*)pid,
-                                               (const int*)inv);
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned blocks = row_blocks(n, sm_count);
+  window_eval_sorted<<<blocks, kThreads, 0, s>>>(
+      t, nouts, n, b, (const int*)pid,
+      inv != nullptr ? (uint32_t*)rec : nullptr, rec_words, nrec,
+      valid_slot);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || inv == nullptr) return (int)err;
+  window_eval_gather<<<blocks, kThreads, 0, s>>>(
+      t, nouts, n, (const int*)inv, (const uint32_t*)rec, rec_words, nrec,
+      valid_slot);
   return (int)cudaGetLastError();
 }

@@ -630,6 +630,57 @@ def window_eval_plain(sw: SortedWindow, reqs: Sequence[WinRequest],
     return outs
 
 
+#: K14's row record: one 32-byte sector (16 bytes where they suffice)
+WIN_RECORD_BYTES = 32
+#: outputs whose validity is data's (a sum's or an average's count > 0);
+#: every other output is always valid
+_VALIDITY_KINDS = (kernels.WIN_SUM_F64, kernels.WIN_SUM_I64,
+                   kernels.WIN_AVG)
+
+
+class RecordLayout(NamedTuple):
+    """Where K14's sorted pass parks one launch's outputs for its gather
+    (WinOut.slot in csrc/window_frames.cu): each output's byte offset in
+    its row's records (offset // 32 the record), the validity word's (-1
+    where every output is always valid), the record count and each
+    record's 32-bit words (4 or 8)."""
+
+    slots: Tuple[int, ...]
+    valid_slot: int
+    records: int
+    words: int
+
+
+def record_layout(kinds: Sequence[int]) -> RecordLayout:
+    """The records of one launch's outputs (at most MAX_WIN_OUTS): 8-byte
+    values first, then 4-byte ones, then the validity word (a bit an
+    output), packed in order into 32-byte records, so 8-byte values stay
+    8-byte aligned, nothing straddles a record and the validity word lies
+    in the last record; 16-byte records where everything fits one."""
+    if not 1 <= len(kinds) <= kernels.MAX_WIN_OUTS:
+        raise ValueError(f"{len(kinds)} outputs in one launch")
+    sizes = [4 if k in _RANK_KINDS and k not in (
+        kernels.WIN_PERCENT_RANK, kernels.WIN_CUME_DIST) else 8
+        for k in kinds]
+    order = sorted(range(len(kinds)), key=lambda k: -sizes[k])
+    slots = [0] * len(kinds)
+    at = 0
+    for k in order:
+        if at % WIN_RECORD_BYTES + sizes[k] > WIN_RECORD_BYTES:
+            at += WIN_RECORD_BYTES - at % WIN_RECORD_BYTES
+        slots[k] = at
+        at += sizes[k]
+    valid_slot = -1
+    if any(k in _VALIDITY_KINDS for k in kinds):
+        if at % WIN_RECORD_BYTES + 4 > WIN_RECORD_BYTES:
+            at += WIN_RECORD_BYTES - at % WIN_RECORD_BYTES
+        valid_slot = at
+        at += 4
+    records = -(-at // WIN_RECORD_BYTES)
+    words = 4 if at <= 16 else WIN_RECORD_BYTES // 4
+    return RecordLayout(tuple(slots), valid_slot, records, words)
+
+
 def window_eval(sw: SortedWindow, reqs: Sequence[WinRequest],
                 perm: Optional[torch.Tensor] = None,
                 inv: Optional[torch.Tensor] = None
@@ -637,7 +688,9 @@ def window_eval(sw: SortedWindow, reqs: Sequence[WinRequest],
     """Kernel K14, the evaluation: (data, validity) of every request, in
     sorted order, or with perm at each sorted row's input row (out[perm[j]]
     = v[j]; `inv`, perm's inverse, when the caller has it), up to eight
-    outputs a launch."""
+    outputs a call of the kernel: in sorted order one launch; with perm
+    two (the sorted pass packs each row's results into records, the
+    gather writes them through inv), one count."""
     if sw.pos.device.type == "cpu":
         return window_eval_plain(sw, reqs, perm)
     dev = sw.pos.device
@@ -648,7 +701,7 @@ def window_eval(sw: SortedWindow, reqs: Sequence[WinRequest],
         inv = inverse_permutation(perm)
     if inv is not None:
         kernels.require(inv, "inv", torch.int32, dev)
-    outs, descs = [], []
+    outs, frames = [], []
     for req in reqs:
         d = torch.empty(n, dtype=_out_dtype(req), device=dev)
         v = torch.empty(n, dtype=torch.bool, device=dev)
@@ -671,21 +724,34 @@ def window_eval(sw: SortedWindow, reqs: Sequence[WinRequest],
                 if x is not None and x.shape[0] != n + 1:
                     raise ValueError(f"prefix of {x.shape[0]} for {n} rows")
             _check_frame(fr, dev, n)
-        descs.append(kernels.WinOut(
-            req.kind, fr.start_kind, fr.end_kind, 0, int(fr.lower),
-            int(fr.upper),
-            None if fr.start is None else fr.start.data_ptr(),
-            None if fr.end is None else fr.end.data_ptr(),
-            None if req.psum is None else req.psum.data_ptr(),
-            None if req.pcnt is None else req.pcnt.data_ptr(),
-            d.data_ptr(), v.data_ptr()))
+        frames.append(fr)
     lib = _build.lib()
-    for lo in range(0, len(descs), kernels.MAX_WIN_OUTS):
-        chunk = descs[lo:lo + kernels.MAX_WIN_OUTS]
-        ptr, _arr = kernels.struct_array(kernels.WinOut, chunk)
+    for lo in range(0, len(reqs), kernels.MAX_WIN_OUTS):
+        hi = min(len(reqs), lo + kernels.MAX_WIN_OUTS)
+        layout = None if inv is None else record_layout(
+            [r.kind for r in reqs[lo:hi]])
+        rec = None if layout is None else torch.empty(
+            layout.records * n * layout.words, dtype=torch.int32, device=dev)
+        descs = []
+        for k in range(lo, hi):
+            req, fr, (d, v) = reqs[k], frames[k], outs[k]
+            descs.append(kernels.WinOut(
+                req.kind, fr.start_kind, fr.end_kind,
+                -1 if layout is None else layout.slots[k - lo],
+                int(fr.lower), int(fr.upper),
+                None if fr.start is None else fr.start.data_ptr(),
+                None if fr.end is None else fr.end.data_ptr(),
+                None if req.psum is None else req.psum.data_ptr(),
+                None if req.pcnt is None else req.pcnt.data_ptr(),
+                d.data_ptr(), v.data_ptr()))
+        ptr, _arr = kernels.struct_array(kernels.WinOut, descs)
         _build.check(lib.srtpu_window_eval(
-            ptr, len(chunk), n, *[x.data_ptr() for x in bounds],
+            ptr, len(descs), n, *[x.data_ptr() for x in bounds],
             sw.pid.data_ptr(), None if inv is None else inv.data_ptr(),
+            None if rec is None else rec.data_ptr(),
+            0 if layout is None else layout.words,
+            0 if layout is None else layout.records,
+            -1 if layout is None else layout.valid_slot,
             kernels.sm_count(sw.pos), kernels.stream_ptr(sw.pos)),
             "window_eval")
         kernels.launches["window_eval"] += 1

@@ -38,7 +38,18 @@ kernel groups named by --groups (all by default):
   37,748,736 rows;
 - k11: K11 (`dense_bin_perm`) at q5's 4,096 bins (2,000 occupied) and
   at the binned path's largest 2^20, beside `torch.nonzero`; where the
-  tree's K11 takes a route, its two designs apart at 2^12-2^20 bins.
+  tree's K11 takes a route, its two designs apart at 2^12-2^20 bins;
+- k20: K20 (`_rewrite`, `_char_count`) at chip_smoke.py's shapes: trim,
+  upper and length over the 15,000,000 ORDERS comments [n, 128], and
+  substring(8, 2), upper and length over 36,000,000 decoded region rows
+  [n, 16], beside the row-wise stable `argsort(~keep)` + `gather` idiom
+  for trim and substring;
+- k14eval: K14's evaluation (`window_eval`) at chip_smoke.py's shapes:
+  row_number, rank, dense_rank and the running sum over the window
+  query's 37,748,736 sorted rows, and percent_rank, cume_dist and
+  ntile(4) over range_query's, each with `inv` given, as the path calls
+  it, and with the inverse included (perm alone), with the device time of
+  each kernel it launches.
 
 Then (not with --kernels-only) the cold and hot times (median of
 --hot-runs) of the queries named by --queries on the adaptive and the
@@ -46,9 +57,11 @@ fused engine, through the session over relations cached on the device
 as chip_smoke.py's phases cache them: nested_explode (phase 14's
 NESTED_ORDERS at SF10), orders_price_stats (phase 10's typed ORDERS),
 orders_ingest (phase 9's .tbl text, America/Los_Angeles), range and
-moving (phase 7's fact table), q5 and dupjoin (phases 4-5's), with each
-query's launches of K2, K4 (and of its runs route), K11, K14's inverse,
-K15 and K16.
+moving, running and u2u (phase 7's fact table), window (phase 6's), q5
+and dupjoin (phases 4-5's), string_q5, string_dup, orders_q13 and
+orders_words (phase 8's fact tables and ORDERS), orders_price_window
+(phase 10's typed ORDERS), with each query's launches of K2, K4 (and of
+its runs route), K11, K14's inverse and evaluation, K15, K16 and K20.
 
 Every kernel output is checked against its plain version before it is
 timed. Kernel times are means of CUDA-event timed calls after a warm-up
@@ -72,13 +85,13 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_ITERS = 20
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM peak device-memory rate
-GROUPS = ("k4", "k16", "k2", "k15", "k14inv", "k11")
+GROUPS = ("k4", "k16", "k2", "k15", "k14inv", "k11", "k20", "k14eval")
 QUERIES = ("nested_explode", "orders_price_stats", "orders_ingest", "range",
            "moving")
 #: the launch counters read after each query's cold run
 COUNTERS = ("seg_sum_count", "seg_sum_count_runs", "frame_minmax",
             "probe_ranges", "range_bounds", "dense_bin_perm",
-            "window_inverse")
+            "window_inverse", "window_eval", "str_rewrite")
 
 
 def event_ms(fn, iters: int = KERNEL_ITERS) -> float:
@@ -460,6 +473,139 @@ def inverse_times(dev, range_perm) -> dict:
     return out
 
 
+def k20_times(cs, dev) -> dict:
+    """K20 at the ORDERS comments' and the region rows' shapes, beside the
+    row-wise argsort idiom for trim and substring."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import kernels
+    from spark_rapids_tpu_torch.expr import strings as S
+
+    out = {}
+    space = np.zeros(256, dtype=np.int16)
+    space[ord(" ")] = -1
+    upper = S.Rewrite(kernels.REWRITE_MAP, S._UPPER)
+    for label, (data, lens, _), rw in (
+            ("comment", (*cs._comment_rows(dev, cs.ORDERS_ROWS, 31), None),
+             S.Rewrite(kernels.REWRITE_TRIM, space, 1, 1)),
+            ("region", cs._region_rows(dev, cs.ROWS, 32),
+             S.Rewrite(kernels.REWRITE_CHARS, a=8, b=2))):
+        n, mb = data.shape
+        held = int(lens.sum().item())
+        name = "trim" if rw.kind == kernels.REWRITE_TRIM else "substring"
+        cases = ((name, lambda: S._rewrite(data, lens, rw),
+                  lambda lo, hi: S._rewrite_plain(data[lo:hi], lens[lo:hi],
+                                                  rw),
+                  held + n * (4 + mb + 4)),
+                 ("upper", lambda: S._rewrite(data, lens, upper, False),
+                  lambda lo, hi: (S._rewrite_plain(data[lo:hi], lens[lo:hi],
+                                                   upper)[0], lens[lo:hi]),
+                  held + n * (4 + mb)),
+                 ("length", lambda: S._char_count(data, lens),
+                  lambda lo, hi: S._char_count_plain(data[lo:hi],
+                                                     lens[lo:hi]),
+                  held + n * (4 + 4)))
+        for what, fn, plain, nbytes in cases:
+            got = fn()
+            want = cs._chunked(plain, n)
+            got, want = ((got, want) if isinstance(got, tuple)
+                         else ((got,), (want,)))
+            for k, (g, w) in enumerate(zip(got, want)):
+                _same(f"k20 {label} {what} {k}", g, w)
+            del got, want
+            key = f"k20_{label}_{what}"
+            out[f"{key}_ms"] = event_ms(fn)
+            out[f"{key}_device_ms"] = profiled_ms(fn, "str_rewrite")
+            out[f"{key}_bound_ms"] = nbytes / HBM_BYTES_PER_MS
+        # the library idiom: a row-wise stable argsort of ~keep, a gather
+        pos = torch.arange(mb, device=dev)[None, :]
+        inside = pos < lens[:, None]
+        if name == "trim":
+            body = (inside & (data != ord(" "))).to(torch.uint8)
+            first = torch.argmax(body, dim=1, keepdim=True)
+            last = mb - 1 - torch.argmax(torch.flip(body, dims=[1]), dim=1,
+                                         keepdim=True)
+            keep = (body.amax(dim=1, keepdim=True) > 0) & (
+                pos >= first) & (pos <= last)
+            del body, first, last
+        else:
+            keep = (pos >= 7) & (pos < 9) & inside
+        del inside
+        out[f"k20_{label}_{name}_argsort_ms"] = event_ms(
+            lambda: torch.gather(data, 1, torch.argsort(
+                (~keep).to(torch.uint8), dim=1, stable=True)), 3)
+        del data, lens, keep, pos
+        torch.cuda.empty_cache()
+    return out
+
+
+def k14eval_times(cs, dev) -> dict:
+    """K14's evaluation at the window query's and range_query's shapes,
+    with inv given and with the inverse included."""
+    import torch
+
+    from spark_rapids_tpu_torch import kernels
+    from spark_rapids_tpu_torch.exec.fused import bucket_capacity
+    from spark_rapids_tpu_torch.ops import windowops as W
+
+    out = {}
+    cap = cs.FILES * bucket_capacity(cs.ROWS // cs.FILES)
+    # the window query's rn, rk, drk and running sum (chip_smoke phase 2)
+    batch = cs._window_inputs(dev, cap, cs.ROWS, 8)
+    store, day, amount = batch.columns
+    sw = W.sort_for_window(batch, [store], [(day, True, True)])
+    p = W.window_prefix(amount.data, amount.validity, sw.live, sw.perm,
+                        torch.float64, sw.seg_start)
+    pcnt = W.window_prefix(None, amount.validity, sw.live, sw.perm,
+                           torch.int64)
+    reqs4 = [W.WinRequest(kernels.WIN_ROW_NUMBER),
+             W.WinRequest(kernels.WIN_RANK),
+             W.WinRequest(kernels.WIN_DENSE_RANK),
+             W.WinRequest(kernels.WIN_SUM_F64, W.frame_of(None, True), p,
+                          pcnt)]
+    cases = [("k14eval_window", sw, reqs4, cap * (5 * 4 + 2 * 8)
+              + cap * (3 * 5 + 9))]
+    # range_query's percent_rank, cume_dist and ntile(4)
+    batch5 = cs._fact_batch(dev, cap, cs.ROWS, 21)
+    sw5 = W.sort_for_window(batch5, [batch5.columns[0]],
+                            [(batch5.columns[1], True, True)])
+    reqs3 = [W.WinRequest(kernels.WIN_PERCENT_RANK),
+             W.WinRequest(kernels.WIN_CUME_DIST),
+             W.WinRequest(kernels.WIN_NTILE, buckets=4)]
+    cases.append(("k14eval_ranks", sw5, reqs3,
+                  cap * (4 + 4 * 4) + cap * (9 + 9 + 5)))
+    del batch, batch5
+    for label, s, reqs, nbytes in cases:
+        inv = W.inverse_permutation(s.perm)
+        got = W.window_eval(s, reqs, s.perm, inv)
+        want = W.window_eval_plain(s, reqs, s.perm)
+        for k, ((gd, gv), (wd, wv)) in enumerate(zip(got, want)):
+            _same(f"{label} validity {k}", gv, wv)
+            if gd.dtype.is_floating_point:
+                _close(f"{label} {k}", gd, wd)
+            else:
+                _same(f"{label} {k}", gd, wd)
+        del got, want
+
+        def with_inv(s=s, reqs=reqs, inv=inv):
+            return W.window_eval(s, reqs, s.perm, inv)
+
+        def with_inverse(s=s, reqs=reqs):
+            return W.window_eval(s, reqs, s.perm)
+
+        out[f"{label}_ms"] = event_ms(with_inv)
+        out[f"{label}_by_kernel_ms"] = profiled_by_name(with_inv)
+        out[f"{label}_with_inverse_ms"] = event_ms(with_inverse)
+        out[f"{label}_with_inverse_by_kernel_ms"] = profiled_by_name(
+            with_inverse)
+        out[f"{label}_bound_ms"] = nbytes / HBM_BYTES_PER_MS
+        del inv
+    del sw, sw5, p, pcnt, reqs4, reqs3, cases
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_times(cs, groups) -> dict:
     """The named kernel groups (module docstring)."""
     import torch
@@ -476,6 +622,10 @@ def kernel_times(cs, groups) -> dict:
         out.update(range_times(cs, dev, groups))
     if "k11" in groups:
         out.update(dense_times(dev))
+    if "k20" in groups:
+        out.update(k20_times(cs, dev))
+    if "k14eval" in groups:
+        out.update(k14eval_times(cs, dev))
     torch.cuda.empty_cache()
     return out
 
@@ -564,8 +714,16 @@ def range_times(cs, dev, groups) -> dict:
 QUERY_SESSIONS = {
     "q5": (("fact", "dim"), 1 << 23, 1 << 23, None),
     "dupjoin": (("fact", "dup"), 1 << 23, 1 << 23, None),
+    "window": (("fact",), 1 << 23, 1 << 23, None),
+    "string_q5": (("fact", "dim"), 1 << 23, 1 << 23, None),
+    "string_dup": (("fact", "dup"), 1 << 23, 1 << 23, None),
+    "orders_q13": (("orders",), 1 << 23, 1 << 23, None),
+    "orders_words": (("orders",), 1 << 23, 1 << 23, None),
     "range": (("fact",), 1 << 23, 1 << 20, None),
     "moving": (("fact",), 1 << 23, 1 << 20, None),
+    "running": (("fact",), 1 << 23, 1 << 20, None),
+    "u2u": (("fact",), 1 << 23, 1 << 20, None),
+    "orders_price_window": (("orders_dated",), 1 << 20, 1 << 20, None),
     "nested_explode": (("nested_orders",), 1 << 20, 1 << 20, None),
     "orders_price_stats": (("orders_dated",), 1 << 20, 1 << 20, None),
     "orders_ingest": (("orders_tbl",), 1 << 23, 1 << 23,
@@ -586,6 +744,15 @@ def query_times(cs, root: str, hot_runs: int, queries) -> dict:
         "dupjoin": lambda f: Q.dupjoin_query(f["fact"], f["dup"]),
         "range": lambda f: Q.range_query(f["fact"]),
         "moving": lambda f: Q.moving_query(f["fact"]),
+        "running": lambda f: Q.running_query(f["fact"]),
+        "u2u": lambda f: Q.u2u_query(f["fact"]),
+        "window": lambda f: Q.window_query(f["fact"]),
+        "string_q5": lambda f: Q.string_q5_query(f["fact"], f["dim"]),
+        "string_dup": lambda f: Q.string_dup_query(f["fact"], f["dup"]),
+        "orders_q13": lambda f: Q.orders_q13_query(f["orders"]),
+        "orders_words": lambda f: Q.orders_words_query(f["orders"]),
+        "orders_price_window": lambda f: Q.orders_price_window_query(
+            f["orders_dated"]),
         "nested_explode": lambda f: Q.nested_explode_query(
             f["nested_orders"]),
         "orders_price_stats": lambda f: Q.orders_price_stats_query(
@@ -668,6 +835,8 @@ def write_tables(cs, root: str, queries) -> None:
     if tables & {"fact", "dim", "dup"}:
         Q.write_q5_data(root, cs.ROWS, stores=cs.STORES, regions=cs.REGIONS,
                         files=cs.FILES, dup_per_store=cs.DUP_PER_STORE)
+    if "orders" in tables:
+        Q.write_orders_data(root, cs.ORDERS_ROWS, cs.FILES, seed=0)
     if tables & {"orders_dated", "orders_tbl"}:
         Q.write_orders_dated(root, cs.ORDERS_ROWS, cs.FILES, seed=0)
     if "nested_orders" in tables:
