@@ -120,7 +120,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    edge shapes (`check_slice13_edges`: n = 1-5, 8, 63, 64 and 65 rank
    columns at capacities 1,024 and 2^24, column_ranks over every key
    type with nulls, NaN, +-inf, -0.0, ties and dead rows, all-dead
-   batches, and zorder_sort against the numpy Morton order). K10's and
+   batches, and zorder_sort against the numpy Morton order); K37 (the
+   mesh all-to-all's send slots) at phase 16's shape (a 2^24-row fact
+   shard, 8,100,000 live, over 4 destinations, slot 2^23; every row to
+   one destination) and at edge shapes (`check_k37_edges`: n_dest 1, 2,
+   4 and 8, every row to one destination, overflow by one, no live row,
+   all but one, capacities off the 1,024-row tile). K10's and
    K13's library calls (torch.unique_consecutive over the sorted words; a
    stable torch.sort chain over both runs' words) are checked equal to
    their kernels before they are timed;
@@ -271,11 +276,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    file written; the second's vectors hold the first's), an UPDATE of
    the top 1 % of prices, and the read-back on both engines: each
    priority's count, revenue (1e-9 relative) and order keys against a
-   numpy oracle that applied the same steps.
+   numpy oracle that applied the same steps;
+16. the mesh engine (parallel/plan_compiler.py) over phases 3-5's
+   parquet tables, four shards on the card (make_mesh(4, devices=[card]
+   * 4)), the fused engine off: bench's q5 (a broadcast join), q5 with
+   every join shuffled (both sides ride K37), string_q5 and dupjoin
+   through MeshQueryExecutor, each file scan ingested per shard every
+   run, and q5 through the session with spark.rapids.tpu.mesh = the
+   visible cards; each equals its phase 3-5 or 8 oracle, and K37, K6, K1
+   and K8 must run. Its line: the engine, shards, slots, expansion and
+   its retries, the collectives and the bytes they wrote, K37's, K1's
+   and K8's launches, the cold and hot seconds, host syncs and peak GB.
 
 For each query run (phases 3-14) and each phase-15 step the kernels'
 launch counts are reset just before the cold run and read just after it;
-every kernel of that path must have run. Phases 3-5 time 3 hot runs a
+every kernel of that path must have run. Phases 3-5 and 16 time 3 hot runs a
 query, phases 7 and 10 none (cut from 2 to 1 when phases 12 and 13 were
 added, to none when phase 14 was: their times are the cold and the
 profiled run's), phases 6, 8, 9 and 11-14 1 (cut from 2 when phase 14
@@ -8572,6 +8587,196 @@ def check_k14_edges(dev) -> int:
     return cases
 
 
+# ------------------------------------------------------- the mesh engine
+
+#: phase 16's mesh: four shards on the one card
+MESH_SHARDS = 4
+#: phase 2's K37 shape: a fact shard of phase 16's shuffled q5 (36,000,000
+#: rows over four shards, 9,000,000 a shard in a 2^24-row capacity, about
+#: 8,100,000 of them kept by amount > 10) at its key exchange's slot,
+#: slot_capacity(2^24, 4, expansion 2) = 2^23
+K37_CAP = 1 << 24
+K37_LIVE = 8_100_000
+K37_SLOT = 1 << 23
+#: kernels each phase-16 query must launch: K37 and K6 on every exchange,
+#: K1 and K8 on its receive side
+MESH_PATH_KERNELS = ("exchange_slots", "murmur3", "compact_perm",
+                     "gather_leaves")
+
+
+def _same_slots(what: str, got, want) -> None:
+    for name, g, w in zip(("src_row", "live", "counts", "overflow"), got,
+                          want):
+        exact(f"{what} {name}", g, w)
+
+
+def check_mesh_kernels(dev):
+    """Phase 2, the mesh engine: K37 (the all-to-all's send slots)
+    against its plain version, exact, at phase 16's shape (K37_CAP rows
+    of which K37_LIVE live, the live count on the card, hashed over 4
+    destinations, slot K37_SLOT), and with every row to one destination
+    at slot = capacity (counts exact, no overflow). Returns {record
+    name: record}."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.parallel import collective as C
+
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(181)
+    cap, n_dest, slot = K37_CAP, MESH_SHARDS, K37_SLOT
+    pid = torch.from_numpy(rng.integers(0, n_dest, cap).astype(
+        np.int32)).to(dev)
+    nrows = torch.tensor(K37_LIVE, dtype=torch.int32, device=dev)
+    got = C.exchange_slots(pid, nrows, n_dest, slot)
+    want = C.exchange_slots_plain(pid, nrows, n_dest, slot)
+    torch.cuda.synchronize()
+    _same_slots("exchange_slots", got, want)
+    one = torch.full((cap,), n_dest - 1, dtype=torch.int32, device=dev)
+    _same_slots("exchange_slots one destination",
+                C.exchange_slots(one, cap, n_dest, cap),
+                C.exchange_slots_plain(one, cap, n_dest, cap))
+    err = max(max_abs_err(g, w) for g, w in zip(got[:3], want[:3]))
+    del one, got, want
+    dest = torch.where(torch.arange(cap, device=dev) < nrows, pid, n_dest)
+    # pid read a live row (rows past num_rows are not read); a source
+    # row (4 B) and a live mark (1 B) a slot
+    nbytes = 4 * K37_LIVE + 5 * n_dest * slot
+    return {"exchange_slots": dict(
+        route="cuda",
+        source="spark_rapids_tpu_torch/kernels/csrc/exchange_slots.cu",
+        replaces="spark_rapids_tpu/parallel/collective.py:139",
+        max_abs_err=err, counter="exchange_slots",
+        **timed("exchange_slots",
+                lambda: C.exchange_slots(pid, nrows, n_dest, slot),
+                lambda: C.exchange_slots_plain(pid, nrows, n_dest, slot),
+                lambda: torch.argsort(dest, stable=True),
+                floor_ms=bound_ms(nbytes)),
+        bound_ms=bound_ms(nbytes), bound_by="bytes",
+        shape=(f"pid [{cap}] int32 ({K37_LIVE} live) into {n_dest} x "
+               f"{slot} slots"))}
+
+
+def check_k37_edges(dev) -> int:
+    """Phase 2: K37 against its plain version bit for bit at n_dest 1, 2,
+    4 and 8; hashed rows and every row to one destination (slot =
+    capacity: counts exact; slot = capacity - 1: overflow by one); live
+    counts 0, 1, capacity - 1 and capacity, as a host int and on the card;
+    capacities 1, 1,023, 1,025, 4,096 and 70,001 (off the 1,024-row tile);
+    slots 1, capacity / n_dest, capacity - 1 and capacity. Returns the
+    number of cases."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.parallel import collective as C
+
+    rng = np.random.default_rng(182)
+    cases = 0
+    for cap in (1, 1023, 1025, 4096, 70_001):
+        for n_dest in (1, 2, 4, 8):
+            for kind in ("hash", "one"):
+                pid = (np.full(cap, n_dest - 1) if kind == "one"
+                       else rng.integers(0, n_dest, cap))
+                pid = torch.from_numpy(pid.astype(np.int32)).to(dev)
+                slots = sorted({1, max(1, cap // n_dest), max(1, cap - 1),
+                                cap})
+                for nr in sorted({0, 1, max(cap - 1, 0), cap}):
+                    for slot in slots:
+                        for nrows in (nr, torch.tensor(
+                                nr, dtype=torch.int32, device=dev)):
+                            _same_slots(
+                                f"exchange_slots edge cap={cap} "
+                                f"n_dest={n_dest} {kind} rows={nr} "
+                                f"slot={slot}",
+                                C.exchange_slots(pid, nrows, n_dest, slot),
+                                C.exchange_slots_plain(pid, nrows, n_dest,
+                                                       slot))
+                            cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def run_mesh(dev, root, want_q5, want_dup, want_sq5) -> dict:
+    """Phase 16: the mesh engine (parallel/plan_compiler.py) over phases
+    3-5's parquet tables, the fused engine off: bench's q5 (broadcast
+    join), q5 with every join shuffled (both sides ride K37), string_q5
+    (a dictionary-encoded region) and dupjoin through
+    MeshQueryExecutor(make_mesh(4, devices=[card] * 4)), each file scan
+    ingested per shard every run; then q5 through the session with
+    spark.rapids.tpu.mesh = torch.cuda.device_count(). Each equals its
+    oracle and must launch MESH_PATH_KERNELS. Returns {query: record}."""
+    import torch
+
+    from spark_rapids_tpu_torch.api.session import TpuSparkSession
+    from spark_rapids_tpu_torch.parallel import collective
+    from spark_rapids_tpu_torch.parallel.mesh_exec import make_mesh
+    from spark_rapids_tpu_torch.parallel.plan_compiler import (
+        MeshQueryExecutor,
+    )
+    from spark_rapids_tpu_torch.q5 import (
+        dupjoin_query,
+        engine_query,
+        string_q5_query,
+    )
+
+    base = {"spark.sql.shuffle.partitions": 8,
+            "spark.rapids.sql.reader.batchSizeRows": 1 << 23,
+            "spark.rapids.sql.batchSizeRows": 1 << 23,
+            "spark.rapids.sql.fusedExec.enabled": False}
+    shuffled = {"spark.sql.autoBroadcastJoinThreshold": -1}
+    session_mesh = {"spark.rapids.tpu.mesh": torch.cuda.device_count()}
+    q5 = (lambda f: engine_query(f["fact"], f["dim"], REGIONS),
+          lambda got: check_q5(got, want_q5))
+    cases = {
+        "q5": (q5, {}, True),
+        "q5_shuffled": (q5, shuffled, True),
+        "string_q5": ((lambda f: string_q5_query(f["fact"], f["dim"]),
+                       lambda got: check_groups("string_q5", got,
+                                                want_sq5)), {}, True),
+        "dupjoin": ((lambda f: dupjoin_query(f["fact"], f["dup"]),
+                     lambda got: check_dupjoin(got, want_dup)), {}, True),
+        "session_q5": (q5, session_mesh, False),
+    }
+    mesh = make_mesh(MESH_SHARDS, devices=[dev] * MESH_SHARDS)
+    out = {}
+    for name, ((build_df, check), extra, executor) in cases.items():
+        spark = TpuSparkSession(dict(base, **extra))
+        frames = {t: spark.read.parquet(os.path.join(root, t))
+                  for t in ("fact", "dim", "dup")}
+        df = build_df(frames)
+        ex = MeshQueryExecutor(mesh, spark.rapids_conf)
+        seen = {}
+
+        def run():
+            collective.reset_stats()
+            if executor:
+                with spark.activated():
+                    got = ex.execute(df._physical()[0])
+                seen.update(ex.last_stats)
+            else:
+                got = df.collect_arrow()
+                last = spark.last_execution
+                if last["engine"] != "mesh" or last["fallbacks"]:
+                    fail(f"mesh {name} ran on {last['engine']}: {last}")
+                seen.update(last["mesh"])
+            seen.update(collective.stats)
+            return got
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = timed_runs(run, check)
+        missing_launches(f"mesh {name}", rec["launches"], MESH_PATH_KERNELS)
+        rec.update(engine="mesh",
+                   route="MeshQueryExecutor" if executor else "session",
+                   collective_bytes=seen.pop("bytes"),
+                   peak_device_bytes=int(torch.cuda.max_memory_allocated(
+                       dev)), **seen)
+        out[name] = rec
+        spark.stop()
+        del df, frames, ex
+        torch.cuda.empty_cache()
+    return out
+
+
 def host_q5_orders(root: str) -> dict:
     """Phases 3-8's host work: q5's fact and dimension tables and ORDERS
     with comments written under root, and the q5, dupjoin and slice 4-6
@@ -8903,7 +9108,8 @@ def main() -> int:
             check_slice6_kernels, check_slice7_kernels,
             check_slice8_kernels, check_slice9_kernels,
             check_slice10_kernels, check_slice11_kernels,
-            check_slice12_kernels, check_slice13_kernels, check_k4_sorted):
+            check_slice12_kernels, check_slice13_kernels, check_k4_sorted,
+            check_mesh_kernels):
         records.update(check(dev))
         stamp(f"phase 2: {check.__name__} done")
     for kname, r in records.items():
@@ -8927,7 +9133,7 @@ def main() -> int:
             check_slice7_edges, check_slice8_edges, check_slice9_edges,
             check_slice10_edges, check_slice11_edges, check_slice12_edges,
             check_slice13_edges, check_k4_edges, check_k16_edges,
-            check_k20_edges, check_k14_edges):
+            check_k20_edges, check_k14_edges, check_k37_edges):
         got = check(dev)
         cases += got
         stamp(f"phase 2: {check.__name__} done ({got} cases)")
@@ -9035,6 +9241,7 @@ def main() -> int:
 
         # phase 8: slice 6's string queries, with TPC-H ORDERS at SF10
         oracles6 = done.pop("oracles6")
+        want_sq5 = oracles6["string_q5"]  # phase 16's too
         del done
         for engine, fused in (("aqe", False), ("fused", True)):
             session = run_slice6(dev, tmp, oracles6, fused)
@@ -9231,6 +9438,37 @@ def main() -> int:
                 flush=True)
         print(f"phase 15: {phase_s:.1f} s", flush=True)
         stamp("phase 15 done")
+
+        # phase 16: the mesh engine, four shards on the card, over phases
+        # 3-5's tables
+        for qname, rec in run_mesh(dev, tmp, want_q5, want_dup,
+                                   want_sq5).items():
+            runs[f"mesh {qname}"] = rec
+            prof = rec["profile"]
+            print(f"mesh {qname}: route={rec['route']} "
+                  f"engine={rec['engine']} shards={rec['shards']} "
+                  f"slots={rec['slots']} expansion={rec['expansion']} "
+                  f"retries={rec['retries']} "
+                  f"all_to_all={rec['all_to_all']} "
+                  f"all_gather={rec['all_gather']} "
+                  f"collective_bytes={rec['collective_bytes']} "
+                  f"k37_k1_k8_launches=" + json.dumps(
+                      {k: rec["launches"][k] for k in (
+                          "exchange_slots", "compact_perm",
+                          "gather_leaves")}) +
+                  f" cold_s={rec['cold_s']:.4f} "
+                  f"hot_median_s={_secs(rec['hot_median_s'])} "
+                  f"host_syncs={rec['host_syncs']} "
+                  f"wall_ms={prof['wall_ms']:.1f} "
+                  f"device_busy_ms={prof['device_busy_ms']} "
+                  f"idle_share={prof['device_idle_share']} "
+                  f"peak_gb={rec['peak_device_bytes'] / 1e9:.2f}",
+                  flush=True)
+            print(f"mesh {qname} largest device items: "
+                  + json.dumps(prof["top"][:5]), flush=True)
+            print(f"mesh {qname} launches per query: "
+                  + json.dumps(rec["launches"]), flush=True)
+        stamp("phase 16 done")
 
     # each kernel's launches: the sum over every path's cold run (phases
     # 3-14) and phase 15's steps, each read right after it

@@ -514,7 +514,8 @@ class DataFrame:
         return plan_query(optimize(plan), self.session.rapids_conf)
 
     def collect_arrow(self) -> pa.Table:
-        rec = {"engine": None, "fallbacks": [], "aqe": None, "fused": None}
+        rec = {"engine": None, "fallbacks": [], "aqe": None, "fused": None,
+               "mesh": None}
         self._last_exec = rec
         self.session.last_execution = rec
 
@@ -538,9 +539,28 @@ class DataFrame:
         )
 
         conf = self.session.rapids_conf
-        if conf.get(rc.MESH_SIZE):
-            raise NotImplementedError(
-                "the mesh engine is not ported yet (ROADMAP A16)")
+        mesh_n = conf.get(rc.MESH_SIZE)
+        if not mesh_n and conf.get(rc.SHUFFLE_MODE) == "ICI":
+            # the ICI shuffle is the mesh engine over every local device
+            import torch
+
+            mesh_n = (1 if self.session.device.type == "cpu"
+                      else torch.cuda.device_count())
+        if mesh_n:
+            from spark_rapids_tpu_torch.parallel.plan_compiler import (
+                MeshCompileError,
+                MeshQueryExecutor,
+            )
+
+            ex = MeshQueryExecutor.for_devices(mesh_n, conf)
+            try:
+                out = ex.execute(phys)
+                rec["mesh"] = dict(ex.last_stats)
+                return ran("mesh", out)
+            except MeshCompileError as e:
+                # an operator without a mesh lowering: the single-chip
+                # engines run the plan
+                fell_back("mesh", str(e))
         if conf.get(rc.FUSED_EXEC):
             from spark_rapids_tpu_torch.exec.fused import (
                 FusedCompileError,
@@ -566,7 +586,8 @@ class DataFrame:
         exchange = has_exchange(phys)
         mode = conf.get(rc.SHUFFLE_MODE)
         if exchange and mode != "DEVICE":
-            # ICI raised at planning; the host-block modes run DEVICE
+            # the host-block modes (and ICI on a plan the mesh engine
+            # handed back) run DEVICE
             fell_back(f"shuffle {mode}",
                       f"the {mode} shuffle (host-serialized blocks) is not "
                       "ported yet (ROADMAP A13); the exchange ran the "

@@ -285,10 +285,12 @@ class ColumnBatch:
 def gather_leaves_plain(srcs: Sequence[torch.Tensor],
                         idxs: Sequence[torch.Tensor],
                         masks: Optional[Sequence[Optional[torch.Tensor]]]
-                        = None, clamp: bool = False) -> List[torch.Tensor]:
+                        = None, clamp: bool = False,
+                        outs: Optional[Sequence[torch.Tensor]] = None
+                        ) -> List[torch.Tensor]:
     """Plain PyTorch version of K8: one index_select per leaf."""
     masks = list(masks) if masks is not None else [None] * len(srcs)
-    outs = []
+    got = []
     for s, i, m in zip(srcs, idxs, masks):
         i = i.to(torch.int64)
         if clamp:
@@ -297,8 +299,12 @@ def gather_leaves_plain(srcs: Sequence[torch.Tensor],
         if m is not None:
             keep = m.reshape((-1,) + (1,) * (o.dim() - 1))
             o = torch.where(keep, o, torch.zeros_like(o))
-        outs.append(o)
-    return outs
+        got.append(o)
+    if outs is None:
+        return got
+    for o, g in zip(outs, got):
+        o.copy_(g)
+    return list(outs)
 
 
 def _unit(x: int) -> int:
@@ -310,15 +316,20 @@ def _unit(x: int) -> int:
 def gather_leaves(srcs: Sequence[torch.Tensor],
                   idxs: Sequence[torch.Tensor],
                   masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
-                  clamp: bool = False) -> List[torch.Tensor]:
+                  clamp: bool = False,
+                  outs: Optional[Sequence[torch.Tensor]] = None
+                  ) -> List[torch.Tensor]:
     """Kernel K8: out[k][i] = srcs[k][idxs[k][i]] for row-major leaves
     (a row is every trailing axis of a leaf),
     every index vector of one length, in one launch per 32 leaves. A mask
     zeroes the out rows where it is False; `clamp` clips indices into
     range (decode's dictionary codes) where otherwise an index outside
-    [0, rows) traps. Indices are int32, or int16 codes."""
+    [0, rows) traps. Indices are int32, or int16 codes. `outs` are the
+    contiguous tensors to write (views into larger buffers, say: the
+    mesh engine's receive blocks), one a leaf of its leaf's dtype and
+    trailing shape; by default the outputs are allocated."""
     if srcs[0].device.type == "cpu":
-        return gather_leaves_plain(srcs, idxs, masks, clamp)
+        return gather_leaves_plain(srcs, idxs, masks, clamp, outs)
     masks = list(masks) if masks is not None else [None] * len(srcs)
     dev = srcs[0].device
     dev_index = srcs[0].get_device()
@@ -333,8 +344,9 @@ def gather_leaves(srcs: Sequence[torch.Tensor],
                 raise ValueError(f"index vectors of {ok.shape[0]} and "
                                  f"{n_out} rows in one gather")
             checked[id(idx)] = ok
+    given = list(outs) if outs is not None else None
     outs, leaves = [], []
-    for x, idx, mask in zip(srcs, idxs, masks):
+    for k, (x, idx, mask) in enumerate(zip(srcs, idxs, masks)):
         if not x.is_contiguous():
             x = x.contiguous()
         if x.get_device() != dev_index or x.shape[0] == 0:
@@ -343,7 +355,17 @@ def gather_leaves(srcs: Sequence[torch.Tensor],
         # a row is its trailing axes' bytes (an array<string> cube's
         # [max_elems, max_bytes] included)
         row_bytes = x.element_size() * int(np.prod(x.shape[1:], dtype=int))
-        out = torch.empty((n_out,) + x.shape[1:], dtype=x.dtype, device=dev)
+        if given is None:
+            out = torch.empty((n_out,) + x.shape[1:], dtype=x.dtype,
+                              device=dev)
+        else:
+            out = given[k]
+            if (out.dtype != x.dtype or out.device != dev
+                    or tuple(out.shape) != (n_out,) + tuple(x.shape[1:])
+                    or not out.is_contiguous()):
+                raise ValueError(
+                    f"out {tuple(out.shape)} {out.dtype} on {out.device} "
+                    f"for a leaf of {tuple(x.shape)} {x.dtype}")
         outs.append(out)
         if mask is not None:
             kernels.require(mask, "mask", torch.bool, dev)

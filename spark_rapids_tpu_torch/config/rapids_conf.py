@@ -1205,7 +1205,9 @@ PORT_READ_KEYS = frozenset(e.key for e in (
     PARQUET_READ_ENABLED, PARQUET_READER_TYPE, MAX_READER_BATCH_SIZE_ROWS,
     ENCODED_ENABLED, ENCODED_READ_DICTIONARY, BATCH_SIZE_ROWS,
     BATCH_SIZE_BYTES, SHUFFLE_MODE, SHUFFLE_PARTITIONS, BROADCAST_THRESHOLD,
-    JOIN_BLOOM_FILTER, ADAPTIVE_ENABLED, MESH_SIZE, FUSED_EXEC,
+    JOIN_BLOOM_FILTER, ADAPTIVE_ENABLED, MESH_SIZE,
+    MULTICHIP_RECONCILE_DICTS, MULTICHIP_ICI_SHUFFLE, MULTICHIP_EXPANSION,
+    FUSED_EXEC,
     FUSED_EXPANSION, FUSED_MAX_EXPANSION, FUSED_GROUP_CAP, FUSED_LOOKUP_JOIN,
     FUSED_AGG_PUSHDOWN, FUSED_SINGLE_SYNC_FETCH_BYTES, FUSED_SHAPE_BUCKETS,
     ANSI_ENABLED, WINDOW_STREAMING, WINDOW_U2U_FOLD, REGEXP_ENABLED,

@@ -715,10 +715,12 @@ class TpuHashAggregateExec(PhysicalPlan):
 
 class TpuShuffleExchangeExec(PhysicalPlan):
     """Hash (or single-partition) exchange with device-resident blocks —
-    the reference's DEVICE shuffle mode. ICI (the mesh transport, ROADMAP
-    A16) raises; MULTITHREADED (the default) and CACHE_ONLY, whose host
-    blocks are not ported (ROADMAP A13), run this mode too, and the
-    DataFrame records the substitution in last_execution["fallbacks"].
+    the reference's DEVICE shuffle mode. Under ICI the mesh engine
+    (parallel/plan_compiler.py) runs the plan and lowers the exchange to
+    an all-to-all; a plan it hands back runs here. MULTITHREADED (the
+    default), CACHE_ONLY, and ICI on a plan handed back, whose host blocks
+    are not ported (ROADMAP A13), run this mode too, and the DataFrame
+    records the substitution in last_execution["fallbacks"].
 
     The map stage runs once, on the first reduce task or when adaptive
     execution materialises it: each child partition is one map task
@@ -735,9 +737,6 @@ class TpuShuffleExchangeExec(PhysicalPlan):
     def __init__(self, child, key_exprs: Optional[List], num_partitions,
                  conf=None):
         super().__init__([child], child.schema, conf)
-        if conf is not None and conf.get(rc.SHUFFLE_MODE) == "ICI":
-            raise NotImplementedError(
-                "the ICI (mesh) shuffle is not ported yet (ROADMAP A16)")
         self.key_exprs = key_exprs
         #: the conf's DEVICE mode, which the reference's adaptive skew
         #: split and partition pruning skip (every mode keeps its blocks

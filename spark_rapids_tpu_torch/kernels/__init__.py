@@ -103,6 +103,12 @@ module that the JAX package keeps the function in:
 - K36 `ops.zorder.interleave_bits`: the Morton key of rank columns, the
   top bits of each interleaved round-robin (csrc/zorder.cu)
 
+- K37 `parallel.collective.exchange_slots`: the send side of the mesh
+  engine's all-to-all, each live row's FIFO rank within its destination,
+  the source row and live mark of every [n_dest, slot] send slot, the
+  send counts and the overflow flag (csrc/exchange_slots.cu, with K7's
+  tile histogram from csrc/partition_tiles.cuh)
+
 K18-K22 and K24 share the row reader and writer of csrc/strings.cuh, K22
 and K24 the calendar of csrc/calendar.cuh, K24, K31 and K32 the 128-bit
 arithmetic of csrc/decimal128.cuh.
@@ -176,6 +182,7 @@ launches: Dict[str, int] = {
     "array_distinct": 0,
     "array_sort": 0,
     "zorder_interleave": 0,
+    "exchange_slots": 0,
 }
 
 

@@ -108,6 +108,8 @@ _SIGNATURES = {
     "srtpu_array_rows": [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P,
                          _P, _I, _P],
     "srtpu_zorder_interleave": [_P, _I, _L, _I, _I, _P, _I, _P],
+    "srtpu_exchange_slots": [_P, _L, _P, _L, _I, _L, _P, _P, _P, _P, _P,
+                             _P],
 }
 
 _lock = threading.Lock()

@@ -14,8 +14,9 @@
 // the floor. At 8,388,608 rows it would be 67 MB, 20 us.
 //
 // Design: three launches with B = num_partitions + 1 buckets.
-//   1. hist: each 1,024-row tile counts its rows per bucket in shared
-//      memory and writes them bucket-major, hist[b * tiles + t];
+//   1. hist (partition_tiles.cuh, shared with K37): each 1,024-row tile
+//      counts its rows per bucket in shared memory and writes them
+//      bucket-major, hist[b * tiles + t];
 //   2. scan_tiles (common.cuh): one block scans hist in that order, so
 //      off[b * tiles + t] is where tile t's rows of bucket b start;
 //   3. scatter: one warp per tile walks its rows in 32 rounds of 32; lanes
@@ -31,49 +32,9 @@
 // builds pid = (arange(capacity) + start) % n first and then calls
 // partition_by_ids: one pass over a pid tensor less.
 
-#include <cstdio>
-
-#include "common.cuh"
+#include "partition_tiles.cuh"
 
 namespace srtpu {
-
-constexpr int kPartTile = 1024;   // rows per tile: 32 rounds of one warp
-constexpr int kPartHistThreads = 256;
-constexpr int kMaxBuckets = 8192;
-
-__device__ __forceinline__ int bucket_of(const int* __restrict__ pid,
-                                         long long i, long long live_rows,
-                                         int nparts, long long start) {
-  if (i >= live_rows) return nparts;
-  if (pid == nullptr) return (int)((i + start) % nparts);
-  const int p = pid[i];
-  if (p < 0 || p >= nparts) {
-    printf("partition_by_ids: row %lld has partition id %d outside "
-           "[0, %d)\n", i, p, nparts);
-    __trap();
-  }
-  return p;
-}
-
-__global__ void __launch_bounds__(kPartHistThreads)
-part_hist_kernel(const int* __restrict__ pid, long long n,
-                 const int* __restrict__ nrows_dev, long long nrows_host,
-                 int nparts, long long start, int tiles,
-                 int* __restrict__ hist) {
-  extern __shared__ int h[];
-  const int nb = nparts + 1;
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) h[b] = 0;
-  __syncthreads();
-  const long long live_rows = nrows_dev != nullptr ? *nrows_dev : nrows_host;
-  const long long base = (long long)blockIdx.x * kPartTile;
-  for (int r = threadIdx.x; r < kPartTile; r += blockDim.x) {
-    const long long i = base + r;
-    if (i < n) atomicAdd(&h[bucket_of(pid, i, live_rows, nparts, start)], 1);
-  }
-  __syncthreads();
-  for (int b = threadIdx.x; b < nb; b += blockDim.x)
-    hist[(long long)b * tiles + blockIdx.x] = h[b];
-}
 
 __global__ void __launch_bounds__(32)
 part_scatter_kernel(const int* __restrict__ pid, long long n,

@@ -753,6 +753,7 @@ from spark_rapids_tpu_torch.expr import datetimes as port_datetimes  # noqa: E40
 from spark_rapids_tpu_torch.expr import aggregates as port_aggregates  # noqa: E402,E501
 from spark_rapids_tpu_torch.expr import mathexpr as port_math  # noqa: E402
 from spark_rapids_tpu_torch.ops import decimal128 as port_d128  # noqa: E402,E501
+from spark_rapids_tpu_torch.parallel import collective as port_collective  # noqa: E402,E501
 from spark_rapids_tpu_torch.expr import collections as port_collections  # noqa: E402,E501
 from spark_rapids_tpu_torch.ops import zorder as port_zorder  # noqa: E402
 
@@ -822,6 +823,7 @@ _WRAPPERS = [
     (port_windowops, "frame_collect"), (port_collections, "array_compact"),
     (port_collections, "array_distinct"), (port_collections, "array_sort"),
     (port_collections, "_launch_rows"), (port_zorder, "interleave_bits"),
+    (port_collective, "exchange_slots"),
 ]
 
 
@@ -1153,6 +1155,7 @@ def _plain_case(name, pb):
     cases.update(_slice11_plain_cases(s_col, d_col, l_col))
     cases.update(_slice12_plain_cases(l_col, perm, live))
     cases.update(_slice13_plain_cases(perm))
+    cases.update(_slice18_plain_cases(perm))
     return cases[name]()
 
 
@@ -1169,6 +1172,17 @@ def _slice13_plain_cases(perm=None):
         "interleave_bits_plain[65]":
             lambda: port_zorder.interleave_bits_plain(ranks(65), 10),
     }
+
+
+def _slice18_plain_cases(perm=None):
+    """K37's plain version: the sort's permutation as destinations over
+    four shards, with dead rows and a slot some destinations overflow."""
+    def slots():
+        n = perm.shape[0]
+        return port_collective.exchange_slots_plain(
+            (perm % 4).to(torch.int32), n - 9, 4, n // 8)
+
+    return {"exchange_slots_plain": slots}
 
 
 def _plain_window(n, perm, live):
@@ -1194,7 +1208,8 @@ def _plain_window(n, perm, live):
     *_STRING_PLAIN, *sorted(_slice7_plain_cases()),
     *sorted(_slice8_plain_cases()), *sorted(_slice9_plain_cases()),
     *sorted(_slice10_plain_cases()), *sorted(_slice11_plain_cases()),
-    *sorted(_slice12_plain_cases()), *sorted(_slice13_plain_cases())])
+    *sorted(_slice12_plain_cases()), *sorted(_slice13_plain_cases()),
+    *sorted(_slice18_plain_cases())])
 def test_plain_versions_reach_no_kernel_wrapper(name, monkeypatch):
     """With every kernel wrapper, wherever it is bound, replaced by one
     that raises, each plain version still runs."""
